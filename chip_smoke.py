@@ -8,14 +8,20 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc;
-3. kernels: each kernel against its plain PyTorch version on the main path's
-   operands (IAEA-3D 6x6x4, 76x114x114 cells, group 0, float32), with times;
-4. reference: the IAEA-3D 1x1 solve at float64 on the GPU agrees with the same
-   solve through the plain versions on the CPU;
-5. main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
+3. kernels: each kernel against its plain PyTorch version on its path's
+   operands, with times: K1-K4 on IAEA-3D 6x6x4 RT0-P0 (76x114x114 cells),
+   K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2) (38x76x76 cells);
+   group 0, float32;
+4. reference: the IAEA-3D 1x1 solves at float64, RT0-P0 and RT1-P1, on the
+   GPU agree with the same solves through the plain versions on the CPU;
+5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
-   34 outers, 1068 inners), with every kernel's launch count > 0.
+   34 outers, 1068 inners), with every kernel's launch count > 0;
+6. higher-order paths: ``bench.main_ho(1)`` and ``bench.main_ho(2)`` (IAEA-3D
+   4x4x2, float32) against the JAX package's RT1-P1 / RT2-P2 anchors, with
+   K6 (every direction) and K4 launched in each.
 
+Launch counts are set to 0 just before each path and read just after it.
 The last two lines are a JSON object of per-kernel results and the contract
 line ``{"ok": true, "device": {...}}``.
 """
@@ -30,6 +36,12 @@ KEFF_ANCHOR, KEFF_TOL = 1.029104, 1e-5
 OUTERS_ANCHOR, OUTERS_TOL = 34, 3
 INNERS_ANCHOR, INNERS_REL = 1068, 0.15
 KERNEL_REL_TOL = 1e-5  # float32, FMA contraction in the kernels vs the plain recurrence
+# IAEA-3D 4x4x2 RT_k-P_k float32 anchors of the JAX package (BENCH_extra.json):
+# order -> (k, outers, inners)
+HO_ANCHORS = {1: (1.0292783, 49, 1151), 2: (1.0292925, 50, 2101)}
+HO_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused_ho.py:460",
+               "y": "neutfem_tpu/ops/pallas_fused_ho.py:389",
+               "x": "neutfem_tpu/ops/pallas_fused_ho.py:425"}
 
 
 def _timed(fn, reps):
@@ -60,6 +72,64 @@ def _compare(name, got, want, base):
     return err
 
 
+def _check_anchor(what, keff, outers, inners, anchor):
+    k_a, o_a, i_a = anchor
+    if not abs(keff - k_a) <= KEFF_TOL:
+        raise RuntimeError(f"{what}: keff {keff} is not within {KEFF_TOL} of {k_a}")
+    if not abs(outers - o_a) <= OUTERS_TOL:
+        raise RuntimeError(f"{what}: {outers} outers, expected {o_a} +- {OUTERS_TOL}")
+    if not abs(inners - i_a) <= INNERS_REL * i_a:
+        raise RuntimeError(f"{what}: {inners} inners, expected {i_a} +- 15%")
+
+
+def _ho_kernels(bench, order, card, rng):
+    """K6 z / y / x against fused_ho_plain on the IAEA-3D 4x4x2 RT_k-P_k operands
+    (group 0, float32).  The plain version reads the NATURAL operands and takes
+    its mode grouping from the FE space's p -> t map; the kernel reads the
+    staged ones and computes its own mode index."""
+    import torch
+
+    from neutfem_tpu_torch.ops import fused_ho
+    from neutfem_tpu_torch.power import ctx_group
+
+    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    run = bench.BenchmarkRun(spec, mesh_n=4, mesh_nz=2, device="cuda", dtype=torch.float32,
+                             rt_order=order)
+    fes = run.solver._fes
+    ctxg = ctx_group(run.solver._ctx, 0)
+    shape = (1, fes.P, *fes.mesh.shape)
+    dev = ctxg["C"].device
+    v = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+    acc0 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+    print(f"    RT{order}-P{order} {fes.mesh.shape} P={fes.P} (K1 = {order + 1}), "
+          f"group 0, float32 ({card})")
+    rows = {}
+    for key, wrapper, axis, tag in (("z", fused_ho.fused_ho_z, 0, None),
+                                    ("y", fused_ho.fused_ho_y, 1, "hoyT"),
+                                    ("x", fused_ho.fused_ho_x, 2, "hoxT")):
+        di = [d for d in fes.dirs if d.axis == axis][0]
+        d = f"d{di.d}"
+        tabs = fused_ho.ho_tables(fes, di)
+        if tag is None:
+            ops = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"], ctxg[f"alpha_{d}"])
+        else:
+            ops = tuple(ctxg[f"tri_{tag}_{n}_{d}"] for n in ("dinvm", "l", "alpha"))
+        natural = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"], ctxg[f"alpha_{d}"])
+        got = wrapper(acc0.clone(), v, *ops, tabs)
+        want = fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs)
+        torch.cuda.synchronize()
+        err = _compare(f"K6 RT{order} {key}", got, want, acc0)
+        scratch = acc0.clone()
+        ms = _timed(lambda: wrapper(scratch, v, *ops, tabs), 50)
+        plain_ms = _timed(lambda: fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs), 3)
+        print(f"  K6 RT{order}-P{order} {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  ({card})")
+        rows[key] = {"name": f"K6 condensed Schur direction {key} (RT{order}-P{order})",
+                     "route": "cuda", "source": "neutfem_tpu_torch/csrc/fused_ho.cu",
+                     "replaces": HO_REPLACES[key], "key": f"ho_{key}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return rows
+
+
 def main():
     import torch
 
@@ -76,11 +146,19 @@ def main():
     import numpy as np
 
     from neutfem_tpu_torch import bench
-    from neutfem_tpu_torch.ops import cuda_lib, fused, thomas
+    from neutfem_tpu_torch.ops import cuda_lib, fused, fused_ho, thomas
     from neutfem_tpu_torch.ops.apply import apply_BT_dir
     from neutfem_tpu_torch.power import ctx_group
 
-    t0 = time.perf_counter()
+    def reset_counts():
+        fused.reset_launches()
+        fused_ho.reset_launches()
+        thomas.reset_launches()
+
+    def counts():
+        return {**fused.LAUNCHES, **fused_ho.LAUNCHES, **thomas.LAUNCHES}
+
+    t_all = t0 = time.perf_counter()
     cuda_lib.library()
     print(f"[2] build: {time.perf_counter() - t0:.2f} s (nvcc {cuda_lib.build_info['seconds']:.2f} s)")
     for line in cuda_lib.build_info["log"].splitlines():
@@ -97,6 +175,7 @@ def main():
     shape = (1, *fes.mesh.shape)
     v = torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
     acc0 = torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
+    t0 = time.perf_counter()
     print(f"[3] kernels vs plain, IAEA-3D 6x6x4 {fes.mesh.shape} group 0, float32 ({card})")
 
     dirs = {di.d: di for di in fes.dirs}
@@ -156,43 +235,79 @@ def main():
                   "replaces": "neutfem_tpu/ops/pallas_tridiag.py:181", "key": "thomas",
                   "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain}
     del run, ctx, ctxg
+    ho_rows = {}
+    for order in (2, 1):  # RT2-P2 first: its rows are the K6 rows of the JSON line
+        ho_rows[order] = _ho_kernels(bench, order, card, rng)
+    print(f"    [3] {time.perf_counter() - t0:.1f} s")
 
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
-    small = {}
-    for device in ("cpu", "cuda"):
-        r = bench.BenchmarkRun(spec, mesh_n=1, mesh_nz=1, device=device, dtype=torch.float64)
-        k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
-        phi_out = r.solver._phi
-        if tuple(phi_out.shape) != (2, 19, 19, 19, 1) or not bool(torch.isfinite(phi_out).all()):
-            raise RuntimeError(f"IAEA-3D 1x1 on {device}: bad flux {tuple(phi_out.shape)}")
-        small[device] = (k, r.solver._last_outers, r.solver._last_inners)
-    print(f"[4] IAEA-3D 1x1 float64: cuda {small['cuda']}  cpu {small['cpu']}")
-    if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
-            or small["cuda"][1] != small["cpu"][1]
-            or abs(small["cuda"][2] - small["cpu"][2]) > 2):
-        raise RuntimeError("IAEA-3D 1x1: the GPU solve disagrees with the CPU reference")
+    t0 = time.perf_counter()
+    for order in (0, 1):
+        small = {}
+        for device in ("cpu", "cuda"):
+            r = bench.BenchmarkRun(spec, mesh_n=1, mesh_nz=1, device=device,
+                                   dtype=torch.float64, rt_order=order)
+            k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
+            phi_out = r.solver._phi
+            P = (order + 1) ** 3
+            if (tuple(phi_out.shape) != (2, 19, 19, 19, P)
+                    or not bool(torch.isfinite(phi_out).all())):
+                raise RuntimeError(f"IAEA-3D 1x1 RT{order} on {device}: bad flux "
+                                   f"{tuple(phi_out.shape)}")
+            small[device] = (k, r.solver._last_outers, r.solver._last_inners)
+        print(f"[4] IAEA-3D 1x1 RT{order}-P{order} float64: cuda {small['cuda']}  "
+              f"cpu {small['cpu']}")
+        if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
+                or small["cuda"][1] != small["cpu"][1]
+                or abs(small["cuda"][2] - small["cpu"][2]) > 2):
+            raise RuntimeError(f"IAEA-3D 1x1 RT{order}: the GPU solve disagrees with the "
+                               "CPU reference")
+    print(f"    [4] {time.perf_counter() - t0:.1f} s")
 
-    # [5] the main path; counts are zeroed just before it and read just after
-    fused.reset_launches()
-    thomas.reset_launches()
+    # [5] the RT0 main path; counts are zeroed just before it and read just after
+    t0 = time.perf_counter()
+    reset_counts()
     print("[5] main path: neutfem_tpu_torch.bench.main(6, 4), float32")
     res = bench.main(6, 4)
-    launches = {**fused.LAUNCHES, **thomas.LAUNCHES}
+    launches = counts()
     print(f"    launches {launches}")
     det = res["detail"]
     keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
     print(f"    keff {keff} (anchor {KEFF_ANCHOR}), outers {outers} ({OUTERS_ANCHOR}), "
           f"inners {inners} ({INNERS_ANCHOR}); {res['value'] * 1e3:.3f} ms/outer ({card})")
-    if not abs(keff - KEFF_ANCHOR) <= KEFF_TOL:
-        raise RuntimeError(f"keff {keff} is not within {KEFF_TOL} of {KEFF_ANCHOR}")
-    if not abs(outers - OUTERS_ANCHOR) <= OUTERS_TOL:
-        raise RuntimeError(f"{outers} outers, expected {OUTERS_ANCHOR} +- {OUTERS_TOL}")
-    if not abs(inners - INNERS_ANCHOR) <= INNERS_REL * INNERS_ANCHOR:
-        raise RuntimeError(f"{inners} inners, expected {INNERS_ANCHOR} +- 15%")
+    _check_anchor("RT0-P0 6x6x4", keff, outers, inners,
+                  (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
     for row in rows.values():
         row["launches"] = launches[row.pop("key")]
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']}: not launched on the main path")
+    print(f"    [5] {time.perf_counter() - t0:.1f} s")
+
+    # [6] the higher-order paths, each with its own counts
+    for order in (1, 2):
+        t0 = time.perf_counter()
+        reset_counts()
+        print(f"[6] higher-order path: neutfem_tpu_torch.bench.main_ho({order}), float32")
+        res = bench.main_ho(order)
+        launches = counts()
+        print(f"    launches {launches}")
+        det = res["detail"]
+        keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
+        print(f"    keff {keff}, outers {outers}, inners {inners} (anchors "
+              f"{HO_ANCHORS[order]}); {res['value'] * 1e3:.3f} ms/outer ({card})")
+        _check_anchor(f"RT{order}-P{order} 4x4x2", keff, outers, inners, HO_ANCHORS[order])
+        if not det["converged_not_capped"]:
+            raise RuntimeError(f"RT{order}-P{order}: the solve hit max_outer")
+        for key in ("ho_z", "ho_y", "ho_x", "thomas"):
+            if launches[key] <= 0:
+                raise RuntimeError(f"RT{order}-P{order}: {key} not launched on the path")
+        for row in ho_rows[order].values():
+            row["launches"] = launches[row["key"]]
+        print(f"    [6] RT{order} {time.perf_counter() - t0:.1f} s")
+    for key, row in ho_rows[2].items():
+        row.pop("key")
+        rows[f"K6 {key}"] = row
+    print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))

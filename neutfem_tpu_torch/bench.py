@@ -1,21 +1,27 @@
 """IAEA-3D k-eff benchmark on the PyTorch port (one JSON line, as ``bench.py``).
 
-Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier") and of
-``bench.main``: IAEA-3D at --mesh NxN per assembly and M axial subdivisions per
-plane, RT0-P0, two groups; one warm-up solve, then three timed solves from a
-cold flux (``reset_flux`` before each) and the median reported as seconds per
-outer iteration.  The benchmark data come from ``benchmarks/data.py``, loaded
-by file path (it imports only numpy), so nothing of the JAX package is loaded.
+Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
+``bench.main`` and of the higher-order rows of ``bench.main_full``:
 
-Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]]``.
+* ``main``: IAEA-3D at NxN per assembly and M axial subdivisions per plane,
+  RT0-P0, two groups; one warm-up solve, then three timed solves from a cold
+  flux (``reset_flux`` before each), the median reported as seconds per outer
+  iteration;
+* ``main_ho``: IAEA-3D 4x4x2 at RT_k-P_k (k = 1, 2), one solve, then one timed
+  solve from a cold flux, at the JAX rows' tolerances.
+
+The benchmark data come from ``benchmarks/data.py``, loaded by file path (it
+imports only numpy), so nothing of the JAX package is loaded.
+
+Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K]``.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import os
-import sys
 import time
 from typing import Optional
 
@@ -25,7 +31,7 @@ import torch
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
 from .mesh import boundary_attribute
 
-__all__ = ["BenchmarkRun", "load_benchmark_data", "main"]
+__all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
@@ -66,10 +72,13 @@ class BenchmarkRun:
     """Holds the solver + results of one benchmark execution."""
 
     def __init__(self, spec, mesh_n: int = 2, mesh_nz: int = 1, domain: str = "entier",
-                 verbose: bool = False, *, device, dtype=None):
+                 verbose: bool = False, *, device, dtype=None, rt_order: int = 0,
+                 p_order: Optional[int] = None):
         self.spec = spec
         self.mesh_n = mesh_n
         self.mesh_nz = mesh_nz
+        self.rt_order = int(rt_order)
+        self.p_order = int(p_order) if p_order is not None else self.rt_order
         self.domain = domain
         self.verbose = verbose
         self.keff: Optional[float] = None
@@ -98,7 +107,8 @@ class BenchmarkRun:
         x_breaks = np.linspace(0.0, nx * h, nx + 1)
         y_breaks = np.linspace(0.0, ny * h, ny + 1)
 
-        s = NeutFEM(0, spec.ng, x_breaks, y_breaks, z_breaks, device=device, dtype=dtype)
+        s = NeutFEM(self.rt_order, self.p_order, spec.ng, x_breaks, y_breaks, z_breaks,
+                    device=device, dtype=dtype)
         s.set_verbosity(VerbosityLevel.NORMAL if self.verbose else VerbosityLevel.SILENT)
         s.set_linear_solver(LinearSolverType.BICGSTAB)
         for axis in range(spec.dim):  # full core: vacuum (Marshak) on every face
@@ -241,7 +251,58 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
     return out
 
 
+#: The JAX package's higher-order rows (bench.py main_full): IAEA-3D 4x4x2.
+HO_TOL = (1e-7, 1e-5, 1e-5, 120, 1000)
+
+
+def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
+            dtype=torch.float32) -> dict:
+    """IAEA-3D RT_k-P_k solve timing (k = ``order``); prints one JSON line with
+    the JAX package's metric name and detail keys and returns it as a dict.
+
+    As ``bench.py --full``: one solve, ``reset_flux``, then one timed solve from
+    a cold flux.  A measurement that finds no card fails."""
+    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench.main_ho: no CUDA device available")
+    run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, verbose=False,
+                       device=device, dtype=dtype, rt_order=order)
+    run.solve(tol=HO_TOL)
+    run.solver.reset_flux()
+    t0 = time.time()
+    keff = run.solver.SolveKeff()  # ends in a device -> host read of k
+    wall = time.time() - t0
+    outers = run.solver._last_outers
+    detail = {"keff": round(keff, 7), "n_dofs": int(run.solver._fes.n_phi),
+              "outer_iterations": outers, "inner_iterations": run.solver._last_inners,
+              "converged_not_capped": bool(outers < HO_TOL[3])}
+    if order == 1:
+        hist = run.solver.get_iteration_history()
+        detail["final_dphi"] = float(hist[-1, 2]) if len(hist) else None
+    detail.update({
+        "solve_wall_s": round(wall, 3),
+        "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz} RT{order}-P{order}",
+        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else str(device)),
+        "dtype": str(run.solver._dtype),
+    })
+    out = {"metric": f"iaea3d_rt{order}p{order}_seconds_per_outer_iteration",
+           "value": round(wall / max(outers, 1), 6), "unit": "s/outer", "detail": detail}
+    print(json.dumps(out))
+    return out
+
+
 if __name__ == "__main__":
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 6
-    nz = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    main(n, nz)
+    ap = argparse.ArgumentParser(description="IAEA-3D k-eff benchmark on the GPU (float32)")
+    ap.add_argument("mesh_n", nargs="?", type=int, default=None,
+                    help="cells per assembly and axis (default 6, or 4 with --order)")
+    ap.add_argument("mesh_nz", nargs="?", type=int, default=None,
+                    help="axial subdivisions per plane (default 4, or 2 with --order)")
+    ap.add_argument("--order", type=int, default=0,
+                    help="RT_k-P_k order; 0 runs main(), 1 and 2 the higher-order rows")
+    a = ap.parse_args()
+    if a.order == 0:
+        main(a.mesh_n or 6, a.mesh_nz or 4)
+    else:
+        main_ho(a.order, a.mesh_n or 4, a.mesh_nz or 2)

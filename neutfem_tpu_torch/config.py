@@ -8,8 +8,8 @@ Mirror of ``neutfem_tpu/config.py`` for PyTorch:
 
 Matmul-precision law (``neutfem_tpu/config.py`` pins JAX's matmul precision to
 "highest"): reduced-precision float32 contractions floor the convergence of
-higher-order solves, so TF32 is switched off for both matmuls and cuDNN.  The
-RT0 slice does no matmul; the pins hold for whatever later slices add.
+higher-order solves, so TF32 is switched off for both matmuls and cuDNN: the
+higher-order block-Jacobi apply and mode contractions are float32 products.
 """
 
 from __future__ import annotations

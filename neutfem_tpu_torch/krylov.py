@@ -9,7 +9,7 @@ parity observable.  Stopping rule of the reference: ``||r||^2 < tol^2 ||b||^2``
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -26,10 +26,15 @@ class KrylovResult(NamedTuple):
     residual: torch.Tensor  # ||r|| / ||b||
 
 
-def pcg(matvec: Callable, rhs, x0, tol=1e-10, maxiter: int = 1000) -> KrylovResult:
-    """CG on an SPD operator (the JAX ``pcg`` with the identity preconditioner:
-    the solver's Jacobi preconditioning is the symmetric equilibration done by
-    ``power.group_solve``, so rz == rr).
+def pcg(matvec: Callable, rhs, x0, precond: Optional[Callable] = None, tol=1e-10,
+        maxiter: int = 1000) -> KrylovResult:
+    """Preconditioned CG on an SPD operator (the JAX ``pcg``, textbook loop).
+
+    With ``precond=None`` the identity preconditioner is specialized away: no z
+    vector and no separate <r, z> reduction (rz == rr) — the solver's Jacobi
+    preconditioning is the symmetric equilibration done by
+    ``power.group_solve``.  Otherwise z = precond(r), rz = <r, z> and
+    beta = rz_new / rz.
 
     ``tol`` may be a float or a 0-d tensor of rhs's dtype (the adaptive inner
     tolerance)."""
@@ -42,7 +47,12 @@ def pcg(matvec: Callable, rhs, x0, tol=1e-10, maxiter: int = 1000) -> KrylovResu
     x = x0
     r = rhs - matvec(x0)
     rr = _dot(r, r)
-    p = r
+    if precond is None:
+        z, rz = r, rr
+    else:
+        z = precond(r)
+        rz = _dot(r, z)
+    p = z
     tiny = torch.finfo(rr.dtype).tiny
 
     it = 0
@@ -52,13 +62,18 @@ def pcg(matvec: Callable, rhs, x0, tol=1e-10, maxiter: int = 1000) -> KrylovResu
             q = matvec(p)
             pq = _dot(p, q)
             breakdown = torch.abs(pq) <= tiny
-            alpha = torch.where(breakdown, 0.0, rr / torch.where(breakdown, 1.0, pq))
+            alpha = torch.where(breakdown, 0.0, rz / torch.where(breakdown, 1.0, pq))
             x = x + alpha * p
             r = r - alpha * q
             rr_new = _dot(r, r)
-            beta = rr_new / torch.where(rr == 0.0, 1.0, rr)
-            p = r + beta * p
-            rr = rr_new
+            if precond is None:
+                z, rz_new = r, rr_new
+            else:
+                z = precond(r)
+                rz_new = _dot(r, z)
+            beta = rz_new / torch.where(rz == 0.0, 1.0, rz)
+            p = z + beta * p
+            rr, rz = rr_new, rz_new
             it += 1
             go = bool((rr > tol_sq) & ~breakdown)  # the one host sync per iteration
 

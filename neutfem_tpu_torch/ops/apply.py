@@ -1,19 +1,25 @@
-"""Matrix-free applications of the RT0-P0 mixed-FEM operators on structured grids.
+"""Matrix-free applications of the mixed-FEM operators on structured grids.
 
-Port of ``neutfem_tpu/ops/apply.py`` for the RT0-P0 slice (no bubbles, no
-PERIODIC direction, single device):
+Port of ``neutfem_tpu/ops/apply.py`` (no PERIODIC direction, single device):
 
-* ``apply_BT_dir`` / ``apply_B_dir``: the divergence pairing as scalar multiplies
-  plus shifted neighbour sums,
-* ``solve_A_dir``: the exact per-direction face-tridiagonal solve (``tridiag_solve``),
-* ``schur_matvec``: S v = C v + sum_d B_d A_d^{-1} B_d^T v, either through the
-  fused direction kernels (``ops/fused.py``, the main path) or as the unfused
-  composition of the three ops above (a cross-check).
+* ``apply_BT_dir`` / ``apply_B_dir``: the divergence pairing as (P x T) einsums
+  (scalar multiplies at RT0-P0) plus shifted neighbour sums, with the bubble
+  rows for k >= 1,
+* ``solve_A_dir``: the exact per-direction solve: static condensation of the
+  bubble DOFs onto the face-tridiagonal system (``tridiag_solve``), then the
+  bubble back-substitution,
+* ``schur_matvec``: S v = C v + sum_d B_d A_d^{-1} B_d^T v.  RT0-P0 goes through
+  the fused direction kernels (``ops/fused.py``, K1-K3); k >= 1 through the
+  condensed form (``DirectionInfo.BXc`` / ``Qbub``), on 3D meshes with m == k
+  as one fused kernel per direction (``ops/fused_ho.py``, K6), otherwise as
+  the unfused condensed chain, as the JAX package does for those
+  configurations.  ``fused=False`` runs the unfused chains (a cross-check).
 
 Axis convention (INTERNAL, mode-axis-first, as the JAX package):
 
 * flux      ``(..., P, nz, ny, nx)``          — mode axis at position -4
 * J face d  ``(..., T, *face_shape)``         — transverse-mode axis at -4
+* J bub  d  ``(..., nbub, T, nz, ny, nx)``    — bubble axis at -5, T at -4
 * spatial axes are ALWAYS the last three; direction d's axis is ``di.axis - 3``.
 
 Public (caller-facing) arrays keep the reference-shaped trailing-mode layout
@@ -28,6 +34,7 @@ import torch
 
 from ..fespace import DirectionInfo, FESpace
 from .fused import fused_schur_x_pre, fused_schur_y_pre, fused_schur_z
+from .fused_ho import fused_ho_x, fused_ho_y, fused_ho_z, ho_tables
 from .tridiag import tridiag_solve
 
 __all__ = [
@@ -54,13 +61,13 @@ def phi_to_public(phi):
 
 def J_to_public(J: Dict) -> Dict:
     """Convert a current dict from internal to public (trailing-mode) layout."""
-    return {key: {"face": entry["face"].movedim(-4, -1).contiguous()}
-            for key, entry in J.items()}
-
-
-def _require_rt0(fes: FESpace):
-    if fes.et.k != 0 or fes.m != 0:
-        raise NotImplementedError("only RT0-P0 is ported")
+    out = {}
+    for key, entry in J.items():
+        pub = {"face": entry["face"].movedim(-4, -1).contiguous()}
+        if "bub" in entry:
+            pub["bub"] = entry["bub"].movedim((-5, -4), (-2, -1)).contiguous()
+        out[key] = pub
+    return out
 
 
 def _pad_zero(arr, axis: int, front: bool):
@@ -72,65 +79,142 @@ def _pad_zero(arr, axis: int, front: bool):
     return torch.cat([z, arr] if front else [arr, z], dim=ax)
 
 
-def apply_BT_dir(fes: FESpace, di: DirectionInfo, phi):
-    """B_d^T phi: face rhs (..., T, n_d+1 along di) and the bubble rhs (None for RT0).
+def _const(a, like):
+    """A host constant (numpy) as a tensor of ``like``'s dtype and device."""
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
-    The P = T = 1 contraction is a scalar multiply."""
-    _require_rt0(fes)
+
+def _pair(phi, BXf):
+    """(..., P, sp) flux x (P, T) pairing row -> (..., T, sp)."""
+    if BXf.shape == (1, 1):  # P == T == 1 (RT0-P0): a scalar multiply, no einsum
+        return phi * float(BXf[0, 0])
+    return torch.einsum("...pzyx,pt->...tzyx", phi, _const(BXf, phi))
+
+
+def _unpair(F, BXf):
+    """(..., T, sp) face values x (P, T) pairing row -> (..., P, sp)."""
+    if BXf.shape == (1, 1):
+        return F * float(BXf[0, 0])
+    return torch.einsum("...tzyx,pt->...pzyx", F, _const(BXf, F))
+
+
+def apply_BT_dir(fes: FESpace, di: DirectionInfo, phi):
+    """B_d^T phi: face rhs (..., T, n_d+1 along di) and the bubble rhs
+    (..., nbub, T, sp), None for RT0."""
     ax = di.axis - 3
-    c0 = phi * float(di.BX[0, 0, 0])  # element's left-face row
-    c1 = phi * float(di.BX[1, 0, 0])  # element's right-face row
+    c0 = _pair(phi, di.BX[0])  # element's left-face row
+    c1 = _pair(phi, di.BX[1])  # element's right-face row
     rF = _pad_zero(c0, ax, front=False) + _pad_zero(c1, ax, front=True)
-    return rF, None
+    rW = None
+    if fes.et.nbub > 0:
+        rW = torch.einsum("...pzyx,lpt->...ltzyx", phi, _const(di.BX[2:], phi))
+    return rF, rW
+
+
+def _face_rhs(di: DirectionInfo, phi, BXt):
+    """Face rhs (..., T, faces) from flux with a (2, P, T) pairing tensor (BXc
+    for the condensed matvec), as first / shifted sum / last slices."""
+    ax = (di.axis - 3) % phi.ndim
+    c0 = _pair(phi, BXt[0])
+    c1 = _pair(phi, BXt[1])
+    n = c0.shape[ax]
+    return torch.cat([c0.narrow(ax, 0, 1),
+                      c0.narrow(ax, 1, n - 1) + c1.narrow(ax, 0, n - 1),
+                      c1.narrow(ax, n - 1, 1)], dim=ax)
+
+
+def _face_out(di: DirectionInfo, F, BXt):
+    """Flux-shaped contribution of face values F with pairing tensor BXt."""
+    ax = di.axis - 3
+    n = F.shape[ax]
+    return _unpair(F.narrow(ax, 0, n - 1), BXt[0]) + _unpair(F.narrow(ax, 1, n - 1), BXt[1])
 
 
 def apply_B_dir(fes: FESpace, di: DirectionInfo, F, W):
     """B_d J: flux-shaped (..., P, sp) contribution from direction d."""
-    _require_rt0(fes)
+    out = _face_out(di, F, di.BX)
     if W is not None:
-        raise NotImplementedError("bubble DOFs (k > 0) are not ported")
-    ax = di.axis - 3
-    n = F.shape[ax]
-    F_L = F.narrow(ax, 0, n - 1)  # per-element left face value
-    F_R = F.narrow(ax, 1, n - 1)
-    return F_L * float(di.BX[0, 0, 0]) + F_R * float(di.BX[1, 0, 0])
+        out = out + torch.einsum("...ltzyx,lpt->...pzyx", W, _const(di.BX[2:], W))
+    return out
 
 
 def solve_A_dir(fes: FESpace, di: DirectionInfo, dinv, l, mask, alpha, rF, rW,
                 a_mode: str):
-    """Exact solve of the per-direction RT mass block A_d J = r (face DOFs only).
+    """Exact solve of the per-direction RT mass block A_d J = r.
 
     dinv, l : tridiagonal factors over faces (batch..., face_shape).
     mask    : (face_shape) 1.0 for free faces, 0.0 for pinned (MIRROR) ones.
-    alpha   : (batch..., nz, ny, nx) element coefficient; only bubbles read it.
-    Returns (F, None) in the internal layout."""
-    _require_rt0(fes)
-    if rW is not None:
-        raise NotImplementedError("bubble DOFs (k > 0) are not ported")
+    alpha   : (batch..., nz, ny, nx) element coefficient factor_d / D.
+    rW      : bubble rhs (..., nbub, T, sp) for k >= 1, else None.
+    Returns (F, W) face and bubble solutions in the internal layout (W None
+    without bubbles)."""
     if a_mode != "exact":
         raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
+    et = fes.et
     ax = di.axis - 3
-    m_t = torch.as_tensor(di.m_t, dtype=rF.dtype, device=rF.device).reshape(-1, 1, 1, 1)
+    m_t = _const(di.m_t, rF).reshape(-1, 1, 1, 1)
+    if rW is not None:
+        # condense the bubbles onto the faces: rF -= G^T rW per element face
+        corr = torch.einsum("fb,...btzyx->...ftzyx", _const(et.G.T, rW), rW)
+        rF = (rF - _pad_zero(corr.select(-5, 0), ax, front=False)
+              - _pad_zero(corr.select(-5, 1), ax, front=True))
     rF = rF * mask
     rFs = rF / m_t
     # factors have no T axis: align them against (..., T, face_shape)
     F = tridiag_solve(rFs, dinv.unsqueeze(-4), l.unsqueeze(-4), axis=ax % rFs.ndim)
-    return F * mask, None
+    F = F * mask
+    W = None
+    if rW is not None:
+        n = F.shape[ax]
+        F_loc = torch.stack([F.narrow(ax, 0, n - 1), F.narrow(ax, 1, n - 1)], dim=-5)
+        alpha_e = alpha.unsqueeze(-4).unsqueeze(-5)
+        W = torch.einsum("bc,...ctzyx->...btzyx", _const(et.Mbb_inv, rW), rW) / (alpha_e * m_t)
+        W = W - torch.einsum("bf,...ftzyx->...btzyx", _const(et.G, F_loc), F_loc)
+    return F, W
 
 
 def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool = True):
     """S v = C v + sum_d B_d A_d^{-1} B_d^T v   (matrix-free Schur complement).
 
     ``fused=True`` (the solver's path) runs one fused direction kernel per
-    direction on one group's flux (``v`` and ``ctx`` group-sliced); each kernel
-    updates the accumulator in place.  ``fused=False`` composes apply_BT_dir,
-    solve_A_dir and apply_B_dir, and also takes all groups at once."""
-    _require_rt0(fes)
+    direction on one group's flux (``v`` and ``ctx`` group-sliced) where the
+    configuration has one (RT0-P0: K1-K3; 3D RT_k-P_k: K6); each kernel
+    updates the accumulator in place.  ``fused=False`` runs the unfused
+    chains, and also takes all groups at once."""
     if a_mode != "exact":
         raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
     out = ctx["C"] * v
+    condensed = fes.et.nbub > 0
+    # the JAX package's static rule for K6: a 3D mesh and m == k (the flux
+    # modes factor as K1^3); other k >= 1 configurations run the unfused chain
+    ho_kernel = fused and condensed and fes.mesh.dim == 3 and fes.m == fes.k
     for di in fes.dirs:
         key = f"d{di.d}"
+        if condensed:
+            if ho_kernel:
+                tabs = ho_tables(fes, di)
+                if di.axis == 2:
+                    fused_ho_x(out, v, ctx[f"tri_hoxT_dinvm_{key}"], ctx[f"tri_hoxT_l_{key}"],
+                               ctx[f"tri_hoxT_alpha_{key}"], tabs)
+                elif di.axis == 1:
+                    fused_ho_y(out, v, ctx[f"tri_hoyT_dinvm_{key}"], ctx[f"tri_hoyT_l_{key}"],
+                               ctx[f"tri_hoyT_alpha_{key}"], tabs)
+                else:
+                    fused_ho_z(out, v, ctx[f"tri_dinvm_{key}"], ctx[f"tri_l_{key}"],
+                               ctx[f"alpha_{key}"], tabs)
+                continue
+            # the bubble algebra folded into BXc (face pairing) and Qbub
+            # (per-cell block), fespace.DirectionInfo
+            rF = _face_rhs(di, v, di.BXc)
+            F, _ = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],
+                               ctx[f"mask_{key}"], ctx[f"alpha_{key}"], rF, None, a_mode)
+            out = out + _face_out(di, F, di.BXc)
+            alpha_e = ctx[f"alpha_{key}"].unsqueeze(-4)
+            if fes.P == 1:
+                out = out + v * (float(di.Qbub[0, 0]) / alpha_e)
+            else:
+                out = out + torch.einsum("...qzyx,pq->...pzyx", v, _const(di.Qbub, v)) / alpha_e
+            continue
         if fused:
             bx0 = float(di.BX[0, 0, 0])
             bx1 = float(di.BX[1, 0, 0])

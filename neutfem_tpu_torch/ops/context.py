@@ -1,21 +1,29 @@
 """Build the operator context ("BuildMatrices" equivalent) as torch tensors.
 
-Port of ``neutfem_tpu/ops/context.py`` for the RT0-P0 slice (``a_mode="exact"``,
-no PERIODIC direction, no nonzero NEUMANN lift).  The "matrices" are a handful of
-dense grids, built host-side in numpy (float64) and transferred once:
+Port of ``neutfem_tpu/ops/context.py`` for ``a_mode="exact"`` at any order
+RT_k-P_m (no PERIODIC direction, no nonzero NEUMANN lift).  The "matrices" are a
+handful of dense grids, built host-side in numpy (float64) and transferred once:
 
 * ``C``              (ng, P, nz, ny, nx): removal term Sigma_r * detJ * w_mode
 * ``alpha_d{d}``     (ng, nz, ny, nx): RT mass coefficient factor_d / D_g
-* ``tri_dinv_d{d}``, ``tri_l_d{d}``: LDL^T factors of the face-tridiagonal A-blocks
-  (per group, per direction), along the face axis
+* ``tri_dinv_d{d}``, ``tri_l_d{d}``: LDL^T factors of the (bubble-condensed)
+  face-tridiagonal A-blocks (per group, per direction), along the face axis
 * ``mask_d{d}``      (face_shape): 0 at pinned (MIRROR / NEUMANN-0) faces
 * ``tri_dinvm_d{d}`` dinv * mask, the fused direction kernels' operand, plus the
-  solve-axis-major staged copies ``tri_yT_*`` (ny+1 / ny, nz, nx) and
-  ``tri_xT_*`` (nx+1 / nx, nz*ny) that the y and x kernels read
+  solve-axis-major staged copies the y and x kernels read: for RT0-P0
+  ``tri_yT_*`` (ny+1 / ny, nz, nx) and ``tri_xT_*`` (nx+1 / nx, nz*ny); for
+  k >= 1 ``tri_hoyT_{dinvm,l,alpha}`` (same y layout) and
+  ``tri_hoxT_{dinvm,l,alpha}`` (same x layout; the JAX package pads ny up to a
+  128-lane tile there, which the port does not)
 * ``precond_inv``    (ng, P, nz, ny, nx): 1 / exact diag(S), the Jacobi
-  equilibration of the Schur CG
-* ``detJ``, ``w_mode_col``, ``nsf``, ``chi``, ``sigs``, ``src``: the power
-  iteration's fission / scattering weights.
+  equilibration of the Schur CG (with the bubble-condensation terms for k >= 1)
+* for P > 1 the P x P block-Jacobi inverse of the equilibrated Schur diagonal
+  block, (ng, P, P, nz, ny, nx): ``precond_blk_inv`` at float64; at float32
+  the deviation ``precond_blk_dev = Binv - I`` in ``float8_e4m3fn`` when
+  max|E| < 440, else ``precond_blk_inv`` in ``bfloat16`` (the JAX package's
+  default storage rule)
+* ``detJ``, ``w_mode`` (P,) and ``w_mode_col`` (P, 1, 1, 1), ``nsf``, ``chi``,
+  ``sigs``, ``src``: the power iteration's fission / scattering weights.
 """
 
 from __future__ import annotations
@@ -55,16 +63,59 @@ def _tinv_dd_od(dinv_a, l_a, fax_a):
     return np.moveaxis(dd, -1, fax_a), np.moveaxis(od, -1, fax_a)
 
 
+#: Low-precision numpy dtypes (ml_dtypes names) -> (same-width integer view, torch dtype).
+_LOW_PRECISION = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+                  "bfloat16": (np.int16, torch.bfloat16)}
+
+
+def _unpack_lanes(a: np.ndarray, nz: int, ny: int) -> np.ndarray:
+    """(..., rows, nz*wy) lane-packed x operand (ny padded to wy) -> (..., rows, nz*ny)."""
+    wy = a.shape[-1] // nz
+    return a.reshape(*a.shape[:-1], nz, wy)[..., :ny].reshape(*a.shape[:-1], nz * ny)
+
+
 def ctx_from_numpy(ctx_np: Dict[str, np.ndarray], device, dtype) -> Dict[str, torch.Tensor]:
     """Operator context given as numpy arrays (e.g. the JAX package's context,
     ``{k: np.asarray(v) for k, v in jax_ctx.items()}``) -> contiguous tensors
-    (always copies, so no tensor shares memory with the caller's arrays)."""
+    (always copies, so no tensor shares memory with the caller's arrays).
+
+    Floating entries become ``dtype``, except the low-precision block
+    preconditioner (``float8_e4m3fn`` / ``bfloat16``), which keeps its dtype bit
+    for bit.  The JAX package's lane-packed ``tri_hoxT_*`` x operands are
+    re-staged into the port's (rows, nz*ny) layout by dropping the dead lanes."""
     out = {}
     for k, v in ctx_np.items():
         if isinstance(v, dict):
             raise NotImplementedError(f"nested context entry {k!r} is not supported")
+        v = np.asarray(v)
+        if k.startswith("tri_hoxT_"):
+            alpha = ctx_np[f"alpha_{k.rsplit('_', 1)[1]}"]  # (ng, nz, ny, nx)
+            nz, ny = alpha.shape[-3], alpha.shape[-2]
+            if v.shape[-1] != nz * ny:
+                v = _unpack_lanes(v, nz, ny)
+        low = _LOW_PRECISION.get(v.dtype.name)
+        if low is not None:
+            bits = torch.from_numpy(np.ascontiguousarray(v).view(low[0]).copy())
+            out[k] = bits.view(low[1]).to(device)
+            continue
         out[k] = torch.tensor(np.ascontiguousarray(v), dtype=dtype, device=device)
     return out
+
+
+def _store_block_precond(blk_inv: np.ndarray, P: int, device, dtype) -> Dict[str, torch.Tensor]:
+    """The JAX package's storage rule for the equilibrated block inverse
+    (``neutfem_tpu/ops/context.py:580-600``, default ``NEUTFEM_BLKFP8=1``):
+    at float32 the deviation E = Binv - I in float8 e4m3 (the identity part is
+    applied exactly) unless max|E| would come near e4m3's 448 saturation, then
+    bfloat16; any other dtype keeps the inverse as it is."""
+    bi = torch.from_numpy(blk_inv).to(device=device, dtype=dtype)  # blk_inv is ours alone
+    if dtype != torch.float32:
+        return {"precond_blk_inv": bi}
+    eye = torch.eye(P, dtype=dtype, device=device).reshape(1, P, P, 1, 1, 1)
+    dev = bi - eye
+    if float(torch.max(torch.abs(dev))) < 440.0:
+        return {"precond_blk_dev": dev.to(torch.float8_e4m3fn)}
+    return {"precond_blk_inv": bi.to(torch.bfloat16)}
 
 
 def build_context(
@@ -77,13 +128,11 @@ def build_context(
     a_mode: str = "exact",
     marshak_d_factor: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Operator context of the RT0-P0 exact mixed discretization on ``device``."""
+    """Operator context of the exact mixed discretization on ``device``."""
     mesh = fes.mesh
     et = fes.et
     if a_mode != "exact":
         raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
-    if et.k != 0 or fes.m != 0:
-        raise NotImplementedError("only RT0-P0 is ported")
 
     detJ = mesh.det_jac()  # (nz, ny, nx)
     w_mode = fes.w_mode  # (P,)
@@ -163,21 +212,26 @@ def build_context(
         ctx_np[f"mask_{key}"] = mask
         dmm = dinv * mask[None]
         ctx_np[f"tri_dinvm_{key}"] = dmm
-        if ax == 2:
-            # x: solve-constant operands pre-transposed to (n_faces, nz*ny)
-            ctx_np[f"tri_xT_dinvm_{key}"] = np.swapaxes(
-                dmm.reshape(ng, -1, dmm.shape[-1]), -1, -2)
-            ctx_np[f"tri_xT_l_{key}"] = np.swapaxes(
-                l.reshape(ng, -1, l.shape[-1]), -1, -2)
-        elif ax == 1:
-            # y: solve-axis-major (ny+1, nz, nx)
-            ctx_np[f"tri_yT_dinvm_{key}"] = np.moveaxis(dmm, 2, 1)
-            ctx_np[f"tri_yT_l_{key}"] = np.moveaxis(l, 2, 1)
+        # staged kernel operands: y solve-axis-major (ny+1 / ny, nz, nx), x
+        # transposed to (nx+1 / nx, nz*ny); RT0 stages dm and l ("yT"/"xT"),
+        # k >= 1 also alpha ("hoyT"/"hoxT")
+        staged = {"dinvm": dmm, "l": l}
+        tag = ""
+        if et.k > 0:
+            tag, staged["alpha"] = "ho", alpha
+        for name, a in staged.items():
+            if ax == 2:
+                ctx_np[f"tri_{tag}xT_{name}_{key}"] = np.swapaxes(
+                    a.reshape(ng, -1, a.shape[-1]), -1, -2)
+            elif ax == 1:
+                ctx_np[f"tri_{tag}yT_{name}_{key}"] = np.moveaxis(a, 2, 1)
 
     # Exact Schur diagonal: the diag-A estimate underestimates diag(S) by up to
-    # ~460x at higher orders; the per-cell quadratic form of the exact solve is
-    # c^T T^-1 c / m_t with c = (BX[0], BX[1]) over the element's two faces.
+    # ~460x at higher orders; the per-cell quadratic form of the condensed
+    # exact solve is  c^T T^-1 c / m_t + b_W^T Mbb^-1 b_W / (alpha m_t)  with
+    # c = b_F - G^T b_W over the element's two faces.
     pre = C.copy()
+    blk_terms = []  # (P x P coefficient, (ng, cells) factor) of every direction
     for di in fes.dirs:
         key = f"d{di.d}"
         ax = di.axis
@@ -193,18 +247,49 @@ def build_context(
         ddL = dd[_axslice(4, fax, slice(0, ncell))]
         ddR = dd[_axslice(4, fax, slice(1, ncell + 1))]
         chat = np.array(di.BX[:2], dtype=np.float64)
+        if et.nbub > 0:
+            chat = chat - np.einsum("bf,bpt->fpt", et.G, di.BX[2:])
         c00 = np.einsum("pt,qt,t->pq", chat[0], chat[0], imt)
         c11 = np.einsum("pt,qt,t->pq", chat[1], chat[1], imt)
         c01 = np.einsum("pt,qt,t->pq", chat[0], chat[1], imt)
         pre += (np.diagonal(c00).reshape(1, -1, 1, 1, 1) * ddL[:, None]
                 + np.diagonal(c11).reshape(1, -1, 1, 1, 1) * ddR[:, None]
                 + 2.0 * np.diagonal(c01).reshape(1, -1, 1, 1, 1) * od[:, None])
+        blk_terms += [(c00, ddL), (c11, ddR), (c01 + c01.T, od)]
+        if et.nbub > 0:
+            w_pq = np.einsum("bpt,bc,cqt,t->pq", di.BX[2:], et.Mbb_inv, di.BX[2:], imt)
+            inv_alpha = 1.0 / ctx_np[f"alpha_{key}"]
+            pre += np.diagonal(w_pq).reshape(1, -1, 1, 1, 1) * inv_alpha[:, None]
+            blk_terms.append((w_pq, inv_alpha))
 
     ctx_np["precond_inv"] = 1.0 / pre
+    blk_inv = None
+    if fes.P > 1:
+        # P x P per-cell block-Jacobi for higher orders, equilibrated by the exact
+        # diagonal (unit diagonal: f32-safe) and inverted once; mode-first
+        # (ng, P, P, nz, ny, nx).  Built one group at a time: at RT2-P2 4x4x2 the
+        # float64 block tensor of both groups is 2.56 GB before inversion.
+        # The sum of the per-direction terms (P x P coefficient times a cell
+        # field) is one (P*P, J) x (J, cells) matrix product.
+        P = fes.P
+        idx = np.arange(P)
+        coefs = np.stack([c.reshape(P * P) for c, _ in blk_terms], axis=1)  # (P*P, J)
+        blk_inv = np.empty((ng, P, P) + mesh.shape)
+        for g in range(ng):
+            blk = (coefs @ np.stack([f[g].reshape(-1) for _, f in blk_terms])).reshape(P, P, -1)
+            blk[idx, idx] += C[g].reshape(P, -1)
+            sdi = 1.0 / np.sqrt(pre[g].reshape(P, -1))  # (P, cells)
+            bh = np.moveaxis(blk * sdi[:, None] * sdi[None, :], -1, 0)  # (cells, P, P)
+            blk_inv[g] = np.moveaxis(np.linalg.inv(bh), 0, -1).reshape((P, P) + mesh.shape)
+            del blk, bh
     ctx_np["detJ"] = detJ
+    ctx_np["w_mode"] = w_mode                           # (P,) public trailing-mode weight
     ctx_np["w_mode_col"] = w_mode.reshape(-1, 1, 1, 1)  # internal mode-first broadcast
     ctx_np["nsf"] = np.asarray(xs["NSF"], dtype=np.float64)
     ctx_np["chi"] = np.asarray(xs["Chi"], dtype=np.float64)
     ctx_np["sigs"] = np.asarray(xs["SigS"], dtype=np.float64)
     ctx_np["src"] = np.asarray(xs["SRC"], dtype=np.float64)
-    return ctx_from_numpy(ctx_np, device, dtype)
+    out = ctx_from_numpy(ctx_np, device, dtype)
+    if blk_inv is not None:
+        out.update(_store_block_precond(blk_inv, fes.P, device, dtype))
+    return out

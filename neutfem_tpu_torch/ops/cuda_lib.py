@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``neutfem_tpu_torch/csrc``.
 
-The sources have a plain C interface and are compiled with ``nvcc`` into one
-shared library for Hopper (``sm_90a``), loaded with ``ctypes``.  The library is
-built at first use into ``neutfem_tpu_torch/_build/<hash of sources and flags>/``
-(listed in ``.gitignore``), so a fresh checkout builds it once and later
-processes reuse it.  Nothing here runs at import time.
+The sources have a plain C interface and are compiled for Hopper (``sm_90a``)
+with one ``nvcc`` process per source, all started together, then linked into
+one shared library, loaded with ``ctypes``.  The library is built at first use
+into ``neutfem_tpu_torch/_build/<hash of sources and flags>/`` (listed in
+``.gitignore``), so a fresh checkout builds it once and later processes reuse
+it.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-SOURCES = ("fused_dir.cu", "thomas.cu")
+SOURCES = ("fused_dir.cu", "thomas.cu", "fused_ho.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Filled by the build that produced the loaded library: path, seconds, nvcc log.
 build_info: dict = {}
@@ -40,6 +41,10 @@ _SIGNATURES = {
     # r, d, l, out, n, lines, inner, stream
     "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
+    # acc, v, dm, l, alpha, tab, zs, k1, lpow, n, lines, inner, outer_stride,
+    # cell_stride, plane, stream
+    "neutfem_fused_ho_f32": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],
+    "neutfem_fused_ho_f64": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],
 }
 
 
@@ -69,16 +74,29 @@ def _build() -> str:
         build_info.update(path=so, seconds=0.0, log="(cached)")
         return so
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p] for o, p in zip(objs, paths)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs = [out + err for out, err in (proc.communicate() for proc in procs)]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n{log}")
+    tmp = f"{so}.{tag}"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n{proc.stderr}")
+            f"nvcc link failed with code {proc.returncode}: {' '.join(link)}\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
+    for o in objs:
+        os.remove(o)
     build_info.update(path=so, seconds=time.perf_counter() - t0,
-                      log=(proc.stdout + proc.stderr).strip())
+                      log="\n".join(logs + [proc.stdout + proc.stderr]).strip())
     return so
 
 

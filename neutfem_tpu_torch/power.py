@@ -10,9 +10,10 @@ Python loop over device tensors with one host sync per outer iteration (the
 stop test) and one per CG iteration (``krylov.pcg``); the control flow and the
 arithmetic follow the JAX loop step for step, so outer and inner counts agree.
 
-Ported: direct solves, ``inner_solver="cg"`` with the Jacobi (diag-S)
-equilibration, ``accel`` "chebyshev" | "none".  Everything else the JAX
-``SolveOptions`` offers raises ``NotImplementedError``.
+Ported: direct solves, ``inner_solver="cg"`` on the Jacobi (diag-S)
+equilibrated system with the identity (``"jacobi"``) or the P x P block-Jacobi
+(``"block"``, k >= 1) preconditioner, ``accel`` "chebyshev" | "none".
+Everything else the JAX ``SolveOptions`` offers raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ class SolveOptions:
     a_mode: str = "exact"
     warm_start: bool = True
     inner_solver: str = "cg"
-    inner_precond: str = "auto"   # "jacobi" | "auto" (= jacobi below 3M cells, where
-                                  # the JAX package picks its line preconditioner)
+    inner_precond: str = "auto"   # "jacobi" | "block" | "auto" (= block when P > 1,
+                                  # else jacobi below 3M cells, where the JAX
+                                  # package picks its line preconditioner)
     use_cmfd: bool = False
     sweep: str = "gs"
 
@@ -75,25 +77,55 @@ def ctx_group(ctx: Dict, g: int) -> Dict:
     return out
 
 
+def _block_precond(ctxg: Dict, dtype):
+    """The P x P block-Jacobi apply on the equilibrated system, or None when the
+    context has no block inverse.  The stored operand (float8 E-form, bfloat16
+    or the working dtype) is upcast to the flux dtype once per group solve —
+    torch's batched products do not mix dtypes; the JAX package's bf16 x f32
+    einsum promotes to f32, so the numbers are the same — and laid out
+    cells-major (cells, P, P) at the same time, so each apply is one batched
+    matrix-vector product with no copy of the block tensor."""
+    deviation = "precond_blk_dev" in ctxg
+    stored = ctxg.get("precond_blk_dev" if deviation else "precond_blk_inv")
+    if stored is None:
+        return None
+    P = stored.shape[0]
+    blk = stored.to(dtype).reshape(P, P, -1).permute(2, 0, 1).contiguous()
+
+    def apply(r):
+        z = torch.bmm(blk, r.reshape(P, -1).T.unsqueeze(-1)).squeeze(-1).T.reshape(r.shape)
+        # E-form: z = r + E r with E = Binv - I, the identity part applied exactly
+        return (r + z if deviation else z).contiguous()
+
+    return apply
+
+
 def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None) -> KrylovResult:
-    """Solve S_g phi_g = rhs by CG on the symmetrically Jacobi-equilibrated system
+    """Solve S_g phi_g = rhs by PCG on the symmetrically Jacobi-equilibrated system
     D^-1/2 S D^-1/2 y = D^-1/2 rhs with D = exact diag(S): every Krylov
     intermediate is O(1), which float32 needs with the 1e15 void absorbers of
-    the IAEA-3D filler.  ``tol`` (0-d tensor) overrides ``opts.inner_tol``."""
+    the IAEA-3D filler.  For P > 1 the default preconditioner of that system is
+    the per-cell P x P block-Jacobi inverse.  ``tol`` (0-d tensor) overrides
+    ``opts.inner_tol``."""
     if opts.inner_solver != "cg":
         raise NotImplementedError(f"inner_solver={opts.inner_solver!r} is not ported")
     pc_mode = opts.inner_precond
     if pc_mode == "auto":
-        # the JAX package's rule: line preconditioner from 3M cells, else jacobi
-        pc_mode = "line" if fes.mesh.n_elements >= 3_000_000 else "jacobi"
-    if pc_mode != "jacobi":
+        # the JAX package's rule: block for higher orders, else the line
+        # preconditioner from 3M cells, else jacobi
+        if fes.P > 1:
+            pc_mode = "block"
+        else:
+            pc_mode = "line" if fes.mesh.n_elements >= 3_000_000 else "jacobi"
+    if pc_mode not in ("jacobi", "block"):
         raise NotImplementedError(f"inner_precond={pc_mode!r} is not ported")
+    precond = _block_precond(ctxg, rhs.dtype) if pc_mode == "block" else None
     sdi = torch.sqrt(ctxg["precond_inv"])  # D^-1/2
 
     def matvec(y):
         return sdi * schur_matvec(fes, ctxg, y * sdi, a_mode=opts.a_mode)
 
-    res = pcg(matvec, rhs * sdi, x0 / sdi,
+    res = pcg(matvec, rhs * sdi, x0 / sdi, precond=precond,
               tol=opts.inner_tol if tol is None else tol, maxiter=opts.max_inner)
     return res._replace(x=res.x * sdi)
 
@@ -124,14 +156,14 @@ def _scatter_into(ctx, g: int, phi):
 
 def compute_current(fes: FESpace, ctx: Dict, phi, a_mode: str = "exact"):
     """J = A^{-1} B^T phi for all groups (internal layout), one batched Thomas
-    solve per direction."""
+    solve per direction; with bubbles (k >= 1) also their DOFs ("bub")."""
     J = {}
     for di in fes.dirs:
         key = f"d{di.d}"
         rF, rW = apply_BT_dir(fes, di, phi)
-        F, _ = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],
+        F, W = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],
                            ctx[f"mask_{key}"], ctx[f"alpha_{key}"], rF, rW, a_mode)
-        J[key] = {"face": F}
+        J[key] = {"face": F} if W is None else {"face": F, "bub": W}
     return J
 
 

@@ -1,10 +1,11 @@
 """Where the time of one IAEA-3D solve goes on the GPU (torch.profiler).
 
-    python -m neutfem_tpu_torch.trace_solve [N [M]] [--out DIR]
+    python -m neutfem_tpu_torch.trace_solve [N [M]] [--order K] [--out DIR]
 
 Builds IAEA-3D at NxN per assembly and M axial subdivisions (default 6x6x4,
-float32), runs one warm-up solve, one untimed-by-the-profiler solve (the
-end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
+RT0-P0; with ``--order K`` RT_k-P_k, default 4x4x2, at the higher-order rows'
+tolerances), float32, runs one warm-up solve, one untimed-by-the-profiler
+solve (the end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall and the
 tracing overhead (traced minus untraced wall); with ``--out DIR`` it also
 writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
@@ -20,14 +21,16 @@ import time
 
 import torch
 
-from .bench import BenchmarkRun, load_benchmark_data
+from .bench import HO_TOL, BenchmarkRun, load_benchmark_data
 
 TOL = (1e-5, 1e-4, 1e-4, 200, 1000)  # bench.main's tolerances
 
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
     ("fused_dir_kernel", "fused Schur directions (K1-K3)"),
+    ("fused_ho_kernel", "condensed Schur directions (K6)"),
     ("thomas_kernel", "Thomas solve (K4)"),
+    ("gemv", "block-Jacobi apply (batched gemv)"),
     ("reduce_kernel", "reductions (dot products, norms)"),
     ("elementwise", "elementwise (axpy, scaling, C*v)"),
     ("Memcpy", "copies"),
@@ -51,13 +54,15 @@ def _solve_wall(solver) -> float:
     return time.perf_counter() - t0
 
 
-def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32) -> dict:
+def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
+         order: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve: no CUDA device available")
     spec = load_benchmark_data().BENCHMARKS["iaea3d"]
-    run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, device="cuda", dtype=dtype)
+    run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, device="cuda", dtype=dtype,
+                       rt_order=order)
     s = run.solver
-    run.solve(tol=TOL)  # warm-up
+    run.solve(tol=HO_TOL if order else TOL)  # warm-up
     wall = _solve_wall(s)
     outers, inners = s._last_outers, s._last_inners
 
@@ -77,7 +82,8 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32) -
     busy_s = sum(fam_us.values()) / 1e6
 
     card = torch.cuda.get_device_name(0)
-    print(f"IAEA-3D {mesh_n}x{mesh_n}x{mesh_nz} {dtype}: {outers} outers, {inners} inners, "
+    print(f"IAEA-3D {mesh_n}x{mesh_n}x{mesh_nz} RT{order}-P{order} {dtype}: "
+          f"{outers} outers, {inners} inners, "
           f"wall {wall * 1e3:.3f} ms (traced {wall_traced * 1e3:.3f} ms), {card}")
     print(f"{'family':40s} {'launches':>9s} {'device ms':>10s} {'% busy':>7s} {'us/launch':>10s}")
     for f, us in sorted(fam_us.items(), key=lambda kv: -kv[1]):
@@ -89,7 +95,8 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32) -
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "solve_trace.json"))
     summary = {
-        "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}", "dtype": str(dtype), "device": card,
+        "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}", "order": order, "dtype": str(dtype),
+        "device": card,
         "outers": outers, "inners": inners,
         "wall_ms": wall * 1e3, "wall_traced_ms": wall_traced * 1e3,
         "device_busy_ms": busy_s * 1e3, "device_busy_share": busy_s / wall_traced,
@@ -103,8 +110,10 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32) -
 
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("mesh_n", nargs="?", type=int, default=6)
-    p.add_argument("mesh_nz", nargs="?", type=int, default=4)
+    p.add_argument("mesh_n", nargs="?", type=int, default=None)
+    p.add_argument("mesh_nz", nargs="?", type=int, default=None)
+    p.add_argument("--order", type=int, default=0, help="RT_k-P_k order (default 0)")
     p.add_argument("--out", default=None, help="directory for solve_trace.json")
     a = p.parse_args()
-    main(a.mesh_n, a.mesh_nz, a.out)
+    main(a.mesh_n or (4 if a.order else 6), a.mesh_nz or (2 if a.order else 4), a.out,
+         order=a.order)

@@ -27,9 +27,9 @@ torch.set_num_threads(1)
 REL = 1e-13
 
 # JAX context keys the port does not build: CMFD coupling data (dtilde, area,
-# jscale), the line preconditioner's factors, and entries the RT0 slice never
-# reads (sigr, vol, w_mode).
-NOT_PORTED = ({"sigr", "vol", "w_mode", "precond_line_dinv", "precond_line_l",
+# jscale), the line preconditioner's factors, and entries the ported solver
+# never reads (sigr, vol).
+NOT_PORTED = ({"sigr", "vol", "precond_line_dinv", "precond_line_l",
                "precond_line2_dinv", "precond_line2_l"}
               | {f"{p}_d{d}" for p in ("dtilde", "area", "jscale") for d in range(3)})
 
@@ -146,11 +146,10 @@ def test_context_outside_the_slice_raises(what):
         for up in (False, True):
             bcs.set(t_mesh.boundary_attribute(3, ax, up), BCKind.DIRICHLET)
     k, a_mode = 0, "exact"
-    if what == "periodic":
+    if what in ("periodic", "rt1"):  # rt1: the higher orders are ported, PERIODIC not
+        k = 1 if what == "rt1" else 0
         for up in (False, True):
             bcs.set(t_mesh.boundary_attribute(3, 0, up), BCKind.PERIODIC)
-    elif what == "rt1":
-        k = 1
     elif what == "diag":
         a_mode = "diag"
     else:

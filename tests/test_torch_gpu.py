@@ -1,6 +1,6 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1-K4) with the plain PyTorch
+Each test compares one hand-written kernel (K1-K4, K6) with the plain PyTorch
 version of the same function, on the card, at a small shape.  They need a CUDA
 device and skip without one (the decision is made inside a fixture, at run
 time).  This file imports neither JAX nor the JAX package, so it also runs on a
@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from neutfem_tpu_torch.ops import fused, thomas
+from neutfem_tpu_torch import fespace, mesh
+from neutfem_tpu_torch.ops import fused, fused_ho, thomas
 
 pytestmark = pytest.mark.gpu
 
@@ -101,3 +102,66 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         thomas.thomas_solve(v, v, torch.zeros((1, 3, 5, 6), device=cuda).transpose(-1, -2),
                             -3)
+
+
+def _ho_operands(k, axis, dtype, device, seed):
+    """RT_k-P_k tables of a small mesh's direction on ``axis`` and random staged
+    operands (dm with a pinned first face: l = dm = 0 there) plus their
+    natural layouts."""
+    nz, ny, nx = 5, 6, 7
+    fes = fespace.make_fespace(mesh.CartesianMesh.from_breaks(
+        np.linspace(0, 7, nx + 1), np.linspace(0, 6, ny + 1), np.linspace(0, 5, nz + 1)), k, k)
+    di = [d for d in fes.dirs if d.axis == axis][0]
+    tabs = fused_ho.ho_tables(fes, di)
+    rng = np.random.default_rng(seed)
+    n = (nz, ny, nx)[axis]
+    rest = [s for a, s in enumerate((nz, ny, nx)) if a != axis]
+
+    def t(*s, lo=None, hi=None):
+        a = rng.uniform(lo, hi, s) if lo is not None else rng.standard_normal(s)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    dm, l, a = t(n + 1, *rest, lo=0.2, hi=0.6), t(n, *rest, lo=-0.3, hi=0.3), t(n, *rest, lo=0.5, hi=2.0)
+    dm[0] = 0.0
+    l[0] = 0.0
+    # natural layouts (solve axis back in place) and the wrappers' staged ones
+    nat = [x.movedim(0, axis) for x in (dm, l, a)]
+    if axis == 0:
+        staged = (dm, l, a)
+    elif axis == 1:
+        staged = tuple(x.contiguous() for x in (dm, l, a))  # (n, nz, nx)
+    else:
+        staged = tuple(x.reshape(x.shape[0], -1).contiguous() for x in (dm, l, a))
+    v, acc = t(1, fes.P, nz, ny, nx), t(1, fes.P, nz, ny, nx)
+    return tabs, v, acc, staged, nat
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_fused_ho_kernel_matches_plain(cuda, dtype, k, axis):
+    tabs, v, acc, staged, nat = _ho_operands(k, axis, dtype, cuda, 10 * k + axis)
+    want = fused_ho.fused_ho_plain(acc, v, *nat, axis - 3, tabs)
+    wrapper = (fused_ho.fused_ho_z, fused_ho.fused_ho_y, fused_ho.fused_ho_x)[axis]
+    before = dict(fused_ho.LAUNCHES)
+    got = wrapper(acc.clone(), v, *staged, tabs)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+    key = ("ho_z", "ho_y", "ho_x")[axis]
+    assert fused_ho.LAUNCHES[key] == before[key] + 1
+
+
+def test_fused_ho_rejects_what_it_does_not_take(cuda):
+    tabs, v, acc, staged, _ = _ho_operands(1, 0, torch.float32, cuda, 0)
+    with pytest.raises(TypeError):  # operand of another dtype
+        fused_ho.fused_ho_z(acc, v, staged[0].double(), *staged[1:], tabs)
+    with pytest.raises(ValueError):  # non-contiguous operand
+        fused_ho.fused_ho_z(acc, v, staged[0], staged[1].transpose(-1, -2).contiguous()
+                            .transpose(-1, -2), staged[2], tabs)
+    fes3 = fespace.make_fespace(mesh.CartesianMesh.from_breaks(*[np.linspace(0, 3, 4)] * 3), 3, 3)
+    di = [d for d in fes3.dirs if d.axis == 0][0]
+    v3 = torch.zeros((1, fes3.P, 3, 3, 3), device=cuda)
+    z = torch.zeros((4, 3, 3), device=cuda)
+    with pytest.raises(NotImplementedError):  # K1 = 4: no kernel instantiated
+        fused_ho.fused_ho_z(v3.clone(), v3, z, z[:3].contiguous(), z[:3].contiguous(),
+                            fused_ho.ho_tables(fes3, di))
