@@ -1,12 +1,13 @@
 """neutfem_tpu_torch — PyTorch/CUDA port of neutfem_tpu for NVIDIA Hopper GPUs.
 
 The multigroup k-effective solve of the mixed finite-element neutron diffusion
-framework, RT0-P0 and RT_k-P_k: structured mesh, operator context,
+framework, RT0-P0 and RT_k-P_k, 2D and 3D: structured mesh, operator context,
 matrix-free Schur complement with hand-written CUDA kernels for the fused
 per-direction Schur products (RT0 and the condensed higher-order form) and the
-batched Thomas solve (``csrc/``), Jacobi-equilibrated CG with the block-Jacobi
-preconditioner for k >= 1, and the Chebyshev-accelerated power iteration,
-behind the reference-compatible ``compat.NeutFEM`` facade.  The JAX package ``neutfem_tpu`` is the reference it
+batched Thomas solves (``csrc/``), Jacobi-equilibrated CG with the
+block-Jacobi (k >= 1), line-tridiagonal or additive two-grid preconditioner,
+and the Chebyshev-accelerated power iteration, behind the
+reference-compatible ``compat.NeutFEM`` facade.  The JAX package ``neutfem_tpu`` is the reference it
 is tested against; this package never imports JAX.
 """
 

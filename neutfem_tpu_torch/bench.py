@@ -1,19 +1,26 @@
-"""IAEA-3D k-eff benchmark on the PyTorch port (one JSON line, as ``bench.py``).
+"""k-eff benchmarks on the PyTorch port (one JSON line each, as ``bench.py``).
 
 Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
-``bench.main`` and of the higher-order rows of ``bench.main_full``:
+``bench.main`` and of rows of ``bench.main_full``:
 
 * ``main``: IAEA-3D at NxN per assembly and M axial subdivisions per plane,
   RT0-P0, two groups; one warm-up solve, then three timed solves from a cold
   flux (``reset_flux`` before each), the median reported as seconds per outer
   iteration;
-* ``main_ho``: IAEA-3D 4x4x2 at RT_k-P_k (k = 1, 2), one solve, then one timed
-  solve from a cold flux, at the JAX rows' tolerances.
+* ``main_ho``: IAEA-3D 4x4x2 at RT_k-P_k (k = 1, 2);
+* ``main_2d``: the fine 2D cores, KOEBERG 32x32 (4 groups, upscatter; 544^2
+  cells) and ZION 48x48 (912^2 cells), with the two-grid coarse level the
+  facade attaches by default there;
+* ``main_scale``: IAEA-3D 8x8x8 (3,511,808 cells), where "auto" picks the line
+  preconditioner.
 
-The benchmark data come from ``benchmarks/data.py``, loaded by file path (it
-imports only numpy), so nothing of the JAX package is loaded.
+The last three run as ``bench.py --full`` does: one solve, ``reset_flux``,
+then one timed solve from a cold flux.  The benchmark data come from
+``benchmarks/data.py``, loaded by file path (it imports only numpy), so
+nothing of the JAX package is loaded.
 
-Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K]``.
+Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
+--core {koeberg2d,zion2d} | --scale]``.
 """
 
 from __future__ import annotations
@@ -31,11 +38,15 @@ import torch
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
 from .mesh import boundary_attribute
 
-__all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho"]
+__all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
 CPU_SECONDS_PER_CELL_PER_OUTER = 8.84e-6
+
+#: ``bench.py``'s RT0 tolerances (k, flux, L2, outers, inners), its
+#: ``--full`` rows' too.
+FULL_TOL = (1e-5, 1e-4, 1e-4, 200, 1000)
 
 _DATA_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "benchmarks", "data.py")
@@ -118,24 +129,21 @@ class BenchmarkRun:
         s.BuildMatrices()
         self.solver = s
 
-    def _material_at(self, grid, k, i, j):
-        spec = self.spec
-        ch = grid[k, i, j]
-        if ch != ".":
-            return spec.materials[ch]
-        if spec.baffle is not None:
-            # ZION: empty cells within one baffle-thickness of fuel are steel baffle,
-            # others are water (zion2d.py:265-303 nearest-assembly search).
-            mat_b, thick, fuel_chars = spec.baffle
-            cell = spec.pitch / self.mesh_n
-            r = max(1, int(np.ceil(thick / cell)))
-            nz, ny, nx = grid.shape
-            for di in range(-r, r + 1):
-                for dj in range(-r, r + 1):
-                    ii, jj = i + di, j + dj
-                    if 0 <= ii < ny and 0 <= jj < nx and grid[k, ii, jj] in fuel_chars:
-                        return mat_b
-        return spec.background
+    def _baffle_mask(self, grid):
+        """ZION: the empty cells within one baffle thickness of fuel, (nz, ny, nx)
+        bool — the JAX runner's per-cell search over the (2r+1)^2 square of
+        neighbours (zion2d.py:265-303) as a square dilation of the fuel mask,
+        separable into one pass per in-plane axis."""
+        _, thick, fuel_chars = self.spec.baffle
+        r = max(1, int(np.ceil(thick / (self.spec.pitch / self.mesh_n))))
+        near = np.isin(grid, list(fuel_chars))
+        for ax in (1, 2):
+            n = grid.shape[ax]
+            padded = np.pad(near, [(r, r) if a == ax else (0, 0) for a in range(3)])
+            near = np.zeros_like(near)
+            for s in range(2 * r + 1):
+                near |= np.take(padded, np.arange(s, s + n), axis=ax)
+        return (grid == ".") & near
 
     def _fill_xs(self, s: NeutFEM):
         """Per-cell cross sections, vectorized by material (the arrays equal the
@@ -164,10 +172,8 @@ class BenchmarkRun:
             if ch != "." or spec.baffle is None:
                 put(sel, spec.materials[ch] if ch != "." else spec.background)
                 continue
-            baffle = np.zeros(grid.shape, dtype=bool)
-            for k, i, j in zip(*np.nonzero(sel)):  # baffle search per empty cell
-                baffle[k, i, j] = self._material_at(grid, k, i, j) is spec.baffle[0]
-            put(sel & baffle, spec.baffle[0])
+            baffle = self._baffle_mask(grid)  # ZION: steel baffle, else water
+            put(baffle, spec.baffle[0])
             put(sel & ~baffle, spec.background)
 
         def sq(a):
@@ -180,7 +186,7 @@ class BenchmarkRun:
         s.get_SigS()[:] = sq(SigS)
         s.get_KSF()[:] = sq(NSF)  # power proxy
 
-    def solve(self, tol=(1e-5, 1e-4, 1e-4, 200, 1000)):
+    def solve(self, tol=FULL_TOL):
         s = self.solver
         s.set_tol(*tol)
         t0 = time.time()
@@ -192,6 +198,10 @@ class BenchmarkRun:
     def pcm(self) -> float:
         """Reactivity deviation vs k_ref: 1e5 (1/k_ref - 1/k) (iaea2d.py:389)."""
         return 1e5 * (1.0 / self.spec.kref - 1.0 / self.keff)
+
+
+def _device_name(device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
 
 
 def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) -> dict:
@@ -206,10 +216,9 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
     run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, verbose=False,
                        device=device, dtype=dtype)
     n_cells = run.solver.GetNumElements()
-    tol = (1e-5, 1e-4, 1e-4, 200, 1000)
 
     # solve 1 is a warm-up; then three timed solves from a cold flux, median
-    run.solve(tol=tol)
+    run.solve(tol=FULL_TOL)
     walls = []
     for _ in range(3):
         run.solver.reset_flux()
@@ -242,8 +251,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
             "solve_wall_s": round(wall, 3),
             "solve_walls_3x_s": [round(w, 3) for w in walls],
             "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}",
-            "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
-                       else str(device)),
+            "device": _device_name(device),
             "dtype": str(run.solver._dtype),
         },
     }
@@ -283,8 +291,7 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
     detail.update({
         "solve_wall_s": round(wall, 3),
         "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz} RT{order}-P{order}",
-        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
-                   else str(device)),
+        "device": _device_name(device),
         "dtype": str(run.solver._dtype),
     })
     out = {"metric": f"iaea3d_rt{order}p{order}_seconds_per_outer_iteration",
@@ -293,16 +300,96 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
     return out
 
 
+#: The JAX package's fine 2D rows: core -> metric name.
+CORES_2D = {"koeberg2d": "koeberg2d_4group_seconds_per_outer_iteration",
+            "zion2d": "zion2d_seconds_per_outer_iteration"}
+
+
+def _timed_run(spec, what: str, device, dtype, **kwargs):
+    """Build, solve once, ``reset_flux``, then one timed solve from a cold flux
+    (``bench.py --full``).  Returns (run, keff, wall seconds)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"bench.{what}: no CUDA device available")
+    run = BenchmarkRun(spec, verbose=False, device=device, dtype=dtype, **kwargs)
+    run.solve(tol=FULL_TOL)
+    run.solver.reset_flux()
+    t0 = time.time()
+    keff = run.solver.SolveKeff()  # ends in a device -> host read of k
+    return run, keff, time.time() - t0
+
+
+def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
+    """A fine 2D core's solve timing (``core`` in ``CORES_2D``); prints one JSON
+    line with the JAX row's metric name and detail keys, plus the device, the
+    dtype and the preconditioner the group solves ran, and returns it."""
+    spec = load_benchmark_data().BENCHMARKS[core]
+    run, keff, wall = _timed_run(spec, "main_2d", device, dtype, mesh_n=mesh_n)
+    s = run.solver
+    outers = s._last_outers
+    out = {
+        "metric": CORES_2D[core],
+        "value": round(wall / max(outers, 1), 6), "unit": "s/outer",
+        "detail": {
+            "keff": round(keff, 7),
+            "pcm": round(1e5 * (1.0 / spec.kref - 1.0 / keff), 2),
+            "n_cells": s.GetNumElements(), "n_groups": spec.ng,
+            "outer_iterations": outers,
+            "inner_iterations": s._last_inners,
+            "solve_wall_s": round(wall, 3), "mesh": f"{mesh_n}x{mesh_n}",
+            "device": _device_name(s._device), "dtype": str(s._dtype),
+            "preconditioner": s.preconditioner(),
+        },
+    }
+    print(json.dumps(out))
+    return out
+
+
+def main_scale(device="cuda", dtype=torch.float32) -> dict:
+    """IAEA-3D 8x8x8 (3.5M cells) solve timing, the JAX package's
+    ``iaea3d_3p5M`` row; prints one JSON line and returns it."""
+    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    run, keff, wall = _timed_run(spec, "main_scale", device, dtype, mesh_n=8, mesh_nz=8)
+    s = run.solver
+    outers = s._last_outers
+    out = {
+        "metric": "iaea3d_3p5M_seconds_per_outer_iteration",
+        "value": round(wall / max(outers, 1), 6), "unit": "s/outer",
+        "detail": {
+            "keff": round(keff, 7),
+            "pcm": round(1e5 * (1.0 / spec.kref - 1.0 / keff), 2),
+            "n_cells": s.GetNumElements(),
+            "outer_iterations": outers,
+            "inner_iterations": s._last_inners,
+            "solve_wall_s": round(wall, 3), "mesh": "8x8x8",
+            "device": _device_name(s._device), "dtype": str(s._dtype),
+            "preconditioner": s.preconditioner(),
+        },
+    }
+    print(json.dumps(out))
+    return out
+
+
 if __name__ == "__main__":
-    ap = argparse.ArgumentParser(description="IAEA-3D k-eff benchmark on the GPU (float32)")
+    ap = argparse.ArgumentParser(description="k-eff benchmarks on the GPU (float32)")
     ap.add_argument("mesh_n", nargs="?", type=int, default=None,
-                    help="cells per assembly and axis (default 6, or 4 with --order)")
+                    help="cells per assembly and axis (default 6, 4 with --order, "
+                         "32 with --core koeberg2d, 48 with --core zion2d)")
     ap.add_argument("mesh_nz", nargs="?", type=int, default=None,
                     help="axial subdivisions per plane (default 4, or 2 with --order)")
-    ap.add_argument("--order", type=int, default=0,
-                    help="RT_k-P_k order; 0 runs main(), 1 and 2 the higher-order rows")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--order", type=int, default=0,
+                      help="RT_k-P_k order; 0 runs main(), 1 and 2 the higher-order rows")
+    mode.add_argument("--core", choices=sorted(CORES_2D), default=None,
+                      help="a fine 2D core row (main_2d)")
+    mode.add_argument("--scale", action="store_true",
+                      help="the IAEA-3D 8x8x8 (3.5M-cell) row (main_scale)")
     a = ap.parse_args()
-    if a.order == 0:
+    if a.scale:
+        main_scale()
+    elif a.core is not None:
+        main_2d(a.core, a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core])
+    elif a.order == 0:
         main(a.mesh_n or 6, a.mesh_nz or 4)
     else:
         main_ho(a.order, a.mesh_n or 4, a.mesh_nz or 2)

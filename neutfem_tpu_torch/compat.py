@@ -8,11 +8,24 @@ the user's (the JAX facade's TPU lane-padding relabel is not ported).
 
 The Marshak (DIRICHLET) boundary term uses the reference's ``2*D*G_ff``
 convention (NeutFEM.cpp:1350, ``marshak_d_factor=True``) for eigenvalue parity.
+
+``BuildMatrices`` also attaches the two-grid coarse level where the JAX facade
+does (``neutfem/_neutfem_eigen.py:388-409``), outside any solve.  The same
+environment variables as there select the preconditioner:
+
+* ``NEUTFEM_PRECOND`` (default "auto"): the group solves' ``inner_precond``;
+  "twogrid" attaches the coarse level, and "auto" attaches it on 2D meshes of
+  65,536 cells or more at P == 1 (``twogrid.auto_twogrid``);
+* ``NEUTFEM_TG_MODE`` ("dense" | "cheby", default "dense") and
+  ``NEUTFEM_TG_DENSE_MAX`` (default 8192): the coarse inverse's form and cap;
+* ``NEUTFEM_TG_DEGREE`` (8) and ``NEUTFEM_TG_KAPPA`` (30.0): the Chebyshev
+  form's degree and interval.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 import time
 import warnings
 from typing import Dict, Optional, Sequence
@@ -25,7 +38,8 @@ from .bc import BCKind, BCSpec
 from .fespace import make_fespace
 from .mesh import CartesianMesh
 from .ops.context import build_context
-from .power import SolveOptions, power_iteration
+from .power import SolveOptions, power_iteration, resolve_precond
+from .twogrid import DENSE_MAX_NC, attach_twogrid, auto_twogrid
 
 __all__ = ["NeutFEM", "BCType", "LinearSolverType", "VerbosityLevel"]
 
@@ -114,6 +128,7 @@ class NeutFEM:
         self._verbosity = VerbosityLevel.NORMAL
 
         self._ctx = None
+        self.build_seconds: Dict[str, float] = {}  # last BuildMatrices: context, twogrid
         self._phi: Optional[torch.Tensor] = None  # (ng, nz, ny, nx, P)
         self._J = None
         self._keff: Optional[float] = None
@@ -196,13 +211,28 @@ class NeutFEM:
     # -- assembly and solve ---------------------------------------------------
 
     def BuildMatrices(self):
-        """Stage geometry + XS to the device operator context."""
-        t0 = time.time()
+        """Stage geometry + XS to the device operator context, with the two-grid
+        coarse level where NEUTFEM_PRECOND asks for it (module docstring)."""
+        t0 = time.perf_counter()
         self._ctx = build_context(self._fes, self._ng, self._xs, self._bcs,
                                   device=self._device, dtype=self._dtype,
                                   marshak_d_factor=True)
+        self.build_seconds = {"context": time.perf_counter() - t0}
         self._log(VerbosityLevel.NORMAL,
-                  f"BuildMatrices: operator context staged in {time.time() - t0:.3f}s")
+                  f"BuildMatrices: operator context staged in {self.build_seconds['context']:.3f}s")
+        precond = os.environ.get("NEUTFEM_PRECOND", "auto")
+        want_tg = precond == "twogrid" or (precond == "auto" and self._fes.P == 1
+                                           and auto_twogrid(self._mesh))
+        if want_tg:
+            t0 = time.perf_counter()
+            attach_twogrid(self._fes, self._ng, self._xs, self._bcs, self._ctx,
+                           marshak_d_factor=True,
+                           mode=os.environ.get("NEUTFEM_TG_MODE", "dense"),
+                           dense_max=int(os.environ.get("NEUTFEM_TG_DENSE_MAX", DENSE_MAX_NC)))
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+            dt = self.build_seconds["twogrid"] = time.perf_counter() - t0
+            self._log(VerbosityLevel.NORMAL, f"BuildMatrices: two-grid coarse level in {dt:.3f}s")
 
     def _opts(self) -> SolveOptions:
         return SolveOptions(
@@ -214,7 +244,16 @@ class NeutFEM:
             max_outer=self._max_outer,
             max_inner=self._max_inner,
             inner_eta=INNER_ETA,
+            inner_precond=os.environ.get("NEUTFEM_PRECOND", "auto"),
+            tg_degree=int(os.environ.get("NEUTFEM_TG_DEGREE", "8")),
+            tg_kappa=float(os.environ.get("NEUTFEM_TG_KAPPA", "30.0")),
         )
+
+    def preconditioner(self) -> str:
+        """The preconditioner the group solves run (the "auto" rule resolved)."""
+        if self._ctx is None:
+            raise RuntimeError("BuildMatrices() must be called first")
+        return resolve_precond(self._fes, self._ctx, self._opts().inner_precond)
 
     def SolveKeff(self, use_coarse_init: bool = False, coarse_factors: Sequence[int] = (),
                   use_diagonal_solver: bool = False, use_cmfd: bool = False) -> float:

@@ -17,6 +17,10 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
   128-lane tile there, which the port does not)
 * ``precond_inv``    (ng, P, nz, ny, nx): 1 / exact diag(S), the Jacobi
   equilibration of the Schur CG (with the bubble-condensation terms for k >= 1)
+* for P == 1 the line preconditioner's LDL^T factors, along the highest active
+  direction (``precond_line_dinv`` / ``precond_line_l``: z in 3D, y in 2D) and
+  the next one (``precond_line2_*``), (ng, nz, ny, nx) with one entry fewer
+  along the line in ``_l``
 * for P > 1 the P x P block-Jacobi inverse of the equilibrated Schur diagonal
   block, (ng, P, P, nz, ny, nx): ``precond_blk_inv`` at float64; at float32
   the deviation ``precond_blk_dev = Binv - I`` in ``float8_e4m3fn`` when
@@ -63,6 +67,20 @@ def _tinv_dd_od(dinv_a, l_a, fax_a):
     return np.moveaxis(dd, -1, fax_a), np.moveaxis(od, -1, fax_a)
 
 
+def _line_factors(pre1: np.ndarray, offd: np.ndarray, fax: int):
+    """LDL^T factors of the line-tridiagonal part of the Schur complement along
+    one direction, on the symmetrically Jacobi-equilibrated system
+    D^-1/2 M D^-1/2 (unit diagonal, O(1) off-diagonals: float32-safe with the
+    1e15 void absorbers).  pre1 (ng, nz, ny, nx) is the exact diag(S) of P == 1;
+    offd the interior off-diagonals along axis ``fax``."""
+    pre_lo = pre1[_axslice(4, fax, slice(None, -1))]
+    pre_hi = pre1[_axslice(4, fax, slice(1, None))]
+    offd_hat = offd / np.sqrt(pre_lo * pre_hi)
+    dinv_l, ll = tridiag_ldlt_batch(np.moveaxis(np.ones_like(pre1), fax, -1),
+                                    np.moveaxis(offd_hat, fax, -1))
+    return np.moveaxis(dinv_l, -1, fax), np.moveaxis(ll, -1, fax)
+
+
 #: Low-precision numpy dtypes (ml_dtypes names) -> (same-width integer view, torch dtype).
 _LOW_PRECISION = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
                   "bfloat16": (np.int16, torch.bfloat16)}
@@ -74,19 +92,22 @@ def _unpack_lanes(a: np.ndarray, nz: int, ny: int) -> np.ndarray:
     return a.reshape(*a.shape[:-1], nz, wy)[..., :ny].reshape(*a.shape[:-1], nz * ny)
 
 
-def ctx_from_numpy(ctx_np: Dict[str, np.ndarray], device, dtype) -> Dict[str, torch.Tensor]:
+def ctx_from_numpy(ctx_np: Dict, device, dtype) -> Dict:
     """Operator context given as numpy arrays (e.g. the JAX package's context,
     ``{k: np.asarray(v) for k, v in jax_ctx.items()}``) -> contiguous tensors
     (always copies, so no tensor shares memory with the caller's arrays).
 
-    Floating entries become ``dtype``, except the low-precision block
-    preconditioner (``float8_e4m3fn`` / ``bfloat16``), which keeps its dtype bit
-    for bit.  The JAX package's lane-packed ``tri_hoxT_*`` x operands are
-    re-staged into the port's (rows, nz*ny) layout by dropping the dead lanes."""
+    Floating entries become ``dtype``, except the low-precision entries (the
+    block preconditioner in ``float8_e4m3fn`` / ``bfloat16``, the two-grid
+    level's ``bfloat16`` coarse inverse), which keep their dtype bit for bit.
+    Nested dicts (the two-grid level ``"tg"``) are converted recursively.  The
+    JAX package's lane-packed ``tri_hoxT_*`` x operands are re-staged into the
+    port's (rows, nz*ny) layout by dropping the dead lanes."""
     out = {}
     for k, v in ctx_np.items():
-        if isinstance(v, dict):
-            raise NotImplementedError(f"nested context entry {k!r} is not supported")
+        if isinstance(v, dict):  # a nested sub-context, e.g. the coarse level "tg"
+            out[k] = ctx_from_numpy(v, device, dtype)
+            continue
         v = np.asarray(v)
         if k.startswith("tri_hoxT_"):
             alpha = ctx_np[f"alpha_{k.rsplit('_', 1)[1]}"]  # (ng, nz, ny, nx)
@@ -145,6 +166,10 @@ def build_context(
 
     ctx_np: Dict[str, np.ndarray] = {"C": C}
     jacs = [mesh.h_grid(a) / 2.0 for a in range(3)]  # fake axes: h=2 -> jac=1
+    # directions of the line preconditioner: the highest active one ("line")
+    # and the next ("line2")
+    pc_dirs = sorted((di.d for di in fes.dirs), reverse=True)[:2]
+    line_offd = {}  # d -> (interior off-diagonal of the pc line, its face axis)
 
     for di in fes.dirs:
         d, ax = di.d, di.axis  # ax in (nz, ny, nx) order
@@ -199,6 +224,14 @@ def build_context(
                 diag[face_sl] = 1.0
                 offd[_axslice(4, fax, -1 if upper else 0)] = 0.0
             # BCKind.NONE: natural => zero boundary flux, no term (reference default)
+
+        if d in pc_dirs and fes.P == 1:
+            # line preconditioner: the off-diagonal of the (diagonal-A) Schur
+            # along d, S_{e,e+1} = B(e,f) B(e+1,f) / A_ff at the shared
+            # interior face f = e+1
+            coef = float(et.D1[0, 0] * et.D1[0, 1] * di.m_t[0])
+            inv_diag = mask[None] / diag
+            line_offd[d] = (coef * inv_diag[_axslice(4, fax, slice(1, n_faces - 1))], fax)
 
         dd = np.moveaxis(diag, fax, -1)  # (..., n_faces)
         bb = np.moveaxis(offd, fax, -1)  # (..., n_faces - 1)
@@ -263,6 +296,10 @@ def build_context(
             blk_terms.append((w_pq, inv_alpha))
 
     ctx_np["precond_inv"] = 1.0 / pre
+    for name, d in zip(("line", "line2"), pc_dirs):
+        if d in line_offd:
+            ctx_np[f"precond_{name}_dinv"], ctx_np[f"precond_{name}_l"] = _line_factors(
+                pre[:, 0], *line_offd[d])
     blk_inv = None
     if fes.P > 1:
         # P x P per-cell block-Jacobi for higher orders, equilibrated by the exact

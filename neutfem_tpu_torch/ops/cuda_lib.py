@@ -41,6 +41,8 @@ _SIGNATURES = {
     # r, d, l, out, n, lines, inner, stream
     "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
+    "neutfem_thomas_wide_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
+    "neutfem_thomas_wide_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     # acc, v, dm, l, alpha, tab, zs, k1, lpow, n, lines, inner, outer_stride,
     # cell_stride, plane, stream
     "neutfem_fused_ho_f32": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],

@@ -11,9 +11,11 @@ stop test) and one per CG iteration (``krylov.pcg``); the control flow and the
 arithmetic follow the JAX loop step for step, so outer and inner counts agree.
 
 Ported: direct solves, ``inner_solver="cg"`` on the Jacobi (diag-S)
-equilibrated system with the identity (``"jacobi"``) or the P x P block-Jacobi
-(``"block"``, k >= 1) preconditioner, ``accel`` "chebyshev" | "none".
-Everything else the JAX ``SolveOptions`` offers raises ``NotImplementedError``.
+equilibrated system with the identity (``"jacobi"``), the P x P block-Jacobi
+(``"block"``, k >= 1), the line-tridiagonal (``"line"``, ``"line2"``, P == 1)
+or the additive two-grid (``"twogrid"``, ``twogrid.py``) preconditioner,
+``accel`` "chebyshev" | "none".  Everything else the JAX ``SolveOptions``
+offers raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Dict
 import torch
 
 from .accel import chebyshev_apply_blend, chebyshev_init
-from .fespace import FESpace
+from .fespace import GRID_AXIS, FESpace
 from .krylov import KrylovResult, pcg
 from .ops.apply import (
     J_to_public,
@@ -34,8 +36,11 @@ from .ops.apply import (
     schur_matvec,
     solve_A_dir,
 )
+from .ops.tridiag import tridiag_solve
+from .twogrid import twogrid_apply
 
-__all__ = ["SolveOptions", "ctx_group", "group_solve", "compute_current", "power_iteration"]
+__all__ = ["SolveOptions", "ctx_group", "resolve_precond", "group_solve", "compute_current",
+           "power_iteration"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +61,14 @@ class SolveOptions:
     a_mode: str = "exact"
     warm_start: bool = True
     inner_solver: str = "cg"
-    inner_precond: str = "auto"   # "jacobi" | "block" | "auto" (= block when P > 1,
-                                  # else jacobi below 3M cells, where the JAX
-                                  # package picks its line preconditioner)
+    inner_precond: str = "auto"   # "jacobi" | "block" | "line" | "line2" |
+                                  # "twogrid" | "auto" (resolve_precond: twogrid
+                                  # when a coarse level is attached and P == 1,
+                                  # block when P > 1, line from 3M cells, else
+                                  # jacobi — the JAX package's rule)
+    tg_degree: int = 8            # twogrid, Chebyshev form: polynomial degree
+                                  # (= coarse matvecs per CG iteration)
+    tg_kappa: float = 30.0        # twogrid, Chebyshev form: interval [lmax/kappa, lmax]
     use_cmfd: bool = False
     sweep: str = "gs"
 
@@ -100,26 +110,75 @@ def _block_precond(ctxg: Dict, dtype):
     return apply
 
 
+#: Cell count from which "auto" picks the line preconditioner (the JAX
+#: package's crossover, measured on IAEA-3D: ``neutfem_tpu/power.py:244-256``).
+LINE_MIN_CELLS = 3_000_000
+
+
+def resolve_precond(fes: FESpace, ctx: Dict, mode: str) -> str:
+    """The preconditioner an ``inner_precond`` of ``mode`` runs, by the JAX
+    package's "auto" rule in its order: a coarse level attached ("tg") with
+    P == 1 -> twogrid; P > 1 -> block; 3M cells or more -> line; else jacobi."""
+    if mode != "auto":
+        return mode
+    if fes.P == 1 and "tg" in ctx:
+        return "twogrid"
+    if fes.P > 1:
+        return "block"
+    return "line" if fes.mesh.n_elements >= LINE_MIN_CELLS else "jacobi"
+
+
+def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
+    """The line-tridiagonal preconditioner: one batched Thomas solve per CG
+    iteration along the highest active direction (z in 3D, y in 2D) with the
+    factors of ``build_context``; "line2" adds the next direction additively
+    (M^-1 = M1^-1 + M2^-1, SPD as a sum of SPD solves).  None when the
+    context has no line factors (P > 1), as in the JAX package."""
+    if "precond_line_dinv" not in ctxg:
+        return None
+    pc_dirs = sorted((di.d for di in fes.dirs), reverse=True)
+    names = ["line"] + (["line2"] if pc_mode == "line2" and len(pc_dirs) > 1
+                        and "precond_line2_dinv" in ctxg else [])
+    applies = []
+    for name, d in zip(names, pc_dirs):
+        dinv = ctxg[f"precond_{name}_dinv"].unsqueeze(-4)
+        l = ctxg[f"precond_{name}_l"].unsqueeze(-4)
+        ax = GRID_AXIS[d] - 3
+        applies.append(lambda r, dinv=dinv, l=l, ax=ax: tridiag_solve(r, dinv, l, ax % r.ndim))
+    if len(applies) == 1:
+        return applies[0]
+    return lambda r: applies[0](r) + applies[1](r)
+
+
 def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None) -> KrylovResult:
     """Solve S_g phi_g = rhs by PCG on the symmetrically Jacobi-equilibrated system
     D^-1/2 S D^-1/2 y = D^-1/2 rhs with D = exact diag(S): every Krylov
     intermediate is O(1), which float32 needs with the 1e15 void absorbers of
-    the IAEA-3D filler.  For P > 1 the default preconditioner of that system is
-    the per-cell P x P block-Jacobi inverse.  ``tol`` (0-d tensor) overrides
+    the IAEA-3D filler.  The preconditioner of that system follows
+    ``opts.inner_precond`` (``resolve_precond``): none ("jacobi"), the per-cell
+    P x P block-Jacobi inverse ("block"), the line solves ("line", "line2") or
+    the fine part plus the additive coarse correction ("twogrid"; the fine part
+    alone when no coarse level is attached).  ``tol`` (0-d tensor) overrides
     ``opts.inner_tol``."""
     if opts.inner_solver != "cg":
         raise NotImplementedError(f"inner_solver={opts.inner_solver!r} is not ported")
-    pc_mode = opts.inner_precond
-    if pc_mode == "auto":
-        # the JAX package's rule: block for higher orders, else the line
-        # preconditioner from 3M cells, else jacobi
-        if fes.P > 1:
-            pc_mode = "block"
-        else:
-            pc_mode = "line" if fes.mesh.n_elements >= 3_000_000 else "jacobi"
-    if pc_mode not in ("jacobi", "block"):
+    pc_mode = resolve_precond(fes, ctxg, opts.inner_precond)
+    if pc_mode not in ("jacobi", "block", "line", "line2", "twogrid"):
         raise NotImplementedError(f"inner_precond={pc_mode!r} is not ported")
-    precond = _block_precond(ctxg, rhs.dtype) if pc_mode == "block" else None
+    tg_corr = None
+    if pc_mode == "twogrid":
+        if "tg" in ctxg:
+            tg_corr = twogrid_apply(fes, ctxg, opts)
+        pc_mode = "block" if fes.P > 1 else "jacobi"
+    if pc_mode == "block":
+        precond = _block_precond(ctxg, rhs.dtype)
+    elif pc_mode in ("line", "line2"):
+        precond = _line_precond(fes, ctxg, pc_mode)
+    else:
+        precond = None
+    if tg_corr is not None:
+        base = precond if precond is not None else (lambda r: r)
+        precond = lambda r: base(r) + tg_corr(r)
     sdi = torch.sqrt(ctxg["precond_inv"])  # D^-1/2
 
     def matvec(y):

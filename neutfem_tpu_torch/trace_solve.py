@@ -1,11 +1,15 @@
-"""Where the time of one IAEA-3D solve goes on the GPU (torch.profiler).
+"""Where the time of one k-eff solve goes on the GPU (torch.profiler).
 
-    python -m neutfem_tpu_torch.trace_solve [N [M]] [--order K] [--out DIR]
+    python -m neutfem_tpu_torch.trace_solve [N [M]] [--order K | --core CORE | --scale]
+                                            [--out DIR]
 
 Builds IAEA-3D at NxN per assembly and M axial subdivisions (default 6x6x4,
 RT0-P0; with ``--order K`` RT_k-P_k, default 4x4x2, at the higher-order rows'
-tolerances), float32, runs one warm-up solve, one untimed-by-the-profiler
-solve (the end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
+tolerances; with ``--scale`` 8x8x8, the line-preconditioner row), or a fine
+2D core with ``--core koeberg2d|zion2d`` (default 32x32 / 48x48, with the
+two-grid coarse level), float32.  Prints the context and two-grid build
+seconds, runs one warm-up solve, one untimed-by-the-profiler solve (the
+end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall and the
 tracing overhead (traced minus untraced wall); with ``--out DIR`` it also
 writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
@@ -21,16 +25,15 @@ import time
 
 import torch
 
-from .bench import HO_TOL, BenchmarkRun, load_benchmark_data
-
-TOL = (1e-5, 1e-4, 1e-4, 200, 1000)  # bench.main's tolerances
+from .bench import FULL_TOL, HO_TOL, BenchmarkRun, load_benchmark_data
 
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
     ("fused_dir_kernel", "fused Schur directions (K1-K3)"),
     ("fused_ho_kernel", "condensed Schur directions (K6)"),
+    ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
     ("thomas_kernel", "Thomas solve (K4)"),
-    ("gemv", "block-Jacobi apply (batched gemv)"),
+    ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
     ("reduce_kernel", "reductions (dot products, norms)"),
     ("elementwise", "elementwise (axpy, scaling, C*v)"),
     ("Memcpy", "copies"),
@@ -55,14 +58,15 @@ def _solve_wall(solver) -> float:
 
 
 def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
-         order: int = 0) -> dict:
+         order: int = 0, core: str = "iaea3d") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve: no CUDA device available")
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = load_benchmark_data().BENCHMARKS[core]
     run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, device="cuda", dtype=dtype,
                        rt_order=order)
     s = run.solver
-    run.solve(tol=HO_TOL if order else TOL)  # warm-up
+    print(f"build seconds: {s.build_seconds}; preconditioner {s.preconditioner()}")
+    run.solve(tol=HO_TOL if order else FULL_TOL)  # warm-up
     wall = _solve_wall(s)
     outers, inners = s._last_outers, s._last_inners
 
@@ -82,7 +86,8 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
     busy_s = sum(fam_us.values()) / 1e6
 
     card = torch.cuda.get_device_name(0)
-    print(f"IAEA-3D {mesh_n}x{mesh_n}x{mesh_nz} RT{order}-P{order} {dtype}: "
+    mesh = f"{mesh_n}x{mesh_n}" + (f"x{mesh_nz}" if spec.dim == 3 else "")
+    print(f"{core} {mesh} RT{order}-P{order} {dtype}: "
           f"{outers} outers, {inners} inners, "
           f"wall {wall * 1e3:.3f} ms (traced {wall_traced * 1e3:.3f} ms), {card}")
     print(f"{'family':40s} {'launches':>9s} {'device ms':>10s} {'% busy':>7s} {'us/launch':>10s}")
@@ -95,8 +100,9 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "solve_trace.json"))
     summary = {
-        "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}", "order": order, "dtype": str(dtype),
-        "device": card,
+        "core": core, "mesh": mesh, "order": order, "dtype": str(dtype),
+        "device": card, "preconditioner": s.preconditioner(),
+        "build_s": s.build_seconds,
         "outers": outers, "inners": inners,
         "wall_ms": wall * 1e3, "wall_traced_ms": wall_traced * 1e3,
         "device_busy_ms": busy_s * 1e3, "device_busy_share": busy_s / wall_traced,
@@ -112,8 +118,17 @@ if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("mesh_n", nargs="?", type=int, default=None)
     p.add_argument("mesh_nz", nargs="?", type=int, default=None)
-    p.add_argument("--order", type=int, default=0, help="RT_k-P_k order (default 0)")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--order", type=int, default=0, help="RT_k-P_k order (default 0)")
+    mode.add_argument("--core", choices=("koeberg2d", "zion2d"), default=None,
+                      help="a fine 2D core (default 32x32 / 48x48)")
+    mode.add_argument("--scale", action="store_true", help="IAEA-3D 8x8x8 (3.5M cells)")
     p.add_argument("--out", default=None, help="directory for solve_trace.json")
     a = p.parse_args()
-    main(a.mesh_n or (4 if a.order else 6), a.mesh_nz or (2 if a.order else 4), a.out,
-         order=a.order)
+    if a.core is not None:
+        main(a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core], 1, a.out, core=a.core)
+    elif a.scale:
+        main(a.mesh_n or 8, a.mesh_nz or 8, a.out)
+    else:
+        main(a.mesh_n or (4 if a.order else 6), a.mesh_nz or (2 if a.order else 4), a.out,
+             order=a.order)

@@ -27,10 +27,8 @@ torch.set_num_threads(1)
 REL = 1e-13
 
 # JAX context keys the port does not build: CMFD coupling data (dtilde, area,
-# jscale), the line preconditioner's factors, and entries the ported solver
-# never reads (sigr, vol).
-NOT_PORTED = ({"sigr", "vol", "precond_line_dinv", "precond_line_l",
-               "precond_line2_dinv", "precond_line2_l"}
+# jscale) and entries the ported solver never reads (sigr, vol).
+NOT_PORTED = ({"sigr", "vol"}
               | {f"{p}_d{d}" for p in ("dtilde", "area", "jscale") for d in range(3)})
 
 

@@ -1,6 +1,6 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1-K4, K6) with the plain PyTorch
+Each test compares one hand-written kernel (K1-K4, K4′, K6) with the plain PyTorch
 version of the same function, on the card, at a small shape.  They need a CUDA
 device and skip without one (the decision is made inside a fixture, at run
 time).  This file imports neither JAX nor the JAX package, so it also runs on a
@@ -91,6 +91,47 @@ def test_thomas_kernel_matches_plain(cuda, dtype, shape, axis):
     want = thomas.thomas_solve_plain(rhs, dinv, l, axis)
     got = thomas.thomas_solve(rhs, dinv, l, axis)
     assert _rel(got, want, torch.zeros_like(want)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 1, 1, 913, 912), (1, 1, 1, 257, 300), (1, 1, 1, 5000, 20)])
+def test_thomas_wide_kernel_matches_plain(cuda, dtype, shape):
+    """K4′ at wide 2D layouts: compute_current's at ZION 48x48, a line count
+    that is no multiple of the 32 lines of a block, and a few very long lines."""
+    assert thomas.wide_rows(shape, -2)
+    rng = np.random.default_rng(4)
+    lshape = list(shape)
+    lshape[-2] -= 1
+    rhs = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+    dinv = torch.as_tensor(rng.uniform(0.3, 0.5, shape), dtype=dtype, device=cuda)
+    l = torch.as_tensor(rng.uniform(-0.4, 0.4, lshape), dtype=dtype, device=cuda)
+    want = thomas.thomas_solve_plain(rhs, dinv, l, -2)
+    before = dict(thomas.LAUNCHES)
+    got = thomas.thomas_solve(rhs, dinv, l, -2)
+    torch.cuda.synchronize()
+    assert _rel(got, want, torch.zeros_like(want)) <= TOL[dtype]
+    assert thomas.LAUNCHES["thomas_y"] == before["thomas_y"] + 1
+    assert thomas.LAUNCHES["thomas"] == before["thomas"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("key", ["y", "x"])
+def test_fused_2d_kernels_match_plain(cuda, dtype, key):
+    """K2 / K3 on a 2D core's (1, 1, ny, nx) grid: few, long lines."""
+    nz, ny, nx = 1, 300, 280
+    v, acc, t = _operands((nz, ny, nx), dtype, cuda, 5)
+    if key == "y":
+        dmT, lT = t(ny + 1, nz, nx, lo=0.2, hi=0.6), t(ny, nz, nx, lo=-0.3, hi=0.3)
+        want = fused.fused_dir_plain(acc, v, dmT.movedim(0, -2), lT.movedim(0, -2), -2,
+                                     0.5, -0.5, 0.25)
+        got = fused.fused_schur_y_pre(acc.clone(), v, dmT, lT, 0.5, -0.5, 0.25)
+    else:
+        dmT, lT = t(nx + 1, nz * ny, lo=0.2, hi=0.6), t(nx, nz * ny, lo=-0.3, hi=0.3)
+        want = fused.fused_dir_plain(acc, v, dmT.T.reshape(nz, ny, nx + 1),
+                                     lT.T.reshape(nz, ny, nx), -1, 0.5, -0.5, 0.25)
+        got = fused.fused_schur_x_pre(acc.clone(), v, dmT, lT, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):

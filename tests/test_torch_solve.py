@@ -185,15 +185,15 @@ def test_facade_iaea2d_matches_jax():
     assert abs(trun.solver._last_inners - jrun.solver._last_inners) <= 2
 
 
-@pytest.mark.parametrize("opt", ["bicgstab", "line", "adjoint", "cmfd", "anderson", "jacobi_sweep"])
+@pytest.mark.parametrize("opt", ["bicgstab", "adjoint", "cmfd", "anderson", "jacobi_sweep"])
 def test_options_outside_the_slice_raise(opt):
     fes, _, tctx, _ = _problem((3, 4, 5), seed=2)
     phi0 = torch.ones((2, *fes.mesh.shape, 1), dtype=F64)
-    kw = {"bicgstab": dict(inner_solver="bicgstab"), "line": dict(inner_precond="line"),
+    kw = {"bicgstab": dict(inner_solver="bicgstab"),
           "cmfd": dict(use_cmfd=True), "anderson": dict(accel="anderson"),
           "jacobi_sweep": dict(sweep="jacobi")}.get(opt, {})
     with pytest.raises(NotImplementedError):
-        if opt in ("bicgstab", "line"):
+        if opt == "bicgstab":
             g = ctx_group(tctx, 0)
             x = phi_to_internal(phi0)[0]
             group_solve(fes, g, SolveOptions(**kw), x, x)
