@@ -9,12 +9,15 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on its path's
-   operands, with times: K1-K4 on IAEA-3D 6x6x4 RT0-P0 (76x114x114 cells),
-   K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2) (38x76x76 cells),
-   the fused y and x directions (K2, K3) and K4′ on ZION 48x48 (912x912
-   cells, 912 lines per direction: few, long lines); group 0, float32;
-4. reference: the IAEA-3D 1x1 solves at float64, RT0-P0 and RT1-P1, on the
-   GPU agree with the same solves through the plain versions on the CPU;
+   operands, with times and bounds: K1-K4 on IAEA-3D 6x6x4 RT0-P0
+   (76x114x114 cells, group 0), K5 and K1's group batch on the same
+   operands with both groups at once (2, 1, 76, 114, 114) and on a ragged
+   3-group grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2)
+   (38x76x76 cells), the fused y and x directions (K2, K3) and K4′ on ZION
+   48x48 (912x912 cells, 912 lines per direction: few, long lines); float32;
+4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
+   Jacobi group sweep and the free-running adjoint — on the GPU agree with
+   the same solves through the plain versions on the CPU;
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
    34 outers, 1068 inners), with every kernel's launch count > 0;
@@ -27,7 +30,25 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    x and K4′ kernels launched in each;
 8. line path: ``bench.main_scale()`` (IAEA-3D 8x8x8, 3.5M cells, float32)
    against its anchor (k within 2e-5, ``SCALE_KEFF_TOL``), with the line
-   preconditioner: at least one z Thomas launch (K4) per CG iteration.
+   preconditioner: at least one z Thomas launch (K4) per CG iteration;
+9. Jacobi path: ``bench.main_sweep("jacobi")`` (IAEA-3D 6x6x4, float32, every
+   group in one batched CG): the batched kernels (K5, K1's batch) launched,
+   the one-group K1-K3 not, converged below 600 outers, k within 2e-5
+   (``SWEEP_KEFF_TOL``) of the Gauss-Seidel solve at the same tolerances and
+   of phase [5]'s k;
+10. adjoint path: ``bench.main_adjoint()`` (``bench.py --full``'s IAEA-3D
+   6x6x4 free-running adjoint row) against its float32 anchors;
+11. facade variants on IAEA-3D 6x6x4 (float32, at ``bench.SWEEP_TOL``):
+   ``SolveKeff(use_cmfd=True)`` and ``SolveKeff(use_coarse_init=True,
+   coarse_factors=(3, 3, 4))`` within 3e-5 of the Chebyshev k, and
+   DIRECT_LLT on IAEA-2D 3x3 (3,249 flux DOFs, under the 4096 gate) within
+   1e-5 of its CG k.
+
+Every kernel row's bound is the larger of its bytes (each input read once,
+each output written once, from the tensors of this run) over 3.35 TB/s and
+its floating-point operations over 67 TFLOP/s (the H100 SXM's float32 rate
+outside the tensor cores).  No single PyTorch call computes any of these
+kernels' functions, so each row's ``library_ms`` is null.
 
 Launch counts are set to 0 just before each path and read just after it.
 The last two lines are a JSON object of per-kernel results and the contract
@@ -63,6 +84,28 @@ SCALE_ANCHOR = (1.0291848, 34, 1341)  # IAEA-3D 8x8x8, "auto" -> line
 # the reductions in float64 does not move the float32 k.  1e-5 would test
 # float32 rounding, not the port.
 SCALE_KEFF_TOL = 2e-5
+# Jacobi sweep vs Gauss-Seidel at bench.SWEEP_TOL: the same fixed point, up to
+# the float32 rounding band of these tolerances (above) and the sweep's slower
+# convergence (IAEA-3D 1x1 and 2x2x2 float64 on a CPU: 5e-6 to 8e-6 apart).
+SWEEP_KEFF_TOL = 2e-5
+# bench.py --full's IAEA-3D 6x6x4 free-running adjoint row, float32
+# (BENCH_extra.json): k-adjoint, k-direct, outers
+ADJOINT_ANCHOR = (1.0291064, 1.0291045, 37)
+ADJ_KEFF_TOL = 1e-5
+# CMFD and coarse init against the Chebyshev k: each stops at |dk| < tol_keff
+# from its own side of the fixed point (benchmarks/accel_compare.py allows 3x)
+VARIANT_KEFF_TOL = 3e-5
+DIRECT_KEFF_TOL = 1e-5
+# the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# floating-point operations per cell of one fused RT0 direction: the face
+# rhs (3), the forward elimination (3), the backward sweep (3), the divergence
+# update (4)
+FUSED_FLOPS_PER_CELL = 13
+# per element of a Thomas solve: forward 2, diagonal 1, backward 2
+THOMAS_FLOPS_PER_ELEMENT = 5
 
 
 def _timed(fn, reps):
@@ -78,6 +121,21 @@ def _timed(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _bound(tensors, flops):
+    """(bound ms, "bytes" | "operations"): the least time for reading every
+    input once and writing every output once (``tensors``, outputs listed as
+    often as they are written) or for ``flops`` float32 operations."""
+    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _row(name, source, replaces, key, err, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "key": key,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
 
 def _compare(name, got, want, base):
@@ -127,15 +185,17 @@ def _thomas_case(fes, ctx, di, phi, card, label):
     ms = _timed(lambda: thomas.thomas_solve(rFs, dinv, lf, ax), 50)
     plain_ms = _timed(lambda: thomas.thomas_solve_plain(rFs, dinv, lf, ax), 3)
     lines = rFs.numel() // rFs.shape[ax]
+    bound = _bound((rFs, dinv, lf, got), THOMAS_FLOPS_PER_ELEMENT * rFs.numel())
     print(f"  {label} thomas axis {ax}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"({lines} lines of {rFs.shape[ax]} per launch; {card})")
-    return err, ms, plain_ms
+          f"bound {bound[0]:.4f} ms ({lines} lines of {rFs.shape[ax]} per launch; {card})")
+    return err, ms, plain_ms, bound
 
 
 def _fused_case(kid, key, ctxg, di, v, acc0, card, label):
     """One fused RT0 direction (K1-K3): the kernel on the staged operands
     against the plain version on the NATURAL ones (a wrong staging base or
-    stride in the kernel shows up here).  Returns (max_abs_err, ms, plain_ms)."""
+    stride in the kernel shows up here).  Returns (max_abs_err, ms, plain_ms,
+    bound)."""
     import torch
 
     from neutfem_tpu_torch.ops import fused
@@ -157,9 +217,40 @@ def _fused_case(kid, key, ctxg, di, v, acc0, card, label):
     plain_ms = _timed(lambda: fused.fused_dir_plain(
         acc0, v, ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"], axis, bx0, bx1, si), 3)
     lines = v.numel() // v.shape[axis]
+    bound = _bound((v, acc0, got, ctxg[dm_key], ctxg[l_key]), FUSED_FLOPS_PER_CELL * v.numel())
     print(f"  {kid} fused {key} {label}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"({lines} lines of {v.shape[axis]} cells per launch; {card})")
-    return err, ms, plain_ms
+          f"bound {bound[0]:.4f} ms ({lines} lines of {v.shape[axis]} cells per launch; {card})")
+    return err, ms, plain_ms, bound
+
+
+def _batched_case(kid, key, ctx, di, v, acc0, card, label, reps=50):
+    """One group-batched fused RT0 direction (K5 for y and x, K1's batch for
+    z): the kernel on the per-group staged operands of the whole context
+    against the plain version on the natural ones.  Returns (max_abs_err, ms,
+    plain_ms, bound)."""
+    import torch
+
+    from neutfem_tpu_torch.ops import fused
+
+    wrapper, tag, axis = {"z": (fused.fused_schur_z_batched, "", -3),
+                          "y": (fused.fused_schur_y_batched, "yT_", -2),
+                          "x": (fused.fused_schur_x_batched, "xT_", -1)}[key]
+    d = f"d{di.d}"
+    dm, ll = ctx[f"tri_{tag}dinvm_{d}"], ctx[f"tri_{tag}l_{d}"]
+    nat = (ctx[f"tri_dinvm_{d}"].unsqueeze(1), ctx[f"tri_l_{d}"].unsqueeze(1))
+    bx0, bx1, si = float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0])
+    got = wrapper(acc0.clone(), v, dm, ll, bx0, bx1, si)
+    want = fused.fused_dir_plain(acc0, v, *nat, axis, bx0, bx1, si)
+    torch.cuda.synchronize()
+    err = _compare(f"{kid} {key} {label}", got, want, acc0)
+    scratch = acc0.clone()
+    ms = _timed(lambda: wrapper(scratch, v, dm, ll, bx0, bx1, si), reps)
+    plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, bx0, bx1, si), 3)
+    bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
+    print(f"  {kid} {key} {label} {tuple(v.shape)}: kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bound[0]:.4f} ms ({v.numel() // v.shape[axis]} lines of "
+          f"{v.shape[axis]} cells per launch; {card})")
+    return err, ms, plain_ms, bound
 
 
 def _ho_kernels(bench, order, card, rng):
@@ -202,12 +293,50 @@ def _ho_kernels(bench, order, card, rng):
         scratch = acc0.clone()
         ms = _timed(lambda: wrapper(scratch, v, *ops, tabs), 50)
         plain_ms = _timed(lambda: fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs), 3)
-        print(f"  K6 RT{order}-P{order} {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  ({card})")
-        rows[key] = {"name": f"K6 condensed Schur direction {key} (RT{order}-P{order})",
-                     "route": "cuda", "source": "neutfem_tpu_torch/csrc/fused_ho.cu",
-                     "replaces": HO_REPLACES[key], "key": f"ho_{key}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        # per (transverse mode, cell): the face rhs over K1 longitudinal modes
+        # (4 K1), the two sweeps (6), and per longitudinal mode the divergence
+        # (4), the bubble block row (2 K1) and the 1/alpha scaling (1)
+        k1 = order + 1
+        flops = (v.numel() // k1) * (4 * k1 + 6 + k1 * (5 + 2 * k1))
+        bound = _bound((v, acc0, got, *ops), flops)
+        print(f"  K6 RT{order}-P{order} {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"bound {bound[0]:.4f} ms ({card})")
+        rows[key] = _row(f"K6 condensed Schur direction {key} (RT{order}-P{order})",
+                         "neutfem_tpu_torch/csrc/fused_ho.cu", HO_REPLACES[key], f"ho_{key}",
+                         err, ms, plain_ms, bound)
     return rows
+
+
+def _small_solve(bench, spec, device, case):
+    """One IAEA-3D 1x1 float64 solve of ``case`` on ``device``: (k, outers,
+    inners), after checking the flux is finite and of the expected shape."""
+    import dataclasses
+
+    import torch
+
+    from neutfem_tpu_torch.power import power_iteration
+
+    order = 1 if case == "RT1-P1" else 0
+    r = bench.BenchmarkRun(spec, mesh_n=1, mesh_nz=1, device=device, dtype=torch.float64,
+                           rt_order=order)
+    s = r.solver
+    if case == "Jacobi sweep":
+        s.set_tol(*bench.SWEEP_TOL)
+        res = power_iteration(s._fes, s._ng, dataclasses.replace(s._opts(), sweep="jacobi"),
+                              s._ctx, s._flat_phi(), 1.0)
+        k, outers, inners = float(res["keff"]), res["outer_iterations"], res["inner_iterations"]
+        phi_out = res["phi"]
+    else:
+        k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
+        outers, inners, phi_out = s._last_outers, s._last_inners, s._phi
+        if case == "adjoint":
+            k = s.SolveAdjoint(use_direct_keff=False)
+            hist = s.get_iteration_history()
+            outers, inners, phi_out = len(hist), int(hist[:, 3].sum()), s._phi_adj
+    P = (order + 1) ** 3
+    if tuple(phi_out.shape) != (2, 19, 19, 19, P) or not bool(torch.isfinite(phi_out).all()):
+        raise RuntimeError(f"IAEA-3D 1x1 {case} on {device}: bad flux {tuple(phi_out.shape)}")
+    return k, outers, inners
 
 
 def main():
@@ -262,23 +391,64 @@ def main():
     for kid, key, d, replaces in (("K1", "z", 2, "neutfem_tpu/ops/pallas_fused.py:466"),
                                   ("K2", "y", 1, "neutfem_tpu/ops/pallas_fused.py:518"),
                                   ("K3", "x", 0, "neutfem_tpu/ops/pallas_fused.py:547")):
-        err, ms, plain_ms = _fused_case(kid, key, ctxg, dirs[d], v, acc0, card, "6x6x4")
-        rows[kid] = {"name": f"{kid} fused Schur direction {key}", "route": "cuda",
-                     "source": "neutfem_tpu_torch/csrc/fused_dir.cu", "replaces": replaces,
-                     "key": key, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        err, ms, plain_ms, bound = _fused_case(kid, key, ctxg, dirs[d], v, acc0, card, "6x6x4")
+        rows[kid] = _row(f"{kid} fused Schur direction {key}",
+                         "neutfem_tpu_torch/csrc/fused_dir.cu", replaces, key, err, ms, plain_ms,
+                         bound)
 
     # K4 at the three compute_current layouts: rhs (2, 1, faces...) per direction
     phi = torch.as_tensor(rng.standard_normal((2, *shape)), dtype=f32, device=dev)
-    k4_err, k4_ms, k4_plain = 0.0, 0.0, 0.0
+    k4_err, k4_ms, k4_plain, k4_bound = 0.0, 0.0, 0.0, (0.0, "bytes")
     for di in fes.dirs:
-        err, ms, plain_ms = _thomas_case(fes, ctx, di, phi, card, "K4")
+        err, ms, plain_ms, bound = _thomas_case(fes, ctx, di, phi, card, "K4")
         k4_err, k4_ms, k4_plain = max(k4_err, err), k4_ms + ms, k4_plain + plain_ms
-    rows["K4"] = {"name": "K4 batched Thomas solve (_solve_z/_solve_rows/_solve_transpose; "
-                          "times summed over the three compute_current layouts)",
-                  "route": "cuda", "source": "neutfem_tpu_torch/csrc/thomas.cu",
-                  "replaces": "neutfem_tpu/ops/pallas_tridiag.py:181", "key": "thomas",
-                  "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain}
-    del run, ctx, ctxg
+        k4_bound = (k4_bound[0] + bound[0], bound[1])
+    rows["K4"] = _row("K4 batched Thomas solve (_solve_z/_solve_rows/_solve_transpose; "
+                      "times and bounds summed over the three compute_current layouts)",
+                      "neutfem_tpu_torch/csrc/thomas.cu", "neutfem_tpu/ops/pallas_tridiag.py:181",
+                      "thomas", k4_err, k4_ms, k4_plain, k4_bound)
+
+    # K5 and K1's group batch: both groups' flux (2, 1, 76, 114, 114) at once,
+    # as the Jacobi sweep's CG hands it to schur_matvec
+    bshape = (2, 1, *fes.mesh.shape)
+    bv = torch.as_tensor(rng.standard_normal(bshape), dtype=f32, device=dev)
+    bacc0 = torch.as_tensor(rng.standard_normal(bshape), dtype=f32, device=dev)
+    for kid, key, d, replaces in (
+            ("K1 batched", "z", 2, "neutfem_tpu/ops/pallas_fused.py:466"),
+            ("K5", "y", 1, "neutfem_tpu/ops/pallas_fused.py:489"),
+            ("K5", "x", 0, "neutfem_tpu/ops/pallas_fused.py:704")):
+        err, ms, plain_ms, bound = _batched_case(kid, key, ctx, dirs[d], bv, bacc0, card,
+                                                 "6x6x4")
+        rows[f"{kid} {key}"] = _row(
+            f"{kid} fused Schur direction {key}, group-batched (_fused_{key} on (ng, 1, ...))",
+            "neutfem_tpu_torch/csrc/fused_dir.cu", replaces, f"{key}_batched", err, ms,
+            plain_ms, bound)
+    # a ragged case: 3 groups of a (5, 33, 70) grid, line counts no multiple of 128
+    from neutfem_tpu_torch.fespace import make_fespace
+    from neutfem_tpu_torch.mesh import CartesianMesh
+
+    rfes = make_fespace(CartesianMesh.from_breaks(*(np.linspace(0.0, n, n + 1)
+                                                    for n in (70, 33, 5))), 0, 0)
+    rctx = {}
+    for di in rfes.dirs:
+        dd = f"d{di.d}"
+        fsh = list(rfes.mesh.shape)
+        fsh[di.axis] += 1
+        dm = torch.as_tensor(rng.uniform(0.2, 0.6, (3, *fsh)), dtype=f32, device=dev)
+        ll = torch.as_tensor(rng.uniform(-0.3, 0.3, (3, *rfes.mesh.shape)), dtype=f32,
+                             device=dev)
+        rctx[f"tri_dinvm_{dd}"], rctx[f"tri_l_{dd}"] = dm, ll
+        rctx[f"tri_yT_dinvm_{dd}"] = dm.movedim(2, 1).contiguous()
+        rctx[f"tri_yT_l_{dd}"] = ll.movedim(2, 1).contiguous()
+        rctx[f"tri_xT_dinvm_{dd}"] = dm.reshape(3, -1, fsh[2]).transpose(1, 2).contiguous()
+        rctx[f"tri_xT_l_{dd}"] = ll.reshape(3, -1, rfes.mesh.nx).transpose(1, 2).contiguous()
+    rv = torch.as_tensor(rng.standard_normal((3, 1, *rfes.mesh.shape)), dtype=f32, device=dev)
+    racc = torch.as_tensor(rng.standard_normal(rv.shape), dtype=f32, device=dev)
+    for di in rfes.dirs:
+        key = "zyx"[di.axis]
+        _batched_case("K5" if key != "z" else "K1 batched", key, rctx, di, rv, racc, card,
+                      "ragged", reps=3)
+    del run, ctx, ctxg, rctx
     ho_rows = {}
     for order in (2, 1):  # RT2-P2 first: its rows are the K6 rows of the JSON line
         ho_rows[order] = _ho_kernels(bench, order, card, rng)
@@ -299,14 +469,13 @@ def main():
     print(f"[3] kernels vs plain, ZION 48x48 {zfes.mesh.shape} group 0, float32 ({card})")
     for kid, key, d, replaces in (("K2", "y", 1, "neutfem_tpu/ops/pallas_fused.py:518"),
                                   ("K3", "x", 0, "neutfem_tpu/ops/pallas_fused.py:547")):
-        err, ms, plain_ms = _fused_case(kid, key, zctxg, zdirs[d], zv, zacc0, card,
-                                        "ZION 48x48")
-        rows[f"{kid} 2D"] = {"name": f"{kid} fused Schur direction {key} (2D, ZION 48x48)",
-                             "route": "cuda", "source": "neutfem_tpu_torch/csrc/fused_dir.cu",
-                             "replaces": replaces, "key": key, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms}
+        err, ms, plain_ms, bound = _fused_case(kid, key, zctxg, zdirs[d], zv, zacc0, card,
+                                               "ZION 48x48")
+        rows[f"{kid} 2D"] = _row(f"{kid} fused Schur direction {key} (2D, ZION 48x48)",
+                                 "neutfem_tpu_torch/csrc/fused_dir.cu", replaces, key, err, ms,
+                                 plain_ms, bound)
     zphi = torch.as_tensor(rng.standard_normal((2, *zshape)), dtype=f32, device=dev)
-    err, ms, plain_ms = _thomas_case(zfes, zctx, zdirs[1], zphi, card, "K4′")
+    err, ms, plain_ms, bound = _thomas_case(zfes, zctx, zdirs[1], zphi, card, "K4′")
     # what the chunks buy: the thread-per-line K4 kernel at the same layout
     # (called directly, so no launch is counted)
     rFs = torch.as_tensor(rng.standard_normal((2, 1, 1, 913, 912)), dtype=f32, device=dev)
@@ -318,11 +487,10 @@ def main():
         rFs.data_ptr(), dd.data_ptr(), ll.data_ptr(), out.data_ptr(), 913, 2 * 912, 912,
         torch.cuda.current_stream().cuda_stream), "thomas"), 50)
     print(f"  K4 thread-per-line kernel at the K4′ layout: {k4_at_k4p:.4f} ms ({card})")
-    rows["K4′"] = {"name": "K4′ Thomas solve for few, long lines (_solve_y; compute_current's "
-                           "2D y layout)",
-                   "route": "cuda", "source": "neutfem_tpu_torch/csrc/thomas.cu",
-                   "replaces": "neutfem_tpu/ops/pallas_tridiag.py:197", "key": "thomas_y",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    rows["K4′"] = _row("K4′ Thomas solve for few, long lines (_solve_y; compute_current's "
+                       "2D y layout)", "neutfem_tpu_torch/csrc/thomas.cu",
+                       "neutfem_tpu/ops/pallas_tridiag.py:197", "thomas_y", err, ms, plain_ms,
+                       bound)
     minv = zctxg["tg"]["schur_minv"]
     rc = torch.as_tensor(rng.standard_normal(minv.shape[0]), dtype=f32, device=dev)
     coarse_ms = _timed(lambda: minv @ rc.to(minv.dtype), 50)
@@ -333,25 +501,15 @@ def main():
 
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
     t0 = time.perf_counter()
-    for order in (0, 1):
+    for case in ("RT0-P0", "RT1-P1", "Jacobi sweep", "adjoint"):
         small = {}
         for device in ("cpu", "cuda"):
-            r = bench.BenchmarkRun(spec, mesh_n=1, mesh_nz=1, device=device,
-                                   dtype=torch.float64, rt_order=order)
-            k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
-            phi_out = r.solver._phi
-            P = (order + 1) ** 3
-            if (tuple(phi_out.shape) != (2, 19, 19, 19, P)
-                    or not bool(torch.isfinite(phi_out).all())):
-                raise RuntimeError(f"IAEA-3D 1x1 RT{order} on {device}: bad flux "
-                                   f"{tuple(phi_out.shape)}")
-            small[device] = (k, r.solver._last_outers, r.solver._last_inners)
-        print(f"[4] IAEA-3D 1x1 RT{order}-P{order} float64: cuda {small['cuda']}  "
-              f"cpu {small['cpu']}")
+            small[device] = _small_solve(bench, spec, device, case)
+        print(f"[4] IAEA-3D 1x1 {case} float64: cuda {small['cuda']}  cpu {small['cpu']}")
         if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
                 or small["cuda"][1] != small["cpu"][1]
                 or abs(small["cuda"][2] - small["cpu"][2]) > 2):
-            raise RuntimeError(f"IAEA-3D 1x1 RT{order}: the GPU solve disagrees with the "
+            raise RuntimeError(f"IAEA-3D 1x1 {case}: the GPU solve disagrees with the "
                                "CPU reference")
     print(f"    [4] {time.perf_counter() - t0:.1f} s")
 
@@ -368,6 +526,7 @@ def main():
           f"inners {inners} ({INNERS_ANCHOR}); {res['value'] * 1e3:.3f} ms/outer ({card})")
     _check_anchor("RT0-P0 6x6x4", keff, outers, inners,
                   (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
+    keff_main = keff
     for rid in ("K1", "K2", "K3", "K4"):
         row = rows[rid]
         row["launches"] = launches[row.pop("key")]
@@ -448,6 +607,115 @@ def main():
         raise RuntimeError(f"IAEA-3D 8x8x8: {launches['thomas']} z Thomas launches for "
                            f"{inners} CG iterations")
     print(f"    [8] {time.perf_counter() - t0:.1f} s")
+
+    # [9] the Jacobi path: the Gauss-Seidel solve at the same tolerances first
+    # (its own, uncounted run), then the Jacobi sweep with its counts
+    t0 = time.perf_counter()
+    run = bench.BenchmarkRun(spec, mesh_n=6, mesh_nz=4, device=dev, dtype=f32)
+    print("[9] Jacobi path: neutfem_tpu_torch.bench.main_sweep('jacobi') (IAEA-3D 6x6x4), "
+          "float32")
+    gs = bench.main_sweep("gs", run=run)["detail"]
+    reset_counts()
+    res = bench.main_sweep("jacobi", run=run)
+    launches = counts()
+    print(f"    launches {launches}")
+    det = res["detail"]
+    print(f"    keff {det['keff']} (Gauss-Seidel at the same tolerances {gs['keff']}, "
+          f"{gs['outer_iterations']} / {gs['inner_iterations']}; phase [5] {keff_main}), "
+          f"outers {det['outer_iterations']}, inners {det['inner_iterations']}; "
+          f"{res['value'] * 1e3:.3f} ms/outer, "
+          f"{det['solve_wall_s'] * 1e3 / max(det['inner_iterations'], 1):.3f} ms/inner ({card})")
+    if not det["converged_not_capped"]:
+        raise RuntimeError("Jacobi sweep: the solve hit max_outer")
+    for what, k_ref in (("the Gauss-Seidel solve at the same tolerances", gs["keff"]),
+                        ("phase [5]", keff_main)):
+        if not abs(det["keff"] - k_ref) <= SWEEP_KEFF_TOL:
+            raise RuntimeError(f"Jacobi sweep: keff {det['keff']} is not within "
+                               f"{SWEEP_KEFF_TOL} of {what} ({k_ref})")
+    for key in ("z_batched", "y_batched", "x_batched"):
+        if launches[key] <= 0:
+            raise RuntimeError(f"Jacobi sweep: {key} not launched on the path")
+    for key in ("z", "y", "x"):
+        if launches[key] != 0:
+            raise RuntimeError(f"Jacobi sweep: the one-group kernel {key} launched "
+                               f"{launches[key]} times")
+    for rid in ("K1 batched z", "K5 y", "K5 x"):
+        rows[rid]["launches"] = launches[rows[rid].pop("key")]
+    print(f"    [9] {time.perf_counter() - t0:.1f} s")
+
+    # [10] the adjoint path
+    t0 = time.perf_counter()
+    reset_counts()
+    print("[10] adjoint path: neutfem_tpu_torch.bench.main_adjoint() (IAEA-3D 6x6x4), float32")
+    res = bench.main_adjoint()
+    launches = counts()
+    print(f"    launches {launches}")
+    det = res["detail"]
+    print(f"    keff_adjoint {det['keff_adjoint']}, keff_direct {det['keff_direct']} (anchors "
+          f"{ADJOINT_ANCHOR}), outers {det['outer_iterations']}, inners "
+          f"{det['inner_iterations']}, adjoint_vs_direct_pcm {det['adjoint_vs_direct_pcm']}; "
+          f"{res['value'] * 1e3:.3f} ms/outer ({card})")
+    ka, kd, oa = ADJOINT_ANCHOR
+    if not (abs(det["keff_adjoint"] - ka) <= ADJ_KEFF_TOL
+            and abs(det["keff_direct"] - kd) <= ADJ_KEFF_TOL):
+        raise RuntimeError("adjoint: keff not within the anchors' tolerance")
+    if not abs(det["outer_iterations"] - oa) <= OUTERS_TOL:
+        raise RuntimeError(f"adjoint: {det['outer_iterations']} outers, expected {oa} +- "
+                           f"{OUTERS_TOL}")
+    for key in ("z", "y", "x", "thomas"):
+        if launches[key] <= 0:
+            raise RuntimeError(f"adjoint: {key} not launched on the path")
+    print(f"    [10] {time.perf_counter() - t0:.1f} s")
+
+    # [11] the facade's variants: one timed solve each from a cold flux, at
+    # bench.SWEEP_TOL.  At FULL_TOL the CG's 1e-4 inner tolerance moves k by
+    # up to ~4e-5 against an exact group solve, and each variant stops on its
+    # own side of the fixed point (float32 on a CPU: CMFD -2.4e-5 and coarse
+    # init -2.9e-5 from Chebyshev at IAEA-3D 2x2x2, DIRECT_LLT +2.0e-5 from CG
+    # at IAEA-2D 3x3); at SWEEP_TOL -1.2e-7, +2.9e-6 and +1.4e-6
+    t0 = time.perf_counter()
+    s = run.solver
+    s.set_tol(*bench.SWEEP_TOL)
+    print("[11] facade variants, IAEA-3D 6x6x4 float32")
+
+    def timed_solve(**kw):
+        s.reset_flux()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        k = s.SolveKeff(**kw)
+        return k, s._last_outers, s._last_inners, time.perf_counter() - t1
+
+    k_cheby, o, i, w = timed_solve()
+    print(f"    Chebyshev: keff {k_cheby:.7f}, {o} / {i}, {w * 1e3 / o:.3f} ms/outer ({card})")
+    k, o, i, w = timed_solve(use_cmfd=True)
+    capped = " (stopped at max_outer)" if o >= bench.SWEEP_TOL[3] else ""
+    print(f"    CMFD: keff {k:.7f} (dk {k - k_cheby:+.2e}), {o} / {i}{capped}, "
+          f"{w * 1e3 / o:.3f} ms/outer ({card})")
+    if not abs(k - k_cheby) <= VARIANT_KEFF_TOL:
+        raise RuntimeError(f"CMFD: keff {k} not within {VARIANT_KEFF_TOL} of {k_cheby}")
+    k_coarse, _ = s.SolveCoarse((3, 3, 4))
+    k, o, i, w = timed_solve(use_coarse_init=True, coarse_factors=(3, 3, 4))
+    print(f"    coarse init (3, 3, 4): coarse keff {k_coarse:.7f}; keff {k:.7f} "
+          f"(dk {k - k_cheby:+.2e}), {o} / {i}, {w * 1e3 / o:.3f} ms/outer ({card})")
+    if not abs(k - k_cheby) <= VARIANT_KEFF_TOL:
+        raise RuntimeError(f"coarse init: keff {k} not within {VARIANT_KEFF_TOL} of {k_cheby}")
+    del run, s
+    d2 = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea2d"], mesh_n=3,
+                            device=dev, dtype=f32)
+    s = d2.solver
+    s.set_tol(*bench.SWEEP_TOL)
+    k_cg = s.SolveKeff()
+    s.reset_flux()
+    s.set_linear_solver(bench.LinearSolverType.DIRECT_LLT)
+    t1 = time.perf_counter()
+    k_direct = s.SolveKeff()
+    w = time.perf_counter() - t1
+    print(f"    DIRECT_LLT IAEA-2D 3x3 ({s._fes.n_phi} flux DOFs): keff {k_direct:.7f}, CG "
+          f"{k_cg:.7f} (dk {k_direct - k_cg:+.2e}), {s._last_outers} outers, "
+          f"{w * 1e3 / max(s._last_outers, 1):.3f} ms/outer ({card})")
+    if "schur_chol" not in s._ctx or not abs(k_direct - k_cg) <= DIRECT_KEFF_TOL:
+        raise RuntimeError("DIRECT_LLT: no dense factors, or keff off its CG k")
+    print(f"    [11] {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

@@ -12,20 +12,27 @@ Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
   cells) and ZION 48x48 (912^2 cells), with the two-grid coarse level the
   facade attaches by default there;
 * ``main_scale``: IAEA-3D 8x8x8 (3,511,808 cells), where "auto" picks the line
-  preconditioner.
+  preconditioner;
+* ``main_adjoint``: ``bench.py --full``'s IAEA-3D 6x6x4 free-running adjoint
+  row: one direct solve, one adjoint solve, then one timed adjoint solve from
+  a cold adjoint flux;
+* ``main_sweep``: one IAEA-3D 6x6x4 power iteration with the Gauss-Seidel or
+  the Jacobi group sweep (every group in one batched CG, no Chebyshev) at
+  ``SWEEP_TOL``, through ``power.power_iteration``.
 
-The last three run as ``bench.py --full`` does: one solve, ``reset_flux``,
-then one timed solve from a cold flux.  The benchmark data come from
-``benchmarks/data.py``, loaded by file path (it imports only numpy), so
-nothing of the JAX package is loaded.
+``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
+one solve, ``reset_flux``, then one timed solve from a cold flux.  The
+benchmark data come from ``benchmarks/data.py``, loaded by file path (it
+imports only numpy), so nothing of the JAX package is loaded.
 
 Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
---core {koeberg2d,zion2d} | --scale]``.
+--core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi}]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -37,8 +44,10 @@ import torch
 
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
 from .mesh import boundary_attribute
+from .power import power_iteration
 
-__all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale"]
+__all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale",
+           "main_adjoint", "main_sweep"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
@@ -370,6 +379,91 @@ def main_scale(device="cuda", dtype=torch.float32) -> dict:
     return out
 
 
+def main_adjoint(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) -> dict:
+    """``bench.py --full``'s IAEA-3D free-running adjoint row: a direct solve,
+    one adjoint solve, then one timed adjoint solve from a cold adjoint flux
+    (free-running, so it also checks k-adjoint against k-direct); prints one
+    JSON line with the JAX row's metric name and detail keys, plus the device
+    and the dtype, and returns it."""
+    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench.main_adjoint: no CUDA device available")
+    run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, verbose=False, device=device,
+                       dtype=dtype)
+    k_direct = run.solve(tol=FULL_TOL)
+    s = run.solver
+    s.SolveAdjoint(use_direct_keff=False)
+    s._phi_adj = None  # cold adjoint flux
+    t0 = time.time()
+    k_adj = s.SolveAdjoint(use_direct_keff=False)  # ends in device -> host reads
+    wall = time.time() - t0
+    hist = s.get_iteration_history()
+    outers = len(hist)
+    out = {
+        "metric": "iaea3d_adjoint_seconds_per_outer_iteration",
+        "value": round(wall / max(outers, 1), 6), "unit": "s/outer",
+        "detail": {
+            "keff_adjoint": round(k_adj, 7), "keff_direct": round(k_direct, 7),
+            "adjoint_vs_direct_pcm": round(1e5 * abs(1.0 / k_direct - 1.0 / k_adj), 3),
+            "n_cells": s.GetNumElements(),
+            "outer_iterations": outers,
+            "inner_iterations": int(np.sum(hist[:, 3])),
+            "solve_wall_s": round(wall, 3), "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}",
+            "device": _device_name(s._device), "dtype": str(s._dtype),
+        },
+    }
+    print(json.dumps(out))
+    return out
+
+
+#: Tolerances of ``main_sweep`` (k, flux, L2, outers, inners): the Jacobi sweep
+#: runs without Chebyshev, and at ``FULL_TOL``'s 1e-5 / 1e-4 its slow
+#: convergence stops it ~1.7e-4 short of the fixed point (IAEA-3D 1x1,
+#: float64, on a CPU); at 1e-6 / 1e-5 it lands within 1e-5 of the Gauss-Seidel
+#: k at the same tolerances.  600 outers: ``benchmarks/accel_compare.py``'s cap.
+SWEEP_TOL = (1e-6, 1e-5, 1e-5, 600, 1000)
+
+
+def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device="cuda",
+               dtype=torch.float32, run: Optional[BenchmarkRun] = None) -> dict:
+    """One IAEA-3D power iteration at ``SWEEP_TOL`` with the ``sweep`` group
+    sweep ("gs": Gauss-Seidel with Chebyshev, "jacobi": every group in one
+    batched CG), from a flat flux, through ``power.power_iteration`` with the
+    facade's other settings; prints one JSON line and returns it.  ``run``
+    reuses a built benchmark."""
+    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench.main_sweep: no CUDA device available")
+    if run is None:
+        run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, verbose=False, device=device,
+                           dtype=dtype)
+    s = run.solver
+    s.set_tol(*SWEEP_TOL)
+    opts = dataclasses.replace(s._opts(), sweep=sweep)
+    if s._device.type == "cuda":
+        torch.cuda.synchronize(s._device)
+    t0 = time.time()
+    res = power_iteration(s._fes, s._ng, opts, s._ctx, s._flat_phi(), 1.0)
+    keff = float(res["keff"])  # a device -> host read
+    wall = time.time() - t0
+    outers = res["outer_iterations"]
+    out = {
+        "metric": f"iaea3d_{sweep}_sweep_seconds_per_outer_iteration",
+        "value": round(wall / max(outers, 1), 6), "unit": "s/outer",
+        "detail": {
+            "keff": round(keff, 7), "n_cells": s.GetNumElements(),
+            "outer_iterations": outers, "inner_iterations": res["inner_iterations"],
+            "converged_not_capped": bool(outers < SWEEP_TOL[3]),
+            "solve_wall_s": round(wall, 3), "mesh": f"{run.mesh_n}x{run.mesh_n}x{run.mesh_nz}",
+            "device": _device_name(s._device), "dtype": str(s._dtype),
+        },
+    }
+    print(json.dumps(out))
+    return out
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="k-eff benchmarks on the GPU (float32)")
     ap.add_argument("mesh_n", nargs="?", type=int, default=None,
@@ -384,9 +478,17 @@ if __name__ == "__main__":
                       help="a fine 2D core row (main_2d)")
     mode.add_argument("--scale", action="store_true",
                       help="the IAEA-3D 8x8x8 (3.5M-cell) row (main_scale)")
+    mode.add_argument("--adjoint", action="store_true",
+                      help="the IAEA-3D free-running adjoint row (main_adjoint)")
+    mode.add_argument("--sweep", choices=("gs", "jacobi"), default=None,
+                      help="one IAEA-3D solve with this group sweep (main_sweep)")
     a = ap.parse_args()
     if a.scale:
         main_scale()
+    elif a.adjoint:
+        main_adjoint(a.mesh_n or 6, a.mesh_nz or 4)
+    elif a.sweep is not None:
+        main_sweep(a.sweep, a.mesh_n or 6, a.mesh_nz or 4)
     elif a.core is not None:
         main_2d(a.core, a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core])
     elif a.order == 0:

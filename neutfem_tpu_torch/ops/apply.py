@@ -9,11 +9,13 @@ Port of ``neutfem_tpu/ops/apply.py`` (no PERIODIC direction, single device):
   bubble DOFs onto the face-tridiagonal system (``tridiag_solve``), then the
   bubble back-substitution,
 * ``schur_matvec``: S v = C v + sum_d B_d A_d^{-1} B_d^T v.  RT0-P0 goes through
-  the fused direction kernels (``ops/fused.py``, K1-K3); k >= 1 through the
-  condensed form (``DirectionInfo.BXc`` / ``Qbub``), on 3D meshes with m == k
-  as one fused kernel per direction (``ops/fused_ho.py``, K6), otherwise as
-  the unfused condensed chain, as the JAX package does for those
-  configurations.  ``fused=False`` runs the unfused chains (a cross-check).
+  the fused direction kernels (``ops/fused.py``: K1-K3 on one group, the
+  group-batched kernel (K5) on every group at once); k >= 1 through the
+  condensed form (``DirectionInfo.BXc`` / ``Qbub``), on one group of a 3D mesh
+  with m == k as one fused kernel per direction (``ops/fused_ho.py``, K6),
+  otherwise (2D, m < k, or group-batched) as the unfused condensed chain, as
+  the JAX package does for those configurations.  ``fused=False`` runs the
+  unfused chains (a cross-check).
 
 Axis convention (INTERNAL, mode-axis-first, as the JAX package):
 
@@ -33,7 +35,14 @@ from typing import Dict
 import torch
 
 from ..fespace import DirectionInfo, FESpace
-from .fused import fused_schur_x_pre, fused_schur_y_pre, fused_schur_z
+from .fused import (
+    fused_schur_x_batched,
+    fused_schur_x_pre,
+    fused_schur_y_batched,
+    fused_schur_y_pre,
+    fused_schur_z,
+    fused_schur_z_batched,
+)
 from .fused_ho import fused_ho_x, fused_ho_y, fused_ho_z, ho_tables
 from .tridiag import tridiag_solve
 
@@ -177,17 +186,23 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
     """S v = C v + sum_d B_d A_d^{-1} B_d^T v   (matrix-free Schur complement).
 
     ``fused=True`` (the solver's path) runs one fused direction kernel per
-    direction on one group's flux (``v`` and ``ctx`` group-sliced) where the
-    configuration has one (RT0-P0: K1-K3; 3D RT_k-P_k: K6); each kernel
-    updates the accumulator in place.  ``fused=False`` runs the unfused
-    chains, and also takes all groups at once."""
+    direction where the configuration has one: on one group's flux (``v`` and
+    ``ctx`` group-sliced) RT0-P0 runs K1-K3 and 3D RT_k-P_k K6; on every
+    group at once (``ctx`` not sliced, ``v`` (ng, P, nz, ny, nx): the Jacobi
+    group sweep) RT0-P0 runs the group-batched kernel and k >= 1 the unfused
+    condensed chain, where the JAX package's K6 wrapper declines too.  Each
+    kernel updates the accumulator in place.  ``fused=False`` runs the
+    unfused chains, and also takes all groups at once."""
     if a_mode != "exact":
         raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
     out = ctx["C"] * v
     condensed = fes.et.nbub > 0
+    batched = ctx["C"].ndim == 5  # (ng, P, nz, ny, nx): the context is not group-sliced
     # the JAX package's static rule for K6: a 3D mesh and m == k (the flux
-    # modes factor as K1^3); other k >= 1 configurations run the unfused chain
-    ho_kernel = fused and condensed and fes.mesh.dim == 3 and fes.m == fes.k
+    # modes factor as K1^3), one group; other k >= 1 configurations run the
+    # unfused chain
+    ho_kernel = (fused and condensed and not batched and fes.mesh.dim == 3
+                 and fes.m == fes.k)
     for di in fes.dirs:
         key = f"d{di.d}"
         if condensed:
@@ -219,15 +234,15 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
             bx0 = float(di.BX[0, 0, 0])
             bx1 = float(di.BX[1, 0, 0])
             si = 1.0 / float(di.m_t[0])
+            x_fn, y_fn, z_fn = ((fused_schur_x_batched, fused_schur_y_batched,
+                                 fused_schur_z_batched) if batched else
+                                (fused_schur_x_pre, fused_schur_y_pre, fused_schur_z))
             if di.axis == 2:
-                fused_schur_x_pre(out, v, ctx[f"tri_xT_dinvm_{key}"],
-                                  ctx[f"tri_xT_l_{key}"], bx0, bx1, si)
+                x_fn(out, v, ctx[f"tri_xT_dinvm_{key}"], ctx[f"tri_xT_l_{key}"], bx0, bx1, si)
             elif di.axis == 1:
-                fused_schur_y_pre(out, v, ctx[f"tri_yT_dinvm_{key}"],
-                                  ctx[f"tri_yT_l_{key}"], bx0, bx1, si)
+                y_fn(out, v, ctx[f"tri_yT_dinvm_{key}"], ctx[f"tri_yT_l_{key}"], bx0, bx1, si)
             else:
-                fused_schur_z(out, v, ctx[f"tri_dinvm_{key}"], ctx[f"tri_l_{key}"],
-                              bx0, bx1, si)
+                z_fn(out, v, ctx[f"tri_dinvm_{key}"], ctx[f"tri_l_{key}"], bx0, bx1, si)
             continue
         rF, _ = apply_BT_dir(fes, di, v)
         F, _ = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],

@@ -27,7 +27,13 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
   max|E| < 440, else ``precond_blk_inv`` in ``bfloat16`` (the JAX package's
   default storage rule)
 * ``detJ``, ``w_mode`` (P,) and ``w_mode_col`` (P, 1, 1, 1), ``nsf``, ``chi``,
-  ``sigs``, ``src``: the power iteration's fission / scattering weights.
+  ``sigs``, ``src``: the power iteration's fission / scattering weights;
+* the CMFD coupling data (``cmfd.py``, NeutFEM.cpp:714-809): ``dtilde_d{d}``
+  (ng, face_shape), interior ``2 D_L D_R / (D_L h_R + D_R h_L)`` and boundary
+  ``2D/h``; ``area_d{d}`` (nz, ny, nx) the physical face area per cell;
+  ``jscale_d{d}`` (face_shape) the physical current per unit face DOF,
+  jac_d / detJ; ``sigr`` (ng, nz, ny, nx) the raw removal cross section and
+  ``vol`` (nz, ny, nx) the cell volumes.
 """
 
 from __future__ import annotations
@@ -239,6 +245,22 @@ def build_context(
         dinv = np.moveaxis(dinv_l, -1, fax)
         l = np.moveaxis(ll, -1, fax)
 
+        # CMFD coupling data: Dtilde per face, the face area, the Piola scale
+        h_d = mesh.h_grid(d)
+        dtilde = np.zeros(fshape)
+        dtilde[_axslice(4, fax, slice(1, n_faces - 1))] = (
+            2.0 * D[_axslice(4, fax, slice(0, -1))] * D[_axslice(4, fax, slice(1, None))]
+            / (D[_axslice(4, fax, slice(0, -1))] * h_d[_axslice(3, ax, slice(1, None))]
+               + D[_axslice(4, fax, slice(1, None))] * h_d[_axslice(3, ax, slice(0, -1))]))
+        dtilde[_axslice(4, fax, 0)] = 2.0 * D[_axslice(4, fax, 0)] / h_d[_axslice(3, ax, 0)]
+        dtilde[_axslice(4, fax, n_faces - 1)] = (2.0 * D[_axslice(4, fax, -1)]
+                                                 / h_d[_axslice(3, ax, -1)])
+        ctx_np[f"dtilde_{key}"] = dtilde
+        ctx_np[f"area_{key}"] = fa
+        js_cell = jacs[d] / detJ
+        ctx_np[f"jscale_{key}"] = np.concatenate(
+            [js_cell, js_cell[_axslice(3, ax, slice(-1, None))]], axis=ax)
+
         ctx_np[f"alpha_{key}"] = alpha
         ctx_np[f"tri_dinv_{key}"] = dinv
         ctx_np[f"tri_l_{key}"] = l
@@ -326,6 +348,8 @@ def build_context(
     ctx_np["chi"] = np.asarray(xs["Chi"], dtype=np.float64)
     ctx_np["sigs"] = np.asarray(xs["SigS"], dtype=np.float64)
     ctx_np["src"] = np.asarray(xs["SRC"], dtype=np.float64)
+    ctx_np["sigr"] = SigR
+    ctx_np["vol"] = mesh.volumes()
     out = ctx_from_numpy(ctx_np, device, dtype)
     if blk_inv is not None:
         out.update(_store_block_precond(blk_inv, fes.P, device, dtype))

@@ -38,6 +38,12 @@ _SIGNATURES = {
     # acc, v, dm, l, zs, n, lines, inner, outer_stride, cell_stride, bx0, bx1, si, stream
     "neutfem_fused_dir_f32": [_P] * 5 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_double] * 3 + [_P],
     "neutfem_fused_dir_f64": [_P] * 5 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_double] * 3 + [_P],
+    # acc, v, dm, l, zs, n, lines, groups, inner, outer_stride, cell_stride,
+    # group_stride, bx0, bx1, si, stream
+    "neutfem_fused_dir_batched_f32": ([_P] * 5 + [ctypes.c_int] + [_I64] * 6
+                                      + [ctypes.c_double] * 3 + [_P]),
+    "neutfem_fused_dir_batched_f64": ([_P] * 5 + [ctypes.c_int] + [_I64] * 6
+                                      + [ctypes.c_double] * 3 + [_P]),
     # r, d, l, out, n, lines, inner, stream
     "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],

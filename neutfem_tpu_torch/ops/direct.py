@@ -1,12 +1,24 @@
-"""Explicit (dense) Schur complement of one group (port of ``neutfem_tpu/ops/direct.py``).
+"""Explicit (dense) Schur complement and direct solve (port of ``neutfem_tpu/ops/direct.py``).
 
-``dense_schur_group`` materializes S = C + sum_d B_d A_d^{-1} B_d^T column by
-column by applying the matrix-free ``schur_matvec`` to identity columns.  The
-JAX package vmaps the matvec over the identity; here the columns are a leading
-batch dimension of the unfused matvec, taken a chunk at a time so memory stays
-bounded.  The two-grid preconditioner uses it at build time on the coarse
-level.  The direct solver of the reference's explicit-Schur path
-(``attach_dense_schur``, ``direct_solve``) is not ported.
+The analogue of the reference's explicit-Schur path (solvers.cpp:259-427),
+``SchurSolver::SetMatrices`` forming S = C + B A^{-1} B^T column by column for a
+direct solver:
+
+* ``dense_schur_group`` materializes S of one group by applying the matrix-free
+  ``schur_matvec`` to identity columns.  The JAX package vmaps the matvec over
+  the identity; here the columns are a leading batch dimension of the unfused
+  matvec, taken a chunk at a time so memory stays bounded.  The two-grid
+  preconditioner uses it at build time on the coarse level;
+* ``attach_dense_schur`` factors the symmetrically Jacobi-equilibrated
+  D^-1/2 S D^-1/2 (unit diagonal: float32-safe with the 1e15 void absorbers)
+  by Cholesky, per group, and stores the factors on the context;
+* ``direct_solve`` is then two triangular solves per group solve.
+
+The factorization and the triangular solves are library calls
+(``torch.linalg.cholesky``, ``torch.linalg.solve_triangular``), as the JAX
+package leaves them to ``jnp.linalg``.  Dense S is O(n_phi^2) memory, so the
+facade gates this path to n_phi <= ``NEUTFEM_DIRECT_MAX_NPHI`` (default
+``DIRECT_MAX_NPHI``).
 """
 
 from __future__ import annotations
@@ -17,7 +29,11 @@ import torch
 
 from .apply import schur_matvec
 
-__all__ = ["dense_schur_group"]
+__all__ = ["dense_schur_group", "attach_dense_schur", "direct_solve", "DIRECT_MAX_NPHI"]
+
+#: Default gate of the dense path (override: NEUTFEM_DIRECT_MAX_NPHI); 4096^2
+#: float32 = 64 MB per group.
+DIRECT_MAX_NPHI = 4096
 
 #: Identity columns per batched matvec (bounds the intermediates at
 #: chunk x n_phi values each).
@@ -39,3 +55,38 @@ def dense_schur_group(fes, ctxg: Dict, a_mode: str = "exact"):
         S[j0:j0 + m] = schur_matvec(fes, ctxg, cols.reshape(m, *shape), a_mode=a_mode,
                                     fused=False).reshape(m, n)
     return 0.5 * (S + S.T)
+
+
+def _equilibrated_cholesky(S):
+    """Cholesky factor of D^-1/2 S D^-1/2 and D^-1/2 (D = diag(S))."""
+    d = torch.diagonal(S)
+    sdi = 1.0 / torch.sqrt(torch.where(d <= 0, 1.0, d))
+    return torch.linalg.cholesky(S * sdi[:, None] * sdi[None, :]), sdi
+
+
+def attach_dense_schur(fes, ctx: Dict, a_mode: str = "exact") -> None:
+    """Build the per-group dense Schur factors and store them in ``ctx``
+    (idempotent): ``schur_chol`` (ng, n, n) and ``schur_sdi`` (ng, n) — the
+    ``schur_`` prefix is group-sliced by ``power.ctx_group``."""
+    if "schur_chol" in ctx:
+        return
+    from ..power import ctx_group
+
+    Ls, sdis = [], []
+    for g in range(ctx["C"].shape[0]):
+        L, sdi = _equilibrated_cholesky(dense_schur_group(fes, ctx_group(ctx, g), a_mode))
+        Ls.append(L)
+        sdis.append(sdi)
+    ctx["schur_chol"] = torch.stack(Ls)
+    ctx["schur_sdi"] = torch.stack(sdis)
+
+
+def direct_solve(ctxg: Dict, rhs):
+    """x = S^-1 rhs from the equilibrated Cholesky factors: solve
+    S_hat y = D^-1/2 rhs, then x = D^-1/2 y.  One group (L (n, n)) or the
+    Jacobi sweep's batch (L (ng, n, n), rhs with a leading group axis)."""
+    L, sdi = ctxg["schur_chol"], ctxg["schur_sdi"]
+    b = (rhs.reshape(*L.shape[:-2], -1) * sdi).unsqueeze(-1)
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    y = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True).squeeze(-1)
+    return (y * sdi).reshape(rhs.shape)

@@ -1,7 +1,9 @@
-"""Fused RT0 Schur directions: acc += B_d A_d^{-1} B_d^T v in one pass — K1, K2, K3.
+"""Fused RT0 Schur directions: acc += B_d A_d^{-1} B_d^T v in one pass — K1, K2, K3, K5.
 
 Port of ``neutfem_tpu/ops/pallas_fused.py`` (``fused_schur_dir`` on axis -3,
-``fused_schur_y_pre``, ``fused_schur_x_pre``).  Per line along direction d
+``fused_schur_y_pre``, ``fused_schur_x_pre``, and ``fused_schur_dir`` on a
+group-batched flux, which launches ``_fused_y`` / ``_fused_x`` (K5) and
+``_fused_z`` with its batch B = ng).  Per line along direction d
 (f = face 0..n, e = cell 0..n-1; bx0/bx1 the two scalar divergence-pairing
 entries, si = 1/m_t):
 
@@ -17,26 +19,36 @@ CUDA tensor the kernel does not take raises; there is no decline path.
 Like the TPU kernels, which alias the accumulator input to the output, the
 wrappers UPDATE ``acc`` IN PLACE and return it.
 
-Operands (v and acc single-group, every leading dim of size 1):
+Operands of the one-group wrappers (v and acc single-group, every leading dim
+of size 1):
 
 * z: dm (nz+1, ny, nx), l (nz, ny, nx) — the natural face layout;
 * y: dmT (ny+1, nz, nx), lT (ny, nz, nx) — staged solve-axis-major;
 * x: dmT (nx+1, nz*ny), lT (nx, nz*ny) — staged transposed.
 
-In all three, the face entry f of line b sits at ``b + f*lines``.
+In all three, the face entry f of line b sits at ``b + f*lines``.  The
+``*_batched`` wrappers take a group-batched flux (ng, 1, nz, ny, nx), as the
+Jacobi group sweep hands ``schur_matvec`` every group at once, and the
+per-group stacks of the same operands, (ng, ...) in front; one launch covers
+every group's lines.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from . import cuda_lib
 
 __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
+           "fused_schur_z_batched", "fused_schur_y_batched", "fused_schur_x_batched",
            "fused_dir_plain", "LAUNCHES", "reset_launches"]
 
-#: Kernel launches per direction (incremented where the kernel is launched).
-LAUNCHES = {"z": 0, "y": 0, "x": 0}
+#: Kernel launches per direction (incremented where the kernel is launched):
+#: "z", "y", "x" the one-group kernels K1-K3, "*_batched" the group-batched
+#: kernel (K5 for y and x, K1's batch for z).
+LAUNCHES = {"z": 0, "y": 0, "x": 0, "z_batched": 0, "y_batched": 0, "x_batched": 0}
 
 
 def reset_launches() -> None:
@@ -69,13 +81,23 @@ def fused_dir_plain(acc, v, dm, l, axis: int, bx0: float, bx1: float, si: float)
     return acc + contrib.movedim(0, axis)
 
 
-def _check(acc, v, dm, l, dm_shape, l_shape, what):
+def _check(acc, v, dm, l, dm_shape, l_shape, what, groups=None):
+    """Raise on what the kernels do not take.  ``groups`` None: one group's
+    flux (every leading dim 1); else a (groups, 1, ..., nz, ny, nx) flux
+    whose operands carry the same group count in front."""
     if v.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{what}: unsupported dtype {v.dtype}")
-    if v.ndim < 3 or any(s != 1 for s in v.shape[:-3]):
+    lead = tuple(v.shape[:-3])
+    if groups is None:
+        if v.ndim < 3 or any(s != 1 for s in lead):
+            raise NotImplementedError(
+                f"{what}: v must be one group's (..., nz, ny, nx) grid with unit leading dims, "
+                f"got {tuple(v.shape)}")
+    elif len(lead) < 1 or any(s != 1 for s in lead[1:]):
         raise NotImplementedError(
-            f"{what}: v must be one group's (..., nz, ny, nx) grid with unit leading dims, "
-            f"got {tuple(v.shape)}")
+            f"{what}: v must be a group-batched (ng, 1, nz, ny, nx) grid, got {tuple(v.shape)}")
+    elif lead[0] != groups:
+        raise ValueError(f"{what}: v has {lead[0]} groups, its operands {groups}")
     for name, t, shape in (("acc", acc, v.shape), ("dm", dm, dm_shape), ("l", l, l_shape)):
         if t.device != v.device or t.dtype != v.dtype:
             raise TypeError(f"{what}: {name} must be {v.dtype} on {v.device}")
@@ -86,60 +108,108 @@ def _check(acc, v, dm, l, dm_shape, l_shape, what):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _launch(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, key):
+def _launch(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, key,
+            groups=None):
     lines = v.numel() // n
     zs = torch.empty((n, lines), dtype=v.dtype, device=v.device)
     lib = cuda_lib.library()
-    fn = lib.neutfem_fused_dir_f32 if v.dtype == torch.float32 else lib.neutfem_fused_dir_f64
-    err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), zs.data_ptr(),
-             n, lines, inner, outer_stride, cell_stride, float(bx0), float(bx1), float(si),
-             torch.cuda.current_stream(v.device).cuda_stream)
+    f32 = v.dtype == torch.float32
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    if groups is None:
+        fn = lib.neutfem_fused_dir_f32 if f32 else lib.neutfem_fused_dir_f64
+        err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), zs.data_ptr(),
+                 n, lines, inner, outer_stride, cell_stride, float(bx0), float(bx1),
+                 float(si), stream)
+    else:
+        fn = lib.neutfem_fused_dir_batched_f32 if f32 else lib.neutfem_fused_dir_batched_f64
+        err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), zs.data_ptr(),
+                 n, lines // groups, groups, inner, outer_stride, cell_stride,
+                 math.prod(v.shape[-3:]), float(bx0), float(bx1), float(si), stream)
     cuda_lib.check(err, f"fused Schur direction {key}")
     LAUNCHES[key] += 1
     return acc
 
 
 def _dispatch(acc, v, dm, l, dm_shape, l_shape, to_natural, axis, strides, bx0, bx1, si,
-              key):
+              key, groups=None):
+    """``dm_shape`` / ``l_shape``: one group's operand shapes; with ``groups``
+    the operands carry that many groups in front."""
     what = f"fused_schur_{key}"
     if v.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"{what}: no kernel for device {v.device}")
-    _check(acc, v, dm, l, dm_shape, l_shape, what)
+    if groups is not None:
+        dm_shape, l_shape = (groups, *dm_shape), (groups, *l_shape)
+    _check(acc, v, dm, l, dm_shape, l_shape, what, groups)
     if v.device.type == "cpu":
         dm_nat, l_nat = to_natural(dm, l)
+        if groups is not None:  # (ng, ...) -> (ng, 1, ..., face grid) against v
+            ones = (1,) * (v.ndim - 4)
+            dm_nat = dm_nat.reshape(groups, *ones, *dm_nat.shape[-3:])
+            l_nat = l_nat.reshape(groups, *ones, *l_nat.shape[-3:])
         acc.copy_(fused_dir_plain(acc, v, dm_nat, l_nat, axis, bx0, bx1, si))
         return acc
     n = v.shape[axis]
     if n < 1:
         raise ValueError(f"{what}: empty solve axis")
-    return _launch(acc, v, dm, l, n, *strides, bx0, bx1, si, key)
+    return _launch(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
 
 
-def fused_schur_z(acc, v, dm, l, bx0: float, bx1: float, si: float):
-    """acc += B_z A_z^{-1} B_z^T v (K1), in place.  dm (nz+1, ny, nx), l (nz, ny, nx)."""
+def _z(acc, v, dm, l, bx0, bx1, si, groups):
     nz, ny, nx = v.shape[-3:]
     return _dispatch(
         acc, v, dm, l, (nz + 1, ny, nx), (nz, ny, nx),
         lambda d_, l_: (d_, l_), -3,
         # lines (y, x) = the whole plane: inner = ny*nx, cells step by ny*nx
-        (ny * nx, 0, ny * nx), bx0, bx1, si, "z")
+        (ny * nx, 0, ny * nx), bx0, bx1, si, "z" if groups is None else "z_batched", groups)
+
+
+def _y(acc, v, dmT, lT, bx0, bx1, si, groups):
+    nz, ny, nx = v.shape[-3:]
+    return _dispatch(
+        acc, v, dmT, lT, (ny + 1, nz, nx), (ny, nz, nx),
+        lambda d_, l_: (d_.movedim(-3, -2), l_.movedim(-3, -2)), -2,
+        # lines (z, x): b = z*nx + x, cells at z*ny*nx + x + e*nx
+        (nx, ny * nx, nx), bx0, bx1, si, "y" if groups is None else "y_batched", groups)
+
+
+def _x(acc, v, dmT, lT, bx0, bx1, si, groups):
+    nz, ny, nx = v.shape[-3:]
+    return _dispatch(
+        acc, v, dmT, lT, (nx + 1, nz * ny), (nx, nz * ny),
+        lambda d_, l_: (d_.transpose(-1, -2).reshape(*d_.shape[:-2], nz, ny, nx + 1),
+                        l_.transpose(-1, -2).reshape(*l_.shape[:-2], nz, ny, nx)), -1,
+        # lines (z, y): b = z*ny + y, cells at b*nx + e
+        (1, nx, 1), bx0, bx1, si, "x" if groups is None else "x_batched", groups)
+
+
+def fused_schur_z(acc, v, dm, l, bx0: float, bx1: float, si: float):
+    """acc += B_z A_z^{-1} B_z^T v (K1), in place.  dm (nz+1, ny, nx), l (nz, ny, nx)."""
+    return _z(acc, v, dm, l, bx0, bx1, si, None)
 
 
 def fused_schur_y_pre(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
     """acc += B_y A_y^{-1} B_y^T v (K2), in place.  dmT (ny+1, nz, nx), lT (ny, nz, nx)."""
-    nz, ny, nx = v.shape[-3:]
-    return _dispatch(
-        acc, v, dmT, lT, (ny + 1, nz, nx), (ny, nz, nx),
-        lambda d_, l_: (d_.movedim(0, -2), l_.movedim(0, -2)), -2,
-        # lines (z, x): b = z*nx + x, cells at z*ny*nx + x + e*nx
-        (nx, ny * nx, nx), bx0, bx1, si, "y")
+    return _y(acc, v, dmT, lT, bx0, bx1, si, None)
 
 
 def fused_schur_x_pre(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
     """acc += B_x A_x^{-1} B_x^T v (K3), in place.  dmT (nx+1, nz*ny), lT (nx, nz*ny)."""
-    nz, ny, nx = v.shape[-3:]
-    return _dispatch(
-        acc, v, dmT, lT, (nx + 1, nz * ny), (nx, nz * ny),
-        lambda d_, l_: (d_.T.reshape(nz, ny, nx + 1), l_.T.reshape(nz, ny, nx)), -1,
-        # lines (z, y): b = z*ny + y, cells at b*nx + e
-        (1, nx, 1), bx0, bx1, si, "x")
+    return _x(acc, v, dmT, lT, bx0, bx1, si, None)
+
+
+def fused_schur_z_batched(acc, v, dm, l, bx0: float, bx1: float, si: float):
+    """acc += B_z A_z^{-1} B_z^T v for every group (K1, batch ng), in place.
+    v (ng, 1, nz, ny, nx); dm (ng, nz+1, ny, nx), l (ng, nz, ny, nx)."""
+    return _z(acc, v, dm, l, bx0, bx1, si, dm.shape[0])
+
+
+def fused_schur_y_batched(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
+    """acc += B_y A_y^{-1} B_y^T v for every group (K5), in place.
+    v (ng, 1, nz, ny, nx); dmT (ng, ny+1, nz, nx), lT (ng, ny, nz, nx)."""
+    return _y(acc, v, dmT, lT, bx0, bx1, si, dmT.shape[0])
+
+
+def fused_schur_x_batched(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
+    """acc += B_x A_x^{-1} B_x^T v for every group (K5), in place.
+    v (ng, 1, nz, ny, nx); dmT (ng, nx+1, nz*ny), lT (ng, nx, nz*ny)."""
+    return _x(acc, v, dmT, lT, bx0, bx1, si, dmT.shape[0])

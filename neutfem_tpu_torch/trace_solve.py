@@ -1,13 +1,17 @@
 """Where the time of one k-eff solve goes on the GPU (torch.profiler).
 
-    python -m neutfem_tpu_torch.trace_solve [N [M]] [--order K | --core CORE | --scale]
-                                            [--out DIR]
+    python -m neutfem_tpu_torch.trace_solve [N [M]] [--order K | --core CORE | --scale |
+                                            --sweep jacobi | --adjoint] [--out DIR]
 
 Builds IAEA-3D at NxN per assembly and M axial subdivisions (default 6x6x4,
 RT0-P0; with ``--order K`` RT_k-P_k, default 4x4x2, at the higher-order rows'
 tolerances; with ``--scale`` 8x8x8, the line-preconditioner row), or a fine
 2D core with ``--core koeberg2d|zion2d`` (default 32x32 / 48x48, with the
-two-grid coarse level), float32.  Prints the context and two-grid build
+two-grid coarse level), float32.  The solve traced is ``SolveKeff`` from a
+cold flux; with ``--sweep jacobi`` the Jacobi group sweep at
+``bench.SWEEP_TOL`` (``bench.main_sweep``), with ``--adjoint`` the
+free-running ``SolveAdjoint`` from a cold adjoint flux (``bench.py
+--full``'s adjoint row).  Prints the context and two-grid build
 seconds, runs one warm-up solve, one untimed-by-the-profiler solve (the
 end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall and the
@@ -19,16 +23,19 @@ summary.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
 
 import torch
 
-from .bench import FULL_TOL, HO_TOL, BenchmarkRun, load_benchmark_data
+from .bench import FULL_TOL, HO_TOL, SWEEP_TOL, BenchmarkRun, load_benchmark_data
+from .power import power_iteration
 
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
+    ("fused_dir_batched_kernel", "batched fused Schur directions (K5, K1 batch)"),
     ("fused_dir_kernel", "fused Schur directions (K1-K3)"),
     ("fused_ho_kernel", "condensed Schur directions (K6)"),
     ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
@@ -48,17 +55,30 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _solve_wall(solver) -> float:
-    solver.reset_flux()
+def _solver_run(s, mode: str):
+    """One solve of ``mode`` ("keff", "jacobi", "adjoint") from a cold flux:
+    returns (wall seconds, outers, inners)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solver.SolveKeff()
+    if mode == "jacobi":
+        opts = dataclasses.replace(s._opts(), sweep="jacobi")
+        res = power_iteration(s._fes, s._ng, opts, s._ctx, s._flat_phi(), 1.0)
+        counts = (res["outer_iterations"], res["inner_iterations"])
+    elif mode == "adjoint":
+        s._phi_adj = None
+        s.SolveAdjoint(use_direct_keff=False)
+        hist = s.get_iteration_history()
+        counts = (len(hist), int(hist[:, 3].sum()))
+    else:
+        s.reset_flux()
+        s.SolveKeff()
+        counts = (s._last_outers, s._last_inners)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return (time.perf_counter() - t0, *counts)
 
 
 def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
-         order: int = 0, core: str = "iaea3d") -> dict:
+         order: int = 0, core: str = "iaea3d", mode: str = "keff") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve: no CUDA device available")
     spec = load_benchmark_data().BENCHMARKS[core]
@@ -66,13 +86,14 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
                        rt_order=order)
     s = run.solver
     print(f"build seconds: {s.build_seconds}; preconditioner {s.preconditioner()}")
-    run.solve(tol=HO_TOL if order else FULL_TOL)  # warm-up
-    wall = _solve_wall(s)
-    outers, inners = s._last_outers, s._last_inners
+    run.solve(tol=HO_TOL if order else FULL_TOL)  # warm-up (and the adjoint's direct k)
+    if mode == "jacobi":
+        s.set_tol(*SWEEP_TOL)
+    wall, outers, inners = _solver_run(s, mode)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        wall_traced = _solve_wall(s)
+        wall_traced = _solver_run(s, mode)[0]
 
     fam_us, fam_n, kernels = {}, {}, {}
     for e in prof.key_averages():
@@ -87,7 +108,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
 
     card = torch.cuda.get_device_name(0)
     mesh = f"{mesh_n}x{mesh_n}" + (f"x{mesh_nz}" if spec.dim == 3 else "")
-    print(f"{core} {mesh} RT{order}-P{order} {dtype}: "
+    print(f"{core} {mesh} RT{order}-P{order} {mode} {dtype}: "
           f"{outers} outers, {inners} inners, "
           f"wall {wall * 1e3:.3f} ms (traced {wall_traced * 1e3:.3f} ms), {card}")
     print(f"{'family':40s} {'launches':>9s} {'device ms':>10s} {'% busy':>7s} {'us/launch':>10s}")
@@ -100,7 +121,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "solve_trace.json"))
     summary = {
-        "core": core, "mesh": mesh, "order": order, "dtype": str(dtype),
+        "core": core, "mesh": mesh, "order": order, "solve": mode, "dtype": str(dtype),
         "device": card, "preconditioner": s.preconditioner(),
         "build_s": s.build_seconds,
         "outers": outers, "inners": inners,
@@ -123,9 +144,15 @@ if __name__ == "__main__":
     mode.add_argument("--core", choices=("koeberg2d", "zion2d"), default=None,
                       help="a fine 2D core (default 32x32 / 48x48)")
     mode.add_argument("--scale", action="store_true", help="IAEA-3D 8x8x8 (3.5M cells)")
+    mode.add_argument("--sweep", choices=("jacobi",), default=None,
+                      help="trace the Jacobi group sweep (IAEA-3D, default 6x6x4)")
+    mode.add_argument("--adjoint", action="store_true",
+                      help="trace the free-running adjoint (IAEA-3D, default 6x6x4)")
     p.add_argument("--out", default=None, help="directory for solve_trace.json")
     a = p.parse_args()
-    if a.core is not None:
+    if a.sweep or a.adjoint:
+        main(a.mesh_n or 6, a.mesh_nz or 4, a.out, mode="jacobi" if a.sweep else "adjoint")
+    elif a.core is not None:
         main(a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core], 1, a.out, core=a.core)
     elif a.scale:
         main(a.mesh_n or 8, a.mesh_nz or 8, a.out)

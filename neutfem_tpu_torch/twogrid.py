@@ -197,10 +197,13 @@ def tg_factors_of(fes: FESpace, ctx_tg: Dict) -> Tuple[int, int, int]:
 
 def twogrid_apply(fes: FESpace, ctxg: Dict, opts) -> Callable:
     """The coarse-correction term as a function r -> E_f P E_c p(S_c_eq) E_c P^T E_f r
-    of the equilibrated fine residual (internal layout (..., P, nz, ny, nx),
-    ``ctxg`` group-sliced).  Everything that does not depend on r (the coarse
-    space, the scalings, the Chebyshev coefficients) is made once here, so a
-    group solve builds it once and applies it every CG iteration."""
+    of the equilibrated fine residual (internal layout (..., P, nz, ny, nx)).
+    ``ctxg`` is group-sliced, or the whole context for the Jacobi sweep's
+    batched solve (r then (ng, P, nz, ny, nx): the dense coarse inverse is
+    applied per group, the Chebyshev form's coarse matvec runs every group at
+    once).  Everything that does not depend on r (the coarse space, the
+    scalings, the Chebyshev coefficients) is made once here, so a group solve
+    builds it once and applies it every CG iteration."""
     tg = ctxg["tg"]
     fx, fy, fz = tg_factors_of(fes, tg)
     nz, ny, nx = fes.mesh.shape
@@ -234,12 +237,18 @@ def twogrid_apply(fes: FESpace, ctxg: Dict, opts) -> Callable:
             # one matrix-vector product against the stored inverse, in its
             # storage dtype (bf16 x bf16 with float32 accumulation on the card)
             s = rc.shape
-            zflat = minv @ rc.reshape(-1).to(minv.dtype)
+            rflat = rc.reshape(*minv.shape[:-2], -1).to(minv.dtype)
+            if minv.ndim == 3:  # the Jacobi sweep: one product per group
+                zflat = (minv @ rflat.unsqueeze(-1)).squeeze(-1)
+            else:
+                zflat = minv @ rflat
             return zflat.to(rc.dtype).reshape(s)
     else:
         cfes = coarse_fespace(fes, (fx, fy, fz))
         matvec = _coarse_matvec(cfes, tg, sdi_c)
         lmax = tg["schur_lmax"]
+        if lmax.ndim == 1:  # batched (leading ng): broadcast over (1, nz, ny, nx)
+            lmax = lmax.reshape(-1, 1, 1, 1, 1)
         lmin = lmax / opts.tg_kappa
         theta = 0.5 * (lmax + lmin)
         delta = 0.5 * (lmax - lmin)

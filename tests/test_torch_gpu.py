@@ -1,6 +1,6 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1-K4, K4′, K6) with the plain PyTorch
+Each test compares one hand-written kernel (K1-K4, K4′, K5, K6) with the plain PyTorch
 version of the same function, on the card, at a small shape.  They need a CUDA
 device and skip without one (the decision is made inside a fixture, at run
 time).  This file imports neither JAX nor the JAX package, so it also runs on a
@@ -132,6 +132,66 @@ def test_fused_2d_kernels_match_plain(cuda, dtype, key):
         got = fused.fused_schur_x_pre(acc.clone(), v, dmT, lT, 0.5, -0.5, 0.25)
     torch.cuda.synchronize()
     assert _rel(got, want, acc) <= TOL[dtype]
+
+
+def _batched_operands(key, ng, shape, dtype, device, seed):
+    """Per-group staged operands of the batched wrapper for ``key`` and their
+    natural layouts (ng, 1, face grid) for the plain version."""
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = shape
+    ax = {"z": 0, "y": 1, "x": 2}[key]
+    fsh = [nz, ny, nx]
+    fsh[ax] += 1
+    dm = rng.uniform(0.2, 0.6, (ng, *fsh))
+    l = rng.uniform(-0.3, 0.3, (ng, nz, ny, nx))
+    if key == "z":
+        staged = (dm, l)
+    elif key == "y":
+        staged = (np.moveaxis(dm, 2, 1), np.moveaxis(l, 2, 1))
+    else:
+        staged = (np.swapaxes(dm.reshape(ng, -1, nx + 1), 1, 2),
+                  np.swapaxes(l.reshape(ng, -1, nx), 1, 2))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    v, acc = (t(rng.standard_normal((ng, 1, nz, ny, nx))) for _ in range(2))
+    return v, acc, [t(a) for a in staged], [t(a[:, None]) for a in (dm, l)], ax - 3
+
+
+BATCHED = {"z": fused.fused_schur_z_batched, "y": fused.fused_schur_y_batched,
+           "x": fused.fused_schur_x_batched}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("key", ["z", "y", "x"])
+@pytest.mark.parametrize("ng,shape", [(2, (9, 10, 11)), (3, (5, 33, 70)), (4, (1, 40, 37))])
+def test_fused_batched_kernel_matches_plain(cuda, dtype, key, ng, shape):
+    """K5 (y, x) and K1's group batch (z) on group-batched fluxes, with line
+    counts that are no multiple of the 128 threads of a block and a 2D grid."""
+    v, acc, staged, nat, axis = _batched_operands(key, ng, shape, dtype, cuda, 20 + ng)
+    want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
+    before = dict(fused.LAUNCHES)
+    got = BATCHED[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+    assert fused.LAUNCHES[f"{key}_batched"] == before[f"{key}_batched"] + 1
+    assert fused.LAUNCHES[key] == before[key]
+
+
+def test_fused_batched_rejects_what_it_does_not_take(cuda):
+    v, acc, (dm, l), _, _ = _batched_operands("y", 2, (4, 5, 6), torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="groups"):  # group counts that disagree
+        fused.fused_schur_y_batched(acc, v, dm[:1].contiguous(), l[:1].contiguous(),
+                                    0.5, -0.5, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_schur_y_batched(acc, v, dm, l.transpose(-1, -2).contiguous()
+                                    .transpose(-1, -2), 0.5, -0.5, 0.25)
+    with pytest.raises(TypeError):  # an operand of another dtype
+        fused.fused_schur_y_batched(acc, v, dm.double(), l, 0.5, -0.5, 0.25)
+    with pytest.raises(TypeError):  # an unsupported dtype
+        h = [x.half() for x in (acc, v, dm, l)]
+        fused.fused_schur_y_batched(*h, 0.5, -0.5, 0.25)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):

@@ -44,10 +44,9 @@ torch.set_num_threads(1)
 
 F64 = torch.float64
 KERNEL_SHAPE = (8, 64, 64)  # (nz, ny, nx): every JAX HO kernel engages here at float32
-# JAX context keys the port does not build (CMFD coupling data and entries the
-# slice never reads)
-NOT_PORTED = ({"sigr", "vol"}
-              | {f"{p}_d{d}" for p in ("dtilde", "area", "jscale") for d in range(3)})
+# JAX context keys the port does not build (none since the CMFD coupling data
+# dtilde / area / jscale and sigr / vol are built too)
+NOT_PORTED = set()
 
 
 def _rel(got, want, base=None):

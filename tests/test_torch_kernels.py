@@ -121,8 +121,18 @@ def test_plain_thomas_matches_jax_interpret(prec, shape, axis):
 
 
 def test_wrappers_reject_batched_layouts():
-    """One group's flux only: a batched (ng, P, ...) v raises instead of declining."""
+    """The one-group wrappers raise on a batched (ng, P, ...) v instead of
+    declining; the group-batched wrappers raise when the flux's and the
+    operands' group counts disagree."""
     v = torch.zeros((2, 1, 4, 5, 6), dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         fused.fused_schur_z(v, v, torch.zeros((5, 5, 6), dtype=torch.float64),
                             torch.zeros((4, 5, 6), dtype=torch.float64), 0.5, -0.5, 0.25)
+    with pytest.raises(ValueError, match="groups"):
+        fused.fused_schur_z_batched(v, v, torch.zeros((3, 5, 5, 6), dtype=torch.float64),
+                                    torch.zeros((3, 4, 5, 6), dtype=torch.float64),
+                                    0.5, -0.5, 0.25)
+    with pytest.raises(ValueError, match="groups"):
+        fused.fused_schur_x_batched(v, v, torch.zeros((1, 7, 20), dtype=torch.float64),
+                                    torch.zeros((1, 6, 20), dtype=torch.float64),
+                                    0.5, -0.5, 0.25)
