@@ -14,10 +14,14 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    operands with both groups at once (2, 1, 76, 114, 114) and on a ragged
    3-group grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2)
    (38x76x76 cells), the fused y and x directions (K2, K3) and K4′ on ZION
-   48x48 (912x912 cells, 912 lines per direction: few, long lines); float32;
+   48x48 (912x912 cells, 912 lines per direction: few, long lines); the five
+   equilibration-folded directions (K7) on the 6x6x4 operands; the fused
+   block-Jacobi apply + dots (K8) on the 4x4x2 RT2-P2 and RT1-P1 blocks in
+   bfloat16; float32;
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
-   Jacobi group sweep and the free-running adjoint — on the GPU agree with
-   the same solves through the plain versions on the CPU;
+   Jacobi group sweep, the free-running adjoint, and RT0-P0 under
+   ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — on the GPU agree with the same
+   solves through the plain versions on the CPU;
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
    34 outers, 1068 inners), with every kernel's launch count > 0;
@@ -42,13 +46,24 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    ``SolveKeff(use_cmfd=True)`` and ``SolveKeff(use_coarse_init=True,
    coarse_factors=(3, 3, 4))`` within 3e-5 of the Chebyshev k, and
    DIRECT_LLT on IAEA-2D 3x3 (3,249 flux DOFs, under the 4096 gate) within
-   1e-5 of its CG k.
+   1e-5 of its CG k;
+12. opt-in paths, each under its switches (set and restored around the run):
+   ``bench.main(6, 4)`` under ``NEUTFEM_EQFOLD=1`` and ``=2`` at phase [5]'s
+   anchors, with the eq kernels (K7) launched at least once per CG iteration
+   and the one-group x and z kernels (and y in mode 2) not at all;
+   ``bench.main_ho(1)`` under ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1`` with
+   bfloat16 block storage, K8 launched at least once per CG iteration, at the
+   RT1-P1 anchors (inners against the JAX package's float32
+   ``NEUTFEM_BLKFP8=0`` count); ``bench.main(6, 4)`` under ``NEUTFEM_CGCG=1``
+   at phase [5]'s anchors.
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
 its floating-point operations over 67 TFLOP/s (the H100 SXM's float32 rate
-outside the tensor cores).  No single PyTorch call computes any of these
-kernels' functions, so each row's ``library_ms`` is null.
+outside the tensor cores).  No single PyTorch call computes the functions of
+K1-K7, so their rows' ``library_ms`` is null; K8's is the port's default
+block apply on the same blocks (``torch.bmm`` on their float32 copy, then
+the two dots as ``torch.sum``), timed here and not used by the K8 path.
 
 Launch counts are set to 0 just before each path and read just after it.
 The last two lines are a JSON object of per-kernel results and the contract
@@ -68,6 +83,24 @@ KERNEL_REL_TOL = 1e-5  # float32, FMA contraction in the kernels vs the plain re
 # IAEA-3D 4x4x2 RT_k-P_k float32 anchors of the JAX package (BENCH_extra.json):
 # order -> (k, outers, inners)
 HO_ANCHORS = {1: (1.0292783, 49, 1151), 2: (1.0292925, 50, 2101)}
+# RT1-P1 4x4x2 under NEUTFEM_BLKFP8=0 (bfloat16 blocks), the JAX package at
+# float32 on a CPU: k 1.0292788, 49 outers, 1149 inners, from
+#   NEUTFEM_X64=0 NEUTFEM_BLKFP8=0 JAX_PLATFORMS=cpu python -c "from benchmarks.runner
+#   import BenchmarkRun; from benchmarks.data import BENCHMARKS; r = BenchmarkRun(
+#   BENCHMARKS['iaea3d'], mesh_n=4, mesh_nz=2, rt_order=1); print(r.solve(tol=(1e-7,
+#   1e-5, 1e-5, 120, 1000)), r.solver._last_outers, r.solver._last_inners)"
+# k and outers are held to the RT1-P1 anchor above, inners to this count
+BLOCKJAC_INNERS = 1149
+# the K7 wrappers: key -> (direction d, TPU kernel); d 0 = x, 1 = y, 2 = z
+EQ_REPLACES = {"x_eq": (0, "neutfem_tpu/ops/pallas_fused.py:574"),
+               "z_eq": (2, "neutfem_tpu/ops/pallas_fused.py:602"),
+               "x_eq2": (0, "neutfem_tpu/ops/pallas_fused.py:625"),
+               "y_eq2": (1, "neutfem_tpu/ops/pallas_fused.py:652"),
+               "z_eq2": (2, "neutfem_tpu/ops/pallas_fused.py:681")}
+# the K7 launches each fold mode's path must show, and the one-group kernels
+# it must not launch
+EQ_MODES = {"1": (("x_eq", "z_eq"), ("x", "z")),
+            "2": (("x_eq2", "y_eq2", "z_eq2"), ("x", "y", "z"))}
 HO_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused_ho.py:460",
                "y": "neutfem_tpu/ops/pallas_fused_ho.py:389",
                "x": "neutfem_tpu/ops/pallas_fused_ho.py:425"}
@@ -132,10 +165,10 @@ def _bound(tensors, flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _row(name, source, replaces, key, err, ms, plain_ms, bound):
+def _row(name, source, replaces, key, err, ms, plain_ms, bound, library_ms=None):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "key": key,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def _compare(name, got, want, base):
@@ -253,6 +286,99 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, reps=50):
     return err, ms, plain_ms, bound
 
 
+def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
+    """One K7 wrapper on the 6x6x4 direction operands (group 0): the kernel on
+    the staged operands against ``fused_eq_plain`` on the natural ones.
+    Returns a row."""
+    import torch
+
+    from neutfem_tpu_torch.ops import fused_eq
+
+    d, replaces = EQ_REPLACES[key]
+    axis, tag = {0: (-1, "tri_xT_"), 1: (-2, "tri_yT_"), 2: (-3, "tri_")}[d]
+    dm, ll = ctxg[f"{tag}dinvm_d{d}"], ctxg[f"{tag}l_d{d}"]
+    nat = (ctxg[f"tri_dinvm_d{d}"], ctxg[f"tri_l_d{d}"])
+    c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
+    wrapper = getattr(fused_eq, f"fused_schur_{key}")
+
+    def call(acc):
+        if key.startswith("x"):
+            return wrapper(y, sdi, ce, dm, ll, *c)
+        if key == "z_eq":
+            return wrapper(acc, y, dm, ll, sdi, *c)
+        return wrapper(acc, y, sdi, dm, ll, *c)
+
+    got = call(acc0.clone())
+    got, got_u = got if key == "x_eq" else (got, None)
+    want, want_u = fused_eq.fused_eq_plain(key, acc0, y, sdi, ce, *nat, axis, *c)
+    torch.cuda.synchronize()
+    base = ce * y if key.startswith("x") else (sdi * acc0 if key.startswith("z") else acc0)
+    err = _compare(f"K7 {key}", got, want, base)
+    if got_u is not None and not torch.equal(got_u, want_u):
+        raise RuntimeError("K7 x_eq: u differs from sdi*y")
+    scratch = acc0.clone()
+    ms = _timed(lambda: call(scratch), 50)
+    plain_ms = _timed(lambda: fused_eq.fused_eq_plain(key, acc0, y, sdi, ce, *nat, axis, *c), 3)
+    reads = [y, sdi, dm, ll] + ([ce] if key.startswith("x") else [acc0])
+    writes = [got] + ([got_u] if got_u is not None else [])
+    # per cell: the fused direction, plus u = sdi*y (1), ce*y + (2), sdi*( ) (1)
+    extra = {"x_eq": 3, "z_eq": 1, "x_eq2": 3, "y_eq2": 1, "z_eq2": 2}[key]
+    bound = _bound(reads + writes, (FUSED_FLOPS_PER_CELL + extra) * y.numel())
+    print(f"  K7 {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound[0]:.4f} ms "
+          f"({y.numel() // y.shape[axis]} lines of {y.shape[axis]} cells per launch; {card})")
+    return _row(f"K7 equilibration-folded Schur direction {key} (6x6x4)",
+                "neutfem_tpu_torch/csrc/fused_eq.cu", replaces, key, err, ms, plain_ms, bound)
+
+
+def _blockjac_case(fes, ctxg, order, card, rng):
+    """K8 on one group's blocks of this order in bfloat16 (the layout of
+    NEUTFEM_BLKFP8=0), made from the float8 deviation the context holds,
+    against its plain version; library_ms is the default apply (torch.bmm on
+    the float32 copy) plus the two dots.  Returns a row."""
+    import torch
+
+    from neutfem_tpu_torch.ops import blockjac
+    from neutfem_tpu_torch.power import _block_precond
+
+    P = fes.P
+    dev = ctxg["C"].device
+    eye = torch.eye(P, device=dev).reshape(P, P, 1, 1, 1)
+    bi = (ctxg["precond_blk_dev"].float() + eye).bfloat16().contiguous()
+    r = torch.as_tensor(rng.standard_normal((P, *fes.mesh.shape)), dtype=torch.float32,
+                        device=dev)
+    z, rz, rr = blockjac.blockjac_dots(bi, r)
+    zp, rzp, rrp = blockjac.blockjac_dots_plain(bi, r)
+    torch.cuda.synchronize()
+    err = _compare(f"K8 RT{order}-P{order} z", z, zp, torch.zeros_like(zp))
+    for name, got, want in (("<r,z>", rz, rzp), ("<r,r>", rr, rrp)):
+        rel = abs(float(got) - float(want)) / abs(float(want))
+        print(f"  K8 RT{order}-P{order} {name}: {float(got):.7e} vs {float(want):.7e} "
+              f"(rel {rel:.2e})")
+        if not rel <= KERNEL_REL_TOL:
+            raise RuntimeError(f"K8 RT{order}-P{order}: {name} disagrees with the plain version")
+    ms = _timed(lambda: blockjac.blockjac_dots(bi, r), 50)
+    plain_ms = _timed(lambda: blockjac.blockjac_dots_plain(bi, r), 3)
+    apply = _block_precond({"precond_blk_inv": bi}, torch.float32)  # the float32 copy, once
+
+    def library():
+        zl = apply(r)
+        return torch.sum(r * zl), torch.sum(r * r)
+
+    library_ms = _timed(library, 20)
+    blk = bi.float().reshape(P, P, -1).permute(2, 0, 1).contiguous()
+    bmm_ms = _timed(lambda: torch.bmm(blk, r.reshape(P, -1).T.unsqueeze(-1)), 20)
+    cells = r.numel() // P
+    bound = _bound((bi, r, z), cells * (2 * P * P + 4 * P))
+    print(f"  K8 RT{order}-P{order} (P={P}, {cells} cells, bf16 blocks): kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  library (bmm on the float32 copy + 2 dots) "
+          f"{library_ms:.4f} ms, of it torch.bmm alone {bmm_ms:.4f} ms  bound {bound[0]:.4f} ms "
+          f"({card})")
+    return _row(f"K8 block-Jacobi apply + dots (RT{order}-P{order} 4x4x2, bf16 blocks; launches: "
+                "phase [12]'s RT1-P1 path)", "neutfem_tpu_torch/csrc/blockjac.cu",
+                "neutfem_tpu/ops/pallas_blockjac.py:114", "blockjac", err, ms, plain_ms, bound,
+                library_ms)
+
+
 def _ho_kernels(bench, order, card, rng):
     """K6 z / y / x against fused_ho_plain on the IAEA-3D 4x4x2 RT_k-P_k operands
     (group 0, float32).  The plain version reads the NATURAL operands and takes
@@ -304,6 +430,7 @@ def _ho_kernels(bench, order, card, rng):
         rows[key] = _row(f"K6 condensed Schur direction {key} (RT{order}-P{order})",
                          "neutfem_tpu_torch/csrc/fused_ho.cu", HO_REPLACES[key], f"ho_{key}",
                          err, ms, plain_ms, bound)
+    rows["K8"] = _blockjac_case(fes, ctxg, order, card, rng)
     return rows
 
 
@@ -355,16 +482,17 @@ def main():
     import numpy as np
 
     from neutfem_tpu_torch import bench
-    from neutfem_tpu_torch.ops import cuda_lib, fused, fused_ho, thomas
+    from neutfem_tpu_torch.ops import blockjac, cuda_lib, fused, fused_eq, fused_ho, thomas
     from neutfem_tpu_torch.power import ctx_group
 
+    modules = (fused, fused_ho, thomas, fused_eq, blockjac)
+
     def reset_counts():
-        fused.reset_launches()
-        fused_ho.reset_launches()
-        thomas.reset_launches()
+        for m in modules:
+            m.reset_launches()
 
     def counts():
-        return {**fused.LAUNCHES, **fused_ho.LAUNCHES, **thomas.LAUNCHES}
+        return {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
     t_all = t0 = time.perf_counter()
     cuda_lib.library()
@@ -448,6 +576,17 @@ def main():
         key = "zyx"[di.axis]
         _batched_case("K5" if key != "z" else "K1 batched", key, rctx, di, rv, racc, card,
                       "ragged", reps=3)
+    # K7: the five equilibration-folded directions on the same direction
+    # operands.  sdi and ce are drawn from [0.5, 2]: the context's ce = C*sdi
+    # reaches 2.8e9 in IAEA-3D's absorber cells (IAEA-3D 1x1), where one ulp
+    # of ce*y (an FMA in the kernel, two roundings in the plain version)
+    # exceeds the contribution's tolerance; phases [4] and [12] run the real
+    # ones.
+    sdi, ce = (torch.as_tensor(rng.uniform(0.5, 2.0, shape), dtype=f32, device=dev)
+               for _ in range(2))
+    for key in EQ_REPLACES:
+        rows[f"K7 {key}"] = _eq_case(key, ctxg, dirs[EQ_REPLACES[key][0]], v, acc0, sdi, ce,
+                                     card)
     del run, ctx, ctxg, rctx
     ho_rows = {}
     for order in (2, 1):  # RT2-P2 first: its rows are the K6 rows of the JSON line
@@ -511,6 +650,21 @@ def main():
                 or abs(small["cuda"][2] - small["cpu"][2]) > 2):
             raise RuntimeError(f"IAEA-3D 1x1 {case}: the GPU solve disagrees with the "
                                "CPU reference")
+    for mode in EQ_MODES:  # the equilibration-folded matvec (K7) on the GPU
+        small = {}
+        fused_eq.reset_launches()
+        with bench.env(NEUTFEM_EQFOLD=mode):
+            for device in ("cpu", "cuda"):
+                small[device] = _small_solve(bench, spec, device, "RT0-P0")
+        launched = {k: fused_eq.LAUNCHES[k] for k in EQ_MODES[mode][0]}
+        print(f"[4] IAEA-3D 1x1 RT0-P0 float64 NEUTFEM_EQFOLD={mode}: cuda {small['cuda']}  "
+              f"cpu {small['cpu']}; K7 launches {launched}")
+        if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
+                or small["cuda"][1] != small["cpu"][1]
+                or abs(small["cuda"][2] - small["cpu"][2]) > 2
+                or min(launched.values()) < small["cuda"][2]):
+            raise RuntimeError(f"IAEA-3D 1x1 NEUTFEM_EQFOLD={mode}: the GPU solve disagrees "
+                               "with the CPU reference, or K7 did not run every CG iteration")
     print(f"    [4] {time.perf_counter() - t0:.1f} s")
 
     # [5] the RT0 main path; counts are zeroed just before it and read just after
@@ -527,6 +681,8 @@ def main():
     _check_anchor("RT0-P0 6x6x4", keff, outers, inners,
                   (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
     keff_main = keff
+    if any(launches[k] for k in (*fused_eq.LAUNCHES, *blockjac.LAUNCHES)):
+        raise RuntimeError("main path: an opt-in kernel (K7, K8) launched without its switch")
     for rid in ("K1", "K2", "K3", "K4"):
         row = rows[rid]
         row["launches"] = launches[row.pop("key")]
@@ -552,10 +708,13 @@ def main():
         for key in ("ho_z", "ho_y", "ho_x", "thomas"):
             if launches[key] <= 0:
                 raise RuntimeError(f"RT{order}-P{order}: {key} not launched on the path")
-        for row in ho_rows[order].values():
-            row["launches"] = launches[row["key"]]
+        for key in ("z", "y", "x"):
+            ho_rows[order][key]["launches"] = launches[ho_rows[order][key]["key"]]
+        if launches["blockjac"] != 0:
+            raise RuntimeError(f"RT{order}-P{order}: K8 launched on the default path")
         print(f"    [6] RT{order} {time.perf_counter() - t0:.1f} s")
-    for key, row in ho_rows[2].items():
+    for key in ("z", "y", "x"):
+        row = ho_rows[2][key]
         row.pop("key")
         rows[f"K6 {key}"] = row
 
@@ -716,6 +875,75 @@ def main():
     if "schur_chol" not in s._ctx or not abs(k_direct - k_cg) <= DIRECT_KEFF_TOL:
         raise RuntimeError("DIRECT_LLT: no dense factors, or keff off its CG k")
     print(f"    [11] {time.perf_counter() - t0:.1f} s")
+
+    # [12] the opt-in paths, each under its switches and with its own counts
+    for mode, (eq_keys, idle) in EQ_MODES.items():
+        t0 = time.perf_counter()
+        reset_counts()
+        print(f"[12] NEUTFEM_EQFOLD={mode}: neutfem_tpu_torch.bench.main(6, 4), float32")
+        with bench.env(NEUTFEM_EQFOLD=mode):
+            res = bench.main(6, 4)
+        launches = counts()
+        print(f"    launches {launches}")
+        det = res["detail"]
+        keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
+        print(f"    keff {keff}, outers {outers}, inners {inners}; {res['value'] * 1e3:.3f} "
+              f"ms/outer (phase [5], default matvec: see above; {card})")
+        _check_anchor(f"RT0-P0 6x6x4 NEUTFEM_EQFOLD={mode}", keff, outers, inners,
+                      (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
+        for key in eq_keys:
+            if launches[key] < inners:
+                raise RuntimeError(f"NEUTFEM_EQFOLD={mode}: {key} launched {launches[key]} "
+                                   f"times for {inners} CG iterations")
+            rows[f"K7 {key}"]["launches"] = launches[rows[f"K7 {key}"].pop("key")]
+        for key in idle:
+            if launches[key] != 0:
+                raise RuntimeError(f"NEUTFEM_EQFOLD={mode}: the one-group kernel {key} "
+                                   f"launched {launches[key]} times")
+        print(f"    [12] EQFOLD={mode} {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    print("[12] NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1: neutfem_tpu_torch.bench.main_ho(1), float32")
+    with bench.env(NEUTFEM_BLKFP8="0", NEUTFEM_BLOCKJAC="1"):
+        res = bench.main_ho(1)
+    launches = counts()
+    print(f"    launches {launches}")
+    det = res["detail"]
+    keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
+    print(f"    keff {keff}, outers {outers}, inners {inners} (anchors {HO_ANCHORS[1][:2]}, "
+          f"{BLOCKJAC_INNERS}); block storage {det['block_precond']}; "
+          f"{res['value'] * 1e3:.3f} ms/outer ({card})")
+    if det["block_precond"] != {"precond_blk_inv": "torch.bfloat16"}:
+        raise RuntimeError(f"NEUTFEM_BLKFP8=0: block storage {det['block_precond']}")
+    _check_anchor("RT1-P1 4x4x2 NEUTFEM_BLOCKJAC=1", keff, outers, inners,
+                  (HO_ANCHORS[1][0], HO_ANCHORS[1][1], BLOCKJAC_INNERS))
+    if launches["blockjac"] < inners:
+        raise RuntimeError(f"NEUTFEM_BLOCKJAC=1: K8 launched {launches['blockjac']} times for "
+                           f"{inners} CG iterations")
+    for order in (2, 1):
+        row = ho_rows[order]["K8"]
+        row["launches"] = launches[row.pop("key")]
+        rows[f"K8 RT{order}"] = row
+    print(f"    [12] BLOCKJAC {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    print("[12] NEUTFEM_CGCG=1: neutfem_tpu_torch.bench.main(6, 4), float32")
+    with bench.env(NEUTFEM_CGCG="1"):
+        res = bench.main(6, 4)
+    launches = counts()
+    print(f"    launches {launches}")
+    det = res["detail"]
+    keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
+    print(f"    keff {keff}, outers {outers}, inners {inners}; {res['value'] * 1e3:.3f} ms/outer "
+          f"({card})")
+    _check_anchor("RT0-P0 6x6x4 NEUTFEM_CGCG=1", keff, outers, inners,
+                  (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
+    for key in ("z", "y", "x", "thomas"):
+        if launches[key] <= 0:
+            raise RuntimeError(f"NEUTFEM_CGCG=1: {key} not launched on the path")
+    print(f"    [12] CGCG {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

@@ -18,7 +18,12 @@ Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
   a cold adjoint flux;
 * ``main_sweep``: one IAEA-3D 6x6x4 power iteration with the Gauss-Seidel or
   the Jacobi group sweep (every group in one batched CG, no Chebyshev) at
-  ``SWEEP_TOL``, through ``power.power_iteration``.
+  ``SWEEP_TOL``, through ``power.power_iteration``;
+* ``main_optin``: the JAX package's opt-in switches against the default path
+  in one process, solves in turns: at RT0-P0 6x6x4 ``NEUTFEM_EQFOLD=1|2`` (K7)
+  and ``NEUTFEM_CGCG=1``; at RT_k-P_k 4x4x2 the default fp8 block storage, the
+  bfloat16 one (``NEUTFEM_BLKFP8=0``) and bfloat16 with ``NEUTFEM_BLOCKJAC=1``
+  (K8).
 
 ``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
 one solve, ``reset_flux``, then one timed solve from a cold flux.  The
@@ -26,12 +31,14 @@ benchmark data come from ``benchmarks/data.py``, loaded by file path (it
 imports only numpy), so nothing of the JAX package is loaded.
 
 Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
---core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi}]``.
+--core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi}]``, or
+``python -m neutfem_tpu_torch.bench --optin [--order K]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -47,7 +54,7 @@ from .mesh import boundary_attribute
 from .power import power_iteration
 
 __all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale",
-           "main_adjoint", "main_sweep"]
+           "main_adjoint", "main_sweep", "main_optin", "env"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
@@ -297,6 +304,9 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
     if order == 1:
         hist = run.solver.get_iteration_history()
         detail["final_dphi"] = float(hist[-1, 2]) if len(hist) else None
+    # how the context stores the block inverse (NEUTFEM_BLKFP8, ops/context.py)
+    detail["block_precond"] = {k: str(v.dtype) for k, v in run.solver._ctx.items()
+                               if k.startswith("precond_blk")}
     detail.update({
         "solve_wall_s": round(wall, 3),
         "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz} RT{order}-P{order}",
@@ -464,6 +474,88 @@ def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device=
     return out
 
 
+@contextlib.contextmanager
+def env(**switches):
+    """Set environment switches (``NEUTFEM_EQFOLD="1"``, ...) for the block and
+    restore the previous environment after it."""
+    saved = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def main_optin(order: int = 0, rounds: int = 7, device="cuda", dtype=torch.float32) -> dict:
+    """The opt-in paths against the default path, in one process: after one
+    untimed solve of each, ``rounds`` rounds of one timed cold-flux solve per
+    variant, in turns (the order reversed every other round); prints one JSON
+    line with each variant's ms/outer (all rounds and the median), k, outers
+    and inners, and returns it.
+
+    RT0-P0 (``order`` 0), IAEA-3D 6x6x4 at ``FULL_TOL``, one context built
+    under ``NEUTFEM_EQFOLD`` (so it holds the eq operands; the other variants
+    do not read them): the default matvec, ``NEUTFEM_EQFOLD=1``, ``=2`` and
+    ``NEUTFEM_CGCG=1``.  RT_k-P_k (``order`` k), IAEA-3D 4x4x2 at ``HO_TOL``:
+    the default fp8 block storage, and one context under ``NEUTFEM_BLKFP8=0``
+    (bfloat16 blocks) solved with the default apply (``torch.bmm`` on a
+    float32 copy) and with ``NEUTFEM_BLOCKJAC=1`` (K8)."""
+    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench.main_optin: no CUDA device available")
+    if order == 0:
+        tol, mesh = FULL_TOL, (6, 4)
+        with env(NEUTFEM_EQFOLD="2"):
+            run = BenchmarkRun(spec, *mesh, device=device, dtype=dtype)
+        variants = {"default": (run, {}), "eqfold1": (run, {"NEUTFEM_EQFOLD": "1"}),
+                    "eqfold2": (run, {"NEUTFEM_EQFOLD": "2"}), "cgcg": (run, {"NEUTFEM_CGCG": "1"})}
+    else:
+        tol, mesh = HO_TOL, (4, 2)
+        fp8 = BenchmarkRun(spec, *mesh, device=device, dtype=dtype, rt_order=order)
+        with env(NEUTFEM_BLKFP8="0"):
+            bf16 = BenchmarkRun(spec, *mesh, device=device, dtype=dtype, rt_order=order)
+        variants = {"default_fp8": (fp8, {}), "bf16_bmm": (bf16, {}),
+                    "bf16_blockjac": (bf16, {"NEUTFEM_BLOCKJAC": "1"})}
+
+    def solve(name):
+        run, switches = variants[name]
+        s = run.solver
+        s.set_tol(*tol)
+        s.reset_flux()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        with env(**switches):
+            t0 = time.time()
+            keff = s.SolveKeff()  # ends in a device -> host read of k
+            wall = time.time() - t0
+        return {"keff": round(keff, 7), "outers": s._last_outers, "inners": s._last_inners,
+                "ms_per_outer": 1e3 * wall / max(s._last_outers, 1)}
+
+    names = list(variants)
+    out = {name: solve(name) for name in names}  # the untimed first solves
+    for name in names:
+        out[name]["rounds_ms_per_outer"] = []
+    for i in range(rounds):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            res = solve(name)
+            out[name]["rounds_ms_per_outer"].append(round(res["ms_per_outer"], 3))
+            out[name].update(keff=res["keff"], outers=res["outers"], inners=res["inners"])
+    for res in out.values():
+        res.pop("ms_per_outer")
+        res["median_ms_per_outer"] = float(np.median(res["rounds_ms_per_outer"]))
+    result = {"metric": "optin_ab_ms_per_outer",
+              "mesh": f"{mesh[0]}x{mesh[0]}x{mesh[1]} RT{order}-P{order}",
+              "device": _device_name(device), "dtype": str(dtype), "rounds": rounds,
+              "variants": out}
+    print(json.dumps(result))
+    return result
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="k-eff benchmarks on the GPU (float32)")
     ap.add_argument("mesh_n", nargs="?", type=int, default=None,
@@ -482,8 +574,12 @@ if __name__ == "__main__":
                       help="the IAEA-3D free-running adjoint row (main_adjoint)")
     mode.add_argument("--sweep", choices=("gs", "jacobi"), default=None,
                       help="one IAEA-3D solve with this group sweep (main_sweep)")
+    ap.add_argument("--optin", action="store_true",
+                    help="the opt-in switches against the default path at --order (main_optin)")
     a = ap.parse_args()
-    if a.scale:
+    if a.optin:
+        main_optin(a.order)
+    elif a.scale:
         main_scale()
     elif a.adjoint:
         main_adjoint(a.mesh_n or 6, a.mesh_nz or 4)

@@ -16,6 +16,10 @@ Port of ``neutfem_tpu/ops/apply.py`` (no PERIODIC direction, single device):
   otherwise (2D, m < k, or group-batched) as the unfused condensed chain, as
   the JAX package does for those configurations.  ``fused=False`` runs the
   unfused chains (a cross-check).
+* ``equilibrated_schur_matvec``: the CG's equilibrated matvec sdi * S(sdi * y)
+  with the scalings folded into the direction kernels (``ops/fused_eq.py``,
+  K7), taken by ``power.group_solve`` under ``NEUTFEM_EQFOLD=1|2`` where
+  ``eqfold_available`` allows it.
 
 Axis convention (INTERNAL, mode-axis-first, as the JAX package):
 
@@ -30,6 +34,7 @@ Public (caller-facing) arrays keep the reference-shaped trailing-mode layout
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import torch
@@ -43,6 +48,13 @@ from .fused import (
     fused_schur_z,
     fused_schur_z_batched,
 )
+from .fused_eq import (
+    fused_schur_x_eq,
+    fused_schur_x_eq2,
+    fused_schur_y_eq2,
+    fused_schur_z_eq,
+    fused_schur_z_eq2,
+)
 from .fused_ho import fused_ho_x, fused_ho_y, fused_ho_z, ho_tables
 from .tridiag import tridiag_solve
 
@@ -51,6 +63,8 @@ __all__ = [
     "apply_B_dir",
     "solve_A_dir",
     "schur_matvec",
+    "eqfold_available",
+    "equilibrated_schur_matvec",
     "weighted_mass",
     "phi_to_internal",
     "phi_to_public",
@@ -249,6 +263,63 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
                            ctx[f"mask_{key}"], ctx[f"alpha_{key}"], rF, None, a_mode)
         out = out + apply_B_dir(fes, di, F, None)
     return out
+
+
+def eqfold_available(fes: FESpace, ctx: Dict, shape, dtype, a_mode: str) -> bool:
+    """True iff ``equilibrated_schur_matvec`` serves a CG on fluxes of this
+    shape and dtype: the JAX package's semantic gates
+    (``neutfem_tpu/ops/apply.py:491-532``) — ``NEUTFEM_EQFOLD`` "1" or "2",
+    exact A, RT0-P0 in 3D, the eq operands (``build_context`` stages them
+    under the same switch) and the staged x/y operands in the context, no
+    periodic direction, and one group's flux (every leading dim 1: the Jacobi
+    sweep's batched flux keeps the classic matvec).  The TPU tile and VMEM
+    gates are not ported (as for K1-K3), so the port also folds at sizes
+    where the JAX package declines, such as IAEA-3D 1x1: the same operator,
+    up to the association of the scalings."""
+    if os.environ.get("NEUTFEM_EQFOLD", "0") not in ("1", "2"):
+        return False
+    if a_mode != "exact" or fes.et.k != 0 or fes.m != 0 or len(fes.dirs) != 3:
+        return False
+    if dtype not in (torch.float32, torch.float64):
+        return False
+    needed = ("precond_eq_sdi", "precond_eq_csdi", "tri_xT_dinvm_d0", "tri_yT_dinvm_d1",
+              "tri_dinvm_d2")
+    if any(k not in ctx for k in needed) or any(f"cyc_wt_d{di.d}" in ctx for di in fes.dirs):
+        return False
+    return len(shape) >= 3 and all(s == 1 for s in shape[:-3])
+
+
+def equilibrated_schur_matvec(fes: FESpace, ctx: Dict, y, a_mode: str = "exact"):
+    """sdi * S(sdi * y) with sdi = ``precond_eq_sdi`` (diag(S)^-1/2), folded into
+    the three direction kernels (``neutfem_tpu/ops/apply.py:535-613``):
+
+    * ``NEUTFEM_EQFOLD=1``: the x kernel forms u = sdi*y, writes it out and
+      adds the C*sdi*y term (``precond_eq_csdi`` = C*sdi); the y direction is
+      K2 on u; the z kernel applies the final sdi;
+    * ``"2"`` (and any other value, as the JAX package's default): every
+      kernel recomputes u = sdi*y from y and sdi, u is never stored.
+
+    ``ctx`` is one group's context and ``y`` one group's flux; the caller
+    checked ``eqfold_available``."""
+    if a_mode != "exact":
+        raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
+    dis = {di.d: di for di in fes.dirs}
+
+    def coef(d):  # (bx0, bx1, si) of direction d
+        di = dis[d]
+        return float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0])
+
+    sdi, ce = ctx["precond_eq_sdi"], ctx["precond_eq_csdi"]
+    xT = (ctx["tri_xT_dinvm_d0"], ctx["tri_xT_l_d0"])
+    yT = (ctx["tri_yT_dinvm_d1"], ctx["tri_yT_l_d1"])
+    z = (ctx["tri_dinvm_d2"], ctx["tri_l_d2"])
+    if os.environ.get("NEUTFEM_EQFOLD", "2") == "1":
+        acc, u = fused_schur_x_eq(y, sdi, ce, *xT, *coef(0))
+        fused_schur_y_pre(acc, u, *yT, *coef(1))
+        return fused_schur_z_eq(acc, u, *z, sdi, *coef(2))
+    acc = fused_schur_x_eq2(y, sdi, ce, *xT, *coef(0))
+    fused_schur_y_eq2(acc, y, sdi, *yT, *coef(1))
+    return fused_schur_z_eq2(acc, y, sdi, *z, *coef(2))
 
 
 def weighted_mass(fes: FESpace, coeff, detJ, w_mode_col, phi):

@@ -25,7 +25,11 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
   block, (ng, P, P, nz, ny, nx): ``precond_blk_inv`` at float64; at float32
   the deviation ``precond_blk_dev = Binv - I`` in ``float8_e4m3fn`` when
   max|E| < 440, else ``precond_blk_inv`` in ``bfloat16`` (the JAX package's
-  default storage rule)
+  storage rule); with ``NEUTFEM_BLKFP8=0`` float32 stores the ``bfloat16`` inverse
+* under ``NEUTFEM_EQFOLD`` "1" or "2" at RT0-P0, the operands of the
+  equilibration-folded matvec (``ops/fused_eq.py``): ``precond_eq_sdi`` =
+  1/sqrt(diag S) and ``precond_eq_csdi`` = C * precond_eq_sdi, (ng, 1, nz,
+  ny, nx)
 * ``detJ``, ``w_mode`` (P,) and ``w_mode_col`` (P, 1, 1, 1), ``nsf``, ``chi``,
   ``sigs``, ``src``: the power iteration's fission / scattering weights;
 * the CMFD coupling data (``cmfd.py``, NeutFEM.cpp:714-809): ``dtilde_d{d}``
@@ -38,6 +42,7 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -131,16 +136,18 @@ def ctx_from_numpy(ctx_np: Dict, device, dtype) -> Dict:
 
 def _store_block_precond(blk_inv: np.ndarray, P: int, device, dtype) -> Dict[str, torch.Tensor]:
     """The JAX package's storage rule for the equilibrated block inverse
-    (``neutfem_tpu/ops/context.py:580-600``, default ``NEUTFEM_BLKFP8=1``):
-    at float32 the deviation E = Binv - I in float8 e4m3 (the identity part is
-    applied exactly) unless max|E| would come near e4m3's 448 saturation, then
+    (``neutfem_tpu/ops/context.py:580-600``): at float32, under the default
+    ``NEUTFEM_BLKFP8=1``, the deviation E = Binv - I in float8 e4m3 (the
+    identity part is applied exactly) unless max|E| would come near e4m3's 448
+    saturation; with ``NEUTFEM_BLKFP8=0``, or near saturation, the inverse in
     bfloat16; any other dtype keeps the inverse as it is."""
     bi = torch.from_numpy(blk_inv).to(device=device, dtype=dtype)  # blk_inv is ours alone
     if dtype != torch.float32:
         return {"precond_blk_inv": bi}
     eye = torch.eye(P, dtype=dtype, device=device).reshape(1, P, P, 1, 1, 1)
     dev = bi - eye
-    if float(torch.max(torch.abs(dev))) < 440.0:
+    if (os.environ.get("NEUTFEM_BLKFP8", "1") != "0"
+            and float(torch.max(torch.abs(dev))) < 440.0):
         return {"precond_blk_dev": dev.to(torch.float8_e4m3fn)}
     return {"precond_blk_inv": bi.to(torch.bfloat16)}
 
@@ -318,6 +325,13 @@ def build_context(
             blk_terms.append((w_pq, inv_alpha))
 
     ctx_np["precond_inv"] = 1.0 / pre
+    if et.k == 0 and fes.m == 0 and os.environ.get("NEUTFEM_EQFOLD", "0") in ("1", "2"):
+        # the equilibration-folded RT0 matvec's operands, in float64 then cast
+        # (neutfem_tpu/ops/context.py:527-537); built only under the switch, so
+        # the default path holds no extra cell planes
+        sdi = 1.0 / np.sqrt(pre)
+        ctx_np["precond_eq_sdi"] = sdi
+        ctx_np["precond_eq_csdi"] = C * sdi
     for name, d in zip(("line", "line2"), pc_dirs):
         if d in line_offd:
             ctx_np[f"precond_{name}_dinv"], ctx_np[f"precond_{name}_l"] = _line_factors(

@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-SOURCES = ("fused_dir.cu", "thomas.cu", "fused_ho.cu")
+SOURCES = ("fused_dir.cu", "thomas.cu", "fused_ho.cu", "fused_eq.cu", "blockjac.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +53,15 @@ _SIGNATURES = {
     # cell_stride, plane, stream
     "neutfem_fused_ho_f32": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],
     "neutfem_fused_ho_f64": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],
+    # flags, acc, y, sdi, ce, dm, l, zs, u, n, lines, inner, outer_stride,
+    # cell_stride, bx0, bx1, si, stream
+    "neutfem_fused_eq_f32": ([ctypes.c_int] + [_P] * 8 + [ctypes.c_int] + [_I64] * 4
+                             + [ctypes.c_double] * 3 + [_P]),
+    "neutfem_fused_eq_f64": ([ctypes.c_int] + [_P] * 8 + [ctypes.c_int] + [_I64] * 4
+                             + [ctypes.c_double] * 3 + [_P]),
+    # bi, r, z, part, P, cells, stream
+    "neutfem_blockjac_bf16": [_P] * 4 + [ctypes.c_int, _I64, _P],
+    "neutfem_blockjac_f32": [_P] * 4 + [ctypes.c_int, _I64, _P],
 }
 
 
@@ -119,6 +128,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.neutfem_error_string.argtypes = [ctypes.c_int]
         lib.neutfem_error_string.restype = ctypes.c_char_p
+        lib.neutfem_blockjac_blocks.argtypes = [_I64]
+        lib.neutfem_blockjac_blocks.restype = _I64
         _lib = lib
     return _lib
 

@@ -21,11 +21,20 @@ line-tridiagonal (``"line"``, ``"line2"``, P == 1) or the additive two-grid
 "direct" (the dense Cholesky factors of ``ops/direct.py``); ``accel``
 "chebyshev" | "none"; CMFD (``cmfd.py``) in mode "fixed".  Everything else
 the JAX ``SolveOptions`` offers raises ``NotImplementedError``.
+
+The JAX package's opt-in switches select the same branches here (read at
+each group solve, as the JAX package reads them at trace time):
+``NEUTFEM_EQFOLD=1|2`` the equilibration-folded matvec (``ops/fused_eq.py``,
+K7), ``NEUTFEM_CGCG=1`` the Chronopoulos-Gear CG (``krylov.pcg_fused``),
+``NEUTFEM_BLOCKJAC=1`` the fused block-Jacobi apply + dots
+(``ops/blockjac.py``, K8) where the block inverse is stored as
+``precond_blk_inv``; ``NEUTFEM_BLKFP8`` is read by ``ops/context.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict
 
 import torch
@@ -33,15 +42,18 @@ import torch
 from .accel import chebyshev_apply_blend, chebyshev_init
 from .cmfd import cmfd_correction
 from .fespace import GRID_AXIS, FESpace
-from .krylov import KrylovResult, pcg
+from .krylov import KrylovResult, pcg, pcg_fused
 from .ops.apply import (
     J_to_public,
     apply_BT_dir,
+    eqfold_available,
+    equilibrated_schur_matvec,
     phi_to_internal,
     phi_to_public,
     schur_matvec,
     solve_A_dir,
 )
+from .ops.blockjac import blockjac_dots
 from .ops.direct import direct_solve
 from .ops.tridiag import tridiag_solve
 from .twogrid import twogrid_apply
@@ -181,9 +193,14 @@ def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None)
     ``opts.inner_precond`` (``resolve_precond``): none ("jacobi"), the per-cell
     P x P block-Jacobi inverse ("block"), the line solves ("line", "line2") or
     the fine part plus the additive coarse correction ("twogrid"; the fine part
-    alone when no coarse level is attached).  ``tol`` (0-d tensor) overrides
-    ``opts.inner_tol``.  ``inner_solver="direct"`` instead runs the two
-    triangular solves of the dense equilibrated Cholesky factors
+    alone when no coarse level is attached).  The JAX package's branch order
+    (``neutfem_tpu/power.py:206-365``): the equilibration-folded matvec where
+    ``eqfold_available``; ``pcg_fused`` under ``NEUTFEM_CGCG=1``; under
+    ``NEUTFEM_BLOCKJAC=1`` with ``pcg`` the block preconditioner of a
+    ``precond_blk_inv`` context (float32 or bf16 blocks, one group's float32
+    flux, no coarse correction) as the fused K8 apply + dots.  ``tol`` (0-d
+    tensor) overrides ``opts.inner_tol``.  ``inner_solver="direct"`` instead
+    runs the two triangular solves of the dense equilibrated Cholesky factors
     (``ops/direct.py``; one "iteration", residual 0, as in the JAX package).
 
     ``ctxg`` is one group's context (``ctx_group``), or the whole context for
@@ -198,27 +215,43 @@ def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None)
     pc_mode = resolve_precond(fes, ctxg, opts.inner_precond)
     if pc_mode not in ("jacobi", "block", "line", "line2", "twogrid"):
         raise NotImplementedError(f"inner_precond={pc_mode!r} is not ported")
+    if eqfold_available(fes, ctxg, rhs.shape, rhs.dtype, opts.a_mode):
+        # the staged D^-1/2, so the scaling of rhs and x0 is the kernels' own
+        sdi = ctxg["precond_eq_sdi"]
+
+        def matvec(y):
+            return equilibrated_schur_matvec(fes, ctxg, y, a_mode=opts.a_mode)
+    else:
+        sdi = torch.sqrt(ctxg["precond_inv"])  # D^-1/2
+
+        def matvec(y):
+            return sdi * schur_matvec(fes, ctxg, y * sdi, a_mode=opts.a_mode)
+    solver = pcg_fused if os.environ.get("NEUTFEM_CGCG", "0") == "1" else pcg
     tg_corr = None
     if pc_mode == "twogrid":
         if "tg" in ctxg:
             tg_corr = twogrid_apply(fes, ctxg, opts)
         pc_mode = "block" if fes.P > 1 else "jacobi"
+    precond = precond_dots = None
     if pc_mode == "block":
-        precond = _block_precond(ctxg, rhs.dtype)
+        bi = ctxg.get("precond_blk_inv")
+        if (tg_corr is None and solver is pcg and bi is not None
+                and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
+                and rhs.dtype == torch.float32 and bi.dtype in (torch.float32, torch.bfloat16)
+                and bi.ndim == 5):  # one group's (P, P, nz, ny, nx) blocks
+            # the fused apply + dots (K8) on one group's stored blocks: no
+            # float32 copy of the blocks is made
+            precond_dots = lambda r: blockjac_dots(bi, r)
+        else:
+            precond = _block_precond(ctxg, rhs.dtype)
     elif pc_mode in ("line", "line2"):
         precond = _line_precond(fes, ctxg, pc_mode)
-    else:
-        precond = None
     if tg_corr is not None:
         base = precond if precond is not None else (lambda r: r)
         precond = lambda r: base(r) + tg_corr(r)
-    sdi = torch.sqrt(ctxg["precond_inv"])  # D^-1/2
-
-    def matvec(y):
-        return sdi * schur_matvec(fes, ctxg, y * sdi, a_mode=opts.a_mode)
-
-    res = pcg(matvec, rhs * sdi, x0 / sdi, precond=precond,
-              tol=opts.inner_tol if tol is None else tol, maxiter=opts.max_inner)
+    kw = {"precond_dots": precond_dots} if precond_dots is not None else {}
+    res = solver(matvec, rhs * sdi, x0 / sdi, precond=precond,
+                 tol=opts.inner_tol if tol is None else tol, maxiter=opts.max_inner, **kw)
     return res._replace(x=res.x * sdi)
 
 

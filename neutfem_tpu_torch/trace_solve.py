@@ -17,7 +17,9 @@ end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall and the
 tracing overhead (traced minus untraced wall); with ``--out DIR`` it also
 writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
-summary.  Needs a CUDA device.
+summary.  Needs a CUDA device.  The opt-in switches apply as in a solve:
+``NEUTFEM_EQFOLD=2 python -m neutfem_tpu_torch.trace_solve`` traces K7,
+``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1 ... --order 2`` traces K8.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ FAMILIES = (
     ("fused_ho_kernel", "condensed Schur directions (K6)"),
     ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
     ("thomas_kernel", "Thomas solve (K4)"),
+    ("fused_eq_kernel", "equilibration-folded Schur directions (K7)"),
+    ("blockjac", "fused block-Jacobi apply + dots (K8)"),
     ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
     ("reduce_kernel", "reductions (dot products, norms)"),
     ("elementwise", "elementwise (axpy, scaling, C*v)"),

@@ -1,7 +1,7 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1-K4, K4′, K5, K6) with the plain PyTorch
-version of the same function, on the card, at a small shape.  They need a CUDA
+Each test compares one hand-written kernel (K1-K4, K4′, K5, K6, K7, K8) with the plain
+PyTorch version of the same function, on the card, at a small shape.  They need a CUDA
 device and skip without one (the decision is made inside a fixture, at run
 time).  This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from neutfem_tpu_torch import fespace, mesh
-from neutfem_tpu_torch.ops import fused, fused_ho, thomas
+from neutfem_tpu_torch.ops import blockjac, fused, fused_eq, fused_ho, thomas
 
 pytestmark = pytest.mark.gpu
 
@@ -266,3 +266,123 @@ def test_fused_ho_rejects_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError):  # K1 = 4: no kernel instantiated
         fused_ho.fused_ho_z(v3.clone(), v3, z, z[:3].contiguous(), z[:3].contiguous(),
                             fused_ho.ho_tables(fes3, di))
+
+
+EQ_WRAPPERS = {"x_eq": (fused_eq.fused_schur_x_eq, -1), "z_eq": (fused_eq.fused_schur_z_eq, -3),
+               "x_eq2": (fused_eq.fused_schur_x_eq2, -1), "y_eq2": (fused_eq.fused_schur_y_eq2, -2),
+               "z_eq2": (fused_eq.fused_schur_z_eq2, -3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("key", sorted(EQ_WRAPPERS))
+@pytest.mark.parametrize("shape", [(9, 10, 11), (5, 33, 70)])
+def test_fused_eq_kernel_matches_plain(cuda, dtype, key, shape):
+    """K7 (one template, five flag sets) against its plain version on the CPU,
+    on the same operands: line counts that are no multiple of the 128 threads
+    of a block (110, 99, 90; 2310, 350, 165)."""
+    rng = np.random.default_rng(30)
+    nz, ny, nx = shape
+    wrapper, axis = EQ_WRAPPERS[key]
+    fsh = {-3: (nz + 1, ny, nx), -2: (ny + 1, nz, nx), -1: (nx + 1, nz * ny)}[axis]
+    lsh = {-3: (nz, ny, nx), -2: (ny, nz, nx), -1: (nx, nz * ny)}[axis]
+    ops = [rng.uniform(0.2, 0.6, fsh), rng.uniform(-0.3, 0.3, lsh)]
+    ops[0][0] = 0.0  # a pinned first face: l = dm = 0 there
+    ops[1][0] = 0.0
+    y, acc = rng.standard_normal((2, 1, *shape))
+    sdi, ce = rng.uniform(0.5, 2.0, (2, 1, *shape))
+
+    def run(device):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # a copy: acc is updated
+        dm, l = t(ops[0]), t(ops[1])
+        if key in ("x_eq", "x_eq2"):
+            out = wrapper(t(y), t(sdi), t(ce), dm, l, 0.5, -0.5, 0.25)
+            return out if key == "x_eq" else (out, None)
+        a = t(acc)
+        if key == "z_eq":
+            got = wrapper(a, t(y), dm, l, t(sdi), 0.5, -0.5, 0.25)
+        else:
+            got = wrapper(a, t(y), t(sdi), dm, l, 0.5, -0.5, 0.25)
+        assert got is a  # in place
+        return got, None
+
+    before = dict(fused_eq.LAUNCHES)
+    got, got_u = run(cuda)
+    torch.cuda.synchronize()
+    assert fused_eq.LAUNCHES[key] == before[key] + 1
+    want, want_u = run("cpu")
+    base = torch.as_tensor(acc if key.startswith(("y", "z")) else np.zeros_like(acc),
+                           dtype=dtype)
+    assert _rel(got.cpu(), want, base) <= TOL[dtype]
+    if key == "x_eq":
+        assert float(torch.max(torch.abs(got_u.cpu() - want_u))) == 0.0  # u = sdi*y exactly
+
+
+def test_fused_eq_rejects_what_it_does_not_take(cuda):
+    y = torch.zeros((1, 4, 5, 6), device=cuda)
+    dm, l = torch.zeros((5, 5, 6), device=cuda), torch.zeros((4, 5, 6), device=cuda)
+    with pytest.raises(TypeError):  # an operand of another dtype
+        fused_eq.fused_schur_z_eq2(y.clone(), y, y.double(), dm, l, 0.5, -0.5, 0.25)
+    with pytest.raises(ValueError):  # the z operands for the y direction
+        fused_eq.fused_schur_y_eq2(y.clone(), y, y, dm, l, 0.5, -0.5, 0.25)
+    with pytest.raises(TypeError):  # float16
+        h = y.half()
+        fused_eq.fused_schur_z_eq2(h.clone(), h, h, dm.half(), l.half(), 0.5, -0.5, 0.25)
+
+
+def _blockjac_operands(P, shape, bdtype, device, seed):
+    rng = np.random.default_rng(seed)
+    bi = torch.as_tensor(rng.standard_normal((P, P, *shape)), dtype=torch.float32)
+    bi = (bi + 4.0 * torch.eye(P).reshape(P, P, 1, 1, 1)).to(bdtype).to(device)
+    r = torch.as_tensor(rng.standard_normal((P, *shape)), dtype=torch.float32, device=device)
+    return bi, r
+
+
+@pytest.mark.parametrize("bdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("P", [8, 27, 5])
+@pytest.mark.parametrize("shape", [(3, 17, 23), (2, 16, 64)])
+def test_blockjac_kernel_matches_plain(cuda, P, bdtype, shape):
+    """K8 against its plain version on the same blocks: z to rel 1e-5 (the same
+    products in another order; bf16 entries widen exactly), the dots to rel
+    1e-5 (float32 per-block partials against one float32 sum).  1,173 cells is
+    no multiple of the 256 threads of a block; P = 5 takes the generic kernel."""
+    bi, r = _blockjac_operands(P, shape, bdtype, cuda, P)
+    before = blockjac.LAUNCHES["blockjac"]
+    z, rz, rr = blockjac.blockjac_dots(bi, r)
+    torch.cuda.synchronize()
+    assert blockjac.LAUNCHES["blockjac"] == before + 1
+    zp, rzp, rrp = blockjac.blockjac_dots_plain(bi, r)
+    assert _rel(z, zp, torch.zeros_like(zp)) <= 1e-5
+    assert abs(float(rz) - float(rzp)) <= 1e-5 * abs(float(rzp))
+    assert abs(float(rr) - float(rrp)) <= 1e-5 * abs(float(rrp))
+
+
+@pytest.mark.parametrize("P", [8, 27])
+def test_blockjac_dots_against_float64_sum(cuda, P):
+    """The kernel's dots against the same sums taken in float64 from its z:
+    rel 1e-5 (float32 partials of 256 cells, then a float32 sum)."""
+    bi, r = _blockjac_operands(P, (5, 41, 67), torch.bfloat16, cuda, 40 + P)
+    z, rz, rr = blockjac.blockjac_dots(bi, r)
+    r64, z64 = r.double(), z.double()
+    want_rz, want_rr = float(torch.sum(r64 * z64)), float(torch.sum(r64 * r64))
+    assert abs(float(rz) - want_rz) <= 1e-5 * abs(want_rz)
+    assert abs(float(rr) - want_rr) <= 1e-5 * abs(want_rr)
+
+
+def test_blockjac_is_deterministic(cuda):
+    """Two launches on the same operands give the same bits: no atomics, the
+    per-block partials are summed in a fixed order."""
+    bi, r = _blockjac_operands(27, (4, 76, 76), torch.bfloat16, cuda, 50)
+    a = blockjac.blockjac_dots(bi, r)
+    b = blockjac.blockjac_dots(bi, r)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_blockjac_rejects_what_it_does_not_take(cuda):
+    bi, r = _blockjac_operands(8, (2, 3, 4), torch.bfloat16, cuda, 0)
+    with pytest.raises(TypeError):  # a float64 residual
+        blockjac.blockjac_dots(bi, r.double())
+    with pytest.raises(TypeError):  # float16 blocks
+        blockjac.blockjac_dots(bi.half(), r)
+    with pytest.raises(ValueError):  # non-contiguous blocks
+        blockjac.blockjac_dots(bi.transpose(-1, -2).contiguous().transpose(-1, -2), r)
