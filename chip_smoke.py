@@ -13,15 +13,21 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    (76x114x114 cells, group 0), K5 and K1's group batch on the same
    operands with both groups at once (2, 1, 76, 114, 114) and on a ragged
    3-group grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2)
-   (38x76x76 cells), the fused y and x directions (K2, K3) and K4′ on ZION
-   48x48 (912x912 cells, 912 lines per direction: few, long lines); the five
-   equilibration-folded directions (K7) on the 6x6x4 operands; the fused
-   block-Jacobi apply + dots (K8) on the 4x4x2 RT2-P2 and RT1-P1 blocks in
-   bfloat16; float32;
+   (38x76x76 cells), the fused y and x directions (K2, K3) on ZION 48x48
+   (912x912 cells, 912 lines per direction: few, long lines) and KOEBERG
+   32x32 (544x544), K4′ on ZION; the five equilibration-folded directions
+   (K7) on the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on
+   the 4x4x2 RT2-P2 and RT1-P1 blocks in bfloat16; float32.  K2 and K3 are
+   the tiled kernel (csrc/fused_rows.cu); at each of their three shapes the
+   thread-per-line kernel they replaced (csrc/fused_dir.cu) runs beside it
+   on the same operands, both held to the plain version and timed in turns
+   (its time is the row's ``old_ms``), and the tiled kernel is swept over
+   the tiles of ``ROWS_SWEEP``;
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
    Jacobi group sweep, the free-running adjoint, and RT0-P0 under
-   ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — on the GPU agree with the same
-   solves through the plain versions on the CPU;
+   ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — and the KOEBERG 4x4 2D solve
+   (68x68 cells, with the tiled K2 / K3 kernel launched) on the GPU agree
+   with the same solves through the plain versions on the CPU;
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
    34 outers, 1068 inners), with every kernel's launch count > 0;
@@ -30,14 +36,15 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    K6 (every direction) and K4 launched in each;
 7. 2D paths: ``bench.main_2d("koeberg2d", 32)`` and ``main_2d("zion2d", 48)``
    (float32) against the JAX package's anchors, with the two-grid coarse
-   level attached (the group solves resolve "auto" to "twogrid") and the y,
-   x and K4′ kernels launched in each;
+   level attached (the group solves resolve "auto" to "twogrid"), the tiled
+   y and x kernels and K4′ launched in each and the thread-per-line y and x
+   kernel not at all;
 8. line path: ``bench.main_scale()`` (IAEA-3D 8x8x8, 3.5M cells, float32)
    against its anchor (k within 2e-5, ``SCALE_KEFF_TOL``), with the line
    preconditioner: at least one z Thomas launch (K4) per CG iteration;
 9. Jacobi path: ``bench.main_sweep("jacobi")`` (IAEA-3D 6x6x4, float32, every
    group in one batched CG): the batched kernels (K5, K1's batch) launched,
-   the one-group K1-K3 not, converged below 600 outers, k within 2e-5
+   the one-group K1-K3 (either kernel) not, converged below 600 outers, k within 2e-5
    (``SWEEP_KEFF_TOL``) of the Gauss-Seidel solve at the same tolerances and
    of phase [5]'s k;
 10. adjoint path: ``bench.main_adjoint()`` (``bench.py --full``'s IAEA-3D
@@ -50,7 +57,8 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 12. opt-in paths, each under its switches (set and restored around the run):
    ``bench.main(6, 4)`` under ``NEUTFEM_EQFOLD=1`` and ``=2`` at phase [5]'s
    anchors, with the eq kernels (K7) launched at least once per CG iteration
-   and the one-group x and z kernels (and y in mode 2) not at all;
+   and the one-group x and z kernels (and y in mode 2; either y / x kernel)
+   not at all;
    ``bench.main_ho(1)`` under ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1`` with
    bfloat16 block storage, K8 launched at least once per CG iteration, at the
    RT1-P1 anchors (inners against the JAX package's float32
@@ -64,6 +72,9 @@ outside the tensor cores).  No single PyTorch call computes the functions of
 K1-K7, so their rows' ``library_ms`` is null; K8's is the port's default
 block apply on the same blocks (``torch.bmm`` on their float32 copy, then
 the two dots as ``torch.sum``), timed here and not used by the K8 path.
+The K2 / K3 comparisons time each kernel behind a queued sleep, so that the
+host enqueues every launch before the card starts them: their rows measure
+device time, not the wrapper's host cost (the tiled kernel takes ~10 µs).
 
 Launch counts are set to 0 just before each path and read just after it.
 The last two lines are a JSON object of per-kernel results and the contract
@@ -99,8 +110,13 @@ EQ_REPLACES = {"x_eq": (0, "neutfem_tpu/ops/pallas_fused.py:574"),
                "z_eq2": (2, "neutfem_tpu/ops/pallas_fused.py:681")}
 # the K7 launches each fold mode's path must show, and the one-group kernels
 # it must not launch
-EQ_MODES = {"1": (("x_eq", "z_eq"), ("x", "z")),
-            "2": (("x_eq2", "y_eq2", "z_eq2"), ("x", "y", "z"))}
+EQ_MODES = {"1": (("x_eq", "z_eq"), ("x", "x_rows", "z")),
+            "2": (("x_eq2", "y_eq2", "z_eq2"), ("x", "x_rows", "y", "y_rows", "z"))}
+# the tiles (lines per block, chunks per line) [3] sweeps the tiled K2 / K3
+# kernel over, beside the one fused.rows_tile picks
+ROWS_SWEEP = ((2, 32), (4, 32), (8, 32), (16, 32), (8, 16), (16, 16))
+ROWS_REPLACES = {"y": "neutfem_tpu/ops/pallas_fused.py:518",
+                 "x": "neutfem_tpu/ops/pallas_fused.py:547"}
 HO_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused_ho.py:460",
                "y": "neutfem_tpu/ops/pallas_fused_ho.py:389",
                "x": "neutfem_tpu/ops/pallas_fused_ho.py:425"}
@@ -141,13 +157,17 @@ FUSED_FLOPS_PER_CELL = 13
 THOMAS_FLOPS_PER_ELEMENT = 5
 
 
-def _timed(fn, reps):
-    """Mean milliseconds per call over ``reps`` calls (CUDA events, after a warm-up)."""
+def _timed(fn, reps, queued=False):
+    """Mean milliseconds per call over ``reps`` calls (CUDA events, after a
+    warm-up).  ``queued``: the card first sleeps ~3 ms while the host
+    enqueues every call, so a call's host cost does not show."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -224,36 +244,103 @@ def _thomas_case(fes, ctx, di, phi, card, label):
     return err, ms, plain_ms, bound
 
 
-def _fused_case(kid, key, ctxg, di, v, acc0, card, label):
-    """One fused RT0 direction (K1-K3): the kernel on the staged operands
-    against the plain version on the NATURAL ones (a wrong staging base or
-    stride in the kernel shows up here).  Returns (max_abs_err, ms, plain_ms,
-    bound)."""
+def _fused_z_case(ctxg, di, v, acc0, card):
+    """K1, the fused RT0 z direction, on the 6x6x4 operands against the plain
+    version.  Returns (max_abs_err, ms, plain_ms, bound)."""
     import torch
 
     from neutfem_tpu_torch.ops import fused
 
-    wrapper, tag, axis = {"z": (fused.fused_schur_z, None, -3),
-                          "y": (fused.fused_schur_y_pre, "yT", -2),
+    dm, ll = ctxg[f"tri_dinvm_d{di.d}"], ctxg[f"tri_l_d{di.d}"]
+    c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
+    got = fused.fused_schur_z(acc0.clone(), v, dm, ll, *c)
+    want = fused.fused_dir_plain(acc0, v, dm, ll, -3, *c)
+    torch.cuda.synchronize()
+    err = _compare("K1 fused z 6x6x4", got, want, acc0)
+    scratch = acc0.clone()
+    ms = _timed(lambda: fused.fused_schur_z(scratch, v, dm, ll, *c), 50)
+    plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, dm, ll, -3, *c), 3)
+    bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
+    print(f"  K1 fused z 6x6x4: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+          f"{bound[0]:.4f} ms ({v.numel() // v.shape[-3]} lines of {v.shape[-3]} cells per "
+          f"launch; {card})")
+    return err, ms, plain_ms, bound
+
+
+def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
+    """K2 (y) or K3 (x) on one group's flux: the wrapper, which launches the
+    tiled kernel at the tile ``fused.rows_tile`` picks, and the
+    thread-per-line kernel it replaced, called through the library (no
+    launch counted), each against the plain version on the NATURAL operands
+    and timed in turns (old, new, new, old); then the tiled kernel at the
+    tiles of ``ROWS_SWEEP``.  Returns a row with ``old_ms``."""
+    import torch
+
+    from neutfem_tpu_torch.ops import cuda_lib, fused
+
+    wrapper, tag, axis = {"y": (fused.fused_schur_y_pre, "yT", -2),
                           "x": (fused.fused_schur_x_pre, "xT", -1)}[key]
     d = f"d{di.d}"
-    dm_key, l_key = ((f"tri_dinvm_{d}", f"tri_l_{d}") if tag is None
-                     else (f"tri_{tag}_dinvm_{d}", f"tri_{tag}_l_{d}"))
-    bx0, bx1, si = float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0])
-    got = wrapper(acc0.clone(), v, ctxg[dm_key], ctxg[l_key], bx0, bx1, si)
-    want = fused.fused_dir_plain(acc0, v, ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"],
-                                 axis, bx0, bx1, si)
+    dm, ll = ctxg[f"tri_{tag}_dinvm_{d}"], ctxg[f"tri_{tag}_l_{d}"]
+    nat = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"])
+    c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
+    nz, ny, nx = v.shape[-3:]
+    n = v.shape[axis]
+    lines = v.numel() // n
+    strides = (nx, ny * nx, nx) if key == "y" else (1, nx, 1)  # inner, outer, cell
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    zs = torch.empty((n, lines), dtype=v.dtype, device=v.device)
+
+    def old(acc):
+        cuda_lib.check(lib.neutfem_fused_dir_f32(
+            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), zs.data_ptr(), n, lines,
+            *strides, *c, stream), "fused_dir")
+        return acc
+
+    def tiled(acc, tile):
+        cuda_lib.check(lib.neutfem_fused_rows_f32(
+            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), n, lines, *strides,
+            int(strides[2] == 1), *tile, *c, stream), "fused_rows")
+        return acc
+
+    want = fused.fused_dir_plain(acc0, v, *nat, axis, *c)
+    before = dict(fused.LAUNCHES)
+    got = wrapper(acc0.clone(), v, dm, ll, *c)
     torch.cuda.synchronize()
-    err = _compare(f"{kid} fused {key} {label}", got, want, acc0)
+    if fused.LAUNCHES[f"{key}_rows"] != before[f"{key}_rows"] + 1:
+        raise RuntimeError(f"{kid} {label}: the wrapper did not launch the tiled kernel")
+    err = _compare(f"{kid} tiled {key} {label}", got, want, acc0)
+    _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
     scratch = acc0.clone()
-    ms = _timed(lambda: wrapper(scratch, v, ctxg[dm_key], ctxg[l_key], bx0, bx1, si), 50)
-    plain_ms = _timed(lambda: fused.fused_dir_plain(
-        acc0, v, ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"], axis, bx0, bx1, si), 3)
-    lines = v.numel() // v.shape[axis]
-    bound = _bound((v, acc0, got, ctxg[dm_key], ctxg[l_key]), FUSED_FLOPS_PER_CELL * v.numel())
-    print(f"  {kid} fused {key} {label}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"bound {bound[0]:.4f} ms ({lines} lines of {v.shape[axis]} cells per launch; {card})")
-    return err, ms, plain_ms, bound
+    t = [_timed(fn, 50, queued=True) for fn in (lambda: old(scratch),
+                                                lambda: wrapper(scratch, v, dm, ll, *c),
+                                                lambda: wrapper(scratch, v, dm, ll, *c),
+                                                lambda: old(scratch))]
+    ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
+    bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
+    tile = fused.rows_tile(lines, n, v.dtype)
+    sweep = []
+    for tl in ROWS_SWEEP:
+        try:
+            _compare(f"{kid} tiled {key} {label} tile {tl}", tiled(acc0.clone(), tl), want, acc0)
+        except RuntimeError as e:  # a tile the card's shared memory does not hold
+            if "CUDA launch failed" not in str(e):
+                raise
+            sweep.append(f"{tl[0]}x{tl[1]} refused")
+            continue
+        sweep.append(f"{tl[0]}x{tl[1]} {_timed(lambda: tiled(scratch, tl), 50, queued=True):.4f}")
+    print(f"  {kid} {key} {label}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
+          f"({t[1]:.4f}, {t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+          f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells; "
+          f"{card})")
+    print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    row = _row(f"{kid} fused Schur direction {key}{label}", "neutfem_tpu_torch/csrc/fused_rows.cu",
+               ROWS_REPLACES[key], f"{key}_rows", err, ms, plain_ms, bound)
+    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_dir.cu",
+               tile=list(tile))
+    return row
 
 
 def _batched_case(kid, key, ctx, di, v, acc0, card, label, reps=50):
@@ -466,6 +553,21 @@ def _small_solve(bench, spec, device, case):
     return k, outers, inners
 
 
+def _small_2d_solve(bench, device):
+    """One KOEBERG 4x4 float64 solve (68x68 cells, 4 groups; the 2D y and x
+    directions) on ``device``: (k, outers, inners), after checking the flux
+    is finite and of the expected shape."""
+    import torch
+
+    r = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["koeberg2d"], mesh_n=4,
+                           device=device, dtype=torch.float64)
+    k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
+    s = r.solver
+    if tuple(s._phi.shape) != (4, 1, 68, 68, 1) or not bool(torch.isfinite(s._phi).all()):
+        raise RuntimeError(f"KOEBERG 4x4 on {device}: bad flux {tuple(s._phi.shape)}")
+    return k, s._last_outers, s._last_inners
+
+
 def main():
     import torch
 
@@ -516,13 +618,11 @@ def main():
 
     dirs = {di.d: di for di in fes.dirs}
     rows = {}
-    for kid, key, d, replaces in (("K1", "z", 2, "neutfem_tpu/ops/pallas_fused.py:466"),
-                                  ("K2", "y", 1, "neutfem_tpu/ops/pallas_fused.py:518"),
-                                  ("K3", "x", 0, "neutfem_tpu/ops/pallas_fused.py:547")):
-        err, ms, plain_ms, bound = _fused_case(kid, key, ctxg, dirs[d], v, acc0, card, "6x6x4")
-        rows[kid] = _row(f"{kid} fused Schur direction {key}",
-                         "neutfem_tpu_torch/csrc/fused_dir.cu", replaces, key, err, ms, plain_ms,
-                         bound)
+    err, ms, plain_ms, bound = _fused_z_case(ctxg, dirs[2], v, acc0, card)
+    rows["K1"] = _row("K1 fused Schur direction z", "neutfem_tpu_torch/csrc/fused_dir.cu",
+                      "neutfem_tpu/ops/pallas_fused.py:466", "z", err, ms, plain_ms, bound)
+    for kid, key, d in (("K2", "y", 1), ("K3", "x", 0)):
+        rows[kid] = _rows_case(kid, key, ctxg, dirs[d], v, acc0, card, "")
 
     # K4 at the three compute_current layouts: rhs (2, 1, faces...) per direction
     phi = torch.as_tensor(rng.standard_normal((2, *shape)), dtype=f32, device=dev)
@@ -606,13 +706,9 @@ def main():
     zacc0 = torch.as_tensor(rng.standard_normal(zshape), dtype=f32, device=dev)
     zdirs = {di.d: di for di in zfes.dirs}
     print(f"[3] kernels vs plain, ZION 48x48 {zfes.mesh.shape} group 0, float32 ({card})")
-    for kid, key, d, replaces in (("K2", "y", 1, "neutfem_tpu/ops/pallas_fused.py:518"),
-                                  ("K3", "x", 0, "neutfem_tpu/ops/pallas_fused.py:547")):
-        err, ms, plain_ms, bound = _fused_case(kid, key, zctxg, zdirs[d], zv, zacc0, card,
-                                               "ZION 48x48")
-        rows[f"{kid} 2D"] = _row(f"{kid} fused Schur direction {key} (2D, ZION 48x48)",
-                                 "neutfem_tpu_torch/csrc/fused_dir.cu", replaces, key, err, ms,
-                                 plain_ms, bound)
+    for kid, key, d in (("K2", "y", 1), ("K3", "x", 0)):
+        rows[f"{kid} 2D"] = _rows_case(kid, key, zctxg, zdirs[d], zv, zacc0, card,
+                                       " (2D, ZION 48x48)")
     zphi = torch.as_tensor(rng.standard_normal((2, *zshape)), dtype=f32, device=dev)
     err, ms, plain_ms, bound = _thomas_case(zfes, zctx, zdirs[1], zphi, card, "K4′")
     # what the chunks buy: the thread-per-line K4 kernel at the same layout
@@ -636,6 +732,20 @@ def main():
     print(f"  two-grid coarse apply (torch.matmul, {tuple(minv.shape)} {minv.dtype}): "
           f"{coarse_ms:.4f} ms ({card})")
     del zrun, zctx, zctxg, minv
+    # K2 / K3 at KOEBERG 32x32: one group's flux (1, 1, 544, 544)
+    krun = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["koeberg2d"], mesh_n=32,
+                              device=dev, dtype=f32)
+    kfes = krun.solver._fes
+    kctxg = ctx_group(krun.solver._ctx, 0)
+    kshape = (1, *kfes.mesh.shape)
+    kv = torch.as_tensor(rng.standard_normal(kshape), dtype=f32, device=dev)
+    kacc0 = torch.as_tensor(rng.standard_normal(kshape), dtype=f32, device=dev)
+    kdirs = {di.d: di for di in kfes.dirs}
+    print(f"[3] kernels vs plain, KOEBERG 32x32 {kfes.mesh.shape} group 0, float32 ({card})")
+    for kid, key, d in (("K2", "y", 1), ("K3", "x", 0)):
+        rows[f"{kid} KOEBERG"] = _rows_case(kid, key, kctxg, kdirs[d], kv, kacc0, card,
+                                            " (2D, KOEBERG 32x32)")
+    del krun, kctxg
     print(f"    [3] {time.perf_counter() - t0:.1f} s")
 
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
@@ -665,6 +775,20 @@ def main():
                 or min(launched.values()) < small["cuda"][2]):
             raise RuntimeError(f"IAEA-3D 1x1 NEUTFEM_EQFOLD={mode}: the GPU solve disagrees "
                                "with the CPU reference, or K7 did not run every CG iteration")
+    small = {}
+    for device in ("cpu", "cuda"):  # the 2D directions: the tiled K2 / K3 kernel
+        fused.reset_launches()
+        small[device] = _small_2d_solve(bench, device)
+    launched = {k: fused.LAUNCHES[k] for k in ("y_rows", "x_rows", "y", "x")}
+    print(f"[4] KOEBERG 4x4 float64: cuda {small['cuda']}  cpu {small['cpu']}; K2 / K3 launches "
+          f"{launched}")
+    if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
+            or small["cuda"][1] != small["cpu"][1]
+            or abs(small["cuda"][2] - small["cpu"][2]) > 2
+            or min(launched["y_rows"], launched["x_rows"]) < small["cuda"][2]
+            or launched["y"] or launched["x"]):
+        raise RuntimeError("KOEBERG 4x4: the GPU solve disagrees with the CPU reference, or the "
+                           "tiled K2 / K3 kernel did not run every CG iteration")
     print(f"    [4] {time.perf_counter() - t0:.1f} s")
 
     # [5] the RT0 main path; counts are zeroed just before it and read just after
@@ -683,6 +807,8 @@ def main():
     keff_main = keff
     if any(launches[k] for k in (*fused_eq.LAUNCHES, *blockjac.LAUNCHES)):
         raise RuntimeError("main path: an opt-in kernel (K7, K8) launched without its switch")
+    if launches["y"] or launches["x"]:
+        raise RuntimeError("main path: the thread-per-line kernel served y or x")
     for rid in ("K1", "K2", "K3", "K4"):
         row = rows[rid]
         row["launches"] = launches[row.pop("key")]
@@ -740,13 +866,20 @@ def main():
         if det["preconditioner"] != "twogrid":
             raise RuntimeError(f"{core}: the context carries no two-grid level "
                                f"(preconditioner {det['preconditioner']!r})")
-        for key in ("y", "x", "thomas_y"):
+        for key in ("y_rows", "x_rows", "thomas_y"):
             if launches[key] <= 0:
                 raise RuntimeError(f"{core}: {key} not launched on the 2D path")
-            launches_2d[key] = launches_2d.get(key, 0) + launches[key]
+        for key in ("y", "x"):
+            if launches[key] != 0:
+                raise RuntimeError(f"{core}: the thread-per-line {key} kernel launched "
+                                   f"{launches[key]} times")
+        launches_2d[core] = launches
         print(f"    [7] {core} {time.perf_counter() - t0:.1f} s")
-    for rid in ("K2 2D", "K3 2D", "K4′"):
-        rows[rid]["launches"] = launches_2d[rows[rid].pop("key")]
+    for rid, core in (("K2 2D", "zion2d"), ("K3 2D", "zion2d"), ("K2 KOEBERG", "koeberg2d"),
+                      ("K3 KOEBERG", "koeberg2d")):
+        rows[rid]["launches"] = launches_2d[core][rows[rid].pop("key")]
+    key = rows["K4′"].pop("key")
+    rows["K4′"]["launches"] = sum(launches[key] for launches in launches_2d.values())
 
     # [8] the line path
     t0 = time.perf_counter()
@@ -794,7 +927,7 @@ def main():
     for key in ("z_batched", "y_batched", "x_batched"):
         if launches[key] <= 0:
             raise RuntimeError(f"Jacobi sweep: {key} not launched on the path")
-    for key in ("z", "y", "x"):
+    for key in ("z", "y", "x", "y_rows", "x_rows"):
         if launches[key] != 0:
             raise RuntimeError(f"Jacobi sweep: the one-group kernel {key} launched "
                                f"{launches[key]} times")
@@ -821,7 +954,7 @@ def main():
     if not abs(det["outer_iterations"] - oa) <= OUTERS_TOL:
         raise RuntimeError(f"adjoint: {det['outer_iterations']} outers, expected {oa} +- "
                            f"{OUTERS_TOL}")
-    for key in ("z", "y", "x", "thomas"):
+    for key in ("z", "y_rows", "x_rows", "thomas"):
         if launches[key] <= 0:
             raise RuntimeError(f"adjoint: {key} not launched on the path")
     print(f"    [10] {time.perf_counter() - t0:.1f} s")
@@ -940,7 +1073,7 @@ def main():
           f"({card})")
     _check_anchor("RT0-P0 6x6x4 NEUTFEM_CGCG=1", keff, outers, inners,
                   (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
-    for key in ("z", "y", "x", "thomas"):
+    for key in ("z", "y_rows", "x_rows", "thomas"):
         if launches[key] <= 0:
             raise RuntimeError(f"NEUTFEM_CGCG=1: {key} not launched on the path")
     print(f"    [12] CGCG {time.perf_counter() - t0:.1f} s")

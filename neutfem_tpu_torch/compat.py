@@ -102,8 +102,18 @@ _SOLVER_NAMES = {
 _DIRECT = (LinearSolverType.DIRECT_LU, LinearSolverType.DIRECT_LDLT,
            LinearSolverType.DIRECT_LLT)
 
-#: Adaptive inner-tolerance factor of the JAX facade's default (NEUTFEM_INNER_ETA).
-INNER_ETA = 0.03
+
+def _check_health(keff: float, finite, what: str):
+    """Warn (``RuntimeWarning``) on a non-finite result, or on a finite k
+    outside [0.5, 2.0], which no reactor-physics problem gives (the JAX
+    facade's ``_check_health``)."""
+    if not (finite and np.isfinite(keff)):
+        warnings.warn(f"{what} produced non-finite results (keff={keff})",
+                      RuntimeWarning, stacklevel=3)
+    elif keff < 0.5 or keff > 2.0:
+        warnings.warn(f"{what} converged to an implausible eigenvalue keff={keff:.6g} "
+                      "(outside [0.5, 2.0]); check cross-sections, boundary conditions "
+                      "and solver flags", RuntimeWarning, stacklevel=3)
 
 
 class NeutFEM:
@@ -310,7 +320,9 @@ class NeutFEM:
             inner_tol=self._tol_flux,
             max_outer=self._max_outer,
             max_inner=self._max_inner,
-            inner_eta=INNER_ETA,
+            # adaptive inner tolerance (default on at 0.03, as in the JAX facade);
+            # NEUTFEM_INNER_ETA=0 restores the reference's fixed tolerance
+            inner_eta=float(os.environ.get("NEUTFEM_INNER_ETA", "0.03")),
             inner_solver=inner_solver,
             use_cmfd=use_cmfd,
             cmfd_omega=self._cmfd_omega,
@@ -366,9 +378,7 @@ class NeutFEM:
         self._keff = keff
         self._last_outers = res["outer_iterations"]
         self._last_inners = res["inner_iterations"]
-        if not (finite and np.isfinite(keff)):
-            warnings.warn(f"SolveKeff produced non-finite results (keff={keff})",
-                          RuntimeWarning, stacklevel=2)
+        _check_health(keff, finite, "SolveKeff")
         self._log(
             VerbosityLevel.NORMAL,
             f"SolveKeff: k-eff = {keff:.6f} in {self._last_outers} outer / "
@@ -403,9 +413,7 @@ class NeutFEM:
         self._phi_adj = phi_adj
         self._J_adj = res["J"]
         self._keff_adj = keff_adj
-        if not (finite and np.isfinite(keff_adj)):
-            warnings.warn(f"SolveAdjoint produced non-finite results (keff={keff_adj})",
-                          RuntimeWarning, stacklevel=2)
+        _check_health(keff_adj, finite, "SolveAdjoint")
         self._log(VerbosityLevel.NORMAL,
                   f"SolveAdjoint: k-eff(adj) = {keff_adj:.6f} in "
                   f"{res['outer_iterations']} outers ({time.time() - t0:.3f}s)")

@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-SOURCES = ("fused_dir.cu", "thomas.cu", "fused_ho.cu", "fused_eq.cu", "blockjac.cu")
+SOURCES = ("fused_dir.cu", "fused_rows.cu", "thomas.cu", "fused_ho.cu", "fused_eq.cu",
+           "blockjac.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,12 @@ _SIGNATURES = {
                                       + [ctypes.c_double] * 3 + [_P]),
     "neutfem_fused_dir_batched_f64": ([_P] * 5 + [ctypes.c_int] + [_I64] * 6
                                       + [ctypes.c_double] * 3 + [_P]),
+    # acc, v, dm, l, n, lines, inner, outer_stride, cell_stride, line_major, tl, ch,
+    # bx0, bx1, si, stream
+    "neutfem_fused_rows_f32": ([_P] * 4 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_int] * 3
+                               + [ctypes.c_double] * 3 + [_P]),
+    "neutfem_fused_rows_f64": ([_P] * 4 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_int] * 3
+                               + [ctypes.c_double] * 3 + [_P]),
     # r, d, l, out, n, lines, inner, stream
     "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],

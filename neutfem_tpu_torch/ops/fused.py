@@ -12,9 +12,14 @@ entries, si = 1/m_t):
     F_n   = z_n dm_n;   F_f = z_f dm_f - l_f F_{f+1}          [dm = dinv*mask]
     out_e = acc_e + (bx0 F_e + bx1 F_{e+1})
 
-On a CUDA tensor each wrapper launches the hand-written kernel of
-``csrc/fused_dir.cu``; on a CPU tensor it runs the plain PyTorch version.  A
-CUDA tensor the kernel does not take raises; there is no decline path.
+On a CUDA tensor each wrapper launches a hand-written kernel: the one-group
+y and x directions (K2, K3) the tiled kernel of ``csrc/fused_rows.cu`` (a tile
+of lines per block, each line cut into chunks, staged through shared memory),
+at the tile ``rows_tile`` picks; the z direction (K1) and the group-batched
+directions the thread-per-line kernels of ``csrc/fused_dir.cu``.  On a CPU
+tensor every wrapper runs the plain PyTorch version.  A CUDA tensor the
+kernel does not take, or a launch the card refuses, raises; there is no
+decline path.
 
 Like the TPU kernels, which alias the accumulator input to the output, the
 wrappers UPDATE ``acc`` IN PLACE and return it.
@@ -43,12 +48,25 @@ from . import cuda_lib
 
 __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
            "fused_schur_z_batched", "fused_schur_y_batched", "fused_schur_x_batched",
-           "fused_dir_plain", "LAUNCHES", "reset_launches"]
+           "fused_dir_plain", "rows_tile", "LAUNCHES", "reset_launches"]
 
 #: Kernel launches per direction (incremented where the kernel is launched):
-#: "z", "y", "x" the one-group kernels K1-K3, "*_batched" the group-batched
-#: kernel (K5 for y and x, K1's batch for z).
-LAUNCHES = {"z": 0, "y": 0, "x": 0, "z_batched": 0, "y_batched": 0, "x_batched": 0}
+#: "z" the one-group thread-per-line kernel (K1), "y_rows", "x_rows" the tiled
+#: kernel (K2, K3), "*_batched" the group-batched kernel (K5 for y and x, K1's
+#: batch for z).  "y" and "x" count the thread-per-line kernel on one-group y
+#: and x lines, which no wrapper launches since the tiled kernel measured
+#: faster at every shape (PERF.md); the paths' checks hold them at 0.
+LAUNCHES = {"z": 0, "y": 0, "x": 0, "y_rows": 0, "x_rows": 0,
+            "z_batched": 0, "y_batched": 0, "x_batched": 0}
+
+#: Lines per block of the tiled kernel by dtype, and chunks per line: in
+#: float32 the best or within a few per cent of the best tile chip_smoke.py
+#: [3] sweeps at ZION, KOEBERG and IAEA-3D 6x6x4 (PERF.md); in float64 the
+#: most lines whose tile holds ZION's 913 faces in shared memory.
+ROWS_LINES = {torch.float32: 8, torch.float64: 4}
+ROWS_CHUNKS = 32
+#: The H100's shared memory per block (the opt-in limit, bytes).
+SMEM_PER_BLOCK = 232448
 
 
 def reset_launches() -> None:
@@ -79,6 +97,32 @@ def fused_dir_plain(acc, v, dm, l, axis: int, bx0: float, bx1: float, si: float)
         F[e] = z[e] * dd[e] - ll[e] * F[e + 1]
     contrib = bx0 * F[:n] + bx1 * F[1:]
     return acc + contrib.movedim(0, axis)
+
+
+def rows_smem(n: int, tl: int, ch: int, elem_bytes: int) -> int:
+    """Shared memory bytes of one tile of the tiled kernel: ``tile_layout``
+    of ``csrc/fused_rows.cu`` (chunk length odd, row stride padded) for the
+    v/z/F, dm, l and acc rows, plus the tile's line offsets."""
+    ln = -(-(n + 1) // ch)
+    ln += 1 - ln % 2
+    want = (ch * ln) % 32 if ch < 32 else (32 // tl if tl < 32 else 1)
+    stride = ch * ln + (want - ch * ln) % 32
+    return 8 * tl + 4 * tl * stride * elem_bytes
+
+
+def rows_tile(lines: int, n: int, dtype):
+    """(lines per block, chunks per line) of the tiled kernel for a one-group
+    y or x launch of ``lines`` lines of ``n`` cells.  A fixed rule on the
+    shape: ``ROWS_LINES[dtype]`` lines of ``ROWS_CHUNKS`` chunks, the lines
+    halved while the tile exceeds the card's shared memory (down to one line
+    per block; beyond that the launch is refused and raises).  The tiled
+    kernel serves every shape: in chip_smoke.py [3] it measured faster than
+    the thread-per-line kernel at each one swept (PERF.md)."""
+    tl = ROWS_LINES[dtype]
+    elem = torch.finfo(dtype).bits // 8
+    while tl > 1 and rows_smem(n, tl, ROWS_CHUNKS, elem) > SMEM_PER_BLOCK:
+        tl //= 2
+    return tl, ROWS_CHUNKS
 
 
 def _check(acc, v, dm, l, dm_shape, l_shape, what, groups=None):
@@ -130,6 +174,19 @@ def _launch(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, ke
     return acc
 
 
+def _launch_rows(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, key,
+                 tile):
+    lines = v.numel() // n
+    lib = cuda_lib.library()
+    fn = lib.neutfem_fused_rows_f32 if v.dtype == torch.float32 else lib.neutfem_fused_rows_f64
+    err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), n, lines, inner,
+             outer_stride, cell_stride, int(cell_stride == 1), *tile, float(bx0), float(bx1),
+             float(si), torch.cuda.current_stream(v.device).cuda_stream)
+    cuda_lib.check(err, f"fused Schur direction {key} (tiled kernel, tile {tile}, n {n})")
+    LAUNCHES[f"{key}_rows"] += 1
+    return acc
+
+
 def _dispatch(acc, v, dm, l, dm_shape, l_shape, to_natural, axis, strides, bx0, bx1, si,
               key, groups=None):
     """``dm_shape`` / ``l_shape``: one group's operand shapes; with ``groups``
@@ -151,6 +208,9 @@ def _dispatch(acc, v, dm, l, dm_shape, l_shape, to_natural, axis, strides, bx0, 
     n = v.shape[axis]
     if n < 1:
         raise ValueError(f"{what}: empty solve axis")
+    if groups is None and key in ("y", "x"):
+        return _launch_rows(acc, v, dm, l, n, *strides, bx0, bx1, si, key,
+                            rows_tile(v.numel() // n, n, v.dtype))
     return _launch(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
 
 
@@ -188,12 +248,14 @@ def fused_schur_z(acc, v, dm, l, bx0: float, bx1: float, si: float):
 
 
 def fused_schur_y_pre(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
-    """acc += B_y A_y^{-1} B_y^T v (K2), in place.  dmT (ny+1, nz, nx), lT (ny, nz, nx)."""
+    """acc += B_y A_y^{-1} B_y^T v (K2, the tiled kernel), in place.
+    dmT (ny+1, nz, nx), lT (ny, nz, nx)."""
     return _y(acc, v, dmT, lT, bx0, bx1, si, None)
 
 
 def fused_schur_x_pre(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
-    """acc += B_x A_x^{-1} B_x^T v (K3), in place.  dmT (nx+1, nz*ny), lT (nx, nz*ny)."""
+    """acc += B_x A_x^{-1} B_x^T v (K3, the tiled kernel), in place.
+    dmT (nx+1, nz*ny), lT (nx, nz*ny)."""
     return _x(acc, v, dmT, lT, bx0, bx1, si, None)
 
 

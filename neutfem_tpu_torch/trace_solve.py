@@ -38,13 +38,15 @@ from .power import power_iteration
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
     ("fused_dir_batched_kernel", "batched fused Schur directions (K5, K1 batch)"),
-    ("fused_dir_kernel", "fused Schur directions (K1-K3)"),
+    ("fused_dir_kernel", "fused Schur direction z (K1)"),
+    ("fused_rows_kernel", "tiled fused Schur directions y, x (K2, K3)"),
     ("fused_ho_kernel", "condensed Schur directions (K6)"),
     ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
     ("thomas_kernel", "Thomas solve (K4)"),
     ("fused_eq_kernel", "equilibration-folded Schur directions (K7)"),
     ("blockjac", "fused block-Jacobi apply + dots (K8)"),
     ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
+    ("nvjet", "gemv (block-Jacobi apply; two-grid coarse apply)"),  # cuBLAS's Hopper kernels
     ("reduce_kernel", "reductions (dot products, norms)"),
     ("elementwise", "elementwise (axpy, scaling, C*v)"),
     ("Memcpy", "copies"),

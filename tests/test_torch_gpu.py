@@ -1,10 +1,10 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1-K4, K4′, K5, K6, K7, K8) with the plain
-PyTorch version of the same function, on the card, at a small shape.  They need a CUDA
-device and skip without one (the decision is made inside a fixture, at run
-time).  This file imports neither JAX nor the JAX package, so it also runs on a
-machine without them:
+Each test compares one hand-written kernel (K1, the tiled K2 / K3 kernel, K4, K4′, K5,
+K6, K7, K8) with the plain PyTorch version of the same function, on the card, at a
+small shape.  They need a CUDA device and skip without one (the decision is made
+inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
+so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
@@ -132,6 +132,80 @@ def test_fused_2d_kernels_match_plain(cuda, dtype, key):
         got = fused.fused_schur_x_pre(acc.clone(), v, dmT, lT, 0.5, -0.5, 0.25)
     torch.cuda.synchronize()
     assert _rel(got, want, acc) <= TOL[dtype]
+
+
+def _rows_operands(key, shape, dtype, device, seed):
+    """Staged operands of the one-group y or x wrapper with two pinned face
+    planes (l = dm = 0: the first and one inside), and their natural layouts."""
+    nz, ny, nx = shape
+    n, lines = (ny, nz * nx) if key == "y" else (nx, nz * ny)
+    rng = np.random.default_rng(seed)
+    dm = rng.uniform(0.2, 0.6, (n + 1, lines))
+    l = rng.uniform(-0.3, 0.3, (n, lines))
+    for f in {0, n // 2}:
+        dm[f] = 0.0
+        l[f] = 0.0
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    v, acc = (t(rng.standard_normal((1, nz, ny, nx))) for _ in range(2))
+    if key == "y":
+        staged = (dm.reshape(n + 1, nz, nx), l.reshape(n, nz, nx))
+        nat = (np.moveaxis(staged[0], 0, 1), np.moveaxis(staged[1], 0, 1))
+    else:
+        staged = (dm, l)
+        nat = (dm.T.reshape(nz, ny, nx + 1), l.T.reshape(nz, ny, nx))
+    return v, acc, [t(a) for a in staged], [t(a) for a in nat], {"y": -2, "x": -1}[key]
+
+
+ROWS = {"y": fused.fused_schur_y_pre, "x": fused.fused_schur_x_pre}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("key,shape", [
+    ("y", (1, 912, 912)), ("x", (1, 912, 912)),    # ZION 48x48: 912 lines of 912
+    ("y", (1, 544, 544)), ("x", (1, 544, 544)),    # KOEBERG 32x32
+    ("y", (3, 45, 37)), ("x", (3, 45, 37)),        # n no multiple of 32, lines of 8
+    ("y", (2, 20, 13)), ("x", (2, 20, 13)),        # n < 32
+    ("y", (4, 1, 7)), ("x", (2, 5, 1))])           # n = 1
+def test_fused_rows_kernel_matches_plain(cuda, dtype, key, shape):
+    """The tiled K2 / K3 kernel against the plain version, launched (and
+    counted) under its own key, the thread-per-line kernel not at all."""
+    v, acc, staged, nat, axis = _rows_operands(key, shape, dtype, cuda, 30)
+    want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
+    before = dict(fused.LAUNCHES)
+    got = ROWS[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+    assert fused.LAUNCHES[f"{key}_rows"] == before[f"{key}_rows"] + 1
+    assert fused.LAUNCHES[key] == before[key]
+
+
+@pytest.mark.parametrize("key", ["y", "x"])
+def test_fused_rows_kernel_is_deterministic(cuda, key):
+    """No atomics: two launches on the same operands agree bit for bit."""
+    v, acc, staged, _, _ = _rows_operands(key, (1, 912, 912), torch.float32, cuda, 31)
+    first = ROWS[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    second = ROWS[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_fused_rows_kernel_refuses_a_line_too_long(cuda):
+    """A line no tile of shared memory holds is refused by the card, and the
+    wrapper raises (no fallback to the thread-per-line kernel); the error
+    does not leak into the next launch."""
+    v, acc, staged, nat, axis = _rows_operands("x", (1, 1, 25000), torch.float64, cuda, 32)
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tiled kernel"):
+        fused.fused_schur_x_pre(acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    assert fused.LAUNCHES == before
+    v, acc, staged, nat, axis = _rows_operands("x", (2, 5, 9), torch.float64, cuda, 33)
+    got = fused.fused_schur_x_pre(acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
+    assert _rel(got, want, acc) <= TOL[torch.float64]
 
 
 def _batched_operands(key, ng, shape, dtype, device, seed):
