@@ -18,22 +18,27 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    32x32 (544x544), K4′ on ZION; the five equilibration-folded directions
    (K7) on the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on
    the 4x4x2 RT2-P2 and RT1-P1 blocks in bfloat16; float32.  K2 and K3 are
-   the tiled kernel (csrc/fused_rows.cu); at each of their three shapes the
-   thread-per-line kernel they replaced (csrc/fused_dir.cu) runs beside it
-   on the same operands, both held to the plain version and timed in turns
-   (its time is the row's ``old_ms``), and the tiled kernel is swept over
-   the tiles of ``ROWS_SWEEP``;
+   the tiled kernel (csrc/fused_rows.cu), K5 its group-batched form, K6 the
+   tiled kernel of csrc/fused_ho_rows.cu; at each of their shapes the
+   thread-per-line kernel they replaced (csrc/fused_dir.cu, csrc/fused_ho.cu)
+   runs beside it on the same operands, both held to the plain version and
+   timed in turns (its time is the row's ``old_ms``), and the tiled kernel
+   is swept over the tiles of ``ROWS_SWEEP`` (K2, K3, K5) or ``HO_SWEEP``
+   (K6);
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
    Jacobi group sweep, the free-running adjoint, and RT0-P0 under
    ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — and the KOEBERG 4x4 2D solve
    (68x68 cells, with the tiled K2 / K3 kernel launched) on the GPU agree
-   with the same solves through the plain versions on the CPU;
+   with the same solves through the plain versions on the CPU; the RT1-P1
+   solve launches the tiled K6 in every direction, the Jacobi sweep the
+   batched tiled K5 in y and x;
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
    34 outers, 1068 inners), with every kernel's launch count > 0;
 6. higher-order paths: ``bench.main_ho(1)`` and ``bench.main_ho(2)`` (IAEA-3D
    4x4x2, float32) against the JAX package's RT1-P1 / RT2-P2 anchors, with
-   K6 (every direction) and K4 launched in each;
+   the tiled K6 (every direction) and K4 launched in each and the
+   thread-per-(mode, line) K6 not at all;
 7. 2D paths: ``bench.main_2d("koeberg2d", 32)`` and ``main_2d("zion2d", 48)``
    (float32) against the JAX package's anchors, with the two-grid coarse
    level attached (the group solves resolve "auto" to "twogrid"), the tiled
@@ -43,8 +48,9 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    against its anchor (k within 2e-5, ``SCALE_KEFF_TOL``), with the line
    preconditioner: at least one z Thomas launch (K4) per CG iteration;
 9. Jacobi path: ``bench.main_sweep("jacobi")`` (IAEA-3D 6x6x4, float32, every
-   group in one batched CG): the batched kernels (K5, K1's batch) launched,
-   the one-group K1-K3 (either kernel) not, converged below 600 outers, k within 2e-5
+   group in one batched CG): the batched kernels (the tiled K5, K1's batch)
+   launched, the thread-per-line batched y / x and the one-group K1-K3
+   (either kernel) not, converged below 600 outers, k within 2e-5
    (``SWEEP_KEFF_TOL``) of the Gauss-Seidel solve at the same tolerances and
    of phase [5]'s k;
 10. adjoint path: ``bench.main_adjoint()`` (``bench.py --full``'s IAEA-3D
@@ -60,7 +66,8 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    and the one-group x and z kernels (and y in mode 2; either y / x kernel)
    not at all;
    ``bench.main_ho(1)`` under ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1`` with
-   bfloat16 block storage, K8 launched at least once per CG iteration, at the
+   bfloat16 block storage, K8 launched at least once per CG iteration, the
+   tiled K6 in every direction and the old K6 not at all, at the
    RT1-P1 anchors (inners against the JAX package's float32
    ``NEUTFEM_BLKFP8=0`` count); ``bench.main(6, 4)`` under ``NEUTFEM_CGCG=1``
    at phase [5]'s anchors.
@@ -72,9 +79,10 @@ outside the tensor cores).  No single PyTorch call computes the functions of
 K1-K7, so their rows' ``library_ms`` is null; K8's is the port's default
 block apply on the same blocks (``torch.bmm`` on their float32 copy, then
 the two dots as ``torch.sum``), timed here and not used by the K8 path.
-The K2 / K3 comparisons time each kernel behind a queued sleep, so that the
-host enqueues every launch before the card starts them: their rows measure
-device time, not the wrapper's host cost (the tiled kernel takes ~10 µs).
+The old / new comparisons (K2, K3, K5, K6) time each kernel behind a queued
+sleep, so that the host enqueues every launch before the card starts them:
+their rows measure device time, not the wrapper's host cost (the tiled
+kernel takes ~10 µs); they carry ``old_ms``, ``tile`` and ``share_of_bound``.
 
 Launch counts are set to 0 just before each path and read just after it.
 The last two lines are a JSON object of per-kernel results and the contract
@@ -117,6 +125,14 @@ EQ_MODES = {"1": (("x_eq", "z_eq"), ("x", "x_rows", "z")),
 ROWS_SWEEP = ((2, 32), (4, 32), (8, 32), (16, 32), (8, 16), (16, 16))
 ROWS_REPLACES = {"y": "neutfem_tpu/ops/pallas_fused.py:518",
                  "x": "neutfem_tpu/ops/pallas_fused.py:547"}
+# the tiles (lines per block, chunks per (transverse mode, line)) [3] sweeps
+# the tiled K6 kernel over, each with one transverse mode per block and with
+# K1 of them
+HO_SWEEP = ((8, 8), (16, 4), (16, 8), (32, 4), (32, 8))
+# launch keys of the tiled K6 and K5 kernels, and of the kernels they
+# replaced (held at 0 on every path)
+HO_KEYS, HO_OLD = ("ho_z_rows", "ho_y_rows", "ho_x_rows"), ("ho_z", "ho_y", "ho_x")
+K5_KEYS, K5_OLD = ("y_batched_rows", "x_batched_rows"), ("y_batched", "x_batched")
 HO_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused_ho.py:460",
                "y": "neutfem_tpu/ops/pallas_fused_ho.py:389",
                "x": "neutfem_tpu/ops/pallas_fused_ho.py:425"}
@@ -267,6 +283,31 @@ def _fused_z_case(ctxg, di, v, acc0, card):
     return err, ms, plain_ms, bound
 
 
+def _old_new(old, new, reps=50):
+    """Device ms of ``new`` and of ``old`` on the same operands, timed in turns
+    (old, new, new, old), each queued behind a sleep: (ms, old_ms, readings)."""
+    t = [_timed(fn, reps, queued=True) for fn in (old, new, new, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def _tile_sweep(name, tiles, run, want, acc0, scratch):
+    """``run(acc, tile)`` at each tile, held to ``want`` and timed (queued):
+    "lines x chunks ms" each, or "refused" where the card's shared memory
+    does not hold the tile."""
+    out = []
+    for tile in tiles:
+        label = "x".join(map(str, tile))
+        try:
+            _compare(f"{name} tile {tile}", run(acc0.clone(), tile), want, acc0)
+        except RuntimeError as e:
+            if "CUDA launch failed" not in str(e):
+                raise
+            out.append(f"{label} refused")
+            continue
+        out.append(f"{label} {_timed(lambda: run(scratch, tile), 50, queued=True):.4f}")
+    return out
+
+
 def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
     """K2 (y) or K3 (x) on one group's flux: the wrapper, which launches the
     tiled kernel at the tile ``fused.rows_tile`` picks, and the
@@ -313,24 +354,11 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
     err = _compare(f"{kid} tiled {key} {label}", got, want, acc0)
     _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
     scratch = acc0.clone()
-    t = [_timed(fn, 50, queued=True) for fn in (lambda: old(scratch),
-                                                lambda: wrapper(scratch, v, dm, ll, *c),
-                                                lambda: wrapper(scratch, v, dm, ll, *c),
-                                                lambda: old(scratch))]
-    ms, old_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
     plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
     bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
     tile = fused.rows_tile(lines, n, v.dtype)
-    sweep = []
-    for tl in ROWS_SWEEP:
-        try:
-            _compare(f"{kid} tiled {key} {label} tile {tl}", tiled(acc0.clone(), tl), want, acc0)
-        except RuntimeError as e:  # a tile the card's shared memory does not hold
-            if "CUDA launch failed" not in str(e):
-                raise
-            sweep.append(f"{tl[0]}x{tl[1]} refused")
-            continue
-        sweep.append(f"{tl[0]}x{tl[1]} {_timed(lambda: tiled(scratch, tl), 50, queued=True):.4f}")
+    sweep = _tile_sweep(f"{kid} tiled {key} {label}", ROWS_SWEEP, tiled, want, acc0, scratch)
     print(f"  {kid} {key} {label}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
           f"({t[1]:.4f}, {t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
           f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells; "
@@ -339,18 +367,23 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
     row = _row(f"{kid} fused Schur direction {key}{label}", "neutfem_tpu_torch/csrc/fused_rows.cu",
                ROWS_REPLACES[key], f"{key}_rows", err, ms, plain_ms, bound)
     row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_dir.cu",
-               tile=list(tile))
+               tile=list(tile), share_of_bound=bound[0] / ms)
     return row
 
 
-def _batched_case(kid, key, ctx, di, v, acc0, card, label, reps=50):
-    """One group-batched fused RT0 direction (K5 for y and x, K1's batch for
-    z): the kernel on the per-group staged operands of the whole context
-    against the plain version on the natural ones.  Returns (max_abs_err, ms,
-    plain_ms, bound)."""
+def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True):
+    """One group-batched fused RT0 direction (K5 for y and x, the batched tiled
+    kernel; K1's batch for z) on the per-group staged operands of the whole
+    context, against the plain version on the natural ones.  For y and x the
+    thread-per-line batched kernel it replaced (csrc/fused_dir.cu, called
+    through the library: no launch counted) is held to the plain version
+    too; ``timed``: both timed in turns, and the tiled kernel swept over
+    ``ROWS_SWEEP``.  Returns a row."""
+    import math
+
     import torch
 
-    from neutfem_tpu_torch.ops import fused
+    from neutfem_tpu_torch.ops import cuda_lib, fused
 
     wrapper, tag, axis = {"z": (fused.fused_schur_z_batched, "", -3),
                           "y": (fused.fused_schur_y_batched, "yT_", -2),
@@ -358,19 +391,60 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, reps=50):
     d = f"d{di.d}"
     dm, ll = ctx[f"tri_{tag}dinvm_{d}"], ctx[f"tri_{tag}l_{d}"]
     nat = (ctx[f"tri_dinvm_{d}"].unsqueeze(1), ctx[f"tri_l_{d}"].unsqueeze(1))
-    bx0, bx1, si = float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0])
-    got = wrapper(acc0.clone(), v, dm, ll, bx0, bx1, si)
-    want = fused.fused_dir_plain(acc0, v, *nat, axis, bx0, bx1, si)
+    c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
+    ng = v.shape[0]
+    nz, ny, nx = v.shape[-3:]
+    n = v.shape[axis]
+    lines = v.numel() // n // ng
+    got = wrapper(acc0.clone(), v, dm, ll, *c)
+    want = fused.fused_dir_plain(acc0, v, *nat, axis, *c)
     torch.cuda.synchronize()
     err = _compare(f"{kid} {key} {label}", got, want, acc0)
     scratch = acc0.clone()
-    ms = _timed(lambda: wrapper(scratch, v, dm, ll, bx0, bx1, si), reps)
-    plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, bx0, bx1, si), 3)
     bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
-    print(f"  {kid} {key} {label} {tuple(v.shape)}: kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  bound {bound[0]:.4f} ms ({v.numel() // v.shape[axis]} lines of "
-          f"{v.shape[axis]} cells per launch; {card})")
-    return err, ms, plain_ms, bound
+    new_key = "z_batched" if key == "z" else f"{key}_batched_rows"
+    source = "fused_dir.cu" if key == "z" else "fused_rows.cu"
+    extra, sweep = {}, None
+    if key != "z":
+        lib = cuda_lib.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        strides = (nx, ny * nx, nx) if key == "y" else (1, nx, 1)  # inner, outer, cell
+        gs = math.prod(v.shape[-3:])
+        zs = torch.empty((ng, n, lines), dtype=v.dtype, device=v.device)
+
+        def old(acc):
+            cuda_lib.check(lib.neutfem_fused_dir_batched_f32(
+                acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), zs.data_ptr(), n,
+                lines, ng, *strides, gs, *c, stream), "fused_dir_batched")
+            return acc
+
+        def tiled(acc, tile):
+            cuda_lib.check(lib.neutfem_fused_rows_batched_f32(
+                acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), n, lines, ng,
+                *strides, gs, int(strides[2] == 1), *tile, *c, stream), "fused_rows_batched")
+            return acc
+
+        _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
+        tile = fused.rows_tile(lines, n, v.dtype)
+        extra = {"tile": list(tile), "old_source": "neutfem_tpu_torch/csrc/fused_dir.cu"}
+        if timed:
+            ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
+            extra.update(old_ms=old_ms, share_of_bound=bound[0] / ms)
+            sweep = _tile_sweep(f"{kid} {key} {label}", ROWS_SWEEP, tiled, want, acc0, scratch)
+    if key == "z" or not timed:
+        ms = _timed(lambda: wrapper(scratch, v, dm, ll, *c), 50 if timed else 3)
+    plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
+    old_txt = (f", thread-per-line {extra['old_ms']:.4f} ms ({t[0]:.4f}, {t[3]:.4f})"
+               if "old_ms" in extra else "")
+    print(f"  {kid} {key} {label} {tuple(v.shape)}: kernel {ms:.4f} ms{old_txt}  plain "
+          f"{plain_ms:.4f} ms  bound {bound[0]:.4f} ms ({lines} lines of {n} cells per group; "
+          f"{card})")
+    if sweep:
+        print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    row = _row(f"{kid} fused Schur direction {key}, group-batched (_fused_{key} on (ng, 1, ...))",
+               f"neutfem_tpu_torch/csrc/{source}", replaces, new_key, err, ms, plain_ms, bound)
+    row.update(extra)
+    return row
 
 
 def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
@@ -468,12 +542,16 @@ def _blockjac_case(fes, ctxg, order, card, rng):
 
 def _ho_kernels(bench, order, card, rng):
     """K6 z / y / x against fused_ho_plain on the IAEA-3D 4x4x2 RT_k-P_k operands
-    (group 0, float32).  The plain version reads the NATURAL operands and takes
-    its mode grouping from the FE space's p -> t map; the kernel reads the
-    staged ones and computes its own mode index."""
+    (group 0, float32): the wrapper, which launches the tiled kernel at the
+    tile ``fused_ho.ho_tile`` picks, and the thread-per-(mode, line) kernel it
+    replaced, called through the library (no launch counted), both held to
+    the plain version and timed in turns; then the tiled kernel at the tiles
+    of ``HO_SWEEP``.  The plain version reads the NATURAL operands and takes
+    its mode grouping from the FE space's p -> t map; the kernels read the
+    staged ones and compute their own mode index.  Returns the rows and K8's."""
     import torch
 
-    from neutfem_tpu_torch.ops import fused_ho
+    from neutfem_tpu_torch.ops import cuda_lib, fused_ho
     from neutfem_tpu_torch.power import ctx_group
 
     spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
@@ -487,6 +565,10 @@ def _ho_kernels(bench, order, card, rng):
     acc0 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
     print(f"    RT{order}-P{order} {fes.mesh.shape} P={fes.P} (K1 = {order + 1}), "
           f"group 0, float32 ({card})")
+    k1 = order + 1
+    nz, ny, nx = fes.mesh.shape
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
     rows = {}
     for key, wrapper, axis, tag in (("z", fused_ho.fused_ho_z, 0, None),
                                     ("y", fused_ho.fused_ho_y, 1, "hoyT"),
@@ -499,24 +581,56 @@ def _ho_kernels(bench, order, card, rng):
         else:
             ops = tuple(ctxg[f"tri_{tag}_{n}_{d}"] for n in ("dinvm", "l", "alpha"))
         natural = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"], ctxg[f"alpha_{d}"])
+        n = fes.mesh.shape[axis]
+        lines = nz * ny * nx // n
+        # inner, outer, cell strides of the wrappers (fused_ho.py)
+        strides = {0: (ny * nx, 0, ny * nx), 1: (nx, ny * nx, nx), 2: (1, nx, 1)}[axis]
+        tab = torch.as_tensor(tabs.packed(), dtype=torch.float32, device=dev)
+        zs = torch.empty((k1 * k1, n, lines), dtype=torch.float32, device=dev)
+        ptrs = tuple(o.data_ptr() for o in ops)
+
+        def old(acc):
+            cuda_lib.check(lib.neutfem_fused_ho_f32(
+                acc.data_ptr(), v.data_ptr(), *ptrs, tab.data_ptr(), zs.data_ptr(), k1,
+                2 - axis, n, lines, *strides, nz * ny * nx, stream), "fused_ho")
+            return acc
+
+        def tiled(acc, tile):
+            cuda_lib.check(lib.neutfem_fused_ho_rows_f32(
+                acc.data_ptr(), v.data_ptr(), *ptrs, tab.data_ptr(), k1, 2 - axis, n, lines,
+                *strides, nz * ny * nx, *tile, stream), "fused_ho_rows")
+            return acc
+
+        before = dict(fused_ho.LAUNCHES)
         got = wrapper(acc0.clone(), v, *ops, tabs)
         want = fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs)
         torch.cuda.synchronize()
-        err = _compare(f"K6 RT{order} {key}", got, want, acc0)
+        if fused_ho.LAUNCHES[f"ho_{key}_rows"] != before[f"ho_{key}_rows"] + 1:
+            raise RuntimeError(f"K6 RT{order} {key}: the wrapper did not launch the tiled kernel")
+        err = _compare(f"K6 RT{order} tiled {key}", got, want, acc0)
+        _compare(f"K6 RT{order} thread-per-(mode, line) {key}", old(acc0.clone()), want, acc0)
         scratch = acc0.clone()
-        ms = _timed(lambda: wrapper(scratch, v, *ops, tabs), 50)
+        ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, *ops, tabs))
         plain_ms = _timed(lambda: fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs), 3)
         # per (transverse mode, cell): the face rhs over K1 longitudinal modes
         # (4 K1), the two sweeps (6), and per longitudinal mode the divergence
         # (4), the bubble block row (2 K1) and the 1/alpha scaling (1)
-        k1 = order + 1
         flops = (v.numel() // k1) * (4 * k1 + 6 + k1 * (5 + 2 * k1))
         bound = _bound((v, acc0, got, *ops), flops)
-        print(f"  K6 RT{order}-P{order} {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"bound {bound[0]:.4f} ms ({card})")
+        tile = fused_ho.ho_tile(lines, n, k1, torch.float32)
+        tiles = [(tl, ch, tg) for tg in (1, k1) for tl, ch in HO_SWEEP]
+        sweep = _tile_sweep(f"K6 RT{order} {key}", tiles, tiled, want, acc0, scratch)
+        print(f"  K6 RT{order}-P{order} {key}: tiled kernel (tile {'x'.join(map(str, tile))}) "
+              f"{ms:.4f} ms "
+              f"({t[1]:.4f}, {t[2]:.4f}), thread-per-(mode, line) {old_ms:.4f} ms ({t[0]:.4f}, "
+              f"{t[3]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of "
+              f"{n} cells; {card})")
+        print(f"    tiles (lines x chunks x modes: ms): {'; '.join(sweep)}")
         rows[key] = _row(f"K6 condensed Schur direction {key} (RT{order}-P{order})",
-                         "neutfem_tpu_torch/csrc/fused_ho.cu", HO_REPLACES[key], f"ho_{key}",
-                         err, ms, plain_ms, bound)
+                         "neutfem_tpu_torch/csrc/fused_ho_rows.cu", HO_REPLACES[key],
+                         f"ho_{key}_rows", err, ms, plain_ms, bound)
+        rows[key].update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_ho.cu",
+                         tile=list(tile), share_of_bound=bound[0] / ms)
     rows["K8"] = _blockjac_case(fes, ctxg, order, card, rng)
     return rows
 
@@ -645,12 +759,8 @@ def main():
             ("K1 batched", "z", 2, "neutfem_tpu/ops/pallas_fused.py:466"),
             ("K5", "y", 1, "neutfem_tpu/ops/pallas_fused.py:489"),
             ("K5", "x", 0, "neutfem_tpu/ops/pallas_fused.py:704")):
-        err, ms, plain_ms, bound = _batched_case(kid, key, ctx, dirs[d], bv, bacc0, card,
-                                                 "6x6x4")
-        rows[f"{kid} {key}"] = _row(
-            f"{kid} fused Schur direction {key}, group-batched (_fused_{key} on (ng, 1, ...))",
-            "neutfem_tpu_torch/csrc/fused_dir.cu", replaces, f"{key}_batched", err, ms,
-            plain_ms, bound)
+        rows[f"{kid} {key}"] = _batched_case(kid, key, ctx, dirs[d], bv, bacc0, card, "6x6x4",
+                                             replaces)
     # a ragged case: 3 groups of a (5, 33, 70) grid, line counts no multiple of 128
     from neutfem_tpu_torch.fespace import make_fespace
     from neutfem_tpu_torch.mesh import CartesianMesh
@@ -675,7 +785,7 @@ def main():
     for di in rfes.dirs:
         key = "zyx"[di.axis]
         _batched_case("K5" if key != "z" else "K1 batched", key, rctx, di, rv, racc, card,
-                      "ragged", reps=3)
+                      "ragged", "", timed=False)
     # K7: the five equilibration-folded directions on the same direction
     # operands.  sdi and ce are drawn from [0.5, 2]: the context's ce = C*sdi
     # reaches 2.8e9 in IAEA-3D's absorber cells (IAEA-3D 1x1), where one ulp
@@ -750,16 +860,23 @@ def main():
 
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
     t0 = time.perf_counter()
+    # the tiled kernels a case launches on the GPU, and the old ones it must not
+    tiled = {"RT1-P1": (HO_KEYS, HO_OLD), "Jacobi sweep": (K5_KEYS, K5_OLD)}
     for case in ("RT0-P0", "RT1-P1", "Jacobi sweep", "adjoint"):
         small = {}
         for device in ("cpu", "cuda"):
+            reset_counts()
             small[device] = _small_solve(bench, spec, device, case)
-        print(f"[4] IAEA-3D 1x1 {case} float64: cuda {small['cuda']}  cpu {small['cpu']}")
+        new, old = tiled.get(case, ((), ()))
+        launched = {k: counts()[k] for k in (*new, *old)}
+        print(f"[4] IAEA-3D 1x1 {case} float64: cuda {small['cuda']}  cpu {small['cpu']}"
+              + (f"; launches {launched}" if launched else ""))
         if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
                 or small["cuda"][1] != small["cpu"][1]
-                or abs(small["cuda"][2] - small["cpu"][2]) > 2):
+                or abs(small["cuda"][2] - small["cpu"][2]) > 2
+                or any(launched[k] <= 0 for k in new) or any(launched[k] for k in old)):
             raise RuntimeError(f"IAEA-3D 1x1 {case}: the GPU solve disagrees with the "
-                               "CPU reference")
+                               "CPU reference, or the tiled kernels did not serve it")
     for mode in EQ_MODES:  # the equilibration-folded matvec (K7) on the GPU
         small = {}
         fused_eq.reset_launches()
@@ -831,18 +948,20 @@ def main():
         _check_anchor(f"RT{order}-P{order} 4x4x2", keff, outers, inners, HO_ANCHORS[order])
         if not det["converged_not_capped"]:
             raise RuntimeError(f"RT{order}-P{order}: the solve hit max_outer")
-        for key in ("ho_z", "ho_y", "ho_x", "thomas"):
+        for key in (*HO_KEYS, "thomas"):
             if launches[key] <= 0:
                 raise RuntimeError(f"RT{order}-P{order}: {key} not launched on the path")
+        for key in HO_OLD:
+            if launches[key] != 0:
+                raise RuntimeError(f"RT{order}-P{order}: the thread-per-(mode, line) K6 {key} "
+                                   f"launched {launches[key]} times")
         for key in ("z", "y", "x"):
-            ho_rows[order][key]["launches"] = launches[ho_rows[order][key]["key"]]
+            row = ho_rows[order][key]
+            row["launches"] = launches[row.pop("key")]
+            rows[f"K6 {key}" + ("" if order == 2 else f" RT{order}")] = row
         if launches["blockjac"] != 0:
             raise RuntimeError(f"RT{order}-P{order}: K8 launched on the default path")
         print(f"    [6] RT{order} {time.perf_counter() - t0:.1f} s")
-    for key in ("z", "y", "x"):
-        row = ho_rows[2][key]
-        row.pop("key")
-        rows[f"K6 {key}"] = row
 
     # [7] the 2D paths, each with its own counts; the 2D kernel rows take the
     # counts of both
@@ -924,13 +1043,13 @@ def main():
         if not abs(det["keff"] - k_ref) <= SWEEP_KEFF_TOL:
             raise RuntimeError(f"Jacobi sweep: keff {det['keff']} is not within "
                                f"{SWEEP_KEFF_TOL} of {what} ({k_ref})")
-    for key in ("z_batched", "y_batched", "x_batched"):
+    for key in ("z_batched", *K5_KEYS):
         if launches[key] <= 0:
             raise RuntimeError(f"Jacobi sweep: {key} not launched on the path")
-    for key in ("z", "y", "x", "y_rows", "x_rows"):
+    for key in ("z", "y", "x", "y_rows", "x_rows", *K5_OLD):
         if launches[key] != 0:
-            raise RuntimeError(f"Jacobi sweep: the one-group kernel {key} launched "
-                               f"{launches[key]} times")
+            raise RuntimeError(f"Jacobi sweep: the one-group or thread-per-line batched kernel "
+                               f"{key} launched {launches[key]} times")
     for rid in ("K1 batched z", "K5 y", "K5 x"):
         rows[rid]["launches"] = launches[rows[rid].pop("key")]
     print(f"    [9] {time.perf_counter() - t0:.1f} s")
@@ -1054,6 +1173,8 @@ def main():
     if launches["blockjac"] < inners:
         raise RuntimeError(f"NEUTFEM_BLOCKJAC=1: K8 launched {launches['blockjac']} times for "
                            f"{inners} CG iterations")
+    if any(launches[k] <= 0 for k in HO_KEYS) or any(launches[k] for k in HO_OLD):
+        raise RuntimeError("NEUTFEM_BLOCKJAC=1: the tiled K6 did not serve every direction")
     for order in (2, 1):
         row = ho_rows[order]["K8"]
         row["launches"] = launches[row.pop("key")]

@@ -7,7 +7,11 @@
 // on the operands fused_dir_kernel (fused_dir.cu) takes for them: a line b
 // has its cells at cb + e*cell_stride, cb = (b / inner)*outer_stride +
 // b % inner, and its staged face operands dm (n+1 faces) and l (n) at
-// b + f*lines, solve-axis-major.
+// b + f*lines, solve-axis-major. fused_rows_batched_kernel runs the same tile
+// for every group of a group-batched flux (ng, 1, nz, ny, nx), group g =
+// blockIdx.y, on the per-group layouts fused_dir_batched_kernel takes:
+//   _fused_y / _body_y    (:489 / :166, y, per-group factors)                -- K5
+//   _fused_x / _body_x    (:704 / :430, x, per-group factors)                -- K5
 //
 // Recurrence along a line (f = face 0..n, e = cell 0..n-1, v out of range = 0):
 //   b_f = (bx1*v_{f-1} + bx0*v_f)*si
@@ -77,12 +81,14 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, bool ok) {
                "n"(sizeof(T)), "r"(ok ? (int)sizeof(T) : 0));
 }
 
+// One tile of one group's lines (the body of both kernels below).
 template <typename T, bool kLineMajor>
-__global__ void fused_rows_kernel(T* __restrict__ acc, const T* __restrict__ v,
-                                  const T* __restrict__ dm, const T* __restrict__ l, int n,
-                                  long long lines, long long inner, long long outer_stride,
-                                  long long cell_stride, int log_tl, int ch, int len,
-                                  int stride, T bx0, T bx1, T si) {
+__device__ __forceinline__ void rows_tile(T* __restrict__ acc, const T* __restrict__ v,
+                                          const T* __restrict__ dm, const T* __restrict__ l,
+                                          int n, long long lines, long long inner,
+                                          long long outer_stride, long long cell_stride,
+                                          int log_tl, int ch, int len, int stride, T bx0, T bx1,
+                                          T si) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tl = 1 << log_tl;
   long long* s_cb = reinterpret_cast<long long*>(smem);
@@ -226,6 +232,33 @@ __global__ void fused_rows_kernel(T* __restrict__ acc, const T* __restrict__ v,
   }
 }
 
+template <typename T, bool kLineMajor>
+__global__ void fused_rows_kernel(T* __restrict__ acc, const T* __restrict__ v,
+                                  const T* __restrict__ dm, const T* __restrict__ l, int n,
+                                  long long lines, long long inner, long long outer_stride,
+                                  long long cell_stride, int log_tl, int ch, int len,
+                                  int stride, T bx0, T bx1, T si) {
+  rows_tile<T, kLineMajor>(acc, v, dm, l, n, lines, inner, outer_stride, cell_stride, log_tl,
+                           ch, len, stride, bx0, bx1, si);
+}
+
+// The group-batched directions (K5): group g = blockIdx.y has its cells at
+// g*group_stride and its staged face operands in its own blocks, dm at
+// g*(n+1)*lines and l at g*n*lines (the layout of fused_dir_batched_kernel);
+// lines counts one group's lines.
+template <typename T, bool kLineMajor>
+__global__ void fused_rows_batched_kernel(T* __restrict__ acc, const T* __restrict__ v,
+                                          const T* __restrict__ dm, const T* __restrict__ l,
+                                          int n, long long lines, long long inner,
+                                          long long outer_stride, long long cell_stride,
+                                          long long group_stride, int log_tl, int ch, int len,
+                                          int stride, T bx0, T bx1, T si) {
+  const long long g = blockIdx.y;
+  rows_tile<T, kLineMajor>(acc + g * group_stride, v + g * group_stride,
+                           dm + g * (n + 1) * lines, l + g * n * lines, n, lines, inner,
+                           outer_stride, cell_stride, log_tl, ch, len, stride, bx0, bx1, si);
+}
+
 // Chunk length and row stride for (n, tl, ch): len odd, so the chunk starts
 // c*len of a warp's lanes fall in different banks; with several lines per
 // warp (ch < 32) the row stride continues that pattern (stride = ch*len mod
@@ -240,44 +273,62 @@ inline void tile_layout(int n, int tl, int ch, int* len, int* stride) {
   *stride = st;
 }
 
+// Lets kernel take bytes of dynamic shared memory (above 48 KB it must ask);
+// a refusal is cleared, so a later launch does not report it.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// groups 0: the one-group kernel; else the batched kernel over that many
+// groups (group_stride: one group's cells).
 template <typename T, bool kLineMajor>
 int launch(void* acc, const void* v, const void* dm, const void* l, int n, long long lines,
-           long long inner, long long outer_stride, long long cell_stride, int tl, int ch,
-           double bx0, double bx1, double si, void* stream) {
+           long long groups, long long inner, long long outer_stride, long long cell_stride,
+           long long group_stride, int tl, int ch, double bx0, double bx1, double si,
+           void* stream) {
   int log_tl = 0;
   while ((1 << log_tl) < tl) ++log_tl;
   const bool pow2 = (1 << log_tl) == tl && ch > 0 && (ch & (ch - 1)) == 0;
-  if (!pow2 || ch > 32 || tl * ch < 32 || tl * ch > 1024 || n < 1)
+  if (!pow2 || ch > 32 || tl * ch < 32 || tl * ch > 1024 || n < 1 || groups < 0 ||
+      groups > 65535)
     return (int)cudaErrorInvalidValue;
   int len, stride;
   tile_layout(n, tl, ch, &len, &stride);
   const size_t bytes = (size_t)tl * sizeof(long long) + 4 * (size_t)tl * stride * sizeof(T);
-  auto kernel = fused_rows_kernel<T, kLineMajor>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, so a later launch does not report it
-      return (int)err;
-    }
-  }
   const long long blocks = (lines + tl - 1) / tl;
-  kernel<<<(unsigned)blocks, tl * ch, bytes, (cudaStream_t)stream>>>(
-      (T*)acc, (const T*)v, (const T*)dm, (const T*)l, n, lines, inner, outer_stride,
-      cell_stride, log_tl, ch, len, stride, (T)bx0, (T)bx1, (T)si);
+  cudaError_t err;
+  if (groups == 0) {
+    auto kernel = fused_rows_kernel<T, kLineMajor>;
+    if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)blocks, tl * ch, bytes, (cudaStream_t)stream>>>(
+        (T*)acc, (const T*)v, (const T*)dm, (const T*)l, n, lines, inner, outer_stride,
+        cell_stride, log_tl, ch, len, stride, (T)bx0, (T)bx1, (T)si);
+  } else {
+    auto kernel = fused_rows_batched_kernel<T, kLineMajor>;
+    if ((err = allow_smem(kernel, bytes)) != cudaSuccess) return (int)err;
+    kernel<<<dim3((unsigned)blocks, (unsigned)groups), tl * ch, bytes,
+             (cudaStream_t)stream>>>((T*)acc, (const T*)v, (const T*)dm, (const T*)l, n, lines,
+                                     inner, outer_stride, cell_stride, group_stride, log_tl,
+                                     ch, len, stride, (T)bx0, (T)bx1, (T)si);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_any(void* acc, const void* v, const void* dm, const void* l, int n,
-               long long lines, long long inner, long long outer_stride, long long cell_stride,
-               int line_major, int tl, int ch, double bx0, double bx1, double si,
-               void* stream) {
+               long long lines, long long groups, long long inner, long long outer_stride,
+               long long cell_stride, long long group_stride, int line_major, int tl, int ch,
+               double bx0, double bx1, double si, void* stream) {
   return line_major
-             ? launch<T, true>(acc, v, dm, l, n, lines, inner, outer_stride, cell_stride, tl,
-                               ch, bx0, bx1, si, stream)
-             : launch<T, false>(acc, v, dm, l, n, lines, inner, outer_stride, cell_stride, tl,
-                                ch, bx0, bx1, si, stream);
+             ? launch<T, true>(acc, v, dm, l, n, lines, groups, inner, outer_stride,
+                               cell_stride, group_stride, tl, ch, bx0, bx1, si, stream)
+             : launch<T, false>(acc, v, dm, l, n, lines, groups, inner, outer_stride,
+                                cell_stride, group_stride, tl, ch, bx0, bx1, si, stream);
 }
 
 }  // namespace
@@ -291,7 +342,7 @@ extern "C" int neutfem_fused_rows_f32(void* acc, const void* v, const void* dm, 
                                       long long outer_stride, long long cell_stride,
                                       int line_major, int tl, int ch, double bx0, double bx1,
                                       double si, void* stream) {
-  return launch_any<float>(acc, v, dm, l, n, lines, inner, outer_stride, cell_stride,
+  return launch_any<float>(acc, v, dm, l, n, lines, 0, inner, outer_stride, cell_stride, 0,
                            line_major, tl, ch, bx0, bx1, si, stream);
 }
 
@@ -300,7 +351,32 @@ extern "C" int neutfem_fused_rows_f64(void* acc, const void* v, const void* dm, 
                                       long long outer_stride, long long cell_stride,
                                       int line_major, int tl, int ch, double bx0, double bx1,
                                       double si, void* stream) {
-  return launch_any<double>(acc, v, dm, l, n, lines, inner, outer_stride, cell_stride,
+  return launch_any<double>(acc, v, dm, l, n, lines, 0, inner, outer_stride, cell_stride, 0,
                             line_major, tl, ch, bx0, bx1, si, stream);
 }
 
+// The group-batched form (K5): groups >= 1 groups of ``lines`` lines each,
+// group_stride cells apart, each group's dm / l in its own staged block.
+extern "C" int neutfem_fused_rows_batched_f32(void* acc, const void* v, const void* dm,
+                                              const void* l, int n, long long lines,
+                                              long long groups, long long inner,
+                                              long long outer_stride, long long cell_stride,
+                                              long long group_stride, int line_major, int tl,
+                                              int ch, double bx0, double bx1, double si,
+                                              void* stream) {
+  if (groups < 1) return (int)cudaErrorInvalidValue;
+  return launch_any<float>(acc, v, dm, l, n, lines, groups, inner, outer_stride, cell_stride,
+                           group_stride, line_major, tl, ch, bx0, bx1, si, stream);
+}
+
+extern "C" int neutfem_fused_rows_batched_f64(void* acc, const void* v, const void* dm,
+                                              const void* l, int n, long long lines,
+                                              long long groups, long long inner,
+                                              long long outer_stride, long long cell_stride,
+                                              long long group_stride, int line_major, int tl,
+                                              int ch, double bx0, double bx1, double si,
+                                              void* stream) {
+  if (groups < 1) return (int)cudaErrorInvalidValue;
+  return launch_any<double>(acc, v, dm, l, n, lines, groups, inner, outer_stride, cell_stride,
+                            group_stride, line_major, tl, ch, bx0, bx1, si, stream);
+}

@@ -12,12 +12,13 @@ entries, si = 1/m_t):
     F_n   = z_n dm_n;   F_f = z_f dm_f - l_f F_{f+1}          [dm = dinv*mask]
     out_e = acc_e + (bx0 F_e + bx1 F_{e+1})
 
-On a CUDA tensor each wrapper launches a hand-written kernel: the one-group
-y and x directions (K2, K3) the tiled kernel of ``csrc/fused_rows.cu`` (a tile
-of lines per block, each line cut into chunks, staged through shared memory),
-at the tile ``rows_tile`` picks; the z direction (K1) and the group-batched
-directions the thread-per-line kernels of ``csrc/fused_dir.cu``.  On a CPU
-tensor every wrapper runs the plain PyTorch version.  A CUDA tensor the
+On a CUDA tensor each wrapper launches a hand-written kernel: the y and x
+directions, one group (K2, K3) or group-batched (K5), the tiled kernels of
+``csrc/fused_rows.cu`` (a tile of lines per block, each line cut into chunks,
+staged through shared memory; the batched one takes the group from its grid),
+at the tile ``rows_tile`` picks; the z direction (K1) and its group batch the
+thread-per-line kernels of ``csrc/fused_dir.cu``.  On a CPU tensor every
+wrapper runs the plain PyTorch version.  A CUDA tensor the
 kernel does not take, or a launch the card refuses, raises; there is no
 decline path.
 
@@ -51,13 +52,15 @@ __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
            "fused_dir_plain", "rows_tile", "LAUNCHES", "reset_launches"]
 
 #: Kernel launches per direction (incremented where the kernel is launched):
-#: "z" the one-group thread-per-line kernel (K1), "y_rows", "x_rows" the tiled
-#: kernel (K2, K3), "*_batched" the group-batched kernel (K5 for y and x, K1's
-#: batch for z).  "y" and "x" count the thread-per-line kernel on one-group y
-#: and x lines, which no wrapper launches since the tiled kernel measured
-#: faster at every shape (PERF.md); the paths' checks hold them at 0.
+#: "z" the one-group thread-per-line kernel (K1), "z_batched" its group batch,
+#: "y_rows", "x_rows" the tiled kernel (K2, K3), "y_batched_rows",
+#: "x_batched_rows" the group-batched tiled kernel (K5).  "y", "x",
+#: "y_batched" and "x_batched" count the thread-per-line kernels on y and x
+#: lines, which no wrapper launches since the tiled kernels measured faster at
+#: every shape (PERF.md); the paths' checks hold them at 0.
 LAUNCHES = {"z": 0, "y": 0, "x": 0, "y_rows": 0, "x_rows": 0,
-            "z_batched": 0, "y_batched": 0, "x_batched": 0}
+            "z_batched": 0, "y_batched": 0, "x_batched": 0,
+            "y_batched_rows": 0, "x_batched_rows": 0}
 
 #: Lines per block of the tiled kernel by dtype, and chunks per line: in
 #: float32 the best or within a few per cent of the best tile chip_smoke.py
@@ -99,20 +102,26 @@ def fused_dir_plain(acc, v, dm, l, axis: int, bx0: float, bx1: float, si: float)
     return acc + contrib.movedim(0, axis)
 
 
-def rows_smem(n: int, tl: int, ch: int, elem_bytes: int) -> int:
-    """Shared memory bytes of one tile of the tiled kernel: ``tile_layout``
-    of ``csrc/fused_rows.cu`` (chunk length odd, row stride padded) for the
-    v/z/F, dm, l and acc rows, plus the tile's line offsets."""
+def row_stride(n: int, tl: int, ch: int) -> int:
+    """Row stride (values) of the tiled kernels' shared-memory rows for lines
+    of ``n`` cells, ``tl`` lines and ``ch`` chunks per line: ``tile_layout``
+    of ``csrc/fused_rows.cu`` and ``csrc/fused_ho_rows.cu`` (chunk length
+    odd, the stride padded against bank conflicts)."""
     ln = -(-(n + 1) // ch)
     ln += 1 - ln % 2
     want = (ch * ln) % 32 if ch < 32 else (32 // tl if tl < 32 else 1)
-    stride = ch * ln + (want - ch * ln) % 32
-    return 8 * tl + 4 * tl * stride * elem_bytes
+    return ch * ln + (want - ch * ln) % 32
+
+
+def rows_smem(n: int, tl: int, ch: int, elem_bytes: int) -> int:
+    """Shared memory bytes of one tile of the tiled kernel: the v/z/F, dm, l
+    and acc rows, plus the tile's line offsets."""
+    return 8 * tl + 4 * tl * row_stride(n, tl, ch) * elem_bytes
 
 
 def rows_tile(lines: int, n: int, dtype):
-    """(lines per block, chunks per line) of the tiled kernel for a one-group
-    y or x launch of ``lines`` lines of ``n`` cells.  A fixed rule on the
+    """(lines per block, chunks per line) of the tiled kernel for a y or x
+    launch of ``lines`` lines (per group) of ``n`` cells.  A fixed rule on the
     shape: ``ROWS_LINES[dtype]`` lines of ``ROWS_CHUNKS`` chunks, the lines
     halved while the tile exceeds the card's shared memory (down to one line
     per block; beyond that the launch is refused and raises).  The tiled
@@ -175,13 +184,21 @@ def _launch(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, ke
 
 
 def _launch_rows(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, key,
-                 tile):
-    lines = v.numel() // n
+                 groups=None):
+    lines = v.numel() // n // (groups or 1)
+    tile = rows_tile(lines, n, v.dtype)
     lib = cuda_lib.library()
-    fn = lib.neutfem_fused_rows_f32 if v.dtype == torch.float32 else lib.neutfem_fused_rows_f64
-    err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), n, lines, inner,
-             outer_stride, cell_stride, int(cell_stride == 1), *tile, float(bx0), float(bx1),
-             float(si), torch.cuda.current_stream(v.device).cuda_stream)
+    f32 = v.dtype == torch.float32
+    ptrs = (acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr())
+    rest = (int(cell_stride == 1), *tile, float(bx0), float(bx1), float(si),
+            torch.cuda.current_stream(v.device).cuda_stream)
+    if groups is None:
+        fn = lib.neutfem_fused_rows_f32 if f32 else lib.neutfem_fused_rows_f64
+        err = fn(*ptrs, n, lines, inner, outer_stride, cell_stride, *rest)
+    else:
+        fn = lib.neutfem_fused_rows_batched_f32 if f32 else lib.neutfem_fused_rows_batched_f64
+        err = fn(*ptrs, n, lines, groups, inner, outer_stride, cell_stride,
+                 math.prod(v.shape[-3:]), *rest)
     cuda_lib.check(err, f"fused Schur direction {key} (tiled kernel, tile {tile}, n {n})")
     LAUNCHES[f"{key}_rows"] += 1
     return acc
@@ -208,10 +225,9 @@ def _dispatch(acc, v, dm, l, dm_shape, l_shape, to_natural, axis, strides, bx0, 
     n = v.shape[axis]
     if n < 1:
         raise ValueError(f"{what}: empty solve axis")
-    if groups is None and key in ("y", "x"):
-        return _launch_rows(acc, v, dm, l, n, *strides, bx0, bx1, si, key,
-                            rows_tile(v.numel() // n, n, v.dtype))
-    return _launch(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
+    if key.startswith("z"):
+        return _launch(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
+    return _launch_rows(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
 
 
 def _z(acc, v, dm, l, bx0, bx1, si, groups):
@@ -266,12 +282,12 @@ def fused_schur_z_batched(acc, v, dm, l, bx0: float, bx1: float, si: float):
 
 
 def fused_schur_y_batched(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
-    """acc += B_y A_y^{-1} B_y^T v for every group (K5), in place.
-    v (ng, 1, nz, ny, nx); dmT (ng, ny+1, nz, nx), lT (ng, ny, nz, nx)."""
+    """acc += B_y A_y^{-1} B_y^T v for every group (K5, the batched tiled
+    kernel), in place.  v (ng, 1, nz, ny, nx); dmT (ng, ny+1, nz, nx), lT (ng, ny, nz, nx)."""
     return _y(acc, v, dmT, lT, bx0, bx1, si, dmT.shape[0])
 
 
 def fused_schur_x_batched(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
-    """acc += B_x A_x^{-1} B_x^T v for every group (K5), in place.
-    v (ng, 1, nz, ny, nx); dmT (ng, nx+1, nz*ny), lT (ng, nx, nz*ny)."""
+    """acc += B_x A_x^{-1} B_x^T v for every group (K5, the batched tiled
+    kernel), in place.  v (ng, 1, nz, ny, nx); dmT (ng, nx+1, nz*ny), lT (ng, nx, nz*ny)."""
     return _x(acc, v, dmT, lT, bx0, bx1, si, dmT.shape[0])

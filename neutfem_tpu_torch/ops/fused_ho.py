@@ -15,9 +15,12 @@ per transverse mode t and line along direction d (f = face 0..n, e = cell
 Pinned faces need no mask plane: the context zeroes the off-diagonal next to
 a pinned face before factoring, so there l = 0 and dm = 0.
 
-On a CUDA tensor each wrapper launches the hand-written kernel of
-``csrc/fused_ho.cu``; on a CPU tensor it runs ``fused_ho_plain``.  A CUDA
-tensor the kernel does not take raises; there is no decline path.  Like the
+On a CUDA tensor each wrapper launches the hand-written tiled kernel of
+``csrc/fused_ho_rows.cu`` (a tile of lines and a group of transverse modes
+per block, each (transverse mode, line) cut into chunks, staged through
+shared memory) at the tile ``ho_tile`` picks; on a CPU tensor it runs
+``fused_ho_plain``.  A CUDA tensor the kernel does not take, or a launch the
+card refuses, raises; there is no decline path.  Like the
 TPU kernels, which alias the accumulator input to the output, the wrappers
 UPDATE ``acc`` IN PLACE and return it.
 
@@ -39,16 +42,29 @@ import numpy as np
 import torch
 
 from . import cuda_lib
+from .fused import SMEM_PER_BLOCK, row_stride
 
 __all__ = ["HoTables", "ho_coeff_tables", "ho_tables", "kernel_mode_index",
-           "fused_ho_z", "fused_ho_y", "fused_ho_x", "fused_ho_plain",
+           "fused_ho_z", "fused_ho_y", "fused_ho_x", "fused_ho_plain", "ho_tile", "ho_smem",
            "LAUNCHES", "reset_launches"]
 
-#: Kernel launches per direction (incremented where the kernel is launched).
-LAUNCHES = {"ho_z": 0, "ho_y": 0, "ho_x": 0}
+#: Kernel launches per direction (incremented where the kernel is launched):
+#: "ho_*_rows" the tiled kernel.  "ho_z", "ho_y" and "ho_x" count the
+#: thread-per-(transverse mode, line) kernel of ``csrc/fused_ho.cu``, which no
+#: wrapper launches since the tiled kernel measured faster at every shape
+#: (PERF.md); the paths' checks hold them at 0.
+LAUNCHES = {"ho_z": 0, "ho_y": 0, "ho_x": 0, "ho_z_rows": 0, "ho_y_rows": 0, "ho_x_rows": 0}
 
-#: Longitudinal orders the CUDA kernel is instantiated for (RT1-P1, RT2-P2).
+#: Longitudinal orders the CUDA kernels are instantiated for (RT1-P1, RT2-P2).
 KERNEL_K1 = (2, 3)
+
+#: Lines per block of the tiled kernel, chunks per (transverse mode, line),
+#: and transverse modes per block by K1: the best or within 4% of the best
+#: tile chip_smoke.py [3] sweeps at IAEA-3D 4x4x2 RT2-P2 and RT1-P1 on an H100,
+#: but at RT1-P1 z and y (PERF.md).
+HO_LINES = 16
+HO_CHUNKS = 8
+HO_MODES = {2: 2, 3: 1}
 
 
 def reset_launches() -> None:
@@ -132,8 +148,8 @@ def kernel_mode_index(K1: int, axis: int) -> np.ndarray:
     ``axis`` (0 = z, 1 = y, 2 = x): P splits as (K1[pz], K1[py], K1[px]) with x
     fastest, l is the solve axis's own exponent (stride K1^(2-axis)) and
     t = t_lo + K1 t_hi runs over the other two, lower stride first.  Mirrors
-    the index arithmetic of ``csrc/fused_ho.cu``, so the CPU tests can hold it
-    against the FE space's p -> t map."""
+    the index arithmetic of ``csrc/fused_ho_rows.cu`` (and ``csrc/fused_ho.cu``),
+    so the CPU tests can hold it against the FE space's p -> t map."""
     lstride = K1 ** (2 - axis)
     s_lo = K1 if lstride == 1 else 1
     s_hi = K1 if lstride == K1 * K1 else K1 * K1
@@ -189,6 +205,32 @@ def fused_ho_plain(acc, v, dm, l, alpha, axis: int, tables: HoTables):
     return acc + out.reshape(v.shape)
 
 
+def ho_smem(n: int, tl: int, ch: int, tg: int, K1: int, elem_bytes: int) -> int:
+    """Shared memory bytes of one block of the tiled kernel: rows of
+    ``fused.row_stride`` for the K1 mode planes of v and of acc and the z / F
+    row of each of the ``tg`` transverse modes, and the dm, l and alpha rows,
+    of each line; plus the tg rows of the coefficient table and the line
+    offsets."""
+    rows = (tg * (2 * K1 + 1) + 3) * tl
+    return 8 * tl + (tg * (4 * K1 + K1 * K1) + rows * row_stride(n, tl, ch)) * elem_bytes
+
+
+def ho_tile(lines: int, n: int, K1: int, dtype):
+    """(lines per block, chunks per (transverse mode, line), transverse modes
+    per block) of the tiled kernel for ``lines`` lines of ``n`` cells.  A
+    fixed rule on the shape: ``HO_LINES`` lines of ``HO_CHUNKS`` chunks and
+    ``HO_MODES[K1]`` modes, the lines halved while the block exceeds the
+    card's shared memory, the chunks doubled so that a warp still holds whole
+    lines (lines x chunks >= 32); at one line per block a tile that does not
+    fit is refused by the card and raises."""
+    tl, ch, tg = HO_LINES, HO_CHUNKS, HO_MODES[K1]
+    elem = torch.finfo(dtype).bits // 8
+    while tl > 1 and ho_smem(n, tl, ch, tg, K1, elem) > SMEM_PER_BLOCK:
+        tl //= 2
+        ch = max(ch, 32 // tl)
+    return tl, ch, tg
+
+
 def _check(v, named, K1, what):
     """Validate v and the (name, tensor, shape) operands the kernel reads."""
     if v.dtype not in (torch.float32, torch.float64):
@@ -231,17 +273,18 @@ def _launch(acc, v, dm, l, alpha, tables, n, lines, inner, outer_stride, cell_st
         raise NotImplementedError(f"fused_{key}: no kernel for K1 = {K1} (orders {KERNEL_K1})")
     if n < 1:
         raise ValueError(f"fused_{key}: empty solve axis")
-    T = K1 * K1
     tab = _device_table(tables, v.dtype, v.device)
-    zs = torch.empty((T, n, lines), dtype=v.dtype, device=v.device)
+    tile = ho_tile(lines, n, K1, v.dtype)
     lib = cuda_lib.library()
-    fn = lib.neutfem_fused_ho_f32 if v.dtype == torch.float32 else lib.neutfem_fused_ho_f64
+    fn = (lib.neutfem_fused_ho_rows_f32 if v.dtype == torch.float32
+          else lib.neutfem_fused_ho_rows_f64)
     plane = v.shape[-3] * v.shape[-2] * v.shape[-1]
     err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), alpha.data_ptr(),
-             tab.data_ptr(), zs.data_ptr(), K1, 2 - axis, n, lines, inner, outer_stride,
-             cell_stride, plane, torch.cuda.current_stream(v.device).cuda_stream)
-    cuda_lib.check(err, f"fused condensed Schur direction {key}")
-    LAUNCHES[key] += 1
+             tab.data_ptr(), K1, 2 - axis, n, lines, inner, outer_stride, cell_stride, plane,
+             *tile, torch.cuda.current_stream(v.device).cuda_stream)
+    cuda_lib.check(err, f"fused condensed Schur direction {key} (tiled kernel, tile {tile}, "
+                        f"n {n})")
+    LAUNCHES[f"{key}_rows"] += 1
     return acc
 
 

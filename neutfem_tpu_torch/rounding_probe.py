@@ -1,0 +1,90 @@
+"""How far rounding in the condensed Schur directions (K6) moves a solve's counts.
+
+Run on the GPU from the root of the repository:
+
+    python -m neutfem_tpu_torch.rounding_probe
+
+One IAEA-3D 4x4x2 RT2-P2 float32 context with bfloat16 block storage
+(``NEUTFEM_BLKFP8=0``), solved at ``bench.HO_TOL`` from a cold flux with the
+default block apply and with ``NEUTFEM_BLOCKJAC=1`` (K8), once per K6 variant:
+
+* the tiled kernel (``csrc/fused_ho_rows.cu``) at the tile ``ho_tile`` picks,
+  and at 16 lines x 4 chunks x 1 mode, which cuts the chunks elsewhere;
+* the thread-per-(mode, line) kernel it replaced (``csrc/fused_ho.cu``), with
+  its contribution to the accumulator scaled by 1, 1 +- 1e-7 and 1 + 1e-6,
+  i.e. moved by about one float32 rounding;
+* and, on the default fp8 block storage, the old kernel scaled by 1 +- 1e-7.
+
+Prints one JSON line per solve: the variant, k, outers and inners.  Every
+variant computes the same matvec up to float32 rounding (``chip_smoke.py``
+[3] holds both kernels to the plain version at 1e-5), so a spread in the
+counts is the solve's sensitivity to rounding, not a kernel's error.
+"""
+
+from __future__ import annotations
+
+import json
+
+import torch
+
+from . import bench
+from .ops import cuda_lib, fused_ho
+
+
+def _old_kernel(scale):
+    """A stand-in for ``fused_ho._launch`` that runs the thread-per-(mode,
+    line) kernel and scales its contribution by ``scale``."""
+
+    def launch(acc, v, dm, l, alpha, tables, n, lines, inner, outer_stride, cell_stride, axis,
+               key):
+        K1 = tables.K1
+        tab = torch.as_tensor(tables.packed(), dtype=v.dtype, device=v.device)
+        zs = torch.empty((K1 * K1, n, lines), dtype=v.dtype, device=v.device)
+        base = acc.clone() if scale != 1.0 else None
+        fn = cuda_lib.library().neutfem_fused_ho_f32
+        cuda_lib.check(fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(),
+                          alpha.data_ptr(), tab.data_ptr(), zs.data_ptr(), K1, 2 - axis, n,
+                          lines, inner, outer_stride, cell_stride, v.shape[-3:].numel(),
+                          torch.cuda.current_stream(v.device).cuda_stream), "fused_ho")
+        if base is not None:
+            acc.copy_(base + (acc - base) * scale)
+        return acc
+
+    return launch
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("rounding_probe: needs a CUDA device")
+    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    runs = {}
+    for storage, fp8 in (("bf16", "0"), ("fp8", "1")):
+        with bench.env(NEUTFEM_BLKFP8=fp8):
+            runs[storage] = bench.BenchmarkRun(spec, 4, 2, device="cuda", dtype=torch.float32,
+                                               rt_order=2)
+    tiled, tile = fused_ho._launch, fused_ho.ho_tile
+    variants = [("tiled, ho_tile", tiled, tile),
+                ("tiled, 16x4x1", tiled, lambda lines, n, K1, dtype: (16, 4, 1))]
+    variants += [(f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile)
+                 for s in (1.0, 1.0 + 1e-7, 1.0 - 1e-7, 1.0 + 1e-6)]
+    cases = [("bf16", v, sw) for v in variants for sw in ({}, {"NEUTFEM_BLOCKJAC": "1"})]
+    cases += [("fp8", (f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile), {})
+              for s in (1.0 + 1e-7, 1.0 - 1e-7)]
+    try:
+        for storage, (name, launch, rule), switches in cases:
+            fused_ho._launch, fused_ho.ho_tile = launch, rule
+            s = runs[storage].solver
+            s.set_tol(*bench.HO_TOL)
+            s.reset_flux()
+            with bench.env(**switches):
+                k = s.SolveKeff()
+            print(json.dumps({"blocks": storage, "switches": switches, "k6": name,
+                              "keff": round(k, 7), "outers": s._last_outers,
+                              "inners": s._last_inners,
+                              "device": torch.cuda.get_device_name(0)}), flush=True)
+    finally:
+        fused_ho._launch, fused_ho.ho_tile = tiled, tile
+
+
+if __name__ == "__main__":
+    main()

@@ -37,10 +37,12 @@ from .power import power_iteration
 
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
-    ("fused_dir_batched_kernel", "batched fused Schur directions (K5, K1 batch)"),
+    ("fused_dir_batched_kernel", "batched fused Schur direction z (K1 batch)"),
     ("fused_dir_kernel", "fused Schur direction z (K1)"),
+    ("fused_rows_batched_kernel", "tiled batched fused Schur directions y, x (K5)"),
     ("fused_rows_kernel", "tiled fused Schur directions y, x (K2, K3)"),
-    ("fused_ho_kernel", "condensed Schur directions (K6)"),
+    ("fused_ho_rows_kernel", "tiled condensed Schur directions (K6)"),
+    ("fused_ho_kernel", "condensed Schur directions, thread per (mode, line) (old K6)"),
     ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
     ("thomas_kernel", "Thomas solve (K4)"),
     ("fused_eq_kernel", "equilibration-folded Schur directions (K7)"),

@@ -1,0 +1,56 @@
+"""The chunked first-order recurrence of the tiled kernels (csrc/fused_rows.cu,
+csrc/fused_ho_rows.cu), transcribed in plain PyTorch for the CPU tests.
+
+A line's faces are cut into ``ch`` chunks of an odd length; each chunk runs
+its recurrence y_k = b_k + a_k y_(k-1) from 0 and keeps its end value and the
+product of its multipliers (pass 1); the carries come from a Hillis-Steele
+scan over the chunks, as the kernels' warp shuffles compute them; each chunk
+reruns from its carry (pass 2).
+"""
+
+import torch
+
+
+def scan(y, A, reverse):
+    """Carries of the chunks' (A, E) pairs over axis 0: an inclusive scan in
+    log2 steps, every chunk reading its partner's value from before the step,
+    then shifted by one chunk."""
+    ch = y.shape[0]
+    d = 1
+    while d < ch:
+        y0, A0 = y.clone(), A.clone()
+        if reverse:  # chunk c takes the later chunk c + d
+            y[:-d] = y0[:-d] + A0[:-d] * y0[d:]
+            A[:-d] = A0[:-d] * A0[d:]
+        else:  # chunk c takes the earlier chunk c - d
+            y[d:] = y0[d:] + A0[d:] * y0[:-d]
+            A[d:] = A0[d:] * A0[:-d]
+        d *= 2
+    carry = torch.zeros_like(y)
+    if reverse:
+        carry[:-1] = y[1:]
+    else:
+        carry[1:] = y[:-1]
+    return carry
+
+
+def chunked(b, a, ch, reverse):
+    """y_k = b_k + a_k y_(k-1) over axis 0 of (faces, lines) b and a (from the
+    end when ``reverse``), chunk by chunk as the kernels run it."""
+    faces, lines = b.shape
+    ln = -(-faces // ch)
+    ln += 1 - ln % 2  # odd, as the kernels' tile_layout
+    pad = ch * ln - faces  # past the end: b = 0, a = 1, the identity step
+    bp = torch.cat([b, b.new_zeros((pad, lines))]).reshape(ch, ln, lines)
+    ap = torch.cat([a, a.new_ones((pad, lines))]).reshape(ch, ln, lines)
+    steps = range(ln - 1, -1, -1) if reverse else range(ln)
+    y, A = b.new_zeros((ch, lines)), b.new_ones((ch, lines))
+    for k in steps:  # pass 1
+        y = bp[:, k] + ap[:, k] * y
+        A = A * ap[:, k]
+    y = scan(y, A, reverse)
+    out = torch.empty_like(bp)
+    for k in steps:  # pass 2
+        y = bp[:, k] + ap[:, k] * y
+        out[:, k] = y
+    return out.reshape(ch * ln, lines)[:faces]

@@ -1,8 +1,8 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1, the tiled K2 / K3 kernel, K4, K4′, K5,
-K6, K7, K8) with the plain PyTorch version of the same function, on the card, at a
-small shape.  They need a CUDA device and skip without one (the decision is made
+Each test compares one hand-written kernel (K1, the tiled K2 / K3 kernel and its
+group-batched form K5, K4, K4′, the tiled K6, K7, K8) with the plain PyTorch version
+of the same function, on the card, at a small shape.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
 
@@ -208,9 +208,10 @@ def test_fused_rows_kernel_refuses_a_line_too_long(cuda):
     assert _rel(got, want, acc) <= TOL[torch.float64]
 
 
-def _batched_operands(key, ng, shape, dtype, device, seed):
+def _batched_operands(key, ng, shape, dtype, device, seed, pinned=False):
     """Per-group staged operands of the batched wrapper for ``key`` and their
-    natural layouts (ng, 1, face grid) for the plain version."""
+    natural layouts (ng, 1, face grid) for the plain version; ``pinned``: two
+    pinned face planes in every group (l = dm = 0: the first and one inside)."""
     rng = np.random.default_rng(seed)
     nz, ny, nx = shape
     ax = {"z": 0, "y": 1, "x": 2}[key]
@@ -218,6 +219,10 @@ def _batched_operands(key, ng, shape, dtype, device, seed):
     fsh[ax] += 1
     dm = rng.uniform(0.2, 0.6, (ng, *fsh))
     l = rng.uniform(-0.3, 0.3, (ng, nz, ny, nx))
+    if pinned:
+        for f in {0, shape[ax] // 2}:
+            np.moveaxis(dm, ax + 1, 0)[f] = 0.0
+            np.moveaxis(l, ax + 1, 0)[f] = 0.0
     if key == "z":
         staged = (dm, l)
     elif key == "y":
@@ -241,16 +246,48 @@ BATCHED = {"z": fused.fused_schur_z_batched, "y": fused.fused_schur_y_batched,
 @pytest.mark.parametrize("key", ["z", "y", "x"])
 @pytest.mark.parametrize("ng,shape", [(2, (9, 10, 11)), (3, (5, 33, 70)), (4, (1, 40, 37))])
 def test_fused_batched_kernel_matches_plain(cuda, dtype, key, ng, shape):
-    """K5 (y, x) and K1's group batch (z) on group-batched fluxes, with line
-    counts that are no multiple of the 128 threads of a block and a 2D grid."""
+    """K5 (y, x: the batched tiled kernel) and K1's group batch (z: the
+    thread-per-line kernel) on group-batched fluxes, with line counts that are
+    no multiple of a tile's lines or of the 128 threads of a block, and a 2D
+    grid; each counted under its own key, the one-group kernels not at all."""
     v, acc, staged, nat, axis = _batched_operands(key, ng, shape, dtype, cuda, 20 + ng)
     want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
     before = dict(fused.LAUNCHES)
     got = BATCHED[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
     torch.cuda.synchronize()
     assert _rel(got, want, acc) <= TOL[dtype]
-    assert fused.LAUNCHES[f"{key}_batched"] == before[f"{key}_batched"] + 1
-    assert fused.LAUNCHES[key] == before[key]
+    counted = "z_batched" if key == "z" else f"{key}_batched_rows"
+    assert {k: fused.LAUNCHES[k] - before[k] for k in fused.LAUNCHES} == {
+        k: int(k == counted) for k in fused.LAUNCHES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("key", ["y", "x"])
+@pytest.mark.parametrize("ng,shape", [(1, (6, 9, 11)), (2, (3, 45, 37)), (3, (2, 20, 13)),
+                                      (4, (4, 1, 7)), (2, (1, 300, 280))])
+def test_fused_batched_rows_kernel_matches_plain(cuda, dtype, key, ng, shape):
+    """The batched tiled kernel (K5) at ragged shapes: one group, n no
+    multiple of the chunks, lines no multiple of a tile, n = 1, a 2D grid;
+    two pinned face planes per group."""
+    v, acc, staged, nat, axis = _batched_operands(key, ng, shape, dtype, cuda, 40 + ng,
+                                                  pinned=True)
+    want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
+    before = dict(fused.LAUNCHES)
+    got = BATCHED[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+    assert fused.LAUNCHES[f"{key}_batched_rows"] == before[f"{key}_batched_rows"] + 1
+    assert fused.LAUNCHES[f"{key}_batched"] == before[f"{key}_batched"]
+
+
+@pytest.mark.parametrize("key", ["y", "x"])
+def test_fused_batched_rows_kernel_is_deterministic(cuda, key):
+    """No atomics: two launches of the batched tiled kernel agree bit for bit."""
+    v, acc, staged, _, _ = _batched_operands(key, 2, (76, 114, 114), torch.float32, cuda, 50)
+    first = BATCHED[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    second = BATCHED[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_batched_rejects_what_it_does_not_take(cuda):
@@ -279,11 +316,11 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                             -3)
 
 
-def _ho_operands(k, axis, dtype, device, seed):
+def _ho_operands(k, axis, dtype, device, seed, shape=(5, 6, 7)):
     """RT_k-P_k tables of a small mesh's direction on ``axis`` and random staged
-    operands (dm with a pinned first face: l = dm = 0 there) plus their
-    natural layouts."""
-    nz, ny, nx = 5, 6, 7
+    operands (two pinned faces, the first and one inside: l = dm = 0 there)
+    plus their natural layouts."""
+    nz, ny, nx = shape
     fes = fespace.make_fespace(mesh.CartesianMesh.from_breaks(
         np.linspace(0, 7, nx + 1), np.linspace(0, 6, ny + 1), np.linspace(0, 5, nz + 1)), k, k)
     di = [d for d in fes.dirs if d.axis == axis][0]
@@ -297,8 +334,9 @@ def _ho_operands(k, axis, dtype, device, seed):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     dm, l, a = t(n + 1, *rest, lo=0.2, hi=0.6), t(n, *rest, lo=-0.3, hi=0.3), t(n, *rest, lo=0.5, hi=2.0)
-    dm[0] = 0.0
-    l[0] = 0.0
+    for f in {0, n // 2}:  # pinned faces: the first and one inside
+        dm[f] = 0.0
+        l[f] = 0.0
     # natural layouts (solve axis back in place) and the wrappers' staged ones
     nat = [x.movedim(0, axis) for x in (dm, l, a)]
     if axis == 0:
@@ -315,15 +353,65 @@ def _ho_operands(k, axis, dtype, device, seed):
 @pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_fused_ho_kernel_matches_plain(cuda, dtype, k, axis):
+    """The tiled K6 kernel, counted under its own key; the thread-per-(mode,
+    line) kernel not at all."""
     tabs, v, acc, staged, nat = _ho_operands(k, axis, dtype, cuda, 10 * k + axis)
     want = fused_ho.fused_ho_plain(acc, v, *nat, axis - 3, tabs)
-    wrapper = (fused_ho.fused_ho_z, fused_ho.fused_ho_y, fused_ho.fused_ho_x)[axis]
     before = dict(fused_ho.LAUNCHES)
-    got = wrapper(acc.clone(), v, *staged, tabs)
+    got = HO[axis](acc.clone(), v, *staged, tabs)
     torch.cuda.synchronize()
     assert _rel(got, want, acc) <= TOL[dtype]
     key = ("ho_z", "ho_y", "ho_x")[axis]
-    assert fused_ho.LAUNCHES[key] == before[key] + 1
+    assert {k_: fused_ho.LAUNCHES[k_] - before[k_] for k_ in fused_ho.LAUNCHES} == {
+        k_: int(k_ == f"{key}_rows") for k_ in fused_ho.LAUNCHES}
+
+
+HO = (fused_ho.fused_ho_z, fused_ho.fused_ho_y, fused_ho.fused_ho_x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(9, 13, 11), (38, 19, 21), (1, 3, 2), (6, 76, 5)])
+@pytest.mark.parametrize("modes", [1, "K1"])
+def test_fused_ho_rows_kernel_matches_plain(cuda, dtype, k, axis, shape, modes, monkeypatch):
+    """The tiled K6 kernel at ragged shapes: n no multiple of the chunks,
+    line counts no multiple of a tile, n = 1 (z of the third shape), the
+    paths' n = 38 and 76; two pinned face planes (the first and one inside);
+    one transverse mode per block, and K1 of them."""
+    monkeypatch.setattr(fused_ho, "HO_MODES", {k + 1: k + 1 if modes == "K1" else 1})
+    tabs, v, acc, staged, nat = _ho_operands(k, axis, dtype, cuda, 60 + 10 * k + axis, shape)
+    want = fused_ho.fused_ho_plain(acc, v, *nat, axis - 3, tabs)
+    got = HO[axis](acc.clone(), v, *staged, tabs)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_fused_ho_rows_kernel_is_deterministic(cuda, axis):
+    """No atomics: two launches on RT2-P2 operands agree bit for bit."""
+    tabs, v, acc, staged, _ = _ho_operands(2, axis, torch.float32, cuda, 70, (38, 76, 76))
+    first = HO[axis](acc.clone(), v, *staged, tabs)
+    second = HO[axis](acc.clone(), v, *staged, tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_fused_ho_rows_kernel_refuses_a_tile_too_large(cuda):
+    """A line no tile of shared memory holds (RT2-P2 float64, 8000 cells) is
+    refused by the card and the wrapper raises, counting nothing (no fallback
+    to the thread-per-(mode, line) kernel); the next launch succeeds."""
+    tabs, v, acc, staged, _ = _ho_operands(2, 2, torch.float64, cuda, 71, (1, 1, 8000))
+    assert fused_ho.ho_smem(8000, *fused_ho.ho_tile(1, 8000, 3, torch.float64), 3, 8) > \
+        fused_ho.SMEM_PER_BLOCK
+    before = dict(fused_ho.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tiled kernel"):
+        fused_ho.fused_ho_x(acc.clone(), v, *staged, tabs)
+    assert fused_ho.LAUNCHES == before
+    tabs, v, acc, staged, nat = _ho_operands(2, 2, torch.float64, cuda, 72)
+    got = fused_ho.fused_ho_x(acc.clone(), v, *staged, tabs)
+    torch.cuda.synchronize()
+    assert _rel(got, fused_ho.fused_ho_plain(acc, v, *nat, -1, tabs), acc) <= TOL[torch.float64]
 
 
 def test_fused_ho_rejects_what_it_does_not_take(cuda):

@@ -1,16 +1,17 @@
 """The chunked recurrence of the tiled K2 / K3 kernel (csrc/fused_rows.cu),
 transcribed in plain PyTorch, against the plain version ``fused_dir_plain``
 and the JAX package's ``fused_schur_y_pre`` / ``fused_schur_x_pre`` in
-interpret mode (float64, CPU).
+interpret mode (float64, CPU); and its group-batched form (K5), with each
+group's base offsets applied to the flat staged arrays as the batched kernel
+addresses them, against ``fused_dir_plain`` and the JAX package's
+``fused_schur_dir`` on a group-batched flux (``_fused_y`` / ``_fused_x``).
 
-The transcription follows the kernel step by step: the line's n+1 faces are
-cut into ``ch`` chunks of an odd length; each chunk runs its recurrence from
-0 and keeps its end value and the product of its multipliers (pass 1); the
-carries come from a Hillis-Steele scan over the chunks, as the kernel's warp
-shuffles compute them; each chunk reruns from its carry (pass 2); forward
-for z, then backward for F, then the divergence.  The card tests
-(tests/test_torch_gpu.py) hold the kernel itself against ``fused_dir_plain``.
-Tolerance: rel <= 1e-12 (the same sums in another association).
+The transcription follows the kernel step by step (``chunk_scan.chunked``:
+chunks, pass 1, the Hillis-Steele scan of the warp shuffles, pass 2):
+forward for z, then backward for F, then the divergence.  The card tests
+(tests/test_torch_gpu.py) hold the kernels themselves against
+``fused_dir_plain``.  Tolerance: rel <= 1e-12 (the same sums in another
+association).
 """
 
 import numpy as np
@@ -19,7 +20,8 @@ import torch
 
 import jax.numpy as jnp
 
-from neutfem_tpu.ops.pallas_fused import fused_schur_x_pre, fused_schur_y_pre
+from chunk_scan import chunked
+from neutfem_tpu.ops.pallas_fused import fused_schur_dir, fused_schur_x_pre, fused_schur_y_pre
 from neutfem_tpu_torch.ops import fused
 
 torch.set_num_threads(1)
@@ -28,57 +30,13 @@ BX0, BX1, SI = 0.7, -0.9, 0.35
 SHAPES = {"2d": (1, 515, 45), "3d": (8, 64, 64)}  # (nz, ny, nx)
 
 
-def _scan(y, A, reverse):
-    """Inclusive scan of the chunks' (A, E) pairs over axis 0, log2 steps,
-    every chunk reading its partner's value from before the step."""
-    ch = y.shape[0]
-    d = 1
-    while d < ch:
-        y0, A0 = y.clone(), A.clone()
-        if reverse:  # chunk c takes the later chunk c + d
-            y[:-d] = y0[:-d] + A0[:-d] * y0[d:]
-            A[:-d] = A0[:-d] * A0[d:]
-        else:  # chunk c takes the earlier chunk c - d
-            y[d:] = y0[d:] + A0[d:] * y0[:-d]
-            A[d:] = A0[d:] * A0[:-d]
-        d *= 2
-    carry = torch.zeros_like(y)
-    if reverse:
-        carry[:-1] = y[1:]
-    else:
-        carry[1:] = y[:-1]
-    return carry
-
-
-def _chunked(b, a, ch, reverse):
-    """y_k = b_k + a_k y_(k-1) over axis 0 (from the end when ``reverse``),
-    chunk by chunk as the kernel runs it."""
-    faces, lines = b.shape
-    ln = -(-faces // ch)
-    ln += 1 - ln % 2  # odd, as the kernel's tile_layout
-    pad = ch * ln - faces  # past the end: b = 0, a = 1, the identity step
-    bp = torch.cat([b, b.new_zeros((pad, lines))]).reshape(ch, ln, lines)
-    ap = torch.cat([a, a.new_ones((pad, lines))]).reshape(ch, ln, lines)
-    steps = range(ln - 1, -1, -1) if reverse else range(ln)
-    y, A = b.new_zeros((ch, lines)), b.new_ones((ch, lines))
-    for k in steps:  # pass 1
-        y = bp[:, k] + ap[:, k] * y
-        A = A * ap[:, k]
-    y = _scan(y, A, reverse)
-    out = torch.empty_like(bp)
-    for k in steps:  # pass 2
-        y = bp[:, k] + ap[:, k] * y
-        out[:, k] = y
-    return out.reshape(ch * ln, lines)[:faces]
-
-
 def chunked_dir(acc, v, dm, l, ch):
     """acc + B A^{-1} B^T v on solve-axis-major (n, lines) v and acc, dm
     (n+1, lines), l (n, lines), with ``ch`` chunks per line."""
     zero = v.new_zeros((1, v.shape[1]))
     b = (BX1 * torch.cat([zero, v]) + BX0 * torch.cat([v, zero])) * SI
-    z = _chunked(b, torch.cat([zero, -l]), ch, reverse=False)
-    F = _chunked(z * dm, torch.cat([-l, zero]), ch, reverse=True)
+    z = chunked(b, torch.cat([zero, -l]), ch, reverse=False)
+    F = chunked(z * dm, torch.cat([-l, zero]), ch, reverse=True)
     return acc + (BX0 * F[:-1] + BX1 * F[1:])
 
 
@@ -150,3 +108,66 @@ def test_rows_tile_fits_the_paths_shapes():
         assert fused.rows_smem(4000, tl, ch, elem) <= fused.SMEM_PER_BLOCK
         assert fused.rows_tile(1, 25000, dtype)[0] == 1
         assert fused.rows_smem(25000, 1, ch, elem) > fused.SMEM_PER_BLOCK
+
+
+# group-batched shapes (ng, (nz, ny, nx)) per direction at which the JAX
+# kernels engage: two groups, and a ragged three
+BATCHED = {"y": [(2, (4, 9, 128)), (3, (5, 7, 128))], "x": [(2, (4, 64, 9)), (3, (5, 37, 11))]}
+
+
+def batched_chunked_dir(acc, v, dm, l, ng, n, lines, strides, ch):
+    """The batched kernel's tile algebra on flat arrays: group g's cells at
+    g*group_stride + cb + e*cell_stride (cb = (b // inner)*outer_stride +
+    b % inner), its dm at g*(n+1)*lines + f*lines + b, its l at g*n*lines +
+    f*lines + b."""
+    inner, outer_stride, cell_stride = strides
+    group_stride = acc.numel() // ng
+    b = torch.arange(lines)
+    cells = ((b // inner) * outer_stride + b % inner)[None, :] \
+        + torch.arange(n)[:, None] * cell_stride  # (n, lines)
+    out = acc.clone()
+    for g in range(ng):
+        idx = g * group_stride + cells
+        dg = dm[g * (n + 1) * lines:(g + 1) * (n + 1) * lines].reshape(n + 1, lines)
+        lg = l[g * n * lines:(g + 1) * n * lines].reshape(n, lines)
+        out[idx] = chunked_dir(acc[idx], v[idx], dg, lg, ch)
+    return out
+
+
+@pytest.mark.parametrize("d,ng,shape", [(d, ng, s) for d in BATCHED for ng, s in BATCHED[d]],
+                         ids=lambda p: str(p))
+@pytest.mark.parametrize("ch", [1, 5, 32])
+def test_batched_chunked_recurrence_matches_plain_and_jax(d, ng, shape, ch):
+    """K5: the batched tile algebra, with per-group offsets into the flat
+    staged operands, against the batched wrapper's plain version and the JAX
+    package's group-batched kernel in interpret mode."""
+    nz, ny, nx = shape
+    ax = {"y": 1, "x": 2}[d]
+    n = shape[ax]
+    rng = np.random.default_rng(11 + ng)
+    fsh = [nz, ny, nx]
+    fsh[ax] += 1
+    dm = rng.uniform(0.2, 0.6, (ng, *fsh))
+    ll = rng.uniform(-0.3, 0.3, (ng, *shape))
+    np.moveaxis(dm, ax + 1, 0)[0] = 0.0  # a pinned first face in every group
+    np.moveaxis(ll, ax + 1, 0)[0] = 0.0
+    v, acc = rng.standard_normal((2, ng, 1, *shape))
+    if d == "y":  # (ng, ny+1, nz, nx), lines b = z*nx + x
+        staged = (np.moveaxis(dm, 2, 1), np.moveaxis(ll, 2, 1))
+        strides, lines = (nx, ny * nx, nx), nz * nx
+        wrapper = fused.fused_schur_y_batched
+    else:  # (ng, nx+1, nz*ny), lines b = z*ny + y
+        staged = (np.swapaxes(dm.reshape(ng, -1, nx + 1), 1, 2),
+                  np.swapaxes(ll.reshape(ng, -1, nx), 1, 2))
+        strides, lines = (1, nx, 1), nz * ny
+        wrapper = fused.fused_schur_x_batched
+    staged = [torch.tensor(np.ascontiguousarray(a)) for a in staged]
+    plain = wrapper(torch.tensor(acc), torch.tensor(v), *staged, BX0, BX1, SI).numpy()
+    want = fused_schur_dir(jnp.asarray(acc), jnp.asarray(v), jnp.asarray(dm[:, None]),
+                           jnp.asarray(ll[:, None]), ax - 3, BX0, BX1, SI, interpret=True)
+    assert want is not None, "the JAX kernel declined: the test shape no longer engages it"
+    got = batched_chunked_dir(torch.tensor(acc).reshape(-1), torch.tensor(v).reshape(-1),
+                              staged[0].reshape(-1), staged[1].reshape(-1), ng, n, lines,
+                              strides, ch).numpy().reshape(acc.shape)
+    assert _rel(got, plain, acc) <= 1e-12
+    assert _rel(got, np.asarray(want), acc) <= 1e-12
