@@ -10,21 +10,25 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on its path's
    operands, with times and bounds: K1-K4 on IAEA-3D 6x6x4 RT0-P0
-   (76x114x114 cells, group 0), K5 and K1's group batch on the same
-   operands with both groups at once (2, 1, 76, 114, 114) and on a ragged
-   3-group grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2)
-   (38x76x76 cells), the fused y and x directions (K2, K3) on ZION 48x48
-   (912x912 cells, 912 lines per direction: few, long lines) and KOEBERG
-   32x32 (544x544), K4′ on ZION; the five equilibration-folded directions
-   (K7) on the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on
-   the 4x4x2 RT2-P2 and RT1-P1 blocks in bfloat16; float32.  K2 and K3 are
-   the tiled kernel (csrc/fused_rows.cu), K5 its group-batched form, K6 the
-   tiled kernel of csrc/fused_ho_rows.cu; at each of their shapes the
-   thread-per-line kernel they replaced (csrc/fused_dir.cu, csrc/fused_ho.cu)
-   runs beside it on the same operands, both held to the plain version and
-   timed in turns (its time is the row's ``old_ms``), and the tiled kernel
-   is swept over the tiles of ``ROWS_SWEEP`` (K2, K3, K5) or ``HO_SWEEP``
-   (K6);
+   (76x114x114 cells, group 0), K1 also at the 8x8x8 line path's z lines
+   (152^3, random operands), K5 and K1's group batch on the same operands
+   with both groups at once (2, 1, 76, 114, 114) and on a ragged 3-group
+   grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2) (38x76x76
+   cells), the fused y and x directions (K2, K3) on ZION 48x48 (912x912
+   cells, 912 lines per direction: few, long lines) and KOEBERG 32x32
+   (544x544), K4′ on ZION; the five equilibration-folded directions (K7) on
+   the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on the 4x4x2
+   RT2-P2 and RT1-P1 blocks in bfloat16; float32.  K2 and K3 are the tiled
+   kernel of csrc/fused_rows.cu, K5 its group-batched form; K1 and its batch
+   the face-major tiled kernels of csrc/fused_z_rows.cu; K6 the tiled kernel
+   of csrc/fused_ho_rows.cu, K7 that of csrc/fused_eq_rows.cu; at each of
+   their shapes the thread-per-line kernel they replaced (csrc/fused_dir.cu,
+   csrc/fused_ho.cu, csrc/fused_eq.cu) runs beside it on the same operands,
+   both held to the plain version and timed in turns (its time is the row's
+   ``old_ms``), and the tiled kernel is swept over the tiles of ``Z_SWEEP``
+   (z lines: K1, its batch, K7's z variants; for K1 also K2's kernel at the
+   z strides), ``ROWS_SWEEP`` (K2, K3, K5, K7's x and y variants) or
+   ``HO_SWEEP`` (K6);
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
    Jacobi group sweep, the free-running adjoint, and RT0-P0 under
    ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — and the KOEBERG 4x4 2D solve
@@ -62,9 +66,9 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    1e-5 of its CG k;
 12. opt-in paths, each under its switches (set and restored around the run):
    ``bench.main(6, 4)`` under ``NEUTFEM_EQFOLD=1`` and ``=2`` at phase [5]'s
-   anchors, with the eq kernels (K7) launched at least once per CG iteration
-   and the one-group x and z kernels (and y in mode 2; either y / x kernel)
-   not at all;
+   anchors, with the tiled eq kernels (K7) launched at least once per CG
+   iteration and the one-group x and z kernels (and y in mode 2; either
+   kernel) and the thread-per-line K7 not at all;
    ``bench.main_ho(1)`` under ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1`` with
    bfloat16 block storage, K8 launched at least once per CG iteration, the
    tiled K6 in every direction and the old K6 not at all, at the
@@ -79,7 +83,7 @@ outside the tensor cores).  No single PyTorch call computes the functions of
 K1-K7, so their rows' ``library_ms`` is null; K8's is the port's default
 block apply on the same blocks (``torch.bmm`` on their float32 copy, then
 the two dots as ``torch.sum``), timed here and not used by the K8 path.
-The old / new comparisons (K2, K3, K5, K6) time each kernel behind a queued
+The old / new comparisons (K1-K3, K5-K7) time each kernel behind a queued
 sleep, so that the host enqueues every launch before the card starts them:
 their rows measure device time, not the wrapper's host cost (the tiled
 kernel takes ~10 µs); they carry ``old_ms``, ``tile`` and ``share_of_bound``.
@@ -116,15 +120,29 @@ EQ_REPLACES = {"x_eq": (0, "neutfem_tpu/ops/pallas_fused.py:574"),
                "x_eq2": (0, "neutfem_tpu/ops/pallas_fused.py:625"),
                "y_eq2": (1, "neutfem_tpu/ops/pallas_fused.py:652"),
                "z_eq2": (2, "neutfem_tpu/ops/pallas_fused.py:681")}
-# the K7 launches each fold mode's path must show, and the one-group kernels
-# it must not launch
-EQ_MODES = {"1": (("x_eq", "z_eq"), ("x", "x_rows", "z")),
-            "2": (("x_eq2", "y_eq2", "z_eq2"), ("x", "x_rows", "y", "y_rows", "z"))}
+# the tiled K7 launches each fold mode's path must show, and the kernels it
+# must not launch: the one-group x and z directions (and y in mode 2; either
+# kernel) and the thread-per-line K7 (every key)
+EQ_OLD = tuple(EQ_REPLACES)
+EQ_MODES = {"1": (("x_eq_rows", "z_eq_rows"), ("x", "x_rows", "z", "z_rows", *EQ_OLD)),
+            "2": (("x_eq2_rows", "y_eq2_rows", "z_eq2_rows"),
+                  ("x", "x_rows", "y", "y_rows", "z", "z_rows", *EQ_OLD))}
 # the tiles (lines per block, chunks per line) [3] sweeps the tiled K2 / K3
 # kernel over, beside the one fused.rows_tile picks
 ROWS_SWEEP = ((2, 32), (4, 32), (8, 32), (16, 32), (8, 16), (16, 16))
-ROWS_REPLACES = {"y": "neutfem_tpu/ops/pallas_fused.py:518",
+ROWS_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused.py:466",
+                 "y": "neutfem_tpu/ops/pallas_fused.py:518",
                  "x": "neutfem_tpu/ops/pallas_fused.py:547"}
+# the tiles [3] sweeps the tiled kernels over on z lines (K1, its batch, K2's
+# kernel at the z strides beside them, and the z variants of K7): every
+# lines x chunks of {8, 16, 32, 64} x {2, 4, 8, 16, 32} (a tile under one
+# warp or over 1024 threads is refused)
+Z_SWEEP = tuple((tl, ch) for tl in (8, 16, 32, 64) for ch in (2, 4, 8, 16, 32))
+# (inner, outer_stride, cell_stride) of one group's lines along a direction,
+# from the grid (nz, ny, nx): the wrappers' strides (ops/fused.py)
+STRIDES = {"z": lambda nz, ny, nx: (ny * nx, 0, ny * nx),
+           "y": lambda nz, ny, nx: (nx, ny * nx, nx),
+           "x": lambda nz, ny, nx: (1, nx, 1)}
 # the tiles (lines per block, chunks per (transverse mode, line)) [3] sweeps
 # the tiled K6 kernel over, each with one transverse mode per block and with
 # K1 of them
@@ -133,6 +151,8 @@ HO_SWEEP = ((8, 8), (16, 4), (16, 8), (32, 4), (32, 8))
 # replaced (held at 0 on every path)
 HO_KEYS, HO_OLD = ("ho_z_rows", "ho_y_rows", "ho_x_rows"), ("ho_z", "ho_y", "ho_x")
 K5_KEYS, K5_OLD = ("y_batched_rows", "x_batched_rows"), ("y_batched", "x_batched")
+# the one-group tiled K1-K3 and the thread-per-line kernels they replaced
+Z_KEYS, Z_OLD = ("z_rows", "y_rows", "x_rows"), ("z", "y", "x")
 HO_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused_ho.py:460",
                "y": "neutfem_tpu/ops/pallas_fused_ho.py:389",
                "x": "neutfem_tpu/ops/pallas_fused_ho.py:425"}
@@ -260,29 +280,6 @@ def _thomas_case(fes, ctx, di, phi, card, label):
     return err, ms, plain_ms, bound
 
 
-def _fused_z_case(ctxg, di, v, acc0, card):
-    """K1, the fused RT0 z direction, on the 6x6x4 operands against the plain
-    version.  Returns (max_abs_err, ms, plain_ms, bound)."""
-    import torch
-
-    from neutfem_tpu_torch.ops import fused
-
-    dm, ll = ctxg[f"tri_dinvm_d{di.d}"], ctxg[f"tri_l_d{di.d}"]
-    c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
-    got = fused.fused_schur_z(acc0.clone(), v, dm, ll, *c)
-    want = fused.fused_dir_plain(acc0, v, dm, ll, -3, *c)
-    torch.cuda.synchronize()
-    err = _compare("K1 fused z 6x6x4", got, want, acc0)
-    scratch = acc0.clone()
-    ms = _timed(lambda: fused.fused_schur_z(scratch, v, dm, ll, *c), 50)
-    plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, dm, ll, -3, *c), 3)
-    bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
-    print(f"  K1 fused z 6x6x4: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-          f"{bound[0]:.4f} ms ({v.numel() // v.shape[-3]} lines of {v.shape[-3]} cells per "
-          f"launch; {card})")
-    return err, ms, plain_ms, bound
-
-
 def _old_new(old, new, reps=50):
     """Device ms of ``new`` and of ``old`` on the same operands, timed in turns
     (old, new, new, old), each queued behind a sleep: (ms, old_ms, readings)."""
@@ -290,15 +287,17 @@ def _old_new(old, new, reps=50):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
-def _tile_sweep(name, tiles, run, want, acc0, scratch):
-    """``run(acc, tile)`` at each tile, held to ``want`` and timed (queued):
-    "lines x chunks ms" each, or "refused" where the card's shared memory
-    does not hold the tile."""
+def _tile_sweep(name, tiles, run, want, acc0, scratch, base=None):
+    """``run(acc, tile)`` at each tile, held to ``want`` (relative to the
+    contribution over ``base``, default ``acc0``) and timed (queued): "lines
+    x chunks ms" each, or "refused" where the card does not take the tile
+    (its shared memory, or a block under one warp or over 1024 threads)."""
     out = []
     for tile in tiles:
         label = "x".join(map(str, tile))
         try:
-            _compare(f"{name} tile {tile}", run(acc0.clone(), tile), want, acc0)
+            _compare(f"{name} tile {tile}", run(acc0.clone(), tile), want,
+                     acc0 if base is None else base)
         except RuntimeError as e:
             if "CUDA launch failed" not in str(e):
                 raise
@@ -309,26 +308,28 @@ def _tile_sweep(name, tiles, run, want, acc0, scratch):
 
 
 def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
-    """K2 (y) or K3 (x) on one group's flux: the wrapper, which launches the
-    tiled kernel at the tile ``fused.rows_tile`` picks, and the
-    thread-per-line kernel it replaced, called through the library (no
-    launch counted), each against the plain version on the NATURAL operands
-    and timed in turns (old, new, new, old); then the tiled kernel at the
-    tiles of ``ROWS_SWEEP``.  Returns a row with ``old_ms``."""
+    """K1 (z), K2 (y) or K3 (x) on one group's flux: the wrapper, which
+    launches the tiled kernel at the tile ``fused.z_tile`` (z) or
+    ``fused.rows_tile`` picks, and the thread-per-line kernel it replaced,
+    called through the library (no launch counted), each against the plain
+    version on the NATURAL operands and timed in turns (old, new, new, old);
+    then the tiled kernel at the tiles of ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.
+    Returns a row with ``old_ms``."""
     import torch
 
     from neutfem_tpu_torch.ops import cuda_lib, fused
 
-    wrapper, tag, axis = {"y": (fused.fused_schur_y_pre, "yT", -2),
-                          "x": (fused.fused_schur_x_pre, "xT", -1)}[key]
+    wrapper, tag, axis = {"z": (fused.fused_schur_z, "", -3),
+                          "y": (fused.fused_schur_y_pre, "yT_", -2),
+                          "x": (fused.fused_schur_x_pre, "xT_", -1)}[key]
     d = f"d{di.d}"
-    dm, ll = ctxg[f"tri_{tag}_dinvm_{d}"], ctxg[f"tri_{tag}_l_{d}"]
+    dm, ll = ctxg[f"tri_{tag}dinvm_{d}"], ctxg[f"tri_{tag}l_{d}"]
     nat = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"])
     c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
     nz, ny, nx = v.shape[-3:]
     n = v.shape[axis]
     lines = v.numel() // n
-    strides = (nx, ny * nx, nx) if key == "y" else (1, nx, 1)  # inner, outer, cell
+    strides = STRIDES[key](nz, ny, nx)
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream().cuda_stream
     zs = torch.empty((n, lines), dtype=v.dtype, device=v.device)
@@ -340,9 +341,19 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
         return acc
 
     def tiled(acc, tile):
+        ptrs = (acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr())
+        if key == "z":
+            err = lib.neutfem_fused_z_rows_f32(*ptrs, n, lines, 0, *tile, *c, stream)
+        else:
+            err = lib.neutfem_fused_rows_f32(*ptrs, n, lines, *strides, int(strides[2] == 1),
+                                             *tile, *c, stream)
+        cuda_lib.check(err, "fused_rows")
+        return acc
+
+    def rows_form(acc, tile):  # K2's kernel (rows_tile) at the z strides
         cuda_lib.check(lib.neutfem_fused_rows_f32(
-            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), n, lines, *strides,
-            int(strides[2] == 1), *tile, *c, stream), "fused_rows")
+            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), n, lines, *strides, 0,
+            *tile, *c, stream), "fused_rows")
         return acc
 
     want = fused.fused_dir_plain(acc0, v, *nat, axis, *c)
@@ -357,28 +368,42 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
     ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
     plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
     bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
-    tile = fused.rows_tile(lines, n, v.dtype)
-    sweep = _tile_sweep(f"{kid} tiled {key} {label}", ROWS_SWEEP, tiled, want, acc0, scratch)
+    tile = (fused.z_tile if key == "z" else fused.rows_tile)(lines, n, v.dtype)
+    sweep = _tile_sweep(f"{kid} tiled {key} {label}", Z_SWEEP if key == "z" else ROWS_SWEEP,
+                        tiled, want, acc0, scratch)
     print(f"  {kid} {key} {label}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
           f"({t[1]:.4f}, {t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
           f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells; "
           f"{card})")
     print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
-    row = _row(f"{kid} fused Schur direction {key}{label}", "neutfem_tpu_torch/csrc/fused_rows.cu",
+    source = "fused_z_rows.cu" if key == "z" else "fused_rows.cu"
+    row = _row(f"{kid} fused Schur direction {key}{label}", f"neutfem_tpu_torch/csrc/{source}",
                ROWS_REPLACES[key], f"{key}_rows", err, ms, plain_ms, bound)
     row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_dir.cu",
-               tile=list(tile), share_of_bound=bound[0] / ms)
+               tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
+    if key == "z":
+        row["rows_form_sweep"] = _rows_form_sweep(f"{kid} {key} {label}", rows_form, want, acc0,
+                                                  scratch)
     return row
 
 
+def _rows_form_sweep(name, rows_form, want, acc0, scratch):
+    """K1's alternative: K2's tiled kernel (rows_tile, line-major shared rows)
+    at the z strides, over ``Z_SWEEP``; the face-major z kernel is held to
+    it (``rows_form_sweep`` in the K1 rows)."""
+    sweep = _tile_sweep(f"{name} (rows form)", Z_SWEEP, rows_form, want, acc0, scratch)
+    print(f"    rows form (fused_rows.cu at the z strides), tiles: {'; '.join(sweep)}")
+    return sweep
+
+
 def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True):
-    """One group-batched fused RT0 direction (K5 for y and x, the batched tiled
-    kernel; K1's batch for z) on the per-group staged operands of the whole
-    context, against the plain version on the natural ones.  For y and x the
+    """One group-batched fused RT0 direction (K5 for y and x, K1's batch for
+    z: the batched tiled kernels) on the per-group staged operands of the
+    whole context, against the plain version on the natural ones.  The
     thread-per-line batched kernel it replaced (csrc/fused_dir.cu, called
     through the library: no launch counted) is held to the plain version
     too; ``timed``: both timed in turns, and the tiled kernel swept over
-    ``ROWS_SWEEP``.  Returns a row."""
+    ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.  Returns a row."""
     import math
 
     import torch
@@ -402,37 +427,43 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True)
     err = _compare(f"{kid} {key} {label}", got, want, acc0)
     scratch = acc0.clone()
     bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
-    new_key = "z_batched" if key == "z" else f"{key}_batched_rows"
-    source = "fused_dir.cu" if key == "z" else "fused_rows.cu"
-    extra, sweep = {}, None
-    if key != "z":
-        lib = cuda_lib.library()
-        stream = torch.cuda.current_stream().cuda_stream
-        strides = (nx, ny * nx, nx) if key == "y" else (1, nx, 1)  # inner, outer, cell
-        gs = math.prod(v.shape[-3:])
-        zs = torch.empty((ng, n, lines), dtype=v.dtype, device=v.device)
+    new_key = f"{key}_batched_rows"
+    sweep = None
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    strides = STRIDES[key](nz, ny, nx)
+    gs = math.prod(v.shape[-3:])
+    zs = torch.empty((ng, n, lines), dtype=v.dtype, device=v.device)
 
-        def old(acc):
-            cuda_lib.check(lib.neutfem_fused_dir_batched_f32(
-                acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), zs.data_ptr(), n,
-                lines, ng, *strides, gs, *c, stream), "fused_dir_batched")
-            return acc
+    def old(acc):
+        cuda_lib.check(lib.neutfem_fused_dir_batched_f32(
+            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), zs.data_ptr(), n,
+            lines, ng, *strides, gs, *c, stream), "fused_dir_batched")
+        return acc
 
-        def tiled(acc, tile):
-            cuda_lib.check(lib.neutfem_fused_rows_batched_f32(
-                acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), n, lines, ng,
-                *strides, gs, int(strides[2] == 1), *tile, *c, stream), "fused_rows_batched")
-            return acc
+    def tiled(acc, tile, rows=key != "z"):
+        ptrs = (acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr())
+        if rows:
+            err = lib.neutfem_fused_rows_batched_f32(*ptrs, n, lines, ng, *strides, gs,
+                                                     int(strides[2] == 1), *tile, *c, stream)
+        else:
+            err = lib.neutfem_fused_z_rows_f32(*ptrs, n, lines, ng, *tile, *c, stream)
+        cuda_lib.check(err, "fused_rows_batched")
+        return acc
 
-        _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
-        tile = fused.rows_tile(lines, n, v.dtype)
-        extra = {"tile": list(tile), "old_source": "neutfem_tpu_torch/csrc/fused_dir.cu"}
-        if timed:
-            ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
-            extra.update(old_ms=old_ms, share_of_bound=bound[0] / ms)
-            sweep = _tile_sweep(f"{kid} {key} {label}", ROWS_SWEEP, tiled, want, acc0, scratch)
-    if key == "z" or not timed:
-        ms = _timed(lambda: wrapper(scratch, v, dm, ll, *c), 50 if timed else 3)
+    _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
+    tile = (fused.z_tile if key == "z" else fused.rows_tile)(lines, n, v.dtype)
+    extra = {"tile": list(tile), "old_source": "neutfem_tpu_torch/csrc/fused_dir.cu"}
+    if timed:
+        ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
+        sweep = _tile_sweep(f"{kid} {key} {label}", Z_SWEEP if key == "z" else ROWS_SWEEP,
+                            tiled, want, acc0, scratch)
+        extra.update(old_ms=old_ms, share_of_bound=bound[0] / ms, sweep=sweep)
+        if key == "z":
+            extra["rows_form_sweep"] = _rows_form_sweep(
+                f"{kid} {key} {label}", lambda a, tile: tiled(a, tile, True), want, acc0, scratch)
+    else:
+        ms = _timed(lambda: wrapper(scratch, v, dm, ll, *c), 3)
     plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
     old_txt = (f", thread-per-line {extra['old_ms']:.4f} ms ({t[0]:.4f}, {t[3]:.4f})"
                if "old_ms" in extra else "")
@@ -441,6 +472,7 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True)
           f"{card})")
     if sweep:
         print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    source = "fused_z_rows.cu" if key == "z" else "fused_rows.cu"
     row = _row(f"{kid} fused Schur direction {key}, group-batched (_fused_{key} on (ng, 1, ...))",
                f"neutfem_tpu_torch/csrc/{source}", replaces, new_key, err, ms, plain_ms, bound)
     row.update(extra)
@@ -448,19 +480,33 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True)
 
 
 def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
-    """One K7 wrapper on the 6x6x4 direction operands (group 0): the kernel on
-    the staged operands against ``fused_eq_plain`` on the natural ones.
-    Returns a row."""
+    """One K7 wrapper on the 6x6x4 direction operands (group 0): the wrapper,
+    which launches the tiled kernel at the tile ``fused_eq.eq_tile`` picks,
+    and the thread-per-line kernel it replaced (csrc/fused_eq.cu, called
+    through the library: no launch counted), each on the staged operands
+    against ``fused_eq_plain`` on the natural ones and timed in turns; then
+    the tiled kernel at the tiles of ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.
+    Returns a row with ``old_ms``."""
     import torch
 
-    from neutfem_tpu_torch.ops import fused_eq
+    from neutfem_tpu_torch.ops import cuda_lib, fused_eq
 
     d, replaces = EQ_REPLACES[key]
     axis, tag = {0: (-1, "tri_xT_"), 1: (-2, "tri_yT_"), 2: (-3, "tri_")}[d]
+    dkey = "xyz"[d]
     dm, ll = ctxg[f"{tag}dinvm_d{d}"], ctxg[f"{tag}l_d{d}"]
     nat = (ctxg[f"tri_dinvm_d{d}"], ctxg[f"tri_l_d{d}"])
     c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
     wrapper = getattr(fused_eq, f"fused_schur_{key}")
+    flags = fused_eq._FLAGS[key]
+    n = y.shape[axis]
+    lines = y.numel() // n
+    strides = STRIDES[dkey](*y.shape[-3:])
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    zs = torch.empty((n, lines), dtype=y.dtype, device=y.device)
+    u_buf = torch.empty_like(y)
+    ce_ptr = ce.data_ptr() if key.startswith("x") else None
 
     def call(acc):
         if key.startswith("x"):
@@ -469,26 +515,58 @@ def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
             return wrapper(acc, y, dm, ll, sdi, *c)
         return wrapper(acc, y, sdi, dm, ll, *c)
 
+    def raw(fn, acc, *tile):
+        """the old (no tile) or the tiled kernel through the library: the
+        output (a new tensor for the x variants, as the wrapper)"""
+        out = torch.empty_like(y) if key.startswith("x") else acc
+        pre = (zs.data_ptr(),) if not tile else ()
+        cuda_lib.check(fn(flags, out.data_ptr(), y.data_ptr(), sdi.data_ptr(), ce_ptr,
+                          dm.data_ptr(), ll.data_ptr(), *pre, u_buf.data_ptr(), n, lines,
+                          *strides, *tile, *c, stream), key)
+        return out
+
+    def old(acc):
+        return raw(lib.neutfem_fused_eq_f32, acc)
+
+    def tiled(acc, tile):
+        return raw(lib.neutfem_fused_eq_rows_f32, acc, *tile)
+
+    before = dict(fused_eq.LAUNCHES)
     got = call(acc0.clone())
     got, got_u = got if key == "x_eq" else (got, None)
+    if fused_eq.LAUNCHES[f"{key}_rows"] != before[f"{key}_rows"] + 1:
+        raise RuntimeError(f"K7 {key}: the wrapper did not launch the tiled kernel")
     want, want_u = fused_eq.fused_eq_plain(key, acc0, y, sdi, ce, *nat, axis, *c)
     torch.cuda.synchronize()
     base = ce * y if key.startswith("x") else (sdi * acc0 if key.startswith("z") else acc0)
-    err = _compare(f"K7 {key}", got, want, base)
+    err = _compare(f"K7 tiled {key}", got, want, base)
     if got_u is not None and not torch.equal(got_u, want_u):
         raise RuntimeError("K7 x_eq: u differs from sdi*y")
+    _compare(f"K7 thread-per-line {key}", old(acc0.clone()), want, base)
+    if key == "x_eq" and not torch.equal(u_buf, want_u):
+        raise RuntimeError("K7 x_eq (thread-per-line): u differs from sdi*y")
     scratch = acc0.clone()
-    ms = _timed(lambda: call(scratch), 50)
+    ms, old_ms, t = _old_new(lambda: old(scratch), lambda: call(scratch))
     plain_ms = _timed(lambda: fused_eq.fused_eq_plain(key, acc0, y, sdi, ce, *nat, axis, *c), 3)
     reads = [y, sdi, dm, ll] + ([ce] if key.startswith("x") else [acc0])
     writes = [got] + ([got_u] if got_u is not None else [])
     # per cell: the fused direction, plus u = sdi*y (1), ce*y + (2), sdi*( ) (1)
     extra = {"x_eq": 3, "z_eq": 1, "x_eq2": 3, "y_eq2": 1, "z_eq2": 2}[key]
     bound = _bound(reads + writes, (FUSED_FLOPS_PER_CELL + extra) * y.numel())
-    print(f"  K7 {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound[0]:.4f} ms "
-          f"({y.numel() // y.shape[axis]} lines of {y.shape[axis]} cells per launch; {card})")
-    return _row(f"K7 equilibration-folded Schur direction {key} (6x6x4)",
-                "neutfem_tpu_torch/csrc/fused_eq.cu", replaces, key, err, ms, plain_ms, bound)
+    tile = fused_eq.eq_tile(axis, lines, n, y.dtype)
+    sweep = _tile_sweep(f"K7 tiled {key}", Z_SWEEP if dkey == "z" else ROWS_SWEEP, tiled, want,
+                        acc0, scratch, base)
+    print(f"  K7 {key}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells per launch; "
+          f"{card})")
+    print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    row = _row(f"K7 equilibration-folded Schur direction {key} (6x6x4)",
+               "neutfem_tpu_torch/csrc/fused_eq_rows.cu", replaces, f"{key}_rows", err, ms,
+               plain_ms, bound)
+    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_eq.cu", tile=list(tile),
+               share_of_bound=bound[0] / ms, sweep=sweep)
+    return row
 
 
 def _blockjac_case(fes, ctxg, order, card, rng):
@@ -732,11 +810,20 @@ def main():
 
     dirs = {di.d: di for di in fes.dirs}
     rows = {}
-    err, ms, plain_ms, bound = _fused_z_case(ctxg, dirs[2], v, acc0, card)
-    rows["K1"] = _row("K1 fused Schur direction z", "neutfem_tpu_torch/csrc/fused_dir.cu",
-                      "neutfem_tpu/ops/pallas_fused.py:466", "z", err, ms, plain_ms, bound)
-    for kid, key, d in (("K2", "y", 1), ("K3", "x", 0)):
+    for kid, key, d in (("K1", "z", 2), ("K2", "y", 1), ("K3", "x", 0)):
         rows[kid] = _rows_case(kid, key, ctxg, dirs[d], v, acc0, card, "")
+    # K1 at the line path's z lines (IAEA-3D 8x8x8: 23,104 lines of 152
+    # cells), on random operands of that shape (the time does not depend on
+    # the values; phase [8] runs the real ones)
+    n8 = (152, 152, 152)
+    ctx8 = {"tri_dinvm_d2": torch.as_tensor(rng.uniform(0.2, 0.6, (153, 152, 152)), dtype=f32,
+                                            device=dev),
+            "tri_l_d2": torch.as_tensor(rng.uniform(-0.3, 0.3, n8), dtype=f32, device=dev)}
+    v8, acc8 = (torch.as_tensor(rng.standard_normal((1, *n8)), dtype=f32, device=dev)
+                for _ in range(2))
+    rows["K1 8x8x8"] = _rows_case("K1", "z", ctx8, dirs[2], v8, acc8, card,
+                                  " (IAEA-3D 8x8x8 shape, random operands)")
+    del ctx8, v8, acc8
 
     # K4 at the three compute_current layouts: rhs (2, 1, faces...) per direction
     phi = torch.as_tensor(rng.standard_normal((2, *shape)), dtype=f32, device=dev)
@@ -789,9 +876,10 @@ def main():
     # K7: the five equilibration-folded directions on the same direction
     # operands.  sdi and ce are drawn from [0.5, 2]: the context's ce = C*sdi
     # reaches 2.8e9 in IAEA-3D's absorber cells (IAEA-3D 1x1), where one ulp
-    # of ce*y (an FMA in the kernel, two roundings in the plain version)
-    # exceeds the contribution's tolerance; phases [4] and [12] run the real
-    # ones.
+    # of ce*y exceeds the contribution's tolerance, and the thread-per-line
+    # kernel held beside the tiled one contracts ce*y + contribution into an
+    # FMA (two roundings in the plain version and the tiled kernel); phases
+    # [4] and [12] run the real ones.
     sdi, ce = (torch.as_tensor(rng.uniform(0.5, 2.0, shape), dtype=f32, device=dev)
                for _ in range(2))
     for key in EQ_REPLACES:
@@ -861,7 +949,9 @@ def main():
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
     t0 = time.perf_counter()
     # the tiled kernels a case launches on the GPU, and the old ones it must not
-    tiled = {"RT1-P1": (HO_KEYS, HO_OLD), "Jacobi sweep": (K5_KEYS, K5_OLD)}
+    tiled = {"RT0-P0": (Z_KEYS, Z_OLD), "RT1-P1": (HO_KEYS, HO_OLD),
+             "Jacobi sweep": (("z_batched_rows", *K5_KEYS), ("z_batched", *K5_OLD)),
+             "adjoint": (Z_KEYS, Z_OLD)}
     for case in ("RT0-P0", "RT1-P1", "Jacobi sweep", "adjoint"):
         small = {}
         for device in ("cpu", "cuda"):
@@ -879,19 +969,21 @@ def main():
                                "CPU reference, or the tiled kernels did not serve it")
     for mode in EQ_MODES:  # the equilibration-folded matvec (K7) on the GPU
         small = {}
-        fused_eq.reset_launches()
+        reset_counts()
         with bench.env(NEUTFEM_EQFOLD=mode):
             for device in ("cpu", "cuda"):
                 small[device] = _small_solve(bench, spec, device, "RT0-P0")
-        launched = {k: fused_eq.LAUNCHES[k] for k in EQ_MODES[mode][0]}
+        launched = {k: counts()[k] for k in EQ_MODES[mode][0]}
+        idle = {k: counts()[k] for k in EQ_MODES[mode][1] if counts()[k]}
         print(f"[4] IAEA-3D 1x1 RT0-P0 float64 NEUTFEM_EQFOLD={mode}: cuda {small['cuda']}  "
               f"cpu {small['cpu']}; K7 launches {launched}")
         if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
                 or small["cuda"][1] != small["cpu"][1]
                 or abs(small["cuda"][2] - small["cpu"][2]) > 2
-                or min(launched.values()) < small["cuda"][2]):
+                or min(launched.values()) < small["cuda"][2] or idle):
             raise RuntimeError(f"IAEA-3D 1x1 NEUTFEM_EQFOLD={mode}: the GPU solve disagrees "
-                               "with the CPU reference, or K7 did not run every CG iteration")
+                               "with the CPU reference, or the tiled K7 did not run every CG "
+                               f"iteration, or an idle kernel launched ({idle})")
     small = {}
     for device in ("cpu", "cuda"):  # the 2D directions: the tiled K2 / K3 kernel
         fused.reset_launches()
@@ -924,8 +1016,8 @@ def main():
     keff_main = keff
     if any(launches[k] for k in (*fused_eq.LAUNCHES, *blockjac.LAUNCHES)):
         raise RuntimeError("main path: an opt-in kernel (K7, K8) launched without its switch")
-    if launches["y"] or launches["x"]:
-        raise RuntimeError("main path: the thread-per-line kernel served y or x")
+    if any(launches[k] for k in Z_OLD):
+        raise RuntimeError("main path: a thread-per-line kernel served z, y or x")
     for rid in ("K1", "K2", "K3", "K4"):
         row = rows[rid]
         row["launches"] = launches[row.pop("key")]
@@ -1017,6 +1109,9 @@ def main():
     if launches["thomas"] < inners:
         raise RuntimeError(f"IAEA-3D 8x8x8: {launches['thomas']} z Thomas launches for "
                            f"{inners} CG iterations")
+    if any(launches[k] < inners for k in Z_KEYS) or any(launches[k] for k in Z_OLD):
+        raise RuntimeError("IAEA-3D 8x8x8: the tiled K1-K3 did not serve every CG iteration")
+    rows["K1 8x8x8"]["launches"] = launches[rows["K1 8x8x8"].pop("key")]
     print(f"    [8] {time.perf_counter() - t0:.1f} s")
 
     # [9] the Jacobi path: the Gauss-Seidel solve at the same tolerances first
@@ -1043,10 +1138,10 @@ def main():
         if not abs(det["keff"] - k_ref) <= SWEEP_KEFF_TOL:
             raise RuntimeError(f"Jacobi sweep: keff {det['keff']} is not within "
                                f"{SWEEP_KEFF_TOL} of {what} ({k_ref})")
-    for key in ("z_batched", *K5_KEYS):
+    for key in ("z_batched_rows", *K5_KEYS):
         if launches[key] <= 0:
             raise RuntimeError(f"Jacobi sweep: {key} not launched on the path")
-    for key in ("z", "y", "x", "y_rows", "x_rows", *K5_OLD):
+    for key in (*Z_OLD, *Z_KEYS, "z_batched", *K5_OLD):
         if launches[key] != 0:
             raise RuntimeError(f"Jacobi sweep: the one-group or thread-per-line batched kernel "
                                f"{key} launched {launches[key]} times")
@@ -1073,9 +1168,11 @@ def main():
     if not abs(det["outer_iterations"] - oa) <= OUTERS_TOL:
         raise RuntimeError(f"adjoint: {det['outer_iterations']} outers, expected {oa} +- "
                            f"{OUTERS_TOL}")
-    for key in ("z", "y_rows", "x_rows", "thomas"):
+    for key in (*Z_KEYS, "thomas"):
         if launches[key] <= 0:
             raise RuntimeError(f"adjoint: {key} not launched on the path")
+    if any(launches[k] for k in Z_OLD):
+        raise RuntimeError("adjoint: a thread-per-line kernel served z, y or x")
     print(f"    [10] {time.perf_counter() - t0:.1f} s")
 
     # [11] the facade's variants: one timed solve each from a cold flux, at
@@ -1097,6 +1194,7 @@ def main():
         return k, s._last_outers, s._last_inners, time.perf_counter() - t1
 
     k_cheby, o, i, w = timed_solve()
+    reset_counts()
     print(f"    Chebyshev: keff {k_cheby:.7f}, {o} / {i}, {w * 1e3 / o:.3f} ms/outer ({card})")
     k, o, i, w = timed_solve(use_cmfd=True)
     capped = " (stopped at max_outer)" if o >= bench.SWEEP_TOL[3] else ""
@@ -1110,6 +1208,10 @@ def main():
           f"(dk {k - k_cheby:+.2e}), {o} / {i}, {w * 1e3 / o:.3f} ms/outer ({card})")
     if not abs(k - k_cheby) <= VARIANT_KEFF_TOL:
         raise RuntimeError(f"coarse init: keff {k} not within {VARIANT_KEFF_TOL} of {k_cheby}")
+    launches = counts()
+    print(f"    CMFD and coarse init: launches {launches}")
+    if any(launches[k] <= 0 for k in (*Z_KEYS, "thomas")) or any(launches[k] for k in Z_OLD):
+        raise RuntimeError("CMFD / coarse init: the tiled K1-K3 did not serve them")
     del run, s
     d2 = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea2d"], mesh_n=3,
                             device=dev, dtype=f32)
@@ -1147,10 +1249,11 @@ def main():
             if launches[key] < inners:
                 raise RuntimeError(f"NEUTFEM_EQFOLD={mode}: {key} launched {launches[key]} "
                                    f"times for {inners} CG iterations")
-            rows[f"K7 {key}"]["launches"] = launches[rows[f"K7 {key}"].pop("key")]
+            row = rows[f"K7 {key.removesuffix('_rows')}"]
+            row["launches"] = launches[row.pop("key")]
         for key in idle:
             if launches[key] != 0:
-                raise RuntimeError(f"NEUTFEM_EQFOLD={mode}: the one-group kernel {key} "
+                raise RuntimeError(f"NEUTFEM_EQFOLD={mode}: the kernel {key} "
                                    f"launched {launches[key]} times")
         print(f"    [12] EQFOLD={mode} {time.perf_counter() - t0:.1f} s")
 
@@ -1194,9 +1297,11 @@ def main():
           f"({card})")
     _check_anchor("RT0-P0 6x6x4 NEUTFEM_CGCG=1", keff, outers, inners,
                   (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
-    for key in ("z", "y_rows", "x_rows", "thomas"):
+    for key in (*Z_KEYS, "thomas"):
         if launches[key] <= 0:
             raise RuntimeError(f"NEUTFEM_CGCG=1: {key} not launched on the path")
+    if any(launches[k] for k in Z_OLD):
+        raise RuntimeError("NEUTFEM_CGCG=1: a thread-per-line kernel served z, y or x")
     print(f"    [12] CGCG {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 

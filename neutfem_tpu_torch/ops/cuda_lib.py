@@ -23,8 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-SOURCES = ("fused_dir.cu", "fused_rows.cu", "thomas.cu", "fused_ho.cu", "fused_ho_rows.cu",
-           "fused_eq.cu", "blockjac.cu")
+SOURCES = ("fused_dir.cu", "fused_rows.cu", "fused_z_rows.cu", "thomas.cu", "fused_ho.cu",
+           "fused_ho_rows.cu", "fused_eq.cu", "fused_eq_rows.cu", "blockjac.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +57,11 @@ _SIGNATURES = {
                                        + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [_P]),
     "neutfem_fused_rows_batched_f64": ([_P] * 4 + [ctypes.c_int] + [_I64] * 6
                                        + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [_P]),
+    # acc, v, dm, l, n, lines, groups, tl, ch, bx0, bx1, si, stream
+    "neutfem_fused_z_rows_f32": ([_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2
+                                 + [ctypes.c_double] * 3 + [_P]),
+    "neutfem_fused_z_rows_f64": ([_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2
+                                 + [ctypes.c_double] * 3 + [_P]),
     # r, d, l, out, n, lines, inner, stream
     "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
@@ -78,6 +83,12 @@ _SIGNATURES = {
                              + [ctypes.c_double] * 3 + [_P]),
     "neutfem_fused_eq_f64": ([ctypes.c_int] + [_P] * 8 + [ctypes.c_int] + [_I64] * 4
                              + [ctypes.c_double] * 3 + [_P]),
+    # flags, acc, y, sdi, ce, dm, l, u, n, lines, inner, outer_stride, cell_stride,
+    # tl, ch, bx0, bx1, si, stream
+    "neutfem_fused_eq_rows_f32": ([ctypes.c_int] + [_P] * 7 + [ctypes.c_int] + [_I64] * 4
+                                  + [ctypes.c_int] * 2 + [ctypes.c_double] * 3 + [_P]),
+    "neutfem_fused_eq_rows_f64": ([ctypes.c_int] + [_P] * 7 + [ctypes.c_int] + [_I64] * 4
+                                  + [ctypes.c_int] * 2 + [ctypes.c_double] * 3 + [_P]),
     # bi, r, z, part, P, cells, stream
     "neutfem_blockjac_bf16": [_P] * 4 + [ctypes.c_int, _I64, _P],
     "neutfem_blockjac_f32": [_P] * 4 + [ctypes.c_int, _I64, _P],

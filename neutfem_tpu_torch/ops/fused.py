@@ -12,13 +12,14 @@ entries, si = 1/m_t):
     F_n   = z_n dm_n;   F_f = z_f dm_f - l_f F_{f+1}          [dm = dinv*mask]
     out_e = acc_e + (bx0 F_e + bx1 F_{e+1})
 
-On a CUDA tensor each wrapper launches a hand-written kernel: the y and x
-directions, one group (K2, K3) or group-batched (K5), the tiled kernels of
-``csrc/fused_rows.cu`` (a tile of lines per block, each line cut into chunks,
-staged through shared memory; the batched one takes the group from its grid),
-at the tile ``rows_tile`` picks; the z direction (K1) and its group batch the
-thread-per-line kernels of ``csrc/fused_dir.cu``.  On a CPU tensor every
-wrapper runs the plain PyTorch version.  A CUDA tensor the
+On a CUDA tensor each wrapper launches a hand-written tiled kernel (a tile
+of lines per block, each line cut into chunks, staged through shared memory;
+the batched ones take the group from their grid): the y and x directions,
+one group (K2, K3) or group-batched (K5), the kernels of
+``csrc/fused_rows.cu`` at the tile ``rows_tile`` picks; the z direction (K1)
+and its group batch those of ``csrc/fused_z_rows.cu``, which stage the tile
+face-major, at the tile ``z_tile`` picks.  On a CPU tensor every wrapper
+runs the plain PyTorch version.  A CUDA tensor the
 kernel does not take, or a launch the card refuses, raises; there is no
 decline path.
 
@@ -49,18 +50,18 @@ from . import cuda_lib
 
 __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
            "fused_schur_z_batched", "fused_schur_y_batched", "fused_schur_x_batched",
-           "fused_dir_plain", "rows_tile", "LAUNCHES", "reset_launches"]
+           "fused_dir_plain", "rows_tile", "z_tile", "LAUNCHES", "reset_launches"]
 
 #: Kernel launches per direction (incremented where the kernel is launched):
-#: "z" the one-group thread-per-line kernel (K1), "z_batched" its group batch,
-#: "y_rows", "x_rows" the tiled kernel (K2, K3), "y_batched_rows",
-#: "x_batched_rows" the group-batched tiled kernel (K5).  "y", "x",
-#: "y_batched" and "x_batched" count the thread-per-line kernels on y and x
-#: lines, which no wrapper launches since the tiled kernels measured faster at
-#: every shape (PERF.md); the paths' checks hold them at 0.
-LAUNCHES = {"z": 0, "y": 0, "x": 0, "y_rows": 0, "x_rows": 0,
+#: "z_rows", "y_rows", "x_rows" the tiled kernels (K1, K2, K3),
+#: "z_batched_rows", "y_batched_rows", "x_batched_rows" their group-batched
+#: forms (K1's batch, K5).  "z", "y", "x", "z_batched", "y_batched" and
+#: "x_batched" count the thread-per-line kernels of ``csrc/fused_dir.cu``,
+#: which no wrapper launches since the tiled kernels measured faster at every
+#: shape (PERF.md); the paths' checks hold them at 0.
+LAUNCHES = {"z": 0, "y": 0, "x": 0, "z_rows": 0, "y_rows": 0, "x_rows": 0,
             "z_batched": 0, "y_batched": 0, "x_batched": 0,
-            "y_batched_rows": 0, "x_batched_rows": 0}
+            "z_batched_rows": 0, "y_batched_rows": 0, "x_batched_rows": 0}
 
 #: Lines per block of the tiled kernel by dtype, and chunks per line: in
 #: float32 the best or within a few per cent of the best tile chip_smoke.py
@@ -68,6 +69,11 @@ LAUNCHES = {"z": 0, "y": 0, "x": 0, "y_rows": 0, "x_rows": 0,
 #: most lines whose tile holds ZION's 913 faces in shared memory.
 ROWS_LINES = {torch.float32: 8, torch.float64: 4}
 ROWS_CHUNKS = 32
+#: The tile of the z kernels (K1 and its batch, ``csrc/fused_z_rows.cu``),
+#: lines per block and chunks per line: within 2% of the best tile
+#: chip_smoke.py [3] sweeps at IAEA-3D 6x6x4, 8x8x8 and the two-group batch
+#: (PERF.md).
+Z_LINES, Z_CHUNKS = 32, 8
 #: The H100's shared memory per block (the opt-in limit, bytes).
 SMEM_PER_BLOCK = 232448
 
@@ -113,10 +119,11 @@ def row_stride(n: int, tl: int, ch: int) -> int:
     return ch * ln + (want - ch * ln) % 32
 
 
-def rows_smem(n: int, tl: int, ch: int, elem_bytes: int) -> int:
-    """Shared memory bytes of one tile of the tiled kernel: the v/z/F, dm, l
-    and acc rows, plus the tile's line offsets."""
-    return 8 * tl + 4 * tl * row_stride(n, tl, ch) * elem_bytes
+def rows_smem(n: int, tl: int, ch: int, elem_bytes: int, rows: int = 4) -> int:
+    """Shared memory bytes of one tile of a tiled kernel: ``rows`` rows per
+    line (the v/z/F, dm, l and acc rows of ``fused_rows.cu``), plus the
+    tile's line offsets."""
+    return 8 * tl + rows * tl * row_stride(n, tl, ch) * elem_bytes
 
 
 def rows_tile(lines: int, n: int, dtype):
@@ -127,11 +134,39 @@ def rows_tile(lines: int, n: int, dtype):
     per block; beyond that the launch is refused and raises).  The tiled
     kernel serves every shape: in chip_smoke.py [3] it measured faster than
     the thread-per-line kernel at each one swept (PERF.md)."""
-    tl = ROWS_LINES[dtype]
+    return fit_tile(ROWS_LINES[dtype], ROWS_CHUNKS, n, 4, dtype)
+
+
+def fit_tile(tl: int, ch: int, n: int, rows: int, dtype):
+    """(lines, chunks) from ``tl`` x ``ch``, the lines halved while a tile of
+    ``rows`` rows of ``n``-cell lines exceeds the card's shared memory; the
+    chunks doubled where that would leave a block under one warp (the chunk
+    scan shuffles across a full warp).  Stops at one line per block: a tile
+    that does not fit even then is refused at launch, and the wrapper raises."""
     elem = torch.finfo(dtype).bits // 8
-    while tl > 1 and rows_smem(n, tl, ROWS_CHUNKS, elem) > SMEM_PER_BLOCK:
+    while tl > 1 and rows_smem(n, tl, ch, elem, rows) > SMEM_PER_BLOCK:
         tl //= 2
-    return tl, ROWS_CHUNKS
+        if tl * ch < 32:
+            ch *= 2
+    return tl, ch
+
+
+def z_smem(n: int, tl: int, ch: int, elem_bytes: int) -> int:
+    """Shared memory bytes of one tile of the z kernels: the v/z/F, dm, l and
+    acc rows of ``n + 1`` faces by ``tl`` lines, and the chunks' four carry
+    rows (``csrc/fused_z_rows.cu``)."""
+    return (4 * (n + 1) + 4 * ch) * tl * elem_bytes
+
+
+def z_tile(lines: int, n: int, dtype):
+    """(lines per block, chunks per line) of the z kernels for a launch of
+    ``lines`` lines (per group) of ``n`` cells: ``Z_LINES`` x ``Z_CHUNKS``,
+    the lines halved while the tile exceeds the card's shared memory, down to
+    the kernels' least of 8 (then the launch is refused and raises)."""
+    tl, ch = Z_LINES, Z_CHUNKS
+    while tl > 8 and z_smem(n, tl, ch, torch.finfo(dtype).bits // 8) > SMEM_PER_BLOCK:
+        tl //= 2
+    return tl, ch
 
 
 def _check(acc, v, dm, l, dm_shape, l_shape, what, groups=None):
@@ -161,25 +196,18 @@ def _check(acc, v, dm, l, dm_shape, l_shape, what, groups=None):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _launch(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, si, key,
-            groups=None):
-    lines = v.numel() // n
-    zs = torch.empty((n, lines), dtype=v.dtype, device=v.device)
+def _launch_z(acc, v, dm, l, n, bx0, bx1, si, key, groups=None):
+    """The z kernels (K1, its batch): the strides are implied, every line's
+    cells and faces at b + f*lines (lines = ny*nx)."""
+    lines = v.numel() // n // (groups or 1)
+    tile = z_tile(lines, n, v.dtype)
     lib = cuda_lib.library()
-    f32 = v.dtype == torch.float32
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    if groups is None:
-        fn = lib.neutfem_fused_dir_f32 if f32 else lib.neutfem_fused_dir_f64
-        err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), zs.data_ptr(),
-                 n, lines, inner, outer_stride, cell_stride, float(bx0), float(bx1),
-                 float(si), stream)
-    else:
-        fn = lib.neutfem_fused_dir_batched_f32 if f32 else lib.neutfem_fused_dir_batched_f64
-        err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), zs.data_ptr(),
-                 n, lines // groups, groups, inner, outer_stride, cell_stride,
-                 math.prod(v.shape[-3:]), float(bx0), float(bx1), float(si), stream)
-    cuda_lib.check(err, f"fused Schur direction {key}")
-    LAUNCHES[key] += 1
+    fn = lib.neutfem_fused_z_rows_f32 if v.dtype == torch.float32 else lib.neutfem_fused_z_rows_f64
+    err = fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(), n, lines, groups or 0,
+             *tile, float(bx0), float(bx1), float(si),
+             torch.cuda.current_stream(v.device).cuda_stream)
+    cuda_lib.check(err, f"fused Schur direction {key} (tiled kernel, tile {tile}, n {n})")
+    LAUNCHES[f"{key}_rows"] += 1
     return acc
 
 
@@ -207,7 +235,8 @@ def _launch_rows(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, s
 def _dispatch(acc, v, dm, l, dm_shape, l_shape, to_natural, axis, strides, bx0, bx1, si,
               key, groups=None):
     """``dm_shape`` / ``l_shape``: one group's operand shapes; with ``groups``
-    the operands carry that many groups in front."""
+    the operands carry that many groups in front.  ``strides``: the y / x
+    lines' (inner, outer_stride, cell_stride); the z kernels imply theirs."""
     what = f"fused_schur_{key}"
     if v.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"{what}: no kernel for device {v.device}")
@@ -226,7 +255,7 @@ def _dispatch(acc, v, dm, l, dm_shape, l_shape, to_natural, axis, strides, bx0, 
     if n < 1:
         raise ValueError(f"{what}: empty solve axis")
     if key.startswith("z"):
-        return _launch(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
+        return _launch_z(acc, v, dm, l, n, bx0, bx1, si, key, groups)
     return _launch_rows(acc, v, dm, l, n, *strides, bx0, bx1, si, key, groups)
 
 
@@ -234,9 +263,9 @@ def _z(acc, v, dm, l, bx0, bx1, si, groups):
     nz, ny, nx = v.shape[-3:]
     return _dispatch(
         acc, v, dm, l, (nz + 1, ny, nx), (nz, ny, nx),
-        lambda d_, l_: (d_, l_), -3,
-        # lines (y, x) = the whole plane: inner = ny*nx, cells step by ny*nx
-        (ny * nx, 0, ny * nx), bx0, bx1, si, "z" if groups is None else "z_batched", groups)
+        # lines (y, x) = the whole plane, cells step by ny*nx: _launch_z's layout
+        lambda d_, l_: (d_, l_), -3, None, bx0, bx1, si,
+        "z" if groups is None else "z_batched", groups)
 
 
 def _y(acc, v, dmT, lT, bx0, bx1, si, groups):
@@ -259,7 +288,8 @@ def _x(acc, v, dmT, lT, bx0, bx1, si, groups):
 
 
 def fused_schur_z(acc, v, dm, l, bx0: float, bx1: float, si: float):
-    """acc += B_z A_z^{-1} B_z^T v (K1), in place.  dm (nz+1, ny, nx), l (nz, ny, nx)."""
+    """acc += B_z A_z^{-1} B_z^T v (K1, the tiled kernel), in place.
+    dm (nz+1, ny, nx), l (nz, ny, nx)."""
     return _z(acc, v, dm, l, bx0, bx1, si, None)
 
 
@@ -276,7 +306,8 @@ def fused_schur_x_pre(acc, v, dmT, lT, bx0: float, bx1: float, si: float):
 
 
 def fused_schur_z_batched(acc, v, dm, l, bx0: float, bx1: float, si: float):
-    """acc += B_z A_z^{-1} B_z^T v for every group (K1, batch ng), in place.
+    """acc += B_z A_z^{-1} B_z^T v for every group (K1 with batch ng, the
+    batched tiled kernel), in place.
     v (ng, 1, nz, ny, nx); dm (ng, nz+1, ny, nx), l (ng, nz, ny, nx)."""
     return _z(acc, v, dm, l, bx0, bx1, si, dm.shape[0])
 

@@ -13,10 +13,12 @@ sdi * S(sdi * y) (sdi = diag(S)^-1/2, ce = C * sdi) under ``NEUTFEM_EQFOLD``:
   acc + Y(sdi*y); ``fused_schur_z_eq2`` -> sdi*(acc + Z(sdi*y)),
 
 with X, Y, Z the direction operators B_d A_d^{-1} B_d^T of ``ops/fused.py``.
-On a CUDA tensor each wrapper launches ``fused_eq_kernel`` of
-``csrc/fused_eq.cu`` (one template, a flag set per wrapper); on a CPU tensor
-it runs its plain version, composed from ``fused.fused_dir_plain`` and
-elementwise products.  A CUDA tensor the kernel does not take raises.
+On a CUDA tensor each wrapper launches the tiled ``fused_eq_rows_kernel`` of
+``csrc/fused_eq_rows.cu`` (one template, a flag set per wrapper; a tile of
+lines per block, each line cut into chunks, at the tile ``eq_tile`` picks);
+on a CPU tensor it runs its plain version, composed from
+``fused.fused_dir_plain`` and elementwise products.  A CUDA tensor the
+kernel does not take, or a tile the card refuses, raises.
 
 Operands (every cell grid one group's (..., nz, ny, nx) with unit leading
 dims, float32 or float64): the direction operands in the layouts of
@@ -31,15 +33,29 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .fused import ROWS_CHUNKS, ROWS_LINES, SMEM_PER_BLOCK, fit_tile, rows_smem
 from .fused import fused_dir_plain
 
 __all__ = ["fused_schur_x_eq", "fused_schur_z_eq", "fused_schur_x_eq2", "fused_schur_y_eq2",
-           "fused_schur_z_eq2", "fused_eq_plain", "LAUNCHES", "reset_launches"]
+           "fused_schur_z_eq2", "fused_eq_plain", "eq_tile", "LAUNCHES", "reset_launches"]
 
-#: Kernel launches per wrapper (incremented where the kernel is launched).
-LAUNCHES = {"x_eq": 0, "z_eq": 0, "x_eq2": 0, "y_eq2": 0, "z_eq2": 0}
+#: Kernel launches per wrapper (incremented where the kernel is launched):
+#: "<key>_rows" the tiled kernel; "<key>" the thread-per-line
+#: ``fused_eq_kernel`` of ``csrc/fused_eq.cu``, which no wrapper launches
+#: since the tiled kernel measured faster (PERF.md); the paths' checks hold
+#: those keys at 0.
+LAUNCHES = {k: 0 for key in ("x_eq", "z_eq", "x_eq2", "y_eq2", "z_eq2")
+            for k in (key, f"{key}_rows")}
 
-# fused_eq_kernel's flags (csrc/fused_eq.cu)
+#: Shared-memory rows per line of the tiled kernel: y (then v, z, F), dm, l,
+#: acc or ce, sdi (then u).
+EQ_ROWS = 5
+#: Its tile on z lines (lines per block, chunks per line): the best or within
+#: 2% of the best tile of chip_smoke.py [3]'s sweeps of z_eq and z_eq2 at
+#: IAEA-3D 6x6x4 (PERF.md).  The x and y lines take ``rows_tile``'s.
+EQ_Z_LINES, EQ_Z_CHUNKS = 16, 4
+
+# the kernels' flags (csrc/fused_eq_rows.cu, csrc/fused_eq.cu)
 _PRE, _EMIT_U, _CE, _POST = 1, 2, 4, 8
 _FLAGS = {"x_eq": _PRE | _EMIT_U | _CE, "z_eq": _POST, "x_eq2": _PRE | _CE,
           "y_eq2": _PRE, "z_eq2": _PRE | _POST}
@@ -59,6 +75,23 @@ def fused_eq_plain(key, acc, y, sdi, ce, dm, l, axis: int, bx0: float, bx1: floa
     v = y * sdi if flags & _PRE else y
     out = fused_dir_plain(ce * y if flags & _CE else acc, v, dm, l, axis, bx0, bx1, si)
     return (sdi * out if flags & _POST else out), (v if flags & _EMIT_U else None)
+
+
+def eq_tile(axis: int, lines: int, n: int, dtype):
+    """(lines per block, chunks per line) of the tiled kernel for a launch
+    along ``axis`` (-3 z, -2 y, -1 x) of ``lines`` lines of ``n`` cells:
+    ``EQ_Z_LINES`` x ``EQ_Z_CHUNKS`` on z, ``rows_tile``'s on y and x, the
+    lines halved until its ``EQ_ROWS`` rows fit the card's shared memory.
+    Raises where one line does not fit."""
+    if axis == -3:
+        tl, ch = EQ_Z_LINES, EQ_Z_CHUNKS
+    else:
+        tl, ch = ROWS_LINES[dtype], ROWS_CHUNKS
+    tl, ch = fit_tile(tl, ch, n, EQ_ROWS, dtype)
+    if rows_smem(n, tl, ch, torch.finfo(dtype).bits // 8, EQ_ROWS) > SMEM_PER_BLOCK:
+        raise ValueError(f"fused_eq: a line of {n} cells does not fit the card's shared memory "
+                         f"in {dtype}")
+    return tl, ch
 
 
 def _geometry(axis, shape):
@@ -107,16 +140,17 @@ def _run(key, axis, acc, y, sdi, ce, dm, l, bx0, bx1, si):
     if n < 1:
         raise ValueError(f"{what}: empty solve axis")
     lines = y.numel() // n
+    tile = eq_tile(axis, lines, n, y.dtype)
     u = torch.empty_like(y) if flags & _EMIT_U else None
-    zs = torch.empty((n, lines), dtype=y.dtype, device=y.device)
     lib = cuda_lib.library()
-    fn = lib.neutfem_fused_eq_f32 if y.dtype == torch.float32 else lib.neutfem_fused_eq_f64
+    fn = (lib.neutfem_fused_eq_rows_f32 if y.dtype == torch.float32
+          else lib.neutfem_fused_eq_rows_f64)
     err = fn(flags, acc.data_ptr(), y.data_ptr(), sdi.data_ptr(),
              ce.data_ptr() if ce is not None else None, dm.data_ptr(), l.data_ptr(),
-             zs.data_ptr(), u.data_ptr() if u is not None else None, n, lines, *strides,
+             u.data_ptr() if u is not None else None, n, lines, *strides, *tile,
              float(bx0), float(bx1), float(si), torch.cuda.current_stream(y.device).cuda_stream)
-    cuda_lib.check(err, what)
-    LAUNCHES[key] += 1
+    cuda_lib.check(err, f"{what} (tiled kernel, tile {tile}, n {n})")
+    LAUNCHES[f"{key}_rows"] += 1
     return acc, u
 
 

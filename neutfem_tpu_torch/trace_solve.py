@@ -37,15 +37,18 @@ from .power import power_iteration
 
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
-    ("fused_dir_batched_kernel", "batched fused Schur direction z (K1 batch)"),
-    ("fused_dir_kernel", "fused Schur direction z (K1)"),
+    ("fused_dir_batched_kernel", "thread-per-line batched directions (replaced K1 batch, K5)"),
+    ("fused_dir_kernel", "thread-per-line fused Schur directions (replaced K1-K3)"),
+    ("fused_z_rows_batched_kernel", "tiled batched fused Schur direction z (K1 batch)"),
+    ("fused_z_rows_kernel", "tiled fused Schur direction z (K1)"),
     ("fused_rows_batched_kernel", "tiled batched fused Schur directions y, x (K5)"),
     ("fused_rows_kernel", "tiled fused Schur directions y, x (K2, K3)"),
     ("fused_ho_rows_kernel", "tiled condensed Schur directions (K6)"),
     ("fused_ho_kernel", "condensed Schur directions, thread per (mode, line) (old K6)"),
     ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
     ("thomas_kernel", "Thomas solve (K4)"),
-    ("fused_eq_kernel", "equilibration-folded Schur directions (K7)"),
+    ("fused_eq_rows_kernel", "tiled equilibration-folded Schur directions (K7)"),
+    ("fused_eq_kernel", "thread-per-line equilibration-folded directions (replaced K7)"),
     ("blockjac", "fused block-Jacobi apply + dots (K8)"),
     ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
     ("nvjet", "gemv (block-Jacobi apply; two-grid coarse apply)"),  # cuBLAS's Hopper kernels

@@ -1,11 +1,13 @@
 """The chunked first-order recurrence of the tiled kernels (csrc/fused_rows.cu,
-csrc/fused_ho_rows.cu), transcribed in plain PyTorch for the CPU tests.
+csrc/fused_ho_rows.cu, csrc/fused_eq_rows.cu, csrc/fused_z_rows.cu),
+transcribed in plain PyTorch for the CPU tests.
 
 A line's faces are cut into ``ch`` chunks of an odd length; each chunk runs
 its recurrence y_k = b_k + a_k y_(k-1) from 0 and keeps its end value and the
 product of its multipliers (pass 1); the carries come from a Hillis-Steele
-scan over the chunks, as the kernels' warp shuffles compute them; each chunk
-reruns from its carry (pass 2).
+scan over the chunks, as the kernels' warp shuffles compute them, or, for
+csrc/fused_z_rows.cu, from the chunks before each one composed in order
+(``serial``); each chunk reruns from its carry (pass 2).
 """
 
 import torch
@@ -34,9 +36,23 @@ def scan(y, A, reverse):
     return carry
 
 
-def chunked(b, a, ch, reverse):
+def serial(y, A, reverse):
+    """Carries of the chunks' (A, E) pairs over axis 0, each composed from
+    the chunks before it (after it when ``reverse``) in order, E_j + A_j *
+    carry, starting from 0."""
+    ch = y.shape[0]
+    carry = torch.zeros_like(y)
+    for c in range(ch):
+        order = range(ch - 1, c, -1) if reverse else range(c)
+        for j in order:
+            carry[c] = y[j] + A[j] * carry[c]
+    return carry
+
+
+def chunked(b, a, ch, reverse, carries=scan):
     """y_k = b_k + a_k y_(k-1) over axis 0 of (faces, lines) b and a (from the
-    end when ``reverse``), chunk by chunk as the kernels run it."""
+    end when ``reverse``), chunk by chunk as the kernels run it; ``carries``
+    the chunks' composition (``scan`` or ``serial``)."""
     faces, lines = b.shape
     ln = -(-faces // ch)
     ln += 1 - ln % 2  # odd, as the kernels' tile_layout
@@ -48,7 +64,7 @@ def chunked(b, a, ch, reverse):
     for k in steps:  # pass 1
         y = bp[:, k] + ap[:, k] * y
         A = A * ap[:, k]
-    y = scan(y, A, reverse)
+    y = carries(y, A, reverse)
     out = torch.empty_like(bp)
     for k in steps:  # pass 2
         y = bp[:, k] + ap[:, k] * y

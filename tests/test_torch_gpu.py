@@ -1,7 +1,7 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
-Each test compares one hand-written kernel (K1, the tiled K2 / K3 kernel and its
-group-batched form K5, K4, K4′, the tiled K6, K7, K8) with the plain PyTorch version
+Each test compares one hand-written kernel (the tiled K1 / K2 / K3 kernel and its
+group-batched form, K1's batch and K5; K4, K4′, the tiled K6, the tiled K7, K8) with the plain PyTorch version
 of the same function, on the card, at a small shape.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
@@ -52,8 +52,76 @@ def test_fused_z_kernel_matches_plain(cuda, dtype):
     v, acc, t = _operands((nz, ny, nx), dtype, cuda, 0)
     dm, l = t(nz + 1, ny, nx, lo=0.2, hi=0.6), t(nz, ny, nx, lo=-0.3, hi=0.3)
     want = fused.fused_dir_plain(acc, v, dm, l, -3, 0.5, -0.5, 0.25)
+    before = dict(fused.LAUNCHES)
     got = fused.fused_schur_z(acc.clone(), v, dm, l, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
     assert _rel(got, want, acc) <= TOL[dtype]
+    assert {k: fused.LAUNCHES[k] - before[k] for k in fused.LAUNCHES} == {
+        k: int(k == "z_rows") for k in fused.LAUNCHES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(76, 114, 114),    # IAEA-3D 6x6x4: 12,996 lines of 76
+                                   (152, 152, 152),   # 8x8x8: 23,104 lines of 152
+                                   (5, 33, 70),       # ragged: 2,310 lines, 6 faces
+                                   (1, 40, 37),       # n = 1
+                                   (300, 3, 5)])      # lines fewer than one tile
+def test_fused_z_rows_kernel_matches_plain(cuda, dtype, shape):
+    """The tiled K1 at the paths' z shapes and ragged ones, two pinned face
+    planes (the first and one inside: l = dm = 0)."""
+    nz, ny, nx = shape
+    v, acc, t = _operands(shape, dtype, cuda, 60)
+    dm, l = t(nz + 1, ny, nx, lo=0.2, hi=0.6), t(nz, ny, nx, lo=-0.3, hi=0.3)
+    for f in {0, nz // 2}:
+        dm[f] = 0.0
+        l[f] = 0.0
+    want = fused.fused_dir_plain(acc, v, dm, l, -3, 0.5, -0.5, 0.25)
+    got = fused.fused_schur_z(acc.clone(), v, dm, l, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_z_rows_kernel_with_unaligned_operands(cuda, dtype):
+    """Contiguous operands that start one value past a 16-byte boundary: the
+    z kernel copies one value at a time there (no 16-byte copies), with the
+    same result."""
+    nz, ny, nx = shape = (76, 20, 24)
+    v, acc, t = _operands(shape, dtype, cuda, 63)
+    dm, l = t(nz + 1, ny, nx, lo=0.2, hi=0.6), t(nz, ny, nx, lo=-0.3, hi=0.3)
+    want = fused.fused_dir_plain(acc, v, dm, l, -3, 0.5, -0.5, 0.25)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    got = fused.fused_schur_z(shifted(acc), shifted(v), shifted(dm), shifted(l), 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert _rel(got, want, acc) <= TOL[dtype]
+
+
+def test_fused_z_rows_kernel_is_deterministic(cuda):
+    """No atomics: two launches of the tiled K1 agree bit for bit."""
+    v, acc, t = _operands((76, 114, 114), torch.float32, cuda, 61)
+    dm, l = t(77, 114, 114, lo=0.2, hi=0.6), t(76, 114, 114, lo=-0.3, hi=0.3)
+    first = fused.fused_schur_z(acc.clone(), v, dm, l, 0.5, -0.5, 0.25)
+    second = fused.fused_schur_z(acc.clone(), v, dm, l, 0.5, -0.5, 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_fused_z_rows_kernel_refuses_a_line_too_long(cuda):
+    """z lines no tile of 8 lines holds: the card refuses, the wrapper raises
+    (no fallback), and nothing is counted."""
+    v, acc, t = _operands((25000, 1, 2), torch.float64, cuda, 62)
+    dm, l = t(25001, 1, 2, lo=0.2, hi=0.6), t(25000, 1, 2, lo=-0.3, hi=0.3)
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tiled kernel"):
+        fused.fused_schur_z(acc.clone(), v, dm, l, 0.5, -0.5, 0.25)
+    assert fused.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -244,31 +312,33 @@ BATCHED = {"z": fused.fused_schur_z_batched, "y": fused.fused_schur_y_batched,
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("key", ["z", "y", "x"])
-@pytest.mark.parametrize("ng,shape", [(2, (9, 10, 11)), (3, (5, 33, 70)), (4, (1, 40, 37))])
+@pytest.mark.parametrize("ng,shape", [(2, (9, 10, 11)), (3, (5, 33, 70)), (4, (1, 40, 37)),
+                                      (2, (76, 114, 114))])
 def test_fused_batched_kernel_matches_plain(cuda, dtype, key, ng, shape):
-    """K5 (y, x: the batched tiled kernel) and K1's group batch (z: the
-    thread-per-line kernel) on group-batched fluxes, with line counts that are
-    no multiple of a tile's lines or of the 128 threads of a block, and a 2D
-    grid; each counted under its own key, the one-group kernels not at all."""
+    """K5 (y, x) and K1's group batch (z), the batched tiled kernels, on
+    group-batched fluxes: the Jacobi sweep's (2, 1, 76, 114, 114), line counts
+    that are no multiple of a tile's lines or of the 128 threads of a block,
+    and a 2D grid; each counted under its own key, every other kernel not at
+    all."""
     v, acc, staged, nat, axis = _batched_operands(key, ng, shape, dtype, cuda, 20 + ng)
     want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
     before = dict(fused.LAUNCHES)
     got = BATCHED[key](acc.clone(), v, *staged, 0.5, -0.5, 0.25)
     torch.cuda.synchronize()
     assert _rel(got, want, acc) <= TOL[dtype]
-    counted = "z_batched" if key == "z" else f"{key}_batched_rows"
+    counted = f"{key}_batched_rows"
     assert {k: fused.LAUNCHES[k] - before[k] for k in fused.LAUNCHES} == {
         k: int(k == counted) for k in fused.LAUNCHES}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("key", ["y", "x"])
+@pytest.mark.parametrize("key", ["z", "y", "x"])
 @pytest.mark.parametrize("ng,shape", [(1, (6, 9, 11)), (2, (3, 45, 37)), (3, (2, 20, 13)),
                                       (4, (4, 1, 7)), (2, (1, 300, 280))])
 def test_fused_batched_rows_kernel_matches_plain(cuda, dtype, key, ng, shape):
-    """The batched tiled kernel (K5) at ragged shapes: one group, n no
-    multiple of the chunks, lines no multiple of a tile, n = 1, a 2D grid;
-    two pinned face planes per group."""
+    """The batched tiled kernels (K5, K1's batch) at ragged shapes: one
+    group, n no multiple of the chunks, lines no multiple of a tile, n = 1, a
+    2D grid; two pinned face planes per group."""
     v, acc, staged, nat, axis = _batched_operands(key, ng, shape, dtype, cuda, 40 + ng,
                                                   pinned=True)
     want = fused.fused_dir_plain(acc, v, *nat, axis, 0.5, -0.5, 0.25)
@@ -280,7 +350,7 @@ def test_fused_batched_rows_kernel_matches_plain(cuda, dtype, key, ng, shape):
     assert fused.LAUNCHES[f"{key}_batched"] == before[f"{key}_batched"]
 
 
-@pytest.mark.parametrize("key", ["y", "x"])
+@pytest.mark.parametrize("key", ["z", "y", "x"])
 def test_fused_batched_rows_kernel_is_deterministic(cuda, key):
     """No atomics: two launches of the batched tiled kernel agree bit for bit."""
     v, acc, staged, _, _ = _batched_operands(key, 2, (76, 114, 114), torch.float32, cuda, 50)
@@ -437,11 +507,11 @@ EQ_WRAPPERS = {"x_eq": (fused_eq.fused_schur_x_eq, -1), "z_eq": (fused_eq.fused_
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("key", sorted(EQ_WRAPPERS))
-@pytest.mark.parametrize("shape", [(9, 10, 11), (5, 33, 70)])
+@pytest.mark.parametrize("shape", [(9, 10, 11), (5, 33, 70), (76, 114, 114)])
 def test_fused_eq_kernel_matches_plain(cuda, dtype, key, shape):
-    """K7 (one template, five flag sets) against its plain version on the CPU,
-    on the same operands: line counts that are no multiple of the 128 threads
-    of a block (110, 99, 90; 2310, 350, 165)."""
+    """The tiled K7 (one template, five flag sets) against its plain version
+    on the CPU, on the same operands: IAEA-3D 6x6x4's grid, and line counts
+    that are no multiple of a tile's lines (110, 99, 90; 2310, 350, 165)."""
     rng = np.random.default_rng(30)
     nz, ny, nx = shape
     wrapper, axis = EQ_WRAPPERS[key]
@@ -470,13 +540,66 @@ def test_fused_eq_kernel_matches_plain(cuda, dtype, key, shape):
     before = dict(fused_eq.LAUNCHES)
     got, got_u = run(cuda)
     torch.cuda.synchronize()
-    assert fused_eq.LAUNCHES[key] == before[key] + 1
+    assert {k: fused_eq.LAUNCHES[k] - before[k] for k in fused_eq.LAUNCHES} == {
+        k: int(k == f"{key}_rows") for k in fused_eq.LAUNCHES}
     want, want_u = run("cpu")
     base = torch.as_tensor(acc if key.startswith(("y", "z")) else np.zeros_like(acc),
                            dtype=dtype)
     assert _rel(got.cpu(), want, base) <= TOL[dtype]
     if key == "x_eq":
         assert float(torch.max(torch.abs(got_u.cpu() - want_u))) == 0.0  # u = sdi*y exactly
+
+
+@pytest.mark.parametrize("key", sorted(EQ_WRAPPERS))
+def test_fused_eq_kernel_is_deterministic(cuda, key):
+    """No atomics: two launches of the tiled K7 agree bit for bit."""
+    rng = np.random.default_rng(31)
+    wrapper, axis = EQ_WRAPPERS[key]
+    nz, ny, nx = shape = (76, 114, 114)
+    fsh = {-3: (nz + 1, ny, nx), -2: (ny + 1, nz, nx), -1: (nx + 1, nz * ny)}[axis]
+    lsh = {-3: shape, -2: (ny, nz, nx), -1: (nx, nz * ny)}[axis]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    dm, l = t(rng.uniform(0.2, 0.6, fsh)), t(rng.uniform(-0.3, 0.3, lsh))
+    y, acc = (t(rng.standard_normal((1, *shape))) for _ in range(2))
+    sdi, ce = (t(rng.uniform(0.5, 2.0, (1, *shape))) for _ in range(2))
+
+    def run():
+        if key.startswith("x"):
+            out = wrapper(y, sdi, ce, dm, l, 0.5, -0.5, 0.25)
+            return out[0] if key == "x_eq" else out
+        if key == "z_eq":
+            return wrapper(acc.clone(), y, dm, l, sdi, 0.5, -0.5, 0.25)
+        return wrapper(acc.clone(), y, sdi, dm, l, 0.5, -0.5, 0.25)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_fused_eq_ce_times_y_is_rounded_on_its_own(cuda):
+    """ce*y + contribution with ce at IAEA-3D's absorber scale (1e9-3e9) and
+    |y| >= 0.5: ce*y is >= 5e8, whose half ulp (>= 16) dwarfs the O(1)
+    contribution, so the plain version's round(round(ce*y) + contribution)
+    is round(ce*y) in every cell.  The tiled kernel rounds ce*y before the
+    add and must give those bits; an FMA, round(ce*y + contribution), would
+    land a whole ulp off in about half the cells."""
+    rng = np.random.default_rng(32)
+    nz, ny, nx = shape = (4, 8, 64)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32)
+
+    dm, l = t(rng.uniform(0.2, 0.6, (nx + 1, nz * ny))), t(rng.uniform(-0.3, 0.3, (nx, nz * ny)))
+    y = t(rng.choice([-1.0, 1.0], (1, *shape)) * rng.uniform(0.5, 2.0, (1, *shape)))
+    sdi, ce = t(rng.uniform(0.5, 2.0, (1, *shape))), t(rng.uniform(1e9, 3e9, (1, *shape)))
+    want = fused_eq.fused_schur_x_eq2(y, sdi, ce, dm, l, 0.5, -0.5, 0.25)
+    assert torch.equal(want, ce * y)  # the premise: the contribution rounds away
+    got = fused_eq.fused_schur_x_eq2(*(a.to(cuda) for a in (y, sdi, ce, dm, l)),
+                                     0.5, -0.5, 0.25).cpu()
+    assert torch.equal(got, want)
 
 
 def test_fused_eq_rejects_what_it_does_not_take(cuda):
