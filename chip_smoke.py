@@ -9,40 +9,47 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc;
 3. kernels: each kernel against its plain PyTorch version on its path's
-   operands, with times and bounds: K1-K4 on IAEA-3D 6x6x4 RT0-P0
+   operands, with times and bounds: K1-K3 on IAEA-3D 6x6x4 RT0-P0
    (76x114x114 cells, group 0), K1 also at the 8x8x8 line path's z lines
-   (152^3, random operands), K5 and K1's group batch on the same operands
-   with both groups at once (2, 1, 76, 114, 114) and on a ragged 3-group
-   grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2) (38x76x76
+   (152^3, random operands), K4 at the three compute_current layouts of
+   6x6x4 and at the line preconditioner's z solve (1, 152, 152, 152), K5
+   and K1's group batch on the 6x6x4 operands with both groups at once (2,
+   1, 76, 114, 114) and on a ragged 3-group grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2) (38x76x76
    cells), the fused y and x directions (K2, K3) on ZION 48x48 (912x912
    cells, 912 lines per direction: few, long lines) and KOEBERG 32x32
    (544x544), K4′ on ZION; the five equilibration-folded directions (K7) on
    the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on the 4x4x2
-   RT2-P2 and RT1-P1 blocks in bfloat16; float32.  K2 and K3 are the tiled
-   kernel of csrc/fused_rows.cu, K5 its group-batched form; K1 and its batch
-   the face-major tiled kernels of csrc/fused_z_rows.cu; K6 the tiled kernel
-   of csrc/fused_ho_rows.cu, K7 that of csrc/fused_eq_rows.cu; at each of
-   their shapes the thread-per-line kernel they replaced (csrc/fused_dir.cu,
-   csrc/fused_ho.cu, csrc/fused_eq.cu) runs beside it on the same operands,
-   both held to the plain version and timed in turns (its time is the row's
-   ``old_ms``), and the tiled kernel is swept over the tiles of ``Z_SWEEP``
-   (z lines: K1, its batch, K7's z variants; for K1 also K2's kernel at the
-   z strides), ``ROWS_SWEEP`` (K2, K3, K5, K7's x and y variants) or
-   ``HO_SWEEP`` (K6);
+   RT2-P2 and RT1-P1 blocks in the fp8 E-form the context holds and in
+   bfloat16, and the kernels' e4m3 widening of all 254 finite bytes against
+   torch's; float32.  K2 and K3 are the tiled kernel of csrc/fused_rows.cu,
+   K5 its group-batched form; K1 and its batch the face-major tiled kernels
+   of csrc/fused_z_rows.cu; K4 the tiled kernel of csrc/thomas_rows.cu; K6
+   the tiled kernel of csrc/fused_ho_rows.cu, K7 that of
+   csrc/fused_eq_rows.cu; K8 that of csrc/blockjac_tiled.cu; at each of
+   their shapes the thread-per-line (per-cell) kernel they replaced
+   (csrc/fused_dir.cu, csrc/thomas.cu, csrc/fused_ho.cu, csrc/fused_eq.cu,
+   csrc/blockjac.cu on the bf16 inverse) runs beside it on the same
+   operands, both held to the plain version and timed in turns (its time is
+   the row's ``old_ms``), and the tiled kernel is swept over the tiles of
+   ``Z_SWEEP`` (z lines: K1, its batch, K7's z variants, and every K4
+   layout; for K1 also K2's kernel at the z strides), ``ROWS_SWEEP`` (K2,
+   K3, K5, K7's x and y variants), ``HO_SWEEP`` (K6) or ``_k8_tiles`` (K8);
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
    Jacobi group sweep, the free-running adjoint, and RT0-P0 under
    ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — and the KOEBERG 4x4 2D solve
    (68x68 cells, with the tiled K2 / K3 kernel launched) on the GPU agree
    with the same solves through the plain versions on the CPU; the RT1-P1
    solve launches the tiled K6 in every direction, the Jacobi sweep the
-   batched tiled K5 in y and x;
+   batched tiled K5 in y and x, each compute_current the tiled K4;
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
    34 outers, 1068 inners), with every kernel's launch count > 0;
 6. higher-order paths: ``bench.main_ho(1)`` and ``bench.main_ho(2)`` (IAEA-3D
    4x4x2, float32) against the JAX package's RT1-P1 / RT2-P2 anchors, with
-   the tiled K6 (every direction) and K4 launched in each and the
-   thread-per-(mode, line) K6 not at all;
+   the tiled K6 (every direction) and the tiled K4 launched in each, K8 on
+   the fp8 E-form at least once per CG iteration, and the
+   thread-per-(mode, line) K6, the inverse-form and thread-per-cell K8 and
+   the thread-per-line K4 not at all;
 7. 2D paths: ``bench.main_2d("koeberg2d", 32)`` and ``main_2d("zion2d", 48)``
    (float32) against the JAX package's anchors, with the two-grid coarse
    level attached (the group solves resolve "auto" to "twogrid"), the tiled
@@ -50,7 +57,8 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    kernel not at all;
 8. line path: ``bench.main_scale()`` (IAEA-3D 8x8x8, 3.5M cells, float32)
    against its anchor (k within 2e-5, ``SCALE_KEFF_TOL``), with the line
-   preconditioner: at least one z Thomas launch (K4) per CG iteration;
+   preconditioner: at least one tiled z Thomas launch (K4) per CG
+   iteration, and none of the thread-per-line K4;
 9. Jacobi path: ``bench.main_sweep("jacobi")`` (IAEA-3D 6x6x4, float32, every
    group in one batched CG): the batched kernels (the tiled K5, K1's batch)
    launched, the thread-per-line batched y / x and the one-group K1-K3
@@ -70,7 +78,8 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    iteration and the one-group x and z kernels (and y in mode 2; either
    kernel) and the thread-per-line K7 not at all;
    ``bench.main_ho(1)`` under ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1`` with
-   bfloat16 block storage, K8 launched at least once per CG iteration, the
+   bfloat16 block storage, the tiled K8 on the inverse launched at least
+   once per CG iteration (the thread-per-cell one and the E-form not), the
    tiled K6 in every direction and the old K6 not at all, at the
    RT1-P1 anchors (inners against the JAX package's float32
    ``NEUTFEM_BLKFP8=0`` count); ``bench.main(6, 4)`` under ``NEUTFEM_CGCG=1``
@@ -80,10 +89,10 @@ Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
 its floating-point operations over 67 TFLOP/s (the H100 SXM's float32 rate
 outside the tensor cores).  No single PyTorch call computes the functions of
-K1-K7, so their rows' ``library_ms`` is null; K8's is the port's default
-block apply on the same blocks (``torch.bmm`` on their float32 copy, then
-the two dots as ``torch.sum``), timed here and not used by the K8 path.
-The old / new comparisons (K1-K3, K5-K7) time each kernel behind a queued
+K1-K7, so their rows' ``library_ms`` is null; K8's is the port's former
+default block apply on the same stored blocks (``torch.bmm`` on their
+float32 copy, then the two dots as ``torch.sum``), timed here and used by
+no K8 path.  The old / new comparisons (K1-K8) time each kernel behind a queued
 sleep, so that the host enqueues every launch before the card starts them:
 their rows measure device time, not the wrapper's host cost (the tiled
 kernel takes ~10 µs); they carry ``old_ms``, ``tile`` and ``share_of_bound``.
@@ -153,6 +162,9 @@ HO_KEYS, HO_OLD = ("ho_z_rows", "ho_y_rows", "ho_x_rows"), ("ho_z", "ho_y", "ho_
 K5_KEYS, K5_OLD = ("y_batched_rows", "x_batched_rows"), ("y_batched", "x_batched")
 # the one-group tiled K1-K3 and the thread-per-line kernels they replaced
 Z_KEYS, Z_OLD = ("z_rows", "y_rows", "x_rows"), ("z", "y", "x")
+K4_REPLACES = {"z": "neutfem_tpu/ops/pallas_tridiag.py:181",
+               "y": "neutfem_tpu/ops/pallas_tridiag.py:213",
+               "x": "neutfem_tpu/ops/pallas_tridiag.py:229"}
 HO_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused_ho.py:460",
                "y": "neutfem_tpu/ops/pallas_fused_ho.py:389",
                "x": "neutfem_tpu/ops/pallas_fused_ho.py:425"}
@@ -195,7 +207,7 @@ THOMAS_FLOPS_PER_ELEMENT = 5
 
 def _timed(fn, reps, queued=False):
     """Mean milliseconds per call over ``reps`` calls (CUDA events, after a
-    warm-up).  ``queued``: the card first sleeps ~3 ms while the host
+    warm-up).  ``queued``: the card first sleeps ~11 ms while the host
     enqueues every call, so a call's host cost does not show."""
     import torch
 
@@ -203,7 +215,7 @@ def _timed(fn, reps, queued=False):
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(5_000_000)
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -250,12 +262,9 @@ def _check_anchor(what, keff, outers, inners, anchor, keff_tol=KEFF_TOL):
         raise RuntimeError(f"{what}: {inners} inners, expected {i_a} +- 15%")
 
 
-def _thomas_case(fes, ctx, di, phi, card, label):
-    """K4 / K4′ at compute_current's layout for direction ``di``: rhs (ng, 1,
-    faces...) against the plain version.  Returns (max_abs_err, ms, plain_ms)."""
-    import torch
-
-    from neutfem_tpu_torch.ops import thomas
+def _current_operands(fes, ctx, di, phi):
+    """compute_current's Thomas operands for direction ``di``: (rhs (ng, 1,
+    faces...), dinv, l, axis), the factors broadcast and contiguous."""
     from neutfem_tpu_torch.ops.apply import apply_BT_dir
 
     key = f"d{di.d}"
@@ -265,7 +274,17 @@ def _thomas_case(fes, ctx, di, phi, card, label):
     lsh = list(rFs.shape)
     lsh[di.axis - 3] -= 1
     lf = ctx[f"tri_l_{key}"].unsqueeze(-4).expand(lsh).contiguous()
-    ax = di.axis - 3
+    return rFs, dinv, lf, di.axis - 3
+
+
+def _thomas_case(fes, ctx, di, phi, card, label):
+    """K4′ at compute_current's 2D y layout: rhs (ng, 1, faces...) against the
+    plain version.  Returns (max_abs_err, ms, plain_ms, bound)."""
+    import torch
+
+    from neutfem_tpu_torch.ops import thomas
+
+    rFs, dinv, lf, ax = _current_operands(fes, ctx, di, phi)
     got = thomas.thomas_solve(rFs, dinv, lf, ax)
     want = thomas.thomas_solve_plain(rFs, dinv, lf, ax)
     torch.cuda.synchronize()
@@ -278,6 +297,60 @@ def _thomas_case(fes, ctx, di, phi, card, label):
     print(f"  {label} thomas axis {ax}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
           f"bound {bound[0]:.4f} ms ({lines} lines of {rFs.shape[ax]} per launch; {card})")
     return err, ms, plain_ms, bound
+
+
+def _thomas_rows_case(label, r, d, l, axis, replaces, card):
+    """K4 at one layout: the wrapper, which launches the tiled kernel at the
+    tile ``thomas.thomas_tile`` picks, and the thread-per-line kernel it
+    replaced (``thomas_kernel``, called through the library: no launch
+    counted), each against the plain version and timed in turns queued
+    behind a sleep; then the tiled kernel at the tiles of ``Z_SWEEP``.
+    Returns a row with ``old_ms``."""
+    import math
+
+    import torch
+
+    from neutfem_tpu_torch.ops import cuda_lib, thomas
+
+    axis %= r.ndim
+    n = r.shape[axis]
+    inner = math.prod(r.shape[axis + 1:])
+    lines = r.numel() // n
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (r.data_ptr(), d.data_ptr(), l.data_ptr())
+    out = torch.empty_like(r)
+
+    def old():
+        cuda_lib.check(lib.neutfem_thomas_f32(*ptrs, out.data_ptr(), n, lines, inner, stream),
+                       "thomas (thread per line)")
+        return out
+
+    want = thomas.thomas_solve_plain(r, d, l, axis)
+    before = thomas.LAUNCHES["thomas_rows"]
+    got = thomas.thomas_solve(r, d, l, axis)
+    torch.cuda.synchronize()
+    if thomas.LAUNCHES["thomas_rows"] != before + 1:
+        raise RuntimeError(f"K4 {label}: the wrapper did not launch the tiled kernel")
+    zero = torch.zeros_like(want)
+    err = _compare(f"K4 tiled {label}", got, want, zero)
+    _compare(f"K4 thread-per-line {label}", old().clone(), want, zero)
+    ms, old_ms, t = _old_new(old, lambda: thomas.thomas_solve(r, d, l, axis))
+    plain_ms = _timed(lambda: thomas.thomas_solve_plain(r, d, l, axis), 3)
+    bound = _bound((r, d, l, got), THOMAS_FLOPS_PER_ELEMENT * r.numel())
+    tile = thomas.thomas_tile(n, r.dtype, inner == 1)
+    sweep = _tile_sweep(f"K4 tiled {label}", Z_SWEEP,
+                        lambda _, tile: thomas.thomas_solve(r, d, l, axis, tile), want, zero, zero)
+    print(f"  K4 {label} {tuple(r.shape)} axis {axis - r.ndim}: tiled kernel (tile "
+          f"{tile[0]}x{tile[1]}) {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), thread-per-line "
+          f"{old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({lines} lines of {n}; {card})")
+    print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    row = _row(f"K4 batched Thomas solve, {label}", "neutfem_tpu_torch/csrc/thomas_rows.cu",
+               replaces, "thomas_rows", err, ms, plain_ms, bound)
+    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/thomas.cu (thomas_kernel)",
+               tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
+    return row
 
 
 def _old_new(old, new, reps=50):
@@ -569,53 +642,127 @@ def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
     return row
 
 
+def _k8_tiles(P):
+    """The (wide, warps) tiles [3] sweeps the tiled K8 over: 16- and 8-byte
+    plane loads, by the warp counts up to 9 that split P's rows, and 4 and 8."""
+    warps = sorted({w for w in range(1, 10) if P % w == 0} | {w for w in (4, 8) if w <= P})
+    return [(wide, w) for wide in (1, 0) for w in warps]
+
+
 def _blockjac_case(fes, ctxg, order, card, rng):
-    """K8 on one group's blocks of this order in bfloat16 (the layout of
-    NEUTFEM_BLKFP8=0), made from the float8 deviation the context holds,
-    against its plain version; library_ms is the default apply (torch.bmm on
-    the float32 copy) plus the two dots.  Returns a row."""
+    """K8 on one group's blocks of this order in both storage forms the paths
+    use: the fp8 E-form the context holds (the default) and its bfloat16
+    inverse (the layout of NEUTFEM_BLKFP8=0).  For each, the wrapper (the
+    tiled kernel) and the thread-per-cell kernel it replaced, on the bf16
+    inverse of the same blocks (called through the library: no launch
+    counted), both held to the plain version and timed in turns queued
+    behind a sleep; then the tiled kernel at the tiles of ``_k8_tiles``.
+    library_ms is the port's previous default apply on the same stored
+    blocks (``power._block_precond``: torch.bmm on their float32 copy) plus
+    the two dots.  Returns the rows, E-form first."""
     import torch
 
-    from neutfem_tpu_torch.ops import blockjac
+    from neutfem_tpu_torch.ops import blockjac, cuda_lib
     from neutfem_tpu_torch.power import _block_precond
 
     P = fes.P
     dev = ctxg["C"].device
+    eform = ctxg["precond_blk_dev"]
     eye = torch.eye(P, device=dev).reshape(P, P, 1, 1, 1)
-    bi = (ctxg["precond_blk_dev"].float() + eye).bfloat16().contiguous()
+    bi = (eform.float() + eye).bfloat16().contiguous()
     r = torch.as_tensor(rng.standard_normal((P, *fes.mesh.shape)), dtype=torch.float32,
                         device=dev)
-    z, rz, rr = blockjac.blockjac_dots(bi, r)
-    zp, rzp, rrp = blockjac.blockjac_dots_plain(bi, r)
-    torch.cuda.synchronize()
-    err = _compare(f"K8 RT{order}-P{order} z", z, zp, torch.zeros_like(zp))
-    for name, got, want in (("<r,z>", rz, rzp), ("<r,r>", rr, rrp)):
-        rel = abs(float(got) - float(want)) / abs(float(want))
-        print(f"  K8 RT{order}-P{order} {name}: {float(got):.7e} vs {float(want):.7e} "
-              f"(rel {rel:.2e})")
-        if not rel <= KERNEL_REL_TOL:
-            raise RuntimeError(f"K8 RT{order}-P{order}: {name} disagrees with the plain version")
-    ms = _timed(lambda: blockjac.blockjac_dots(bi, r), 50)
-    plain_ms = _timed(lambda: blockjac.blockjac_dots_plain(bi, r), 3)
-    apply = _block_precond({"precond_blk_inv": bi}, torch.float32)  # the float32 copy, once
-
-    def library():
-        zl = apply(r)
-        return torch.sum(r * zl), torch.sum(r * r)
-
-    library_ms = _timed(library, 20)
-    blk = bi.float().reshape(P, P, -1).permute(2, 0, 1).contiguous()
-    bmm_ms = _timed(lambda: torch.bmm(blk, r.reshape(P, -1).T.unsqueeze(-1)), 20)
     cells = r.numel() // P
-    bound = _bound((bi, r, z), cells * (2 * P * P + 4 * P))
-    print(f"  K8 RT{order}-P{order} (P={P}, {cells} cells, bf16 blocks): kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  library (bmm on the float32 copy + 2 dots) "
-          f"{library_ms:.4f} ms, of it torch.bmm alone {bmm_ms:.4f} ms  bound {bound[0]:.4f} ms "
-          f"({card})")
-    return _row(f"K8 block-Jacobi apply + dots (RT{order}-P{order} 4x4x2, bf16 blocks; launches: "
-                "phase [12]'s RT1-P1 path)", "neutfem_tpu_torch/csrc/blockjac.cu",
-                "neutfem_tpu/ops/pallas_blockjac.py:114", "blockjac", err, ms, plain_ms, bound,
-                library_ms)
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    part = torch.empty((lib.neutfem_blockjac_blocks(cells), 2), dtype=torch.float32, device=dev)
+    z_old = torch.empty_like(r)
+
+    def old():  # the thread-per-cell kernel on the bf16 inverse
+        cuda_lib.check(lib.neutfem_blockjac_bf16(bi.data_ptr(), r.data_ptr(), z_old.data_ptr(),
+                                                 part.data_ptr(), P, cells, stream),
+                       "blockjac (thread per cell)")
+        rz, rr = torch.sum(part, dim=0)
+        return z_old, rz, rr
+
+    def dots_agree(name, got, want):
+        for what, g, w in (("<r,z>", got[1], want[1]), ("<r,r>", got[2], want[2])):
+            rel = abs(float(g) - float(w)) / abs(float(w))
+            print(f"  {name} {what}: {float(g):.7e} vs {float(w):.7e} (rel {rel:.2e})")
+            if not rel <= KERNEL_REL_TOL:
+                raise RuntimeError(f"{name}: {what} disagrees with the plain version")
+
+    want_bf16 = blockjac.blockjac_dots_plain(bi, r)
+    got_old = old()
+    torch.cuda.synchronize()
+    _compare(f"K8 RT{order}-P{order} thread-per-cell (bf16) z", got_old[0], want_bf16[0],
+             torch.zeros_like(r))
+    dots_agree(f"K8 RT{order}-P{order} thread-per-cell (bf16)", got_old, want_bf16)
+    rows = []
+    for form, blk, wrapper, key, deviation in (
+            ("E-form", eform, blockjac.blockjac_dev_dots, "blockjac_dev", True),
+            ("bf16", bi, blockjac.blockjac_dots, "blockjac_tiled", False)):
+        name = f"K8 RT{order}-P{order} {form}"
+        before = blockjac.LAUNCHES[key]
+        got = wrapper(blk, r)
+        plain = blockjac.blockjac_dots_plain(blk, r, deviation)
+        torch.cuda.synchronize()
+        if blockjac.LAUNCHES[key] != before + 1:
+            raise RuntimeError(f"{name}: the wrapper did not launch the tiled kernel")
+        base = r if deviation else torch.zeros_like(r)  # z - base: the blocks' contribution
+        err = _compare(f"{name} z", got[0], plain[0], base)
+        dots_agree(name, got, plain)
+        ms, old_ms, t = _old_new(old, lambda: wrapper(blk, r))
+        sweep = _tile_sweep(name, _k8_tiles(P), lambda _, tile: wrapper(blk, r, tile)[0],
+                            plain[0], r, r, base)
+        plain_ms = _timed(lambda: blockjac.blockjac_dots_plain(blk, r, deviation), 3)
+        apply = _block_precond({"precond_blk_dev" if deviation else "precond_blk_inv": blk},
+                               torch.float32)  # the float32 copy, once
+
+        def library():
+            zl = apply(r)
+            return torch.sum(r * zl), torch.sum(r * r)
+
+        library_ms = _timed(library, 20)
+        # per cell: P^2 multiply-adds, the identity (E-form), the two dots
+        bound = _bound((blk, r, got[0]), cells * (2 * P * P + (P if deviation else 0) + 4 * P))
+        tile = blockjac.blockjac_tile(P)
+        print(f"  {name} (P={P}, {cells} cells): tiled kernel (tile {tile}) {ms:.4f} ms "
+              f"({t[1]:.4f}, {t[2]:.4f}), thread-per-cell on bf16 {old_ms:.4f} ms ({t[0]:.4f}, "
+              f"{t[3]:.4f}), plain {plain_ms:.4f} ms, library (bmm on the float32 copy + 2 dots) "
+              f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms ({card})")
+        print(f"    tiles (wide x warps: ms): {'; '.join(sweep)}")
+        path = "phase [6]'s RT path" if deviation else "phase [12]'s RT1-P1 BLOCKJAC path"
+        row = _row(f"K8 block-Jacobi apply + dots (RT{order}-P{order} 4x4x2, {form} blocks; "
+                   f"launches: {path})", "neutfem_tpu_torch/csrc/blockjac_tiled.cu",
+                   "neutfem_tpu/ops/pallas_blockjac.py:114", key, err, ms, plain_ms, bound,
+                   library_ms)
+        row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/blockjac.cu (thread per "
+                   "cell, on the bf16 inverse of the same blocks)", tile=list(tile),
+                   share_of_bound=bound[0] / ms, sweep=sweep)
+        rows.append(row)
+    return rows
+
+
+def _e4m3_decode_check(dev):
+    """K8's e4m3 widening (cvt e4m3x2 -> f16x2 -> f32) of all 254 finite
+    e4m3 bytes against torch's float8_e4m3fn -> float32: the E-form entry at
+    P = 1 on r = 1 gives z = 1 + E, exact in float32 for every e4m3 value,
+    so z - 1 is the widened E, equal in value (the same bits but for the
+    sign of zero, which z = 1 + E cannot show)."""
+    import torch
+
+    from neutfem_tpu_torch.ops import blockjac
+
+    finite = torch.tensor([b for b in range(256) if b & 0x7F != 0x7F] + [0, 0],
+                          dtype=torch.uint8, device=dev).view(torch.float8_e4m3fn)
+    z = blockjac.blockjac_dev_dots(finite.reshape(1, 1, -1), torch.ones((1, 256), device=dev))[0]
+    got, want = (z - 1.0).reshape(-1), finite.float()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"K8's e4m3 widening differs from torch's on "
+                           f"{int((got != want).sum())} of 254 bytes")
+    print("  K8 e4m3 widening: all 254 finite bytes equal torch's float8_e4m3fn -> float32")
 
 
 def _ho_kernels(bench, order, card, rng):
@@ -825,17 +972,23 @@ def main():
                                   " (IAEA-3D 8x8x8 shape, random operands)")
     del ctx8, v8, acc8
 
-    # K4 at the three compute_current layouts: rhs (2, 1, faces...) per direction
+    # K4 at the three compute_current layouts: rhs (2, 1, faces...) per
+    # direction, from a random flux through the real factors
     phi = torch.as_tensor(rng.standard_normal((2, *shape)), dtype=f32, device=dev)
-    k4_err, k4_ms, k4_plain, k4_bound = 0.0, 0.0, 0.0, (0.0, "bytes")
-    for di in fes.dirs:
-        err, ms, plain_ms, bound = _thomas_case(fes, ctx, di, phi, card, "K4")
-        k4_err, k4_ms, k4_plain = max(k4_err, err), k4_ms + ms, k4_plain + plain_ms
-        k4_bound = (k4_bound[0] + bound[0], bound[1])
-    rows["K4"] = _row("K4 batched Thomas solve (_solve_z/_solve_rows/_solve_transpose; "
-                      "times and bounds summed over the three compute_current layouts)",
-                      "neutfem_tpu_torch/csrc/thomas.cu", "neutfem_tpu/ops/pallas_tridiag.py:181",
-                      "thomas", k4_err, k4_ms, k4_plain, k4_bound)
+    for di in sorted(fes.dirs, key=lambda di: -di.d):
+        key = "zyx"[di.axis]
+        rows[f"K4 {key}"] = _thomas_rows_case(
+            f"compute_current {key} (IAEA-3D 6x6x4)", *_current_operands(fes, ctx, di, phi),
+            K4_REPLACES[key], card)
+    # K4 at the line preconditioner's z solve (IAEA-3D 8x8x8: 23,104 lines of
+    # 152 cells), on random operands of that shape; phase [8] runs the real ones
+    r8 = torch.as_tensor(rng.standard_normal((1, *n8)), dtype=f32, device=dev)
+    d8 = torch.as_tensor(rng.uniform(0.3, 0.6, (1, *n8)), dtype=f32, device=dev)
+    l8 = torch.as_tensor(rng.uniform(-0.4, 0.4, (1, 151, 152, 152)), dtype=f32, device=dev)
+    rows["K4 8x8x8"] = _thomas_rows_case("line preconditioner z (IAEA-3D 8x8x8 shape, random "
+                                         "operands)", r8, d8, l8, -3, K4_REPLACES["z"], card)
+    del r8, d8, l8
+    _e4m3_decode_check(dev)
 
     # K5 and K1's group batch: both groups' flux (2, 1, 76, 114, 114) at once,
     # as the Jacobi sweep's CG hands it to schur_matvec
@@ -949,9 +1102,12 @@ def main():
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
     t0 = time.perf_counter()
     # the tiled kernels a case launches on the GPU, and the old ones it must not
-    tiled = {"RT0-P0": (Z_KEYS, Z_OLD), "RT1-P1": (HO_KEYS, HO_OLD),
-             "Jacobi sweep": (("z_batched_rows", *K5_KEYS), ("z_batched", *K5_OLD)),
-             "adjoint": (Z_KEYS, Z_OLD)}
+    # (compute_current's K4 in each: the tiled kernel, not the thread-per-line one)
+    tiled = {"RT0-P0": ((*Z_KEYS, "thomas_rows"), (*Z_OLD, "thomas")),
+             "RT1-P1": ((*HO_KEYS, "thomas_rows"), (*HO_OLD, "thomas")),
+             "Jacobi sweep": (("z_batched_rows", *K5_KEYS, "thomas_rows"),
+                              ("z_batched", *K5_OLD, "thomas")),
+             "adjoint": ((*Z_KEYS, "thomas_rows"), (*Z_OLD, "thomas"))}
     for case in ("RT0-P0", "RT1-P1", "Jacobi sweep", "adjoint"):
         small = {}
         for device in ("cpu", "cuda"):
@@ -1018,7 +1174,9 @@ def main():
         raise RuntimeError("main path: an opt-in kernel (K7, K8) launched without its switch")
     if any(launches[k] for k in Z_OLD):
         raise RuntimeError("main path: a thread-per-line kernel served z, y or x")
-    for rid in ("K1", "K2", "K3", "K4"):
+    if launches["thomas"]:
+        raise RuntimeError("main path: the thread-per-line K4 launched")
+    for rid in ("K1", "K2", "K3", "K4 z", "K4 y", "K4 x"):
         row = rows[rid]
         row["launches"] = launches[row.pop("key")]
         if row["launches"] <= 0:
@@ -1040,9 +1198,12 @@ def main():
         _check_anchor(f"RT{order}-P{order} 4x4x2", keff, outers, inners, HO_ANCHORS[order])
         if not det["converged_not_capped"]:
             raise RuntimeError(f"RT{order}-P{order}: the solve hit max_outer")
-        for key in (*HO_KEYS, "thomas"):
+        for key in (*HO_KEYS, "thomas_rows"):
             if launches[key] <= 0:
                 raise RuntimeError(f"RT{order}-P{order}: {key} not launched on the path")
+        if launches["blockjac_dev"] < inners:
+            raise RuntimeError(f"RT{order}-P{order}: the E-form K8 launched "
+                               f"{launches['blockjac_dev']} times for {inners} CG iterations")
         for key in HO_OLD:
             if launches[key] != 0:
                 raise RuntimeError(f"RT{order}-P{order}: the thread-per-(mode, line) K6 {key} "
@@ -1051,8 +1212,13 @@ def main():
             row = ho_rows[order][key]
             row["launches"] = launches[row.pop("key")]
             rows[f"K6 {key}" + ("" if order == 2 else f" RT{order}")] = row
-        if launches["blockjac"] != 0:
-            raise RuntimeError(f"RT{order}-P{order}: K8 launched on the default path")
+        for key in ("blockjac", "blockjac_tiled", "thomas"):
+            if launches[key] != 0:
+                raise RuntimeError(f"RT{order}-P{order}: {key} launched {launches[key]} times on "
+                                   "the default path")
+        row = ho_rows[order]["K8"][0]
+        row["launches"] = launches[row.pop("key")]
+        rows[f"K8 E-form RT{order}"] = row
         print(f"    [6] RT{order} {time.perf_counter() - t0:.1f} s")
 
     # [7] the 2D paths, each with its own counts; the 2D kernel rows take the
@@ -1106,9 +1272,10 @@ def main():
     _check_anchor("IAEA-3D 8x8x8", keff, outers, inners, SCALE_ANCHOR, SCALE_KEFF_TOL)
     if det["preconditioner"] != "line":
         raise RuntimeError(f"IAEA-3D 8x8x8: preconditioner {det['preconditioner']!r}, not line")
-    if launches["thomas"] < inners:
-        raise RuntimeError(f"IAEA-3D 8x8x8: {launches['thomas']} z Thomas launches for "
-                           f"{inners} CG iterations")
+    if launches["thomas_rows"] < inners or launches["thomas"]:
+        raise RuntimeError(f"IAEA-3D 8x8x8: {launches['thomas_rows']} tiled z Thomas launches "
+                           f"for {inners} CG iterations, {launches['thomas']} thread-per-line")
+    rows["K4 8x8x8"]["launches"] = launches[rows["K4 8x8x8"].pop("key")]
     if any(launches[k] < inners for k in Z_KEYS) or any(launches[k] for k in Z_OLD):
         raise RuntimeError("IAEA-3D 8x8x8: the tiled K1-K3 did not serve every CG iteration")
     rows["K1 8x8x8"]["launches"] = launches[rows["K1 8x8x8"].pop("key")]
@@ -1168,11 +1335,11 @@ def main():
     if not abs(det["outer_iterations"] - oa) <= OUTERS_TOL:
         raise RuntimeError(f"adjoint: {det['outer_iterations']} outers, expected {oa} +- "
                            f"{OUTERS_TOL}")
-    for key in (*Z_KEYS, "thomas"):
+    for key in (*Z_KEYS, "thomas_rows"):
         if launches[key] <= 0:
             raise RuntimeError(f"adjoint: {key} not launched on the path")
-    if any(launches[k] for k in Z_OLD):
-        raise RuntimeError("adjoint: a thread-per-line kernel served z, y or x")
+    if any(launches[k] for k in (*Z_OLD, "thomas")):
+        raise RuntimeError("adjoint: a thread-per-line kernel served z, y, x or K4")
     print(f"    [10] {time.perf_counter() - t0:.1f} s")
 
     # [11] the facade's variants: one timed solve each from a cold flux, at
@@ -1210,7 +1377,8 @@ def main():
         raise RuntimeError(f"coarse init: keff {k} not within {VARIANT_KEFF_TOL} of {k_cheby}")
     launches = counts()
     print(f"    CMFD and coarse init: launches {launches}")
-    if any(launches[k] <= 0 for k in (*Z_KEYS, "thomas")) or any(launches[k] for k in Z_OLD):
+    if (any(launches[k] <= 0 for k in (*Z_KEYS, "thomas_rows"))
+            or any(launches[k] for k in (*Z_OLD, "thomas"))):
         raise RuntimeError("CMFD / coarse init: the tiled K1-K3 did not serve them")
     del run, s
     d2 = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea2d"], mesh_n=3,
@@ -1273,15 +1441,17 @@ def main():
         raise RuntimeError(f"NEUTFEM_BLKFP8=0: block storage {det['block_precond']}")
     _check_anchor("RT1-P1 4x4x2 NEUTFEM_BLOCKJAC=1", keff, outers, inners,
                   (HO_ANCHORS[1][0], HO_ANCHORS[1][1], BLOCKJAC_INNERS))
-    if launches["blockjac"] < inners:
-        raise RuntimeError(f"NEUTFEM_BLOCKJAC=1: K8 launched {launches['blockjac']} times for "
+    if launches["blockjac_tiled"] < inners or launches["blockjac"] or launches["blockjac_dev"]:
+        raise RuntimeError(f"NEUTFEM_BLOCKJAC=1: K8 launched {launches['blockjac_tiled']} times "
+                           f"(thread per cell {launches['blockjac']}, E-form "
+                           f"{launches['blockjac_dev']}) for "
                            f"{inners} CG iterations")
     if any(launches[k] <= 0 for k in HO_KEYS) or any(launches[k] for k in HO_OLD):
         raise RuntimeError("NEUTFEM_BLOCKJAC=1: the tiled K6 did not serve every direction")
     for order in (2, 1):
-        row = ho_rows[order]["K8"]
+        row = ho_rows[order]["K8"][1]
         row["launches"] = launches[row.pop("key")]
-        rows[f"K8 RT{order}"] = row
+        rows[f"K8 bf16 RT{order}"] = row
     print(f"    [12] BLOCKJAC {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1297,11 +1467,11 @@ def main():
           f"({card})")
     _check_anchor("RT0-P0 6x6x4 NEUTFEM_CGCG=1", keff, outers, inners,
                   (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
-    for key in (*Z_KEYS, "thomas"):
+    for key in (*Z_KEYS, "thomas_rows"):
         if launches[key] <= 0:
             raise RuntimeError(f"NEUTFEM_CGCG=1: {key} not launched on the path")
-    if any(launches[k] for k in Z_OLD):
-        raise RuntimeError("NEUTFEM_CGCG=1: a thread-per-line kernel served z, y or x")
+    if any(launches[k] for k in (*Z_OLD, "thomas")):
+        raise RuntimeError("NEUTFEM_CGCG=1: a thread-per-line kernel served z, y, x or K4")
     print(f"    [12] CGCG {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 

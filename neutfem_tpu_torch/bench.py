@@ -21,8 +21,8 @@ Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
   ``SWEEP_TOL``, through ``power.power_iteration``;
 * ``main_optin``: the JAX package's opt-in switches against the default path
   in one process, solves in turns: at RT0-P0 6x6x4 ``NEUTFEM_EQFOLD=1|2`` (K7)
-  and ``NEUTFEM_CGCG=1``; at RT_k-P_k 4x4x2 the default fp8 block storage, the
-  bfloat16 one (``NEUTFEM_BLKFP8=0``) and bfloat16 with ``NEUTFEM_BLOCKJAC=1``
+  and ``NEUTFEM_CGCG=1``; at RT_k-P_k 4x4x2 the default fp8 block storage
+  (K8 on the E-form), the bfloat16 one (``NEUTFEM_BLKFP8=0``) and bfloat16 with ``NEUTFEM_BLOCKJAC=1``
   (K8).
 
 ``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
@@ -501,7 +501,8 @@ def main_optin(order: int = 0, rounds: int = 7, device="cuda", dtype=torch.float
     under ``NEUTFEM_EQFOLD`` (so it holds the eq operands; the other variants
     do not read them): the default matvec, ``NEUTFEM_EQFOLD=1``, ``=2`` and
     ``NEUTFEM_CGCG=1``.  RT_k-P_k (``order`` k), IAEA-3D 4x4x2 at ``HO_TOL``:
-    the default fp8 block storage, and one context under ``NEUTFEM_BLKFP8=0``
+    the default fp8 block storage (applied by K8's E-form entry), and one
+    context under ``NEUTFEM_BLKFP8=0``
     (bfloat16 blocks) solved with the default apply (``torch.bmm`` on a
     float32 copy) and with ``NEUTFEM_BLOCKJAC=1`` (K8)."""
     spec = load_benchmark_data().BENCHMARKS["iaea3d"]

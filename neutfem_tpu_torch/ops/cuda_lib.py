@@ -23,8 +23,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-SOURCES = ("fused_dir.cu", "fused_rows.cu", "fused_z_rows.cu", "thomas.cu", "fused_ho.cu",
-           "fused_ho_rows.cu", "fused_eq.cu", "fused_eq_rows.cu", "blockjac.cu")
+SOURCES = ("fused_dir.cu", "fused_rows.cu", "fused_z_rows.cu", "thomas.cu", "thomas_rows.cu",
+           "fused_ho.cu", "fused_ho_rows.cu", "fused_eq.cu", "fused_eq_rows.cu", "blockjac.cu",
+           "blockjac_tiled.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 build_info: dict = {}
 
 _lib = None
+_build_error = None  # a failed build, raised again without rebuilding
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -65,6 +67,9 @@ _SIGNATURES = {
     # r, d, l, out, n, lines, inner, stream
     "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
+    # r, d, l, out, n, outer, inner, tl, ch, stream
+    "neutfem_thomas_rows_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2 + [_P],
+    "neutfem_thomas_rows_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2 + [_P],
     "neutfem_thomas_wide_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_wide_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     # acc, v, dm, l, alpha, tab, zs, k1, lpow, n, lines, inner, outer_stride,
@@ -92,6 +97,9 @@ _SIGNATURES = {
     # bi, r, z, part, P, cells, stream
     "neutfem_blockjac_bf16": [_P] * 4 + [ctypes.c_int, _I64, _P],
     "neutfem_blockjac_f32": [_P] * 4 + [ctypes.c_int, _I64, _P],
+    # form, blk, r, z, part, P, cells, wide, warps, stream
+    "neutfem_blockjac_tiled": [ctypes.c_int] + [_P] * 4 + [ctypes.c_int, _I64] + [ctypes.c_int] * 2
+    + [_P],
 }
 
 
@@ -148,10 +156,18 @@ def _build() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+    """The loaded kernel library (built on first call; a build that failed
+    raises again on every later call, without another nvcc run)."""
+    global _lib, _build_error
+    if _build_error is not None:
+        raise _build_error
     if _lib is None:
-        lib = ctypes.CDLL(_build())
+        try:
+            so = _build()
+        except RuntimeError as e:
+            _build_error = e
+            raise
+        lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -1,19 +1,24 @@
 """Batched Thomas (LDL^T) solve along one axis — K4 and K4′.
 
 Port of ``neutfem_tpu/ops/pallas_tridiag.py`` (``thomas_solve``).  On a CUDA
-tensor the wrapper launches the hand-written kernel of ``csrc/thomas.cu``; on a
-CPU tensor it runs the plain PyTorch version below.  There is no other route:
-a CUDA tensor the kernel does not take raises.
+tensor the wrapper launches a hand-written kernel (``csrc/thomas_rows.cu``,
+``csrc/thomas.cu``); on a CPU tensor it runs the plain PyTorch version below.
+There is no other route: a CUDA tensor the kernel does not take raises.
 
 The TPU package dispatches by layout: ``_solve_z`` (axis -3), ``_solve_rows``
 (axis -2), ``_solve_y`` (axis -2 with rows too wide for ``_solve_rows``: the 2D
-y solves, K4′) and ``_solve_transpose`` (axis -1).  Here one stride kernel,
-one thread per line, serves the K4 layouts (launches counted under
-``"thomas"``).  The K4′ layout (``wide_rows``) has few, long lines (912 lines
-of 913 faces per group at ZION 48x48), which one thread per line would run on
-a few of the card's SMs with ~2n dependent steps each; its kernel splits each
-line into chunks, one thread each, and stitches the chunks' recurrences
-together (``csrc/thomas.cu``; launches counted under ``"thomas_y"``).
+y solves, K4′) and ``_solve_transpose`` (axis -1).  Here the K4 layouts go to
+one tiled kernel (``csrc/thomas_rows.cu``: a tile of lines per block, each
+line cut into chunks, staged through shared memory face-major where the
+lines' neighbours are contiguous, line-major along the minor axis; at the
+tile ``thomas_tile`` picks; launches counted under ``"thomas_rows"``).  The
+K4′ layout (``wide_rows``) has few, long lines (912 lines of 913 faces per
+group at ZION 48x48); its kernel splits each line into chunks, one thread
+each, and stitches the chunks' recurrences together (``csrc/thomas.cu``;
+launches counted under ``"thomas_y"``).  ``"thomas"`` counts the
+thread-per-line kernel of ``csrc/thomas.cu``, which no wrapper launches
+since the tiled one measured faster (PERF.md); the paths' checks hold it at
+0.
 
     forward:  z_0 = r_0;              z_i = r_i - l_{i-1} z_{i-1}
     diagonal: x_{n-1} = z_{n-1} d_{n-1}
@@ -27,13 +32,19 @@ import math
 import torch
 
 from . import cuda_lib
+from .fused import SMEM_PER_BLOCK
 
-__all__ = ["thomas_solve", "thomas_solve_plain", "wide_rows", "LAUNCHES", "reset_launches"]
+__all__ = ["thomas_solve", "thomas_solve_plain", "thomas_tile", "wide_rows", "LAUNCHES",
+           "reset_launches"]
 
 #: Kernel launches of this module (incremented where the kernel is launched):
-#: "thomas" K4, "thomas_y" K4′.
-LAUNCHES = {"thomas": 0, "thomas_y": 0}
+#: "thomas_rows" K4 (the tiled kernel), "thomas_y" K4′, "thomas" the
+#: thread-per-line K4 (launched by no wrapper).
+LAUNCHES = {"thomas": 0, "thomas_rows": 0, "thomas_y": 0}
 
+#: The tiled K4's tile, lines per block and chunks per line (K1's, the
+#: kernel it copies).
+THOMAS_LINES, THOMAS_CHUNKS = 32, 8
 #: The TPU dispatch's block budget (``pallas_tridiag._VMEM_BUDGET``, 8 MiB).
 _ROWS_BUDGET = 8 * 2**20
 
@@ -54,6 +65,29 @@ def wide_rows(shape, axis: int) -> bool:
     return _ROWS_BUDGET // (8 * n * M * 4) < 4
 
 
+def thomas_smem(n: int, tl: int, ch: int, elem_bytes: int, line_major: bool) -> int:
+    """Shared memory bytes of one tile of the tiled K4: the r/z/x, d and l rows
+    of ``tl`` lines of ``n`` elements (line-major rows padded to an odd
+    length), and the chunks' four carry rows (``csrc/thomas_rows.cu``)."""
+    row = (n | 1) if line_major else n
+    return (3 * row + 4 * ch) * tl * elem_bytes
+
+
+def thomas_tile(n: int, dtype, line_major: bool):
+    """(lines per block, chunks per line) of the tiled K4 for lines of ``n``
+    elements: ``THOMAS_LINES`` x ``THOMAS_CHUNKS``, the lines halved while the
+    tile exceeds the card's shared memory, the chunks doubled where that
+    would leave a block under one warp; at one line per block a tile that
+    still does not fit is refused at launch, and the wrapper raises."""
+    tl, ch = THOMAS_LINES, THOMAS_CHUNKS
+    elem = torch.finfo(dtype).bits // 8
+    while tl > 1 and thomas_smem(n, tl, ch, elem, line_major) > SMEM_PER_BLOCK:
+        tl //= 2
+        if tl * ch < 32:
+            ch *= 2
+    return tl, ch
+
+
 def thomas_solve_plain(rhs, dinv, l, axis: int):
     """Plain PyTorch version: the recurrence along ``axis``, vectorized over
     every other axis.  ``dinv`` has rhs's shape; ``l`` one entry fewer along
@@ -72,11 +106,12 @@ def thomas_solve_plain(rhs, dinv, l, axis: int):
     return out.movedim(0, axis).contiguous()
 
 
-def thomas_solve(rhs, dinv, l, axis: int):
+def thomas_solve(rhs, dinv, l, axis: int, tile=None):
     """Solve T x = rhs along ``axis`` with precomputed LDL^T factors.
 
     ``dinv`` must have rhs's shape and ``l`` rhs's shape with n-1 entries along
-    ``axis`` (callers broadcast first).  Returns a new tensor."""
+    ``axis`` (callers broadcast first).  ``tile``: the tiled K4's (lines,
+    chunks) in place of ``thomas_tile``'s.  Returns a new tensor."""
     if rhs.device.type == "cpu":
         return thomas_solve_plain(rhs, dinv, l, axis)
     if rhs.device.type != "cuda":
@@ -102,11 +137,17 @@ def thomas_solve(rhs, dinv, l, axis: int):
     lines = rhs.numel() // n
     out = torch.empty_like(rhs)
     lib = cuda_lib.library()
-    key = "thomas_y" if wide_rows(rhs.shape, axis) else "thomas"
-    name = "neutfem_thomas_wide" if key == "thomas_y" else "neutfem_thomas"
-    fn = getattr(lib, f"{name}_{'f32' if rhs.dtype == torch.float32 else 'f64'}")
-    err = fn(rhs.data_ptr(), dinv.data_ptr(), l.data_ptr(), out.data_ptr(), n, lines,
-             inner, torch.cuda.current_stream(rhs.device).cuda_stream)
-    cuda_lib.check(err, f"thomas_solve ({key})")
+    ptrs = (rhs.data_ptr(), dinv.data_ptr(), l.data_ptr(), out.data_ptr(), n)
+    stream = torch.cuda.current_stream(rhs.device).cuda_stream
+    suffix = "f32" if rhs.dtype == torch.float32 else "f64"
+    if wide_rows(rhs.shape, axis):
+        key, what = "thomas_y", "thomas_solve (K4′)"
+        err = getattr(lib, f"neutfem_thomas_wide_{suffix}")(*ptrs, lines, inner, stream)
+    else:
+        tile = tile or thomas_tile(n, rhs.dtype, inner == 1)
+        key, what = "thomas_rows", f"thomas_solve (tiled kernel, tile {tile}, n {n})"
+        err = getattr(lib, f"neutfem_thomas_rows_{suffix}")(*ptrs, lines // inner, inner, *tile,
+                                                             stream)
+    cuda_lib.check(err, what)
     LAUNCHES[key] += 1
     return out

@@ -28,7 +28,9 @@ each group solve, as the JAX package reads them at trace time):
 K7), ``NEUTFEM_CGCG=1`` the Chronopoulos-Gear CG (``krylov.pcg_fused``),
 ``NEUTFEM_BLOCKJAC=1`` the fused block-Jacobi apply + dots
 (``ops/blockjac.py``, K8) where the block inverse is stored as
-``precond_blk_inv``; ``NEUTFEM_BLKFP8`` is read by ``ops/context.py``.
+``precond_blk_inv``; ``NEUTFEM_BLKFP8`` is read by ``ops/context.py``.  The
+default float32 block preconditioner (the fp8 E-form ``precond_blk_dev``)
+runs through the same kernel, ``blockjac_dev_dots``, on one group's solve.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from .ops.apply import (
     schur_matvec,
     solve_A_dir,
 )
-from .ops.blockjac import blockjac_dots
+from .ops.blockjac import blockjac_dev_dots, blockjac_dots
 from .ops.direct import direct_solve
 from .ops.tridiag import tridiag_solve
 from .twogrid import twogrid_apply
@@ -116,9 +118,13 @@ def ctx_group(ctx: Dict, g: int) -> Dict:
 
 def _block_precond(ctxg: Dict, dtype):
     """The P x P block-Jacobi apply on the equilibrated system, or None when the
-    context has no block inverse.  The stored operand (float8 E-form, bfloat16
-    or the working dtype; (P, P, nz, ny, nx) for one group, (ng, P, P, nz, ny,
-    nx) for the Jacobi sweep's batched solve) is upcast to the flux dtype once
+    context has no block inverse.  ``group_solve`` takes it where the K8 kernel
+    (``ops/blockjac.py``) does not serve: float64, the Jacobi sweep's batched
+    (ng, ...) solve, ``pcg_fused`` under ``NEUTFEM_CGCG=1``, a coarse
+    correction on top, and the bf16 inverse without ``NEUTFEM_BLOCKJAC=1``.
+    The stored operand (float8 E-form, bfloat16 or the working dtype; (P, P,
+    nz, ny, nx) for one group, (ng, P, P, nz, ny, nx) for the Jacobi sweep's
+    batched solve) is upcast to the flux dtype once
     per group solve — torch's batched products do not mix dtypes; the JAX
     package's bf16 x f32 einsum promotes to f32, so the numbers are the same —
     and laid out cells-major (cells, P, P) per group at the same time, so each
@@ -195,12 +201,13 @@ def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None)
     the fine part plus the additive coarse correction ("twogrid"; the fine part
     alone when no coarse level is attached).  The JAX package's branch order
     (``neutfem_tpu/power.py:206-365``): the equilibration-folded matvec where
-    ``eqfold_available``; ``pcg_fused`` under ``NEUTFEM_CGCG=1``; under
-    ``NEUTFEM_BLOCKJAC=1`` with ``pcg`` the block preconditioner of a
-    ``precond_blk_inv`` context (float32 or bf16 blocks, one group's float32
-    flux, no coarse correction) as the fused K8 apply + dots.  ``tol`` (0-d
-    tensor) overrides ``opts.inner_tol``.  ``inner_solver="direct"`` instead
-    runs the two triangular solves of the dense equilibrated Cholesky factors
+    ``eqfold_available``; ``pcg_fused`` under ``NEUTFEM_CGCG=1``; with
+    ``pcg`` on one group's float32 flux and no coarse correction, the block
+    preconditioner as the fused K8 apply + dots: on the fp8 E-form
+    (``precond_blk_dev``, the float32 default) always, on a
+    ``precond_blk_inv`` context (float32 or bf16 blocks) under
+    ``NEUTFEM_BLOCKJAC=1``.  ``tol`` (0-d tensor) overrides
+    ``opts.inner_tol``.  ``inner_solver="direct"`` instead runs the two triangular solves of the dense equilibrated Cholesky factors
     (``ops/direct.py``; one "iteration", residual 0, as in the JAX package).
 
     ``ctxg`` is one group's context (``ctx_group``), or the whole context for
@@ -234,13 +241,15 @@ def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None)
         pc_mode = "block" if fes.P > 1 else "jacobi"
     precond = precond_dots = None
     if pc_mode == "block":
-        bi = ctxg.get("precond_blk_inv")
-        if (tg_corr is None and solver is pcg and bi is not None
-                and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
-                and rhs.dtype == torch.float32 and bi.dtype in (torch.float32, torch.bfloat16)
-                and bi.ndim == 5):  # one group's (P, P, nz, ny, nx) blocks
-            # the fused apply + dots (K8) on one group's stored blocks: no
-            # float32 copy of the blocks is made
+        bi, dev = ctxg.get("precond_blk_inv"), ctxg.get("precond_blk_dev")
+        # the fused apply + dots (K8) on one group's stored (P, P, nz, ny, nx)
+        # blocks, for pcg on a float32 residual: no float32 copy of the
+        # blocks is made
+        fused = tg_corr is None and solver is pcg and rhs.dtype == torch.float32
+        if fused and dev is not None and dev.ndim == 5:
+            precond_dots = lambda r: blockjac_dev_dots(dev, r)
+        elif (fused and bi is not None and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
+                and bi.dtype in (torch.float32, torch.bfloat16) and bi.ndim == 5):
             precond_dots = lambda r: blockjac_dots(bi, r)
         else:
             precond = _block_precond(ctxg, rhs.dtype)

@@ -1,4 +1,5 @@
-"""How far rounding in the condensed Schur directions (K6) moves a solve's counts.
+"""How far rounding in the condensed Schur directions (K6) and in the block
+preconditioner (K8) moves a solve's counts.
 
 Run on the GPU from the root of the repository:
 
@@ -12,22 +13,32 @@ default block apply and with ``NEUTFEM_BLOCKJAC=1`` (K8), once per K6 variant:
   and at 16 lines x 4 chunks x 1 mode, which cuts the chunks elsewhere;
 * the thread-per-(mode, line) kernel it replaced (``csrc/fused_ho.cu``), with
   its contribution to the accumulator scaled by 1, 1 +- 1e-7 and 1 + 1e-6,
-  i.e. moved by about one float32 rounding;
-* and, on the default fp8 block storage, the old kernel scaled by 1 +- 1e-7.
+  i.e. moved by about one float32 rounding.
 
-Prints one JSON line per solve: the variant, k, outers and inners.  Every
-variant computes the same matvec up to float32 rounding (``chip_smoke.py``
-[3] holds both kernels to the plain version at 1e-5), so a spread in the
-counts is the solve's sensitivity to rounding, not a kernel's error.
+And one with the default fp8 E-form storage, its blocks applied by K8
+(``blockjac_dev_dots``, the default) or by the apply the port ran before K8
+took the E-form (``power._block_precond``: ``torch.bmm`` on a float32 copy,
+the dots as ``torch.sum``), each with the tiled K6 and with the old K6
+scaled by 1 +- 1e-7.
+
+Prints one JSON line per solve: the variant, k, outers and inners, the first
+outer whose flux change is below ``tol_flux``, and the last outers' k changes
+in units of k's float32 spacing (``HO_TOL``'s ``tol_keff`` = 1e-7 is below one
+spacing of k near 1.03, 1.19e-7, so the solve stops only on an outer whose k
+repeats bit for bit).  Every variant computes the same operators up to
+float32 rounding (``chip_smoke.py`` [3] holds each kernel to its plain
+version at 1e-5), so a spread in the counts is the solve's sensitivity to
+rounding, not a kernel's error.
 """
 
 from __future__ import annotations
 
 import json
 
+import numpy as np
 import torch
 
-from . import bench
+from . import bench, power
 from .ops import cuda_lib, fused_ho
 
 
@@ -53,6 +64,33 @@ def _old_kernel(scale):
     return launch
 
 
+def _bmm_route():
+    """A stand-in for ``power.blockjac_dev_dots``: the E-form applied by
+    ``power._block_precond`` (its float32 copy made once per block tensor),
+    the dots as ``torch.sum``, as ``pcg`` forms them without K8."""
+    applies = {}
+
+    def dots(dev, r):
+        key = dev.data_ptr()
+        if key not in applies:
+            applies[key] = power._block_precond({"precond_blk_dev": dev}, r.dtype)
+        z = applies[key](r)
+        return z, torch.sum(r * z), torch.sum(r * r)
+
+    return dots
+
+
+def _tail(s, tol_flux: float) -> dict:
+    """Where the solve's stop criteria sat: the first outer whose flux change
+    is below ``tol_flux``, and the last 6 outers' |dk| over k's float32
+    spacing."""
+    hist = np.asarray(s.get_iteration_history(), dtype=np.float64)
+    below = np.nonzero(hist[:, 2] < tol_flux)[0]
+    ulp = float(np.spacing(np.float32(hist[-1, 0])))
+    return {"first_outer_dphi_below_tol": int(below[0]) + 1 if below.size else None,
+            "dk_over_k_spacing_last": [round(float(d) / ulp, 2) for d in hist[-6:, 1]]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("rounding_probe: needs a CUDA device")
@@ -67,23 +105,28 @@ def main() -> None:
                 ("tiled, 16x4x1", tiled, lambda lines, n, K1, dtype: (16, 4, 1))]
     variants += [(f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile)
                  for s in (1.0, 1.0 + 1e-7, 1.0 - 1e-7, 1.0 + 1e-6)]
-    cases = [("bf16", v, sw) for v in variants for sw in ({}, {"NEUTFEM_BLOCKJAC": "1"})]
-    cases += [("fp8", (f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile), {})
-              for s in (1.0 + 1e-7, 1.0 - 1e-7)]
+    cases = [("bf16", v, sw, "K8" if sw else "_block_precond") for v in variants
+             for sw in ({}, {"NEUTFEM_BLOCKJAC": "1"})]
+    cases += [("fp8", v, {}, apply) for apply in ("K8", "_block_precond")
+              for v in [variants[0]] + [(f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile)
+                                        for s in (1.0 + 1e-7, 1.0 - 1e-7)]]
+    k8 = power.blockjac_dev_dots
     try:
-        for storage, (name, launch, rule), switches in cases:
+        for storage, (name, launch, rule), switches, apply in cases:
             fused_ho._launch, fused_ho.ho_tile = launch, rule
+            power.blockjac_dev_dots = k8 if apply == "K8" else _bmm_route()
             s = runs[storage].solver
             s.set_tol(*bench.HO_TOL)
             s.reset_flux()
             with bench.env(**switches):
                 k = s.SolveKeff()
-            print(json.dumps({"blocks": storage, "switches": switches, "k6": name,
-                              "keff": round(k, 7), "outers": s._last_outers,
-                              "inners": s._last_inners,
+            print(json.dumps({"blocks": storage, "switches": switches, "block_apply": apply,
+                              "k6": name, "keff": round(k, 7), "outers": s._last_outers,
+                              "inners": s._last_inners, **_tail(s, bench.HO_TOL[1]),
                               "device": torch.cuda.get_device_name(0)}), flush=True)
     finally:
         fused_ho._launch, fused_ho.ho_tile = tiled, tile
+        power.blockjac_dev_dots = k8
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ tracing overhead (traced minus untraced wall); with ``--out DIR`` it also
 writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
 summary.  Needs a CUDA device.  The opt-in switches apply as in a solve:
 ``NEUTFEM_EQFOLD=2 python -m neutfem_tpu_torch.trace_solve`` traces K7,
-``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1 ... --order 2`` traces K8.
+``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1 ... --order 2`` traces K8 on the bf16
+inverse (the default ``--order K`` runs it on the fp8 E-form).
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ FAMILIES = (
     ("fused_ho_rows_kernel", "tiled condensed Schur directions (K6)"),
     ("fused_ho_kernel", "condensed Schur directions, thread per (mode, line) (old K6)"),
     ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
-    ("thomas_kernel", "Thomas solve (K4)"),
+    ("thomas_rows_kernel", "tiled Thomas solve (K4)"),
+    ("thomas_kernel", "Thomas solve, thread per line (replaced K4)"),
     ("fused_eq_rows_kernel", "tiled equilibration-folded Schur directions (K7)"),
     ("fused_eq_kernel", "thread-per-line equilibration-folded directions (replaced K7)"),
-    ("blockjac", "fused block-Jacobi apply + dots (K8)"),
+    ("blockjac_dev_kernel", "tiled block-Jacobi apply + dots, fp8 E-form (K8, default)"),
+    ("blockjac_tiled_kernel", "tiled block-Jacobi apply + dots, inverse (K8, BLOCKJAC=1)"),
+    ("blockjac", "block-Jacobi apply + dots, thread per cell (replaced K8)"),
     ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
     ("nvjet", "gemv (block-Jacobi apply; two-grid coarse apply)"),  # cuBLAS's Hopper kernels
     ("reduce_kernel", "reductions (dot products, norms)"),

@@ -1,13 +1,14 @@
 """The chunked first-order recurrence of the tiled kernels (csrc/fused_rows.cu,
-csrc/fused_ho_rows.cu, csrc/fused_eq_rows.cu, csrc/fused_z_rows.cu),
-transcribed in plain PyTorch for the CPU tests.
+csrc/fused_ho_rows.cu, csrc/fused_eq_rows.cu, csrc/fused_z_rows.cu,
+csrc/thomas_rows.cu), transcribed in plain PyTorch for the CPU tests.
 
 A line's faces are cut into ``ch`` chunks of an odd length; each chunk runs
 its recurrence y_k = b_k + a_k y_(k-1) from 0 and keeps its end value and the
 product of its multipliers (pass 1); the carries come from a Hillis-Steele
 scan over the chunks, as the kernels' warp shuffles compute them, or, for
-csrc/fused_z_rows.cu, from the chunks before each one composed in order
-(``serial``); each chunk reruns from its carry (pass 2).
+csrc/fused_z_rows.cu and csrc/thomas_rows.cu, from the chunks before each
+one composed in order (``serial``); each chunk reruns from its carry (pass
+2).  ``thomas`` is the tiled Thomas solve's two sweeps on one tile.
 """
 
 import torch
@@ -70,3 +71,13 @@ def chunked(b, a, ch, reverse, carries=scan):
         y = bp[:, k] + ap[:, k] * y
         out[:, k] = y
     return out.reshape(ch * ln, lines)[:faces]
+
+
+def thomas(r, d, l, ch, carries=serial):
+    """The LDL^T solve of csrc/thomas_rows.cu on (n, lines) r and d and
+    (n-1, lines) l, ``ch`` chunks per line: the forward sweep z_k = r_k -
+    l_(k-1) z_(k-1), then the backward x_k = z_k d_k - l_k x_(k+1) from the
+    last chunk, each chunked with ``carries`` (the kernel's: ``serial``)."""
+    zero = r.new_zeros((1, r.shape[1]))
+    z = chunked(r, torch.cat([zero, -l]), ch, False, carries)
+    return chunked(z * d, torch.cat([-l, zero]), ch, True, carries)

@@ -1,13 +1,16 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
 Each test compares one hand-written kernel (the tiled K1 / K2 / K3 kernel and its
-group-batched form, K1's batch and K5; K4, K4′, the tiled K6, the tiled K7, K8) with the plain PyTorch version
+group-batched form, K1's batch and K5; the tiled K4, K4′, the tiled K6, the
+tiled K7, the tiled K8 on its three storage forms) with the plain PyTorch version
 of the same function, on the card, at a small shape.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -626,15 +629,18 @@ def _blockjac_operands(P, shape, bdtype, device, seed):
 @pytest.mark.parametrize("P", [8, 27, 5])
 @pytest.mark.parametrize("shape", [(3, 17, 23), (2, 16, 64)])
 def test_blockjac_kernel_matches_plain(cuda, P, bdtype, shape):
-    """K8 against its plain version on the same blocks: z to rel 1e-5 (the same
-    products in another order; bf16 entries widen exactly), the dots to rel
-    1e-5 (float32 per-block partials against one float32 sum).  1,173 cells is
-    no multiple of the 256 threads of a block; P = 5 takes the generic kernel."""
+    """K8 (the tiled kernel, inverse forms) against its plain version on the
+    same blocks: z to rel 1e-5 (the same products in another order; bf16
+    entries widen exactly), the dots to rel 1e-5 (the kernel's float64 sums
+    rounded once against the plain version's float32 sum).  1,173 cells is no multiple of 16 (one value
+    per access) and of the tile; 2,048 takes the 16-byte path; P = 5 the
+    generic kernel."""
     bi, r = _blockjac_operands(P, shape, bdtype, cuda, P)
-    before = blockjac.LAUNCHES["blockjac"]
+    before = dict(blockjac.LAUNCHES)
     z, rz, rr = blockjac.blockjac_dots(bi, r)
     torch.cuda.synchronize()
-    assert blockjac.LAUNCHES["blockjac"] == before + 1
+    assert {k: blockjac.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "blockjac_tiled") for k in before}
     zp, rzp, rrp = blockjac.blockjac_dots_plain(bi, r)
     assert _rel(z, zp, torch.zeros_like(zp)) <= 1e-5
     assert abs(float(rz) - float(rzp)) <= 1e-5 * abs(float(rzp))
@@ -644,13 +650,14 @@ def test_blockjac_kernel_matches_plain(cuda, P, bdtype, shape):
 @pytest.mark.parametrize("P", [8, 27])
 def test_blockjac_dots_against_float64_sum(cuda, P):
     """The kernel's dots against the same sums taken in float64 from its z:
-    rel 1e-5 (float32 partials of 256 cells, then a float32 sum)."""
+    within one float32 rounding, rel 1e-7 (the kernel sums the exact float64
+    products in float64 and rounds once)."""
     bi, r = _blockjac_operands(P, (5, 41, 67), torch.bfloat16, cuda, 40 + P)
     z, rz, rr = blockjac.blockjac_dots(bi, r)
     r64, z64 = r.double(), z.double()
     want_rz, want_rr = float(torch.sum(r64 * z64)), float(torch.sum(r64 * r64))
-    assert abs(float(rz) - want_rz) <= 1e-5 * abs(want_rz)
-    assert abs(float(rr) - want_rr) <= 1e-5 * abs(want_rr)
+    assert abs(float(rz) - want_rz) <= 1e-7 * abs(want_rz)
+    assert abs(float(rr) - want_rr) <= 1e-7 * abs(want_rr)
 
 
 def test_blockjac_is_deterministic(cuda):
@@ -671,3 +678,241 @@ def test_blockjac_rejects_what_it_does_not_take(cuda):
         blockjac.blockjac_dots(bi.half(), r)
     with pytest.raises(ValueError):  # non-contiguous blocks
         blockjac.blockjac_dots(bi.transpose(-1, -2).contiguous().transpose(-1, -2), r)
+
+
+def _eform_operands(P, shape, device, seed):
+    """An E-form (P, P, *shape) float8_e4m3fn from scaled normals, and r."""
+    rng = np.random.default_rng(seed)
+    dev = torch.as_tensor(0.3 * rng.standard_normal((P, P, *shape)), dtype=torch.float32)
+    r = torch.as_tensor(rng.standard_normal((P, *shape)), dtype=torch.float32, device=device)
+    return dev.to(torch.float8_e4m3fn).to(device), r
+
+
+def _dots_agree(got, want, tol=1e-5):
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g) - float(w)) <= tol * abs(float(w))
+
+
+@pytest.mark.parametrize("P", [8, 27, 5])
+@pytest.mark.parametrize("shape", [(3, 17, 23), (2, 16, 64), (38, 76, 76)])
+def test_blockjac_dev_kernel_matches_plain(cuda, P, shape):
+    """K8 on the fp8 E-form against its plain version: z to rel 1e-5 of the
+    deviation part E r (the identity is added exactly, the e4m3 entries widen
+    exactly), the dots to rel 1e-5; the launch counted under blockjac_dev.
+    (38, 76, 76): the RT_k-P_k 4x4x2 cell count."""
+    dev, r = _eform_operands(P, shape, cuda, 70 + P)
+    before = dict(blockjac.LAUNCHES)
+    got = blockjac.blockjac_dev_dots(dev, r)
+    torch.cuda.synchronize()
+    assert {k: blockjac.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "blockjac_dev") for k in before}
+    want = blockjac.blockjac_dots_plain(dev, r, deviation=True)
+    assert _rel(got[0], want[0], r) <= 1e-5
+    _dots_agree(got, want)
+
+
+@pytest.mark.parametrize("form", ["E-form", "bf16", "f32"])
+@pytest.mark.parametrize("P", [8, 27])
+def test_blockjac_tiled_kernel_at_every_tile(cuda, form, P):
+    """Every (wide, warps) tile the launcher takes (8- and 16-byte plane
+    loads, 1..9 warps up to P) gives the plain version's z (rel 1e-5) and
+    dots (rel 1e-5), and the same bits for z and the dots at every tile (z
+    per cell in one order; the dots summed in float64 and rounded once);
+    more warps than rows, or than 9, is refused and raises."""
+    shape = (5, 40, 48)  # 9,600 cells: 16-byte path, a ragged last tile
+    if form == "E-form":
+        blk, r = _eform_operands(P, shape, cuda, 80 + P)
+        fn, deviation = blockjac.blockjac_dev_dots, True
+    else:
+        blk, r = _blockjac_operands(P, shape, torch.bfloat16 if form == "bf16" else torch.float32,
+                                    cuda, 80 + P)
+        fn, deviation = blockjac.blockjac_dots, False
+    want = blockjac.blockjac_dots_plain(blk, r, deviation)
+    base = r if deviation else torch.zeros_like(r)
+    first = fn(blk, r, (1, 1))
+    for wide in (1, 0):
+        for warps in range(1, min(P, 9) + 1):
+            got = fn(blk, r, (wide, warps))
+            torch.cuda.synchronize()
+            assert _rel(got[0], want[0], base) <= 1e-5, (wide, warps)
+            _dots_agree(got, want)
+            assert all(torch.equal(a, b) for a, b in zip(got, first)), (wide, warps)
+    for warps in (10, P + 1):
+        with pytest.raises(RuntimeError, match="tiled kernel"):
+            fn(blk, r, (1, warps))
+
+
+@pytest.mark.parametrize("P", [8, 27])
+def test_blockjac_tiled_kernel_matches_thread_per_cell(cuda, P):
+    """The tiled kernel against the thread-per-cell kernel it replaced
+    (csrc/blockjac.cu, called through the library) on the same bf16 blocks:
+    z to rel 1e-5, the dots to rel 1e-5."""
+    from neutfem_tpu_torch.ops import cuda_lib
+
+    bi, r = _blockjac_operands(P, (4, 76, 76), torch.bfloat16, cuda, 90 + P)
+    cells = r.numel() // P
+    lib = cuda_lib.library()
+    z = torch.empty_like(r)
+    part = torch.empty((lib.neutfem_blockjac_blocks(cells), 2), device=cuda)
+    cuda_lib.check(lib.neutfem_blockjac_bf16(bi.data_ptr(), r.data_ptr(), z.data_ptr(),
+                                             part.data_ptr(), P, cells,
+                                             torch.cuda.current_stream().cuda_stream), "old")
+    rz, rr = torch.sum(part, dim=0)
+    got = blockjac.blockjac_dots(bi, r)
+    assert _rel(got[0], z, torch.zeros_like(z)) <= 1e-5
+    _dots_agree(got, (z, rz, rr))
+
+
+def test_blockjac_tiled_kernel_with_unaligned_operands(cuda):
+    """Operands one value past a 16-byte boundary take the one-value path,
+    with the same result as the aligned ones (rel 1e-5)."""
+    dev, r = _eform_operands(27, (2, 16, 64), cuda, 95)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() * a.element_size() + 4, dtype=torch.uint8, device=cuda)
+        out = buf[4:].view(a.dtype).view(a.shape)
+        out.copy_(a)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    want = blockjac.blockjac_dots_plain(dev, r, deviation=True)
+    got = blockjac.blockjac_dev_dots(shifted(dev), shifted(r))
+    assert _rel(got[0], want[0], r) <= 1e-5
+    _dots_agree(got, want)
+
+
+def test_e4m3_widening_is_exact(cuda):
+    """K8's e4m3 widening (cvt e4m3x2 -> f16x2 -> f32) of all 254 finite e4m3
+    bytes equals torch's float8_e4m3fn -> float32: at P = 1 on r = 1 the
+    E-form gives z = 1 + E, exact in float32 for every e4m3 value, so z - 1
+    is the widened entry, equal in value (the same bits but for the sign of
+    zero, which z = 1 + E cannot show; 256 cells: the 16-byte path)."""
+    finite = torch.tensor([b for b in range(256) if b & 0x7F != 0x7F] + [0, 0],
+                          dtype=torch.uint8, device=cuda).view(torch.float8_e4m3fn)
+    z = blockjac.blockjac_dev_dots(finite.reshape(1, 1, -1), torch.ones((1, 256), device=cuda))[0]
+    assert torch.equal((z - 1.0).reshape(-1), finite.float())
+
+
+def test_blockjac_dev_is_deterministic(cuda):
+    dev, r = _eform_operands(27, (4, 76, 76), cuda, 96)
+    a = blockjac.blockjac_dev_dots(dev, r)
+    b = blockjac.blockjac_dev_dots(dev, r)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_blockjac_dev_rejects_what_it_does_not_take(cuda):
+    dev, r = _eform_operands(8, (2, 3, 4), cuda, 0)
+    with pytest.raises(TypeError):  # bf16 blocks through the E-form entry
+        blockjac.blockjac_dev_dots(dev.float().bfloat16(), r)
+    with pytest.raises(TypeError):  # the E-form through the inverse entry
+        blockjac.blockjac_dots(dev, r)
+    with pytest.raises(TypeError):  # a float64 residual
+        blockjac.blockjac_dev_dots(dev, r.double())
+
+
+def _thomas_operands(shape, axis, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    lshape = list(shape)
+    lshape[axis] -= 1
+    rhs = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=device)
+    dinv = torch.as_tensor(rng.uniform(0.3, 0.6, shape), dtype=dtype, device=device)
+    l = torch.as_tensor(rng.uniform(-0.4, 0.4, lshape), dtype=dtype, device=device)
+    return rhs, dinv, l
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,axis", [
+    ((1, 152, 152, 152), -3),      # the 8x8x8 line preconditioner
+    ((2, 1, 77, 114, 114), -3),    # compute_current at 6x6x4: z, y, x
+    ((2, 1, 76, 115, 114), -2),
+    ((2, 1, 76, 114, 115), -1),
+    ((3, 1, 5, 33, 70), -3),       # ragged: lines no multiple of the tile
+    ((3, 1, 5, 33, 70), -2),
+    ((3, 1, 5, 33, 70), -1),
+    ((2, 1, 1, 9, 70), -3),        # n = 1
+    ((1, 300, 3, 5), -3),          # fewer lines than one tile, inner 15
+    ((2, 1, 20, 19, 19), -2)])     # IAEA-3D 1x1's y faces
+def test_thomas_rows_kernel_matches_plain(cuda, dtype, shape, axis):
+    """The tiled K4 against the plain recurrence: rel 1e-12 (float64) / 1e-5
+    (float32), the chunk carries composing the same sums in another
+    association; counted under thomas_rows, never thomas."""
+    rhs, dinv, l = _thomas_operands(shape, axis, dtype, cuda, 20)
+    before = dict(thomas.LAUNCHES)
+    got = thomas.thomas_solve(rhs, dinv, l, axis)
+    torch.cuda.synchronize()
+    assert {k: thomas.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "thomas_rows") for k in before}
+    want = thomas.thomas_solve_plain(rhs, dinv, l, axis)
+    assert _rel(got, want, torch.zeros_like(want)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("axis", [-3, -2, -1])
+def test_thomas_rows_kernel_matches_thread_per_line(cuda, dtype, axis):
+    """The tiled K4 against the thread-per-line kernel it replaced
+    (thomas_kernel, called through the library): rel 1e-12 / 1e-5."""
+    from neutfem_tpu_torch.ops import cuda_lib
+
+    shape = (2, 1, 20, 33, 70)
+    rhs, dinv, l = _thomas_operands(shape, axis, dtype, cuda, 21)
+    n = shape[axis]
+    inner = math.prod(shape[axis % len(shape) + 1:])
+    old = torch.empty_like(rhs)
+    fn = cuda_lib.library().neutfem_thomas_f64 if dtype == torch.float64 else \
+        cuda_lib.library().neutfem_thomas_f32
+    cuda_lib.check(fn(rhs.data_ptr(), dinv.data_ptr(), l.data_ptr(), old.data_ptr(), n,
+                      rhs.numel() // n, inner, torch.cuda.current_stream().cuda_stream), "old")
+    got = thomas.thomas_solve(rhs, dinv, l, axis)
+    assert _rel(got, old, torch.zeros_like(old)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("axis", [-3, -2, -1])
+def test_thomas_rows_kernel_at_every_tile(cuda, axis):
+    """Every tile (lines 1..64 x chunks 1..128, 32 to 1,024 threads) gives
+    the plain version's x (float64, rel 1e-12); a block under one warp is
+    refused and raises."""
+    rhs, dinv, l = _thomas_operands((2, 1, 7, 45, 66), axis, torch.float64, cuda, 22)
+    want = thomas.thomas_solve_plain(rhs, dinv, l, axis)
+    for tl in (1, 2, 4, 8, 16, 32, 64):
+        for ch in (1, 2, 4, 8, 16, 32, 64, 128):
+            if not 32 <= tl * ch <= 1024:
+                continue
+            got = thomas.thomas_solve(rhs, dinv, l, axis, (tl, ch))
+            torch.cuda.synchronize()
+            assert _rel(got, want, torch.zeros_like(want)) <= 1e-12, (tl, ch)
+    with pytest.raises(RuntimeError, match="tiled kernel"):
+        thomas.thomas_solve(rhs, dinv, l, axis, (8, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_thomas_rows_kernel_with_unaligned_operands(cuda, dtype):
+    """Operands one value past a 16-byte boundary: one value per copy, the
+    same result."""
+    rhs, dinv, l = _thomas_operands((2, 1, 30, 16, 64), -3, dtype, cuda, 23)
+    want = thomas.thomas_solve_plain(rhs, dinv, l, -3)
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    got = thomas.thomas_solve(shifted(rhs), shifted(dinv), shifted(l), -3)
+    assert _rel(got, want, torch.zeros_like(want)) <= TOL[dtype]
+
+
+def test_thomas_rows_kernel_is_deterministic(cuda):
+    rhs, dinv, l = _thomas_operands((1, 152, 152, 152), -3, torch.float32, cuda, 24)
+    assert torch.equal(thomas.thomas_solve(rhs, dinv, l, -3), thomas.thomas_solve(rhs, dinv, l, -3))
+
+
+def test_thomas_rows_kernel_refuses_a_line_too_long(cuda):
+    """Lines no one-line tile holds (25,000 float64 elements): the card
+    refuses, the wrapper raises (no fallback), and nothing is counted."""
+    rhs, dinv, l = _thomas_operands((25000, 2), -2, torch.float64, cuda, 25)
+    before = dict(thomas.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tiled kernel"):
+        thomas.thomas_solve(rhs, dinv, l, -2)
+    assert thomas.LAUNCHES == before
