@@ -17,7 +17,9 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    1, 76, 114, 114) and on a ragged 3-group grid, K6 on IAEA-3D 4x4x2 RT2-P2 (K1 = 3) and RT1-P1 (K1 = 2) (38x76x76
    cells), the fused y and x directions (K2, K3) on ZION 48x48 (912x912
    cells, 912 lines per direction: few, long lines) and KOEBERG 32x32
-   (544x544), K4′ on ZION; the five equilibration-folded directions (K7) on
+   (544x544), K4′ at compute_current's 2D y layouts of ZION (2, 1, 1, 913,
+   912) and KOEBERG (4, 1, 1, 545, 544) and at ZION's 2D line
+   preconditioner (1, 1, 912, 912); the five equilibration-folded directions (K7) on
    the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on the 4x4x2
    RT2-P2 and RT1-P1 blocks in the fp8 E-form the context holds and in
    bfloat16, and the kernels' e4m3 widening of all 254 finite bytes against
@@ -25,15 +27,17 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    K5 its group-batched form; K1 and its batch the face-major tiled kernels
    of csrc/fused_z_rows.cu; K4 the tiled kernel of csrc/thomas_rows.cu; K6
    the tiled kernel of csrc/fused_ho_rows.cu, K7 that of
-   csrc/fused_eq_rows.cu; K8 that of csrc/blockjac_tiled.cu; at each of
-   their shapes the thread-per-line (per-cell) kernel they replaced
-   (csrc/fused_dir.cu, csrc/thomas.cu, csrc/fused_ho.cu, csrc/fused_eq.cu,
-   csrc/blockjac.cu on the bf16 inverse) runs beside it on the same
+   csrc/fused_eq_rows.cu; K8 that of csrc/blockjac_tiled.cu; K4′ that of
+   csrc/thomas_wide_rows.cu; at each of their shapes the kernel they
+   replaced (csrc/fused_dir.cu, csrc/thomas.cu's thread-per-line and
+   thomas_wide_kernel, csrc/fused_ho.cu, csrc/fused_eq.cu, csrc/blockjac.cu
+   on the bf16 inverse) runs beside it on the same
    operands, both held to the plain version and timed in turns (its time is
    the row's ``old_ms``), and the tiled kernel is swept over the tiles of
    ``Z_SWEEP`` (z lines: K1, its batch, K7's z variants, and every K4
    layout; for K1 also K2's kernel at the z strides), ``ROWS_SWEEP`` (K2,
-   K3, K5, K7's x and y variants), ``HO_SWEEP`` (K6) or ``_k8_tiles`` (K8);
+   K3, K5, K7's x and y variants), ``HO_SWEEP`` (K6), ``_k8_tiles`` (K8) or
+   ``WIDE_SWEEP`` (K4′);
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
    Jacobi group sweep, the free-running adjoint, and RT0-P0 under
    ``NEUTFEM_EQFOLD=1`` and ``=2`` (K7) — and the KOEBERG 4x4 2D solve
@@ -53,8 +57,8 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 7. 2D paths: ``bench.main_2d("koeberg2d", 32)`` and ``main_2d("zion2d", 48)``
    (float32) against the JAX package's anchors, with the two-grid coarse
    level attached (the group solves resolve "auto" to "twogrid"), the tiled
-   y and x kernels and K4′ launched in each and the thread-per-line y and x
-   kernel not at all;
+   y and x kernels and the tiled K4′ launched in each and the thread-per-line
+   y and x kernel and the first K4′ kernel not at all;
 8. line path: ``bench.main_scale()`` (IAEA-3D 8x8x8, 3.5M cells, float32)
    against its anchor (k within 2e-5, ``SCALE_KEFF_TOL``), with the line
    preconditioner: at least one tiled z Thomas launch (K4) per CG
@@ -102,6 +106,7 @@ The last two lines are a JSON object of per-kernel results and the contract
 line ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -147,6 +152,9 @@ ROWS_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused.py:466",
 # lines x chunks of {8, 16, 32, 64} x {2, 4, 8, 16, 32} (a tile under one
 # warp or over 1024 threads is refused)
 Z_SWEEP = tuple((tl, ch) for tl in (8, 16, 32, 64) for ch in (2, 4, 8, 16, 32))
+# the tiles (lines per block, chunks per line) [3] sweeps the tiled K4′ over
+# (at most 256 threads a block and 32 lines; others are refused)
+WIDE_SWEEP = ((8, 32), (4, 32), (16, 16), (8, 16), (4, 64), (2, 64), (2, 128), (1, 256))
 # (inner, outer_stride, cell_stride) of one group's lines along a direction,
 # from the grid (nz, ny, nx): the wrappers' strides (ops/fused.py)
 STRIDES = {"z": lambda nz, ny, nx: (ny * nx, 0, ny * nx),
@@ -277,26 +285,60 @@ def _current_operands(fes, ctx, di, phi):
     return rFs, dinv, lf, di.axis - 3
 
 
-def _thomas_case(fes, ctx, di, phi, card, label):
-    """K4′ at compute_current's 2D y layout: rhs (ng, 1, faces...) against the
-    plain version.  Returns (max_abs_err, ms, plain_ms, bound)."""
+def _wide_case(label, r, d, l, card):
+    """K4′ at one wide layout (a solve along axis -2, ``thomas.wide_rows``):
+    the wrapper, which launches the tiled kernel of csrc/thomas_wide_rows.cu
+    at the tile ``thomas.wide_tile`` picks, and the first K4′ kernel it
+    replaced (``thomas_wide_kernel``, called through the library: no launch
+    counted), each against the plain version and timed in turns queued behind
+    a sleep; then the tiled kernel at the tiles of ``WIDE_SWEEP``.  Returns a
+    row with ``old_ms``."""
     import torch
 
-    from neutfem_tpu_torch.ops import thomas
+    from neutfem_tpu_torch.ops import cuda_lib, thomas
 
-    rFs, dinv, lf, ax = _current_operands(fes, ctx, di, phi)
-    got = thomas.thomas_solve(rFs, dinv, lf, ax)
-    want = thomas.thomas_solve_plain(rFs, dinv, lf, ax)
+    n, inner = r.shape[-2], r.shape[-1]
+    lines = r.numel() // n
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (r.data_ptr(), d.data_ptr(), l.data_ptr())
+    out = torch.empty_like(r)
+
+    def old():
+        cuda_lib.check(lib.neutfem_thomas_wide_f32(*ptrs, out.data_ptr(), n, lines, inner,
+                                                   stream), "thomas_wide_kernel")
+        return out
+
+    if not thomas.wide_rows(r.shape, -2):
+        raise RuntimeError(f"K4′ {label}: {tuple(r.shape)} is not the wide layout")
+    want = thomas.thomas_solve_plain(r, d, l, -2)
+    before = thomas.LAUNCHES["thomas_wide_rows"]
+    got = thomas.thomas_solve(r, d, l, -2)
     torch.cuda.synchronize()
-    err = _compare(f"{label} thomas {tuple(rFs.shape)} axis {ax}", got, want,
-                   torch.zeros_like(want))
-    ms = _timed(lambda: thomas.thomas_solve(rFs, dinv, lf, ax), 50)
-    plain_ms = _timed(lambda: thomas.thomas_solve_plain(rFs, dinv, lf, ax), 3)
-    lines = rFs.numel() // rFs.shape[ax]
-    bound = _bound((rFs, dinv, lf, got), THOMAS_FLOPS_PER_ELEMENT * rFs.numel())
-    print(f"  {label} thomas axis {ax}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"bound {bound[0]:.4f} ms ({lines} lines of {rFs.shape[ax]} per launch; {card})")
-    return err, ms, plain_ms, bound
+    if thomas.LAUNCHES["thomas_wide_rows"] != before + 1:
+        raise RuntimeError(f"K4′ {label}: the wrapper did not launch the tiled kernel")
+    zero = torch.zeros_like(want)
+    err = _compare(f"K4′ tiled {label}", got, want, zero)
+    _compare(f"K4′ thomas_wide_kernel {label}", old().clone(), want, zero)
+    ms, old_ms, t = _old_new(old, lambda: thomas.thomas_solve(r, d, l, -2))
+    plain_ms = _timed(lambda: thomas.thomas_solve_plain(r, d, l, -2), 3)
+    bound = _bound((r, d, l, got), THOMAS_FLOPS_PER_ELEMENT * r.numel())
+    tile = thomas.wide_tile(n, lines // inner, inner,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    sweep = _tile_sweep(f"K4′ tiled {label}", WIDE_SWEEP,
+                        lambda _, tile: thomas.thomas_solve(r, d, l, -2, tile), want, zero, zero)
+    print(f"  K4′ {label} {tuple(r.shape)}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
+          f"({t[1]:.4f}, {t[2]:.4f}), thomas_wide_kernel {old_ms:.4f} ms ({t[0]:.4f}, "
+          f"{t[3]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of "
+          f"{n}; share of bound {bound[0] / ms:.3f}; {card})")
+    print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    row = _row(f"K4′ Thomas solve for few, long lines (_solve_y), {label}",
+               "neutfem_tpu_torch/csrc/thomas_wide_rows.cu",
+               "neutfem_tpu/ops/pallas_tridiag.py:197", "thomas_wide_rows", err, ms, plain_ms,
+               bound)
+    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/thomas.cu (thomas_wide_kernel)",
+               tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
+    return row
 
 
 def _thomas_rows_case(label, r, d, l, axis, replaces, card):
@@ -907,6 +949,85 @@ def _small_2d_solve(bench, device):
     return k, s._last_outers, s._last_inners
 
 
+def _fission_rhs(s, g):
+    """The first outer's right-hand side of group ``g`` from a flat flux
+    (every group at once, (ng, P, ...), for ``g`` None: the Jacobi sweep's)."""
+    from neutfem_tpu_torch.ops.apply import phi_to_internal
+    from neutfem_tpu_torch.power import _fission_source
+
+    ctx = s._ctx
+    fiss = _fission_source(ctx, phi_to_internal(s._flat_phi()))
+    return ctx["chi"].unsqueeze(-4) * fiss if g is None else ctx["chi"][g] * fiss
+
+
+def _graph_case(label, s, opts, g, card, switches=None):
+    """One group solve of solver ``s`` (group ``g``; None: the whole context,
+    the Jacobi sweep's batched solve) from a cold start: ``group_solve`` (the
+    plan's captured graph, kept in the context) once to capture, once timed,
+    then the plan's eager block loop at ``BLOCK_ITERS`` on the same card.
+    Fails unless both give the same bits and count, the graph solve made
+    max(1, ceil(n / BLOCK_ITERS)) host reads, one replay each and no
+    capture, and every kernel counter moved by as much as in the eager loop
+    (the replays' launches counted as the eager loop launches them).  Every
+    counter is set to 0 just before the timed solve; returns what they read
+    just after it: the launches of that one solve."""
+    import math
+
+    import torch
+
+    from neutfem_tpu_torch import bench, krylov
+    from neutfem_tpu_torch.ops import launch_counters
+    from neutfem_tpu_torch.power import ctx_group, group_plan, group_solve
+
+    def snap():
+        return {k: v for c in launch_counters() for k, v in c.items()}
+
+    fes, ctx = s._fes, s._ctx
+    ctx.setdefault(krylov.CG_PLANS, krylov.CGPlans())
+    ctxg = ctx if g is None else ctx_group(ctx, g)
+    rhs = _fission_rhs(s, g)
+    x0 = torch.zeros_like(rhs)
+    with bench.env(**(switches or {})):
+        group_solve(fes, ctxg, opts, rhs, x0)  # the plan and its capture
+        torch.cuda.synchronize()
+        krylov.reset_stats()
+        for c in launch_counters():
+            c.update(dict.fromkeys(c, 0))
+        t0 = time.perf_counter()
+        got = group_solve(fes, ctxg, opts, rhs, x0)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) * 1e3
+        cg = dict(krylov.STATS)
+        c1 = snap()
+        plan = group_plan(fes, ctxg, opts, rhs)
+        if plan.refill is not None:
+            plan.refill()
+        t0 = time.perf_counter()
+        want = plan.blocks(plan.matvec, rhs * plan.sdi, x0 / plan.sdi, precond=plan.precond,
+                           tol=opts.inner_tol, maxiter=opts.max_inner, block=krylov.BLOCK_ITERS,
+                           **plan.kwargs())
+        x_eager = want.x * plan.sdi
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        c2 = snap()
+    graph_l = {k: v for k, v in c1.items() if v}
+    eager_l = {k: c2[k] - c1[k] for k in c1 if c2[k] != c1[k]}
+    n, k = got.iterations, krylov.BLOCK_ITERS
+    same = n == want.iterations and torch.equal(got.x, x_eager)
+    print(f"  {label}: {n} iterations (eager {want.iterations}), bits "
+          f"{'identical' if same else 'DIFFER'}; graph {graph_ms:.3f} ms, {cg['host_reads']} host "
+          f"reads ({cg['host_reads'] / max(n, 1):.4f} per iteration), {cg['replays']} replays; "
+          f"eager block loop {eager_ms:.3f} ms; launches {graph_l} ({card})")
+    if not same:
+        raise RuntimeError(f"{label}: the graph and the eager block loop disagree")
+    if (cg["host_reads"] != max(1, math.ceil(n / k)) or cg["replays"] != cg["host_reads"]
+            or cg["captures"]):
+        raise RuntimeError(f"{label}: CG counts {cg} for {n} iterations at block {k}")
+    if graph_l != eager_l:
+        raise RuntimeError(f"{label}: replay launch counts {graph_l} != eager {eager_l}")
+    return graph_l
+
+
 def main():
     import torch
 
@@ -922,18 +1043,33 @@ def main():
 
     import numpy as np
 
-    from neutfem_tpu_torch import bench
-    from neutfem_tpu_torch.ops import blockjac, cuda_lib, fused, fused_eq, fused_ho, thomas
+    from neutfem_tpu_torch import bench, krylov
+    from neutfem_tpu_torch.ops import (blockjac, cuda_lib, fused, fused_eq, fused_ho,
+                                       launch_counters, thomas)
     from neutfem_tpu_torch.power import ctx_group
 
-    modules = (fused, fused_ho, thomas, fused_eq, blockjac)
-
     def reset_counts():
-        for m in modules:
-            m.reset_launches()
+        for c in launch_counters():
+            c.update(dict.fromkeys(c, 0))
+        krylov.reset_stats()
 
     def counts():
-        return {k: v for m in modules for k, v in m.LAUNCHES.items()}
+        return {k: v for c in launch_counters() for k, v in c.items()}
+
+    def cg_line(cg=None):
+        """Print the CG counts of a path (``cg``: a bench row's timed solves,
+        default every solve since ``reset_counts``) with its host reads per
+        iteration, and check that every CG ran as graph replays, one host read
+        a replay, at least one a solve and at most ceil(n / BLOCK_ITERS)."""
+        cg = dict(krylov.STATS) if cg is None else cg
+        k = krylov.BLOCK_ITERS
+        print(f"    CG: {cg['solves']} solves, {cg['iterations']} iterations, "
+              f"{cg['host_reads']} host reads ({cg['host_reads'] / max(cg['iterations'], 1):.4f} "
+              f"per iteration), {cg['replays']} graph replays, {cg['captures']} captures "
+              f"(BLOCK_ITERS {k})")
+        if (cg["replays"] != cg["host_reads"] or cg["host_reads"] < cg["solves"]
+                or cg["host_reads"] > cg["solves"] + cg["iterations"] / k):
+            raise RuntimeError(f"CG counts {cg}: not one graph replay and host read per block")
 
     t_all = t0 = time.perf_counter()
     cuda_lib.library()
@@ -1061,22 +1197,16 @@ def main():
         rows[f"{kid} 2D"] = _rows_case(kid, key, zctxg, zdirs[d], zv, zacc0, card,
                                        " (2D, ZION 48x48)")
     zphi = torch.as_tensor(rng.standard_normal((2, *zshape)), dtype=f32, device=dev)
-    err, ms, plain_ms, bound = _thomas_case(zfes, zctx, zdirs[1], zphi, card, "K4′")
-    # what the chunks buy: the thread-per-line K4 kernel at the same layout
-    # (called directly, so no launch is counted)
-    rFs = torch.as_tensor(rng.standard_normal((2, 1, 1, 913, 912)), dtype=f32, device=dev)
-    dd = torch.full_like(rFs, 0.4)
-    ll = torch.full((2, 1, 1, 912, 912), -0.2, dtype=f32, device=dev)
-    out = torch.empty_like(rFs)
-    lib = cuda_lib.library()
-    k4_at_k4p = _timed(lambda: cuda_lib.check(lib.neutfem_thomas_f32(
-        rFs.data_ptr(), dd.data_ptr(), ll.data_ptr(), out.data_ptr(), 913, 2 * 912, 912,
-        torch.cuda.current_stream().cuda_stream), "thomas"), 50)
-    print(f"  K4 thread-per-line kernel at the K4′ layout: {k4_at_k4p:.4f} ms ({card})")
-    rows["K4′"] = _row("K4′ Thomas solve for few, long lines (_solve_y; compute_current's "
-                       "2D y layout)", "neutfem_tpu_torch/csrc/thomas.cu",
-                       "neutfem_tpu/ops/pallas_tridiag.py:197", "thomas_y", err, ms, plain_ms,
-                       bound)
+    rows["K4′"] = _wide_case("compute_current y (ZION 48x48)",
+                             *_current_operands(zfes, zctx, zdirs[1], zphi)[:3], card)
+    # the 2D line preconditioner's solve: one group's cells (1, 1, 912, 912)
+    # through its real factors, on a random residual ([13] runs it in a CG)
+    r1 = torch.as_tensor(rng.standard_normal(zshape), dtype=f32, device=dev)
+    rows["K4′ line"] = _wide_case(
+        "2D line preconditioner (ZION 48x48)", r1,
+        zctxg["precond_line_dinv"].unsqueeze(-4).expand(r1.shape).contiguous(),
+        zctxg["precond_line_l"].unsqueeze(-4).contiguous(), card)
+    del r1
     minv = zctxg["tg"]["schur_minv"]
     rc = torch.as_tensor(rng.standard_normal(minv.shape[0]), dtype=f32, device=dev)
     coarse_ms = _timed(lambda: minv @ rc.to(minv.dtype), 50)
@@ -1096,7 +1226,11 @@ def main():
     for kid, key, d in (("K2", "y", 1), ("K3", "x", 0)):
         rows[f"{kid} KOEBERG"] = _rows_case(kid, key, kctxg, kdirs[d], kv, kacc0, card,
                                             " (2D, KOEBERG 32x32)")
-    del krun, kctxg
+    kphi = torch.as_tensor(rng.standard_normal((4, *kshape)), dtype=f32, device=dev)
+    rows["K4′ KOEBERG"] = _wide_case("compute_current y (KOEBERG 32x32)",
+                                     *_current_operands(kfes, krun.solver._ctx, kdirs[1],
+                                                        kphi)[:3], card)
+    del krun, kctxg, kphi
     print(f"    [3] {time.perf_counter() - t0:.1f} s")
 
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
@@ -1163,6 +1297,7 @@ def main():
     res = bench.main(6, 4)
     launches = counts()
     print(f"    launches {launches}")
+    cg_line(res["detail"]["cg"])
     det = res["detail"]
     keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
     print(f"    keff {keff} (anchor {KEFF_ANCHOR}), outers {outers} ({OUTERS_ANCHOR}), "
@@ -1191,6 +1326,7 @@ def main():
         res = bench.main_ho(order)
         launches = counts()
         print(f"    launches {launches}")
+        cg_line(res["detail"]["cg"])
         det = res["detail"]
         keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
         print(f"    keff {keff}, outers {outers}, inners {inners} (anchors "
@@ -1231,6 +1367,7 @@ def main():
         res = bench.main_2d(core, MESH_2D[core])
         launches = counts()
         print(f"    launches {launches}")
+        cg_line(res["detail"]["cg"])
         det = res["detail"]
         keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
         print(f"    keff {keff}, outers {outers}, inners {inners} (anchors "
@@ -1243,20 +1380,20 @@ def main():
         if det["preconditioner"] != "twogrid":
             raise RuntimeError(f"{core}: the context carries no two-grid level "
                                f"(preconditioner {det['preconditioner']!r})")
-        for key in ("y_rows", "x_rows", "thomas_y"):
+        for key in ("y_rows", "x_rows", "thomas_wide_rows"):
             if launches[key] <= 0:
                 raise RuntimeError(f"{core}: {key} not launched on the 2D path")
-        for key in ("y", "x"):
+        for key in ("y", "x", "thomas_y"):
             if launches[key] != 0:
-                raise RuntimeError(f"{core}: the thread-per-line {key} kernel launched "
+                raise RuntimeError(f"{core}: the replaced kernel {key} launched "
                                    f"{launches[key]} times")
         launches_2d[core] = launches
         print(f"    [7] {core} {time.perf_counter() - t0:.1f} s")
     for rid, core in (("K2 2D", "zion2d"), ("K3 2D", "zion2d"), ("K2 KOEBERG", "koeberg2d"),
                       ("K3 KOEBERG", "koeberg2d")):
         rows[rid]["launches"] = launches_2d[core][rows[rid].pop("key")]
-    key = rows["K4′"].pop("key")
-    rows["K4′"]["launches"] = sum(launches[key] for launches in launches_2d.values())
+    for rid, core in (("K4′", "zion2d"), ("K4′ KOEBERG", "koeberg2d")):
+        rows[rid]["launches"] = launches_2d[core][rows[rid].pop("key")]
 
     # [8] the line path
     t0 = time.perf_counter()
@@ -1265,6 +1402,7 @@ def main():
     res = bench.main_scale()
     launches = counts()
     print(f"    launches {launches}")
+    cg_line(res["detail"]["cg"])
     det = res["detail"]
     keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
     print(f"    keff {keff}, outers {outers}, inners {inners} (anchors {SCALE_ANCHOR}); "
@@ -1292,6 +1430,7 @@ def main():
     res = bench.main_sweep("jacobi", run=run)
     launches = counts()
     print(f"    launches {launches}")
+    cg_line(res["detail"]["cg"])
     det = res["detail"]
     print(f"    keff {det['keff']} (Gauss-Seidel at the same tolerances {gs['keff']}, "
           f"{gs['outer_iterations']} / {gs['inner_iterations']}; phase [5] {keff_main}), "
@@ -1323,6 +1462,7 @@ def main():
     res = bench.main_adjoint()
     launches = counts()
     print(f"    launches {launches}")
+    cg_line(res["detail"]["cg"])
     det = res["detail"]
     print(f"    keff_adjoint {det['keff_adjoint']}, keff_direct {det['keff_direct']} (anchors "
           f"{ADJOINT_ANCHOR}), outers {det['outer_iterations']}, inners "
@@ -1377,6 +1517,7 @@ def main():
         raise RuntimeError(f"coarse init: keff {k} not within {VARIANT_KEFF_TOL} of {k_cheby}")
     launches = counts()
     print(f"    CMFD and coarse init: launches {launches}")
+    cg_line()
     if (any(launches[k] <= 0 for k in (*Z_KEYS, "thomas_rows"))
             or any(launches[k] for k in (*Z_OLD, "thomas"))):
         raise RuntimeError("CMFD / coarse init: the tiled K1-K3 did not serve them")
@@ -1407,6 +1548,7 @@ def main():
             res = bench.main(6, 4)
         launches = counts()
         print(f"    launches {launches}")
+        cg_line(res["detail"]["cg"])
         det = res["detail"]
         keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
         print(f"    keff {keff}, outers {outers}, inners {inners}; {res['value'] * 1e3:.3f} "
@@ -1432,6 +1574,7 @@ def main():
         res = bench.main_ho(1)
     launches = counts()
     print(f"    launches {launches}")
+    cg_line(res["detail"]["cg"])
     det = res["detail"]
     keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
     print(f"    keff {keff}, outers {outers}, inners {inners} (anchors {HO_ANCHORS[1][:2]}, "
@@ -1461,6 +1604,7 @@ def main():
         res = bench.main(6, 4)
     launches = counts()
     print(f"    launches {launches}")
+    cg_line(res["detail"]["cg"])
     det = res["detail"]
     keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
     print(f"    keff {keff}, outers {outers}, inners {inners}; {res['value'] * 1e3:.3f} ms/outer "
@@ -1473,6 +1617,50 @@ def main():
     if any(launches[k] for k in (*Z_OLD, "thomas")):
         raise RuntimeError("NEUTFEM_CGCG=1: a thread-per-line kernel served z, y, x or K4")
     print(f"    [12] CGCG {time.perf_counter() - t0:.1f} s")
+
+    # [13] the CG's captured blocks against the eager block loop on the card
+    t0 = time.perf_counter()
+    from neutfem_tpu_torch.power import SolveOptions
+
+    print(f"[13] CG graphs vs the eager block loop (BLOCK_ITERS {krylov.BLOCK_ITERS}), one cold "
+          "group solve each, float32")
+    run = bench.BenchmarkRun(spec, mesh_n=6, mesh_nz=4, device=dev, dtype=f32)
+    s = run.solver
+    s.set_tol(*bench.FULL_TOL)
+    _graph_case("IAEA-3D 6x6x4 RT0 group 0", s, s._opts(), 0, card)
+    _graph_case("IAEA-3D 6x6x4 Jacobi sweep (both groups)", s, s._opts(), None, card)
+    _graph_case("IAEA-3D 6x6x4 NEUTFEM_CGCG=1 group 0", s, s._opts(), 0, card,
+                {"NEUTFEM_CGCG": "1"})
+    del run, s
+    with bench.env(NEUTFEM_EQFOLD="2"):
+        run = bench.BenchmarkRun(spec, mesh_n=6, mesh_nz=4, device=dev, dtype=f32)
+    s = run.solver
+    s.set_tol(*bench.FULL_TOL)
+    _graph_case("IAEA-3D 6x6x4 NEUTFEM_EQFOLD=2 group 0", s, s._opts(), 0, card,
+                {"NEUTFEM_EQFOLD": "2"})
+    del run, s
+    run = bench.BenchmarkRun(spec, mesh_n=4, mesh_nz=2, device=dev, dtype=f32, rt_order=2)
+    s = run.solver
+    s.set_tol(*bench.HO_TOL)
+    graph_l = _graph_case("IAEA-3D 4x4x2 RT2-P2 group 0 (K8 E-form)", s, s._opts(), 0, card)
+    if graph_l.get("blockjac_dev", 0) <= 0:
+        raise RuntimeError("RT2-P2 group solve: K8 on the E-form did not run in the graph")
+    del run, s
+    run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["zion2d"], mesh_n=48,
+                             device=dev, dtype=f32)
+    s = run.solver
+    s.set_tol(*bench.FULL_TOL)
+    if s.preconditioner() != "twogrid":
+        raise RuntimeError(f"ZION 48x48: preconditioner {s.preconditioner()!r}, not twogrid")
+    _graph_case("ZION 48x48 group 0 (two-grid)", s, s._opts(), 0, card)
+    line_opts = dataclasses.replace(s._opts(), inner_precond="line")
+    graph_l = _graph_case("ZION 48x48 group 0 (line preconditioner: K4′)", s, line_opts, 0, card)
+    # the launches of the one timed line-preconditioned group solve
+    rows["K4′ line"]["launches"] = graph_l.get(rows["K4′ line"].pop("key"), 0)
+    if graph_l.get("thomas_wide_rows", 0) <= 0 or graph_l.get("thomas_y", 0):
+        raise RuntimeError("ZION line preconditioner: the tiled K4′ did not run in the graph")
+    del run, s
+    print(f"    [13] {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

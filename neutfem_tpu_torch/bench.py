@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import krylov
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
 from .mesh import boundary_attribute
 from .power import power_iteration
@@ -216,6 +217,14 @@ class BenchmarkRun:
         return 1e5 * (1.0 / self.spec.kref - 1.0 / self.keff)
 
 
+def _cg_detail() -> dict:
+    """The CG counts of the timed solve(s) (``krylov.STATS``, reset just
+    before them) and host reads per CG iteration."""
+    st = dict(krylov.STATS)
+    st["host_reads_per_iteration"] = round(st["host_reads"] / max(st["iterations"], 1), 4)
+    return st
+
+
 def _device_name(device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
 
@@ -236,6 +245,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
     # solve 1 is a warm-up; then three timed solves from a cold flux, median
     run.solve(tol=FULL_TOL)
     walls = []
+    krylov.reset_stats()
     for _ in range(3):
         run.solver.reset_flux()
         t0 = time.time()
@@ -266,6 +276,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
             "schur_cg_dofs_per_s": round(dofs_per_s, 1),
             "solve_wall_s": round(wall, 3),
             "solve_walls_3x_s": [round(w, 3) for w in walls],
+            "cg": _cg_detail(),
             "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}",
             "device": _device_name(device),
             "dtype": str(run.solver._dtype),
@@ -294,6 +305,7 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
                        device=device, dtype=dtype, rt_order=order)
     run.solve(tol=HO_TOL)
     run.solver.reset_flux()
+    krylov.reset_stats()
     t0 = time.time()
     keff = run.solver.SolveKeff()  # ends in a device -> host read of k
     wall = time.time() - t0
@@ -308,7 +320,7 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
     detail["block_precond"] = {k: str(v.dtype) for k, v in run.solver._ctx.items()
                                if k.startswith("precond_blk")}
     detail.update({
-        "solve_wall_s": round(wall, 3),
+        "solve_wall_s": round(wall, 3), "cg": _cg_detail(),
         "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz} RT{order}-P{order}",
         "device": _device_name(device),
         "dtype": str(run.solver._dtype),
@@ -333,6 +345,7 @@ def _timed_run(spec, what: str, device, dtype, **kwargs):
     run = BenchmarkRun(spec, verbose=False, device=device, dtype=dtype, **kwargs)
     run.solve(tol=FULL_TOL)
     run.solver.reset_flux()
+    krylov.reset_stats()
     t0 = time.time()
     keff = run.solver.SolveKeff()  # ends in a device -> host read of k
     return run, keff, time.time() - t0
@@ -355,7 +368,7 @@ def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
             "n_cells": s.GetNumElements(), "n_groups": spec.ng,
             "outer_iterations": outers,
             "inner_iterations": s._last_inners,
-            "solve_wall_s": round(wall, 3), "mesh": f"{mesh_n}x{mesh_n}",
+            "solve_wall_s": round(wall, 3), "cg": _cg_detail(), "mesh": f"{mesh_n}x{mesh_n}",
             "device": _device_name(s._device), "dtype": str(s._dtype),
             "preconditioner": s.preconditioner(),
         },
@@ -380,7 +393,7 @@ def main_scale(device="cuda", dtype=torch.float32) -> dict:
             "n_cells": s.GetNumElements(),
             "outer_iterations": outers,
             "inner_iterations": s._last_inners,
-            "solve_wall_s": round(wall, 3), "mesh": "8x8x8",
+            "solve_wall_s": round(wall, 3), "cg": _cg_detail(), "mesh": "8x8x8",
             "device": _device_name(s._device), "dtype": str(s._dtype),
             "preconditioner": s.preconditioner(),
         },
@@ -405,6 +418,7 @@ def main_adjoint(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.f
     s = run.solver
     s.SolveAdjoint(use_direct_keff=False)
     s._phi_adj = None  # cold adjoint flux
+    krylov.reset_stats()
     t0 = time.time()
     k_adj = s.SolveAdjoint(use_direct_keff=False)  # ends in device -> host reads
     wall = time.time() - t0
@@ -419,7 +433,8 @@ def main_adjoint(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.f
             "n_cells": s.GetNumElements(),
             "outer_iterations": outers,
             "inner_iterations": int(np.sum(hist[:, 3])),
-            "solve_wall_s": round(wall, 3), "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}",
+            "solve_wall_s": round(wall, 3), "cg": _cg_detail(),
+            "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}",
             "device": _device_name(s._device), "dtype": str(s._dtype),
         },
     }
@@ -454,6 +469,7 @@ def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device=
     opts = dataclasses.replace(s._opts(), sweep=sweep)
     if s._device.type == "cuda":
         torch.cuda.synchronize(s._device)
+    krylov.reset_stats()
     t0 = time.time()
     res = power_iteration(s._fes, s._ng, opts, s._ctx, s._flat_phi(), 1.0)
     keff = float(res["keff"])  # a device -> host read
@@ -466,7 +482,8 @@ def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device=
             "keff": round(keff, 7), "n_cells": s.GetNumElements(),
             "outer_iterations": outers, "inner_iterations": res["inner_iterations"],
             "converged_not_capped": bool(outers < SWEEP_TOL[3]),
-            "solve_wall_s": round(wall, 3), "mesh": f"{run.mesh_n}x{run.mesh_n}x{run.mesh_nz}",
+            "solve_wall_s": round(wall, 3), "cg": _cg_detail(),
+            "mesh": f"{run.mesh_n}x{run.mesh_n}x{run.mesh_nz}",
             "device": _device_name(s._device), "dtype": str(s._dtype),
         },
     }

@@ -29,7 +29,7 @@ from typing import Dict
 import torch
 
 from .fespace import FESpace
-from .krylov import pcg
+from .krylov import CG_PLANS, CGGraph, pcg
 
 __all__ = ["cmfd_correction"]
 
@@ -95,6 +95,29 @@ def _lo_sources(ctx, phi_bar, keff):
     return rhs + scat * ctx["vol"]
 
 
+def _lo_operator(fes: FESpace, ctx: Dict, deff: Dict, diag_fix):
+    """(matvec, precond, graph) of the low-order CG.  On the card, with the
+    context's ``krylov.CGPlans``, the operator and its diagonal live in static
+    buffers made once per context (refilled from ``deff`` and ``diag_fix``
+    at every call) and the CG replays one graph; otherwise they close over
+    the call's tensors and the graph is the CG's own (None)."""
+    plans = ctx.get(CG_PLANS) if diag_fix.device.type == "cuda" else None
+    if plans is None:
+        return (lambda v: _lo_matvec(fes, ctx, deff, v), lambda r: r / diag_fix, None)
+    key = ("cmfd", tuple(diag_fix.shape), diag_fix.dtype)
+    if key not in plans.plans:
+        base = {k: v for k, v in ctx.items() if k != CG_PLANS}
+        sdeff = {k: torch.empty_like(v) for k, v in deff.items()}
+        sdiag = torch.empty_like(diag_fix)
+        plans.plans[key] = (lambda v: _lo_matvec(fes, base, sdeff, v), lambda r: r / sdiag,
+                            CGGraph(), sdeff, sdiag)
+    matvec, precond, graph, sdeff, sdiag = plans.plans[key]
+    for k, v in deff.items():
+        sdeff[k].copy_(v)
+    sdiag.copy_(diag_fix)
+    return matvec, precond, graph
+
+
 def cmfd_correction(fes: FESpace, ctx: Dict, phi, J, keff, omega: float = 1.0,
                     tol: float = 1e-8, maxiter: int = 100, mode: str = "fixed"):
     """One CMFD correction step at the current (phi, J, keff); returns
@@ -117,8 +140,9 @@ def cmfd_correction(fes: FESpace, ctx: Dict, phi, J, keff, omega: float = 1.0,
         diag_lo = diag_lo + ctx[f"area_{key}"] * (deff[key].narrow(ax, 0, nf - 1)
                                                   + deff[key].narrow(ax, 1, nf - 1))
     diag_fix = torch.where(torch.abs(diag_lo) < 1e-30, 1.0, diag_lo)
-    res = pcg(lambda v: _lo_matvec(fes, ctx, deff, v), _lo_sources(ctx, phi_bar, keff),
-              phi_bar, precond=lambda r: r / diag_fix, tol=tol, maxiter=maxiter)
+    matvec, precond, graph = _lo_operator(fes, ctx, deff, diag_fix)
+    res = pcg(matvec, _lo_sources(ctx, phi_bar, keff), phi_bar, precond=precond, tol=tol,
+              maxiter=maxiter, graph=graph)
     safe = torch.abs(phi_bar) > 1e-14
     ratio = torch.where(safe, res.x / torch.where(safe, phi_bar, 1.0), 1.0)
     ratio = torch.clamp(ratio, 0.5, 2.0)

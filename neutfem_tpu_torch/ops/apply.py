@@ -37,6 +37,7 @@ from __future__ import annotations
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..fespace import DirectionInfo, FESpace
@@ -102,9 +103,22 @@ def _pad_zero(arr, axis: int, front: bool):
     return torch.cat([z, arr] if front else [arr, z], dim=ax)
 
 
+_CONSTS: dict = {}  # (values, dtype, device) -> tensor, on the card
+
+
 def _const(a, like):
-    """A host constant (numpy) as a tensor of ``like``'s dtype and device."""
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    """A host constant (numpy) as a tensor of ``like``'s dtype and device.  On
+    the card it is made once per (values, dtype, device): a host-to-device
+    copy would synchronize the stream, and may not run inside a captured CUDA
+    graph (``krylov.CGGraph``)."""
+    if like.device.type != "cuda":
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    a = np.ascontiguousarray(a)
+    key = (a.shape, a.dtype.str, a.tobytes(), like.dtype, str(like.device))
+    hit = _CONSTS.get(key)
+    if hit is None:
+        hit = _CONSTS[key] = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return hit
 
 
 def _pair(phi, BXf):

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, launch_counter
 
 __all__ = ["blockjac_dots", "blockjac_dev_dots", "blockjac_dots_plain", "blockjac_tile",
            "LAUNCHES", "reset_launches"]
@@ -42,7 +42,7 @@ __all__ = ["blockjac_dots", "blockjac_dev_dots", "blockjac_dots_plain", "blockja
 #: "blockjac" counts the thread-per-cell kernel of ``csrc/blockjac.cu``, which
 #: no wrapper launches since the tiled one measured faster (PERF.md); the
 #: paths' checks hold it at 0.
-LAUNCHES = {"blockjac": 0, "blockjac_tiled": 0, "blockjac_dev": 0}
+LAUNCHES = launch_counter({"blockjac": 0, "blockjac_tiled": 0, "blockjac_dev": 0})
 
 #: The kernel's storage forms (``csrc/blockjac_tiled.cu``).
 _FORMS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}

@@ -24,8 +24,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
 SOURCES = ("fused_dir.cu", "fused_rows.cu", "fused_z_rows.cu", "thomas.cu", "thomas_rows.cu",
-           "fused_ho.cu", "fused_ho_rows.cu", "fused_eq.cu", "fused_eq_rows.cu", "blockjac.cu",
-           "blockjac_tiled.cu")
+           "thomas_wide_rows.cu", "fused_ho.cu", "fused_ho_rows.cu", "fused_eq.cu",
+           "fused_eq_rows.cu", "blockjac.cu", "blockjac_tiled.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,6 +70,10 @@ _SIGNATURES = {
     # r, d, l, out, n, outer, inner, tl, ch, stream
     "neutfem_thomas_rows_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2 + [_P],
     "neutfem_thomas_rows_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2 + [_P],
+    "neutfem_thomas_wide_rows_f32": ([_P] * 4 + [ctypes.c_int] + [_I64] * 2
+                                     + [ctypes.c_int] * 2 + [_P]),
+    "neutfem_thomas_wide_rows_f64": ([_P] * 4 + [ctypes.c_int] + [_I64] * 2
+                                     + [ctypes.c_int] * 2 + [_P]),
     "neutfem_thomas_wide_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     "neutfem_thomas_wide_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     # acc, v, dm, l, alpha, tab, zs, k1, lpow, n, lines, inner, outer_stride,

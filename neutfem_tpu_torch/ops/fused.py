@@ -46,7 +46,7 @@ import math
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, launch_counter
 
 __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
            "fused_schur_z_batched", "fused_schur_y_batched", "fused_schur_x_batched",
@@ -59,9 +59,9 @@ __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
 #: "x_batched" count the thread-per-line kernels of ``csrc/fused_dir.cu``,
 #: which no wrapper launches since the tiled kernels measured faster at every
 #: shape (PERF.md); the paths' checks hold them at 0.
-LAUNCHES = {"z": 0, "y": 0, "x": 0, "z_rows": 0, "y_rows": 0, "x_rows": 0,
-            "z_batched": 0, "y_batched": 0, "x_batched": 0,
-            "z_batched_rows": 0, "y_batched_rows": 0, "x_batched_rows": 0}
+LAUNCHES = launch_counter({"z": 0, "y": 0, "x": 0, "z_rows": 0, "y_rows": 0, "x_rows": 0,
+                           "z_batched": 0, "y_batched": 0, "x_batched": 0,
+                           "z_batched_rows": 0, "y_batched_rows": 0, "x_batched_rows": 0})
 
 #: Lines per block of the tiled kernel by dtype, and chunks per line: in
 #: float32 the best or within a few per cent of the best tile chip_smoke.py

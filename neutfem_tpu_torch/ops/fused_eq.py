@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, launch_counter
 from .fused import ROWS_CHUNKS, ROWS_LINES, SMEM_PER_BLOCK, fit_tile, rows_smem
 from .fused import fused_dir_plain
 
@@ -44,8 +44,8 @@ __all__ = ["fused_schur_x_eq", "fused_schur_z_eq", "fused_schur_x_eq2", "fused_s
 #: ``fused_eq_kernel`` of ``csrc/fused_eq.cu``, which no wrapper launches
 #: since the tiled kernel measured faster (PERF.md); the paths' checks hold
 #: those keys at 0.
-LAUNCHES = {k: 0 for key in ("x_eq", "z_eq", "x_eq2", "y_eq2", "z_eq2")
-            for k in (key, f"{key}_rows")}
+LAUNCHES = launch_counter({k: 0 for key in ("x_eq", "z_eq", "x_eq2", "y_eq2", "z_eq2")
+                           for k in (key, f"{key}_rows")})
 
 #: Shared-memory rows per line of the tiled kernel: y (then v, z, F), dm, l,
 #: acc or ce, sdi (then u).

@@ -36,12 +36,13 @@ In all three, the face entry f of line b sits at ``b + f*lines``.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, launch_counter
 from .fused import SMEM_PER_BLOCK, row_stride
 
 __all__ = ["HoTables", "ho_coeff_tables", "ho_tables", "kernel_mode_index",
@@ -53,7 +54,8 @@ __all__ = ["HoTables", "ho_coeff_tables", "ho_tables", "kernel_mode_index",
 #: thread-per-(transverse mode, line) kernel of ``csrc/fused_ho.cu``, which no
 #: wrapper launches since the tiled kernel measured faster at every shape
 #: (PERF.md); the paths' checks hold them at 0.
-LAUNCHES = {"ho_z": 0, "ho_y": 0, "ho_x": 0, "ho_z_rows": 0, "ho_y_rows": 0, "ho_x_rows": 0}
+LAUNCHES = launch_counter({"ho_z": 0, "ho_y": 0, "ho_x": 0,
+                           "ho_z_rows": 0, "ho_y_rows": 0, "ho_x_rows": 0})
 
 #: Longitudinal orders the CUDA kernels are instantiated for (RT1-P1, RT2-P2).
 KERNEL_K1 = (2, 3)
@@ -129,17 +131,26 @@ class HoTables(NamedTuple):
                                self.qt.reshape(T, -1)], axis=1)
 
 
-_TABLES: dict = {}  # id(di) -> (di, HoTables or None), kept alive with di
+_TABLES: dict = {}  # id(di) -> (weak reference to di, HoTables or None)
+
+
+def _forget(di_key: int, tables_key: int) -> None:
+    """Drop a freed direction's tables and their copies on the device."""
+    _TABLES.pop(di_key, None)
+    for key in [k for k in _DEVICE_TABLES if k[0] == tables_key]:
+        del _DEVICE_TABLES[key]
 
 
 def ho_tables(fes, di):
     """``HoTables`` of direction ``di``, or None (see ``ho_coeff_tables``);
-    built once per direction object (the matvec asks every CG iteration)."""
+    built once per direction object (the matvec asks every CG iteration) and
+    dropped, with their copies on the device, when the direction is freed."""
     hit = _TABLES.get(id(di))
-    if hit is None or hit[0] is not di:
+    if hit is None or hit[0]() is not di:
         tabs = ho_coeff_tables(fes, di)
-        hit = (di, None if tabs is None else HoTables(*tabs, _mode_groups(fes, di)))
+        hit = (weakref.ref(di), None if tabs is None else HoTables(*tabs, _mode_groups(fes, di)))
         _TABLES[id(di)] = hit
+        weakref.finalize(di, _forget, id(di), id(hit[1]))
     return hit[1]
 
 

@@ -13,12 +13,14 @@ line cut into chunks, staged through shared memory face-major where the
 lines' neighbours are contiguous, line-major along the minor axis; at the
 tile ``thomas_tile`` picks; launches counted under ``"thomas_rows"``).  The
 K4′ layout (``wide_rows``) has few, long lines (912 lines of 913 faces per
-group at ZION 48x48); its kernel splits each line into chunks, one thread
-each, and stitches the chunks' recurrences together (``csrc/thomas.cu``;
-launches counted under ``"thomas_y"``).  ``"thomas"`` counts the
-thread-per-line kernel of ``csrc/thomas.cu``, which no wrapper launches
-since the tiled one measured faster (PERF.md); the paths' checks hold it at
-0.
+group at ZION 48x48); its kernel (``csrc/thomas_wide_rows.cu``) stages a
+tile of 8 neighbouring lines face-major in shared memory, cuts each line into
+32 chunks, one thread each, and composes the chunks' carries in order, at
+the tile ``wide_tile`` picks; launches counted under
+``"thomas_wide_rows"``.  ``"thomas"`` and ``"thomas_y"`` count the
+thread-per-line kernel and the first K4′ kernel of ``csrc/thomas.cu``
+(``thomas_wide_kernel``), which no wrapper launches since the tiled ones
+measured faster (PERF.md); the paths' checks hold them at 0.
 
     forward:  z_0 = r_0;              z_i = r_i - l_{i-1} z_{i-1}
     diagonal: x_{n-1} = z_{n-1} d_{n-1}
@@ -31,20 +33,30 @@ import math
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, launch_counter
 from .fused import SMEM_PER_BLOCK
 
-__all__ = ["thomas_solve", "thomas_solve_plain", "thomas_tile", "wide_rows", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["thomas_solve", "thomas_solve_plain", "thomas_tile", "wide_rows", "wide_smem",
+           "wide_tile", "LAUNCHES", "reset_launches"]
 
 #: Kernel launches of this module (incremented where the kernel is launched):
-#: "thomas_rows" K4 (the tiled kernel), "thomas_y" K4′, "thomas" the
-#: thread-per-line K4 (launched by no wrapper).
-LAUNCHES = {"thomas": 0, "thomas_rows": 0, "thomas_y": 0}
+#: "thomas_rows" K4 (the tiled kernel), "thomas_wide_rows" K4′ (the tiled
+#: kernel), "thomas" the thread-per-line K4 and "thomas_y" the first K4′
+#: kernel (both launched by no wrapper).
+LAUNCHES = launch_counter({"thomas": 0, "thomas_rows": 0, "thomas_y": 0,
+                           "thomas_wide_rows": 0})
 
 #: The tiled K4's tile, lines per block and chunks per line (K1's, the
 #: kernel it copies).
 THOMAS_LINES, THOMAS_CHUNKS = 32, 8
+#: The tiled K4′'s chunks per line (powers of two) and most threads per
+#: block.
+WIDE_CHUNKS, WIDE_THREADS = (16, 32, 64, 128, 256), 256
+#: ``wide_tile`` takes the fewest chunks that keep a chunk within
+#: ``WIDE_LEN`` elements (the serial steps of a sweep), and keeps at least
+#: ``WIDE_MIN_LINES`` lines a block while it halves them to fill the card (8
+#: float32 values are one 32-byte sector of a face row).
+WIDE_LEN, WIDE_MIN_LINES = 32, 8
 #: The TPU dispatch's block budget (``pallas_tridiag._VMEM_BUDGET``, 8 MiB).
 _ROWS_BUDGET = 8 * 2**20
 
@@ -88,6 +100,43 @@ def thomas_tile(n: int, dtype, line_major: bool):
     return tl, ch
 
 
+def wide_smem(n: int, tl: int, ch: int, elem_bytes: int) -> int:
+    """Shared memory bytes of one tile of the tiled K4′: the r/z/x, d and l
+    rows of ``tl`` lines of ``n`` elements and the chunks' four carry rows
+    (``csrc/thomas_wide_rows.cu``)."""
+    return (3 * n + 4 * ch) * tl * elem_bytes
+
+
+def wide_tile(n: int, outer: int, inner: int, sms: int, dtype=torch.float32):
+    """(lines per block, chunks per line) of the tiled K4′ for ``outer`` slabs
+    of ``inner`` lines of ``n`` elements on a card of ``sms`` SMs: the fewest
+    chunks (``WIDE_CHUNKS``) that keep a chunk within ``WIDE_LEN`` elements
+    (the most chunks for longer lines), and the most lines (``WIDE_THREADS``
+    // chunks, at most 32) halved while the tile exceeds the card's shared
+    memory, then while the launch would leave an SM without a block, down to
+    ``WIDE_MIN_LINES``.  None where one line does not fit."""
+    ch = next((c for c in WIDE_CHUNKS if -(-n // c) <= WIDE_LEN), WIDE_CHUNKS[-1])
+    elem = torch.finfo(dtype).bits // 8
+    tl = min(32, WIDE_THREADS // ch)
+    while tl > 1 and wide_smem(n, tl, ch, elem) > SMEM_PER_BLOCK:
+        tl //= 2
+    if wide_smem(n, tl, ch, elem) > SMEM_PER_BLOCK:
+        return None
+    while tl > WIDE_MIN_LINES and outer * -(-inner // tl) < sms:
+        tl //= 2
+    return tl, ch
+
+
+_SMS: dict = {}  # device index -> SM count
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def thomas_solve_plain(rhs, dinv, l, axis: int):
     """Plain PyTorch version: the recurrence along ``axis``, vectorized over
     every other axis.  ``dinv`` has rhs's shape; ``l`` one entry fewer along
@@ -110,8 +159,9 @@ def thomas_solve(rhs, dinv, l, axis: int, tile=None):
     """Solve T x = rhs along ``axis`` with precomputed LDL^T factors.
 
     ``dinv`` must have rhs's shape and ``l`` rhs's shape with n-1 entries along
-    ``axis`` (callers broadcast first).  ``tile``: the tiled K4's (lines,
-    chunks) in place of ``thomas_tile``'s.  Returns a new tensor."""
+    ``axis`` (callers broadcast first).  ``tile``: the tiled kernel's (lines,
+    chunks) in place of ``thomas_tile``'s (``wide_tile``'s at the K4′
+    layout).  Returns a new tensor."""
     if rhs.device.type == "cpu":
         return thomas_solve_plain(rhs, dinv, l, axis)
     if rhs.device.type != "cuda":
@@ -141,8 +191,13 @@ def thomas_solve(rhs, dinv, l, axis: int, tile=None):
     stream = torch.cuda.current_stream(rhs.device).cuda_stream
     suffix = "f32" if rhs.dtype == torch.float32 else "f64"
     if wide_rows(rhs.shape, axis):
-        key, what = "thomas_y", "thomas_solve (K4′)"
-        err = getattr(lib, f"neutfem_thomas_wide_{suffix}")(*ptrs, lines, inner, stream)
+        tile = tile or wide_tile(n, lines // inner, inner, _sm_count(rhs.device), rhs.dtype)
+        if tile is None:
+            raise ValueError(f"thomas_solve (K4′): one line of {n} elements exceeds the "
+                             f"card's shared memory")
+        key, what = "thomas_wide_rows", f"thomas_solve (K4′ tiled kernel, tile {tile}, n {n})"
+        err = getattr(lib, f"neutfem_thomas_wide_rows_{suffix}")(*ptrs, lines // inner, inner,
+                                                                  *tile, stream)
     else:
         tile = tile or thomas_tile(n, rhs.dtype, inner == 1)
         key, what = "thomas_rows", f"thomas_solve (tiled kernel, tile {tile}, n {n})"

@@ -8,8 +8,10 @@ tolerance with its certification guard.
 
 The JAX package runs the outer loop in one ``lax.while_loop``.  Here it is a
 Python loop over device tensors with one host sync per outer iteration (the
-stop test) and one per CG iteration (``krylov.pcg``); the control flow and the
-arithmetic follow the JAX loop step for step, so outer and inner counts agree.
+stop test) and one per block of CG iterations (``krylov``: on the card a
+captured graph of ``krylov.BLOCK_ITERS`` iterations, made once per context,
+group and path, ``group_plan``); the control flow and the arithmetic follow
+the JAX loop step for step, so outer and inner counts agree.
 
 Ported: direct and adjoint solves (transposed couplings, reverse group sweep,
 optionally at a fixed eigenvalue), the Gauss-Seidel ("gs") and the Jacobi
@@ -37,14 +39,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from .accel import chebyshev_apply_blend, chebyshev_init
 from .cmfd import cmfd_correction
 from .fespace import GRID_AXIS, FESpace
-from .krylov import KrylovResult, pcg, pcg_fused
+from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, pcg, pcg_blocks, pcg_fused,
+                     pcg_fused_blocks)
 from .ops.apply import (
     J_to_public,
     apply_BT_dir,
@@ -60,8 +63,8 @@ from .ops.direct import direct_solve
 from .ops.tridiag import tridiag_solve
 from .twogrid import twogrid_apply
 
-__all__ = ["SolveOptions", "ctx_group", "resolve_precond", "group_solve", "compute_current",
-           "power_iteration", "biorthogonal_inner"]
+__all__ = ["SolveOptions", "ctx_group", "resolve_precond", "group_plan", "group_solve",
+           "compute_current", "power_iteration", "biorthogonal_inner", "CGPlan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +119,19 @@ def ctx_group(ctx: Dict, g: int) -> Dict:
     return out
 
 
-def _block_precond(ctxg: Dict, dtype):
+def _block_source(ctxg: Dict):
+    """The stored block operand of ``_block_precond`` as a cells-major view,
+    (groups, cells, P, P), or None when the context has no block inverse."""
+    deviation = "precond_blk_dev" in ctxg
+    stored = ctxg.get("precond_blk_dev" if deviation else "precond_blk_inv")
+    if stored is None:
+        return None
+    P = stored.shape[-5]
+    cells = stored.shape[-3] * stored.shape[-2] * stored.shape[-1]
+    return stored.reshape(-1, P, P, cells).permute(0, 3, 1, 2)
+
+
+def _block_precond(ctxg: Dict, dtype, blks: Optional[torch.Tensor] = None):
     """The P x P block-Jacobi apply on the equilibrated system, or None when the
     context has no block inverse.  ``group_solve`` takes it where the K8 kernel
     (``ops/blockjac.py``) does not serve: float64, the Jacobi sweep's batched
@@ -131,14 +146,18 @@ def _block_precond(ctxg: Dict, dtype):
     apply is one batched matrix-vector product per group with no copy of the
     block tensor.  The vector operand stays a strided view of r: made
     contiguous as (cells, P, 1) it slowed the whole RT2-P2 4x4x2 float32
-    solve from 73.9 to 125.8 ms/outer on an NVIDIA H100 (``bench.main_ho(2)``)."""
+    solve from 73.9 to 125.8 ms/outer on an NVIDIA H100 (``bench.main_ho(2)``).
+
+    ``blks``: that copy, (groups, cells, P, P) in ``dtype``, made by the
+    caller (``group_plan``: a static buffer refilled before every solve);
+    None: made here."""
     deviation = "precond_blk_dev" in ctxg
-    stored = ctxg.get("precond_blk_dev" if deviation else "precond_blk_inv")
-    if stored is None:
+    src = _block_source(ctxg)
+    if src is None:
         return None
-    P = stored.shape[-5]
-    blks = [b.to(dtype).reshape(P, P, -1).permute(2, 0, 1).contiguous()
-            for b in stored.reshape(-1, *stored.shape[-5:])]  # one per group
+    P = src.shape[-1]
+    if blks is None:
+        blks = src.to(dtype, memory_format=torch.contiguous_format)
 
     def one(blk, r):  # r (P, nz, ny, nx)
         return torch.bmm(blk, r.reshape(P, -1).T.unsqueeze(-1)).squeeze(-1).T.reshape(r.shape)
@@ -191,6 +210,96 @@ def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
     return lambda r: applies[0](r) + applies[1](r)
 
 
+@dataclasses.dataclass
+class CGPlan:
+    """One group solve's CG: ``solver`` (``pcg`` / ``pcg_fused``) with its
+    eager block loop ``blocks`` (``pcg_blocks`` / ``pcg_fused_blocks``), the
+    equilibrated operator, its preconditioner (``precond`` or the fused
+    ``precond_dots``), D^-1/2 (``sdi``), the graph the solver replays on
+    the card, and ``refill`` (or None), to run before every solve: it makes
+    the static operands the plan shares with others (the block copy of
+    ``_block_precond``)."""
+
+    solver: Callable
+    blocks: Callable
+    matvec: Callable
+    sdi: torch.Tensor
+    precond: Optional[Callable]
+    precond_dots: Optional[Callable]
+    graph: CGGraph
+    refill: Optional[Callable] = None
+
+    def kwargs(self) -> Dict:
+        return {"precond_dots": self.precond_dots} if self.precond_dots is not None else {}
+
+
+def group_plan(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs) -> CGPlan:
+    """The CG plan ``group_solve`` runs for ``rhs`` (see there).  On the card
+    it is made once per (group, shape, dtype, path) and kept in the context's
+    ``krylov.CGPlans`` when it has one; the path is the resolved
+    preconditioner, the switches read here (``NEUTFEM_EQFOLD``,
+    ``NEUTFEM_CGCG``, ``NEUTFEM_BLOCKJAC``), the options the operator depends
+    on and ``max_inner``."""
+    pc_mode = resolve_precond(fes, ctxg, opts.inner_precond)
+    if pc_mode not in ("jacobi", "block", "line", "line2", "twogrid"):
+        raise NotImplementedError(f"inner_precond={pc_mode!r} is not ported")
+    env = tuple(os.environ.get(k, "") for k in ("NEUTFEM_EQFOLD", "NEUTFEM_CGCG",
+                                                 "NEUTFEM_BLOCKJAC"))
+    cache = ctxg.get(CG_PLANS) if rhs.device.type == "cuda" else None
+    key = (ctxg["precond_inv"].data_ptr(), tuple(rhs.shape), rhs.dtype, pc_mode, env,
+           opts.a_mode, opts.tg_degree, opts.tg_kappa, opts.max_inner)
+    if cache is not None and key in cache.plans:
+        return cache.plans[key]
+    # the plan keeps this group's context without the plans (no cycle)
+    ctxg = {k: v for k, v in ctxg.items() if k != CG_PLANS}
+    if eqfold_available(fes, ctxg, rhs.shape, rhs.dtype, opts.a_mode):
+        # the staged D^-1/2, so the scaling of rhs and x0 is the kernels' own
+        sdi = ctxg["precond_eq_sdi"]
+
+        def matvec(y):
+            return equilibrated_schur_matvec(fes, ctxg, y, a_mode=opts.a_mode)
+    else:
+        sdi = torch.sqrt(ctxg["precond_inv"])  # D^-1/2
+
+        def matvec(y):
+            return sdi * schur_matvec(fes, ctxg, y * sdi, a_mode=opts.a_mode)
+    cgcg = os.environ.get("NEUTFEM_CGCG", "0") == "1"
+    solver, blocks = (pcg_fused, pcg_fused_blocks) if cgcg else (pcg, pcg_blocks)
+    tg_corr = None
+    if pc_mode == "twogrid":
+        if "tg" in ctxg:
+            tg_corr = twogrid_apply(fes, ctxg, opts)
+        pc_mode = "block" if fes.P > 1 else "jacobi"
+    precond = precond_dots = refill = None
+    if pc_mode == "block":
+        bi, dev = ctxg.get("precond_blk_inv"), ctxg.get("precond_blk_dev")
+        # the fused apply + dots (K8) on one group's stored (P, P, nz, ny, nx)
+        # blocks, for pcg on a float32 residual: no float32 copy of the
+        # blocks is made
+        fused = tg_corr is None and not cgcg and rhs.dtype == torch.float32
+        if fused and dev is not None and dev.ndim == 5:
+            precond_dots = lambda r: blockjac_dev_dots(dev, r)
+        elif (fused and bi is not None and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
+                and bi.dtype in (torch.float32, torch.bfloat16) and bi.ndim == 5):
+            precond_dots = lambda r: blockjac_dots(bi, r)
+        else:
+            src, blks = _block_source(ctxg), None
+            if cache is not None and src is not None:
+                # one copy of the blocks a shape, shared by the context's plans
+                blks = cache.buffer(src.shape, rhs.dtype, src.device)
+                refill = lambda: blks.copy_(src)
+            precond = _block_precond(ctxg, rhs.dtype, blks)
+    elif pc_mode in ("line", "line2"):
+        precond = _line_precond(fes, ctxg, pc_mode)
+    if tg_corr is not None:
+        base = precond if precond is not None else (lambda r: r)
+        precond = lambda r: base(r) + tg_corr(r)
+    plan = CGPlan(solver, blocks, matvec, sdi, precond, precond_dots, CGGraph(), refill)
+    if cache is not None:
+        cache.plans[key] = plan
+    return plan
+
+
 def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None) -> KrylovResult:
     """Solve S_g phi_g = rhs by PCG on the symmetrically Jacobi-equilibrated system
     D^-1/2 S D^-1/2 y = D^-1/2 rhs with D = exact diag(S): every Krylov
@@ -213,55 +322,20 @@ def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None)
     ``ctxg`` is one group's context (``ctx_group``), or the whole context for
     the Jacobi sweep's batched solve of every group at once, ``rhs`` and
     ``x0`` then (ng, P, nz, ny, nx): the CG's dot products run over all
-    groups, as the JAX ``pcg`` reduces over the whole array."""
+    groups, as the JAX ``pcg`` reduces over the whole array.  On the card the
+    CG replays the plan's captured graph (``group_plan``, ``krylov``)."""
     if opts.inner_solver == "direct":
         return KrylovResult(x=direct_solve(ctxg, rhs), iterations=1,
                             residual=torch.zeros((), dtype=rhs.dtype, device=rhs.device))
     if opts.inner_solver != "cg":
         raise NotImplementedError(f"inner_solver={opts.inner_solver!r} is not ported")
-    pc_mode = resolve_precond(fes, ctxg, opts.inner_precond)
-    if pc_mode not in ("jacobi", "block", "line", "line2", "twogrid"):
-        raise NotImplementedError(f"inner_precond={pc_mode!r} is not ported")
-    if eqfold_available(fes, ctxg, rhs.shape, rhs.dtype, opts.a_mode):
-        # the staged D^-1/2, so the scaling of rhs and x0 is the kernels' own
-        sdi = ctxg["precond_eq_sdi"]
-
-        def matvec(y):
-            return equilibrated_schur_matvec(fes, ctxg, y, a_mode=opts.a_mode)
-    else:
-        sdi = torch.sqrt(ctxg["precond_inv"])  # D^-1/2
-
-        def matvec(y):
-            return sdi * schur_matvec(fes, ctxg, y * sdi, a_mode=opts.a_mode)
-    solver = pcg_fused if os.environ.get("NEUTFEM_CGCG", "0") == "1" else pcg
-    tg_corr = None
-    if pc_mode == "twogrid":
-        if "tg" in ctxg:
-            tg_corr = twogrid_apply(fes, ctxg, opts)
-        pc_mode = "block" if fes.P > 1 else "jacobi"
-    precond = precond_dots = None
-    if pc_mode == "block":
-        bi, dev = ctxg.get("precond_blk_inv"), ctxg.get("precond_blk_dev")
-        # the fused apply + dots (K8) on one group's stored (P, P, nz, ny, nx)
-        # blocks, for pcg on a float32 residual: no float32 copy of the
-        # blocks is made
-        fused = tg_corr is None and solver is pcg and rhs.dtype == torch.float32
-        if fused and dev is not None and dev.ndim == 5:
-            precond_dots = lambda r: blockjac_dev_dots(dev, r)
-        elif (fused and bi is not None and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
-                and bi.dtype in (torch.float32, torch.bfloat16) and bi.ndim == 5):
-            precond_dots = lambda r: blockjac_dots(bi, r)
-        else:
-            precond = _block_precond(ctxg, rhs.dtype)
-    elif pc_mode in ("line", "line2"):
-        precond = _line_precond(fes, ctxg, pc_mode)
-    if tg_corr is not None:
-        base = precond if precond is not None else (lambda r: r)
-        precond = lambda r: base(r) + tg_corr(r)
-    kw = {"precond_dots": precond_dots} if precond_dots is not None else {}
-    res = solver(matvec, rhs * sdi, x0 / sdi, precond=precond,
-                 tol=opts.inner_tol if tol is None else tol, maxiter=opts.max_inner, **kw)
-    return res._replace(x=res.x * sdi)
+    plan = group_plan(fes, ctxg, opts, rhs)
+    if plan.refill is not None:
+        plan.refill()
+    res = plan.solver(plan.matvec, rhs * plan.sdi, x0 / plan.sdi, precond=plan.precond,
+                      tol=opts.inner_tol if tol is None else tol, maxiter=opts.max_inner,
+                      graph=plan.graph, **plan.kwargs())
+    return res._replace(x=res.x * plan.sdi)
 
 
 def _fission_source(ctx, phi, adjoint: bool = False):
@@ -335,6 +409,8 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
 
     phi = phi_to_internal(phi0)
     dtype, device = phi.dtype, phi.device
+    if device.type == "cuda":
+        ctx.setdefault(CG_PLANS, CGPlans())  # the group solves' captured CGs
 
     def scalar(x):
         return torch.tensor(x, dtype=dtype, device=device)

@@ -14,8 +14,9 @@ free-running ``SolveAdjoint`` from a cold adjoint flux (``bench.py
 --full``'s adjoint row).  Prints the context and two-grid build
 seconds, runs one warm-up solve, one untimed-by-the-profiler solve (the
 end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
-time per kernel family, the device busy share of the traced wall and the
-tracing overhead (traced minus untraced wall); with ``--out DIR`` it also
+time per kernel family, the device busy share of the traced wall, the
+tracing overhead (traced minus untraced wall) and the traced solve's CG
+host reads per iteration and graph replays per CG solve (``krylov.STATS``); with ``--out DIR`` it also
 writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
 summary.  Needs a CUDA device.  The opt-in switches apply as in a solve:
 ``NEUTFEM_EQFOLD=2 python -m neutfem_tpu_torch.trace_solve`` traces K7,
@@ -33,6 +34,7 @@ import time
 
 import torch
 
+from . import krylov
 from .bench import FULL_TOL, HO_TOL, SWEEP_TOL, BenchmarkRun, load_benchmark_data
 from .power import power_iteration
 
@@ -46,7 +48,8 @@ FAMILIES = (
     ("fused_rows_kernel", "tiled fused Schur directions y, x (K2, K3)"),
     ("fused_ho_rows_kernel", "tiled condensed Schur directions (K6)"),
     ("fused_ho_kernel", "condensed Schur directions, thread per (mode, line) (old K6)"),
-    ("thomas_wide_kernel", "Thomas solve, few long lines (K4′)"),
+    ("thomas_wide_rows_kernel", "tiled Thomas solve, few long lines (K4′)"),
+    ("thomas_wide_kernel", "Thomas solve, few long lines, thread per chunk (replaced K4′)"),
     ("thomas_rows_kernel", "tiled Thomas solve (K4)"),
     ("thomas_kernel", "Thomas solve, thread per line (replaced K4)"),
     ("fused_eq_rows_kernel", "tiled equilibration-folded Schur directions (K7)"),
@@ -107,8 +110,10 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
     wall, outers, inners = _solver_run(s, mode)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    krylov.reset_stats()
     with torch.profiler.profile(activities=acts) as prof:
         wall_traced = _solver_run(s, mode)[0]
+    cg = dict(krylov.STATS)
 
     fam_us, fam_n, kernels = {}, {}, {}
     for e in prof.key_averages():
@@ -126,6 +131,12 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
     print(f"{core} {mesh} RT{order}-P{order} {mode} {dtype}: "
           f"{outers} outers, {inners} inners, "
           f"wall {wall * 1e3:.3f} ms (traced {wall_traced * 1e3:.3f} ms), {card}")
+    reads_per_it = cg["host_reads"] / max(cg["iterations"], 1)
+    replays_per_solve = cg["replays"] / max(cg["solves"], 1)
+    print(f"device busy {100 * busy_s / wall_traced:.1f}% of the traced wall; CG: "
+          f"{cg['solves']} solves, {cg['iterations']} iterations, {cg['host_reads']} host reads "
+          f"({reads_per_it:.3f} per iteration), {cg['replays']} graph replays "
+          f"({replays_per_solve:.2f} per solve), {cg['captures']} captures")
     print(f"{'family':40s} {'launches':>9s} {'device ms':>10s} {'% busy':>7s} {'us/launch':>10s}")
     for f, us in sorted(fam_us.items(), key=lambda kv: -kv[1]):
         print(f"{f:40s} {fam_n[f]:9d} {us / 1e3:10.3f} {100 * us / 1e6 / busy_s:7.2f} "
@@ -143,6 +154,8 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
         "wall_ms": wall * 1e3, "wall_traced_ms": wall_traced * 1e3,
         "device_busy_ms": busy_s * 1e3, "device_busy_share": busy_s / wall_traced,
         "ms_per_inner": wall * 1e3 / max(inners, 1),
+        "cg": cg, "host_reads_per_iteration": reads_per_it,
+        "graph_replays_per_solve": replays_per_solve,
         "families_ms": {f: us / 1e3 for f, us in fam_us.items()},
         "families_launches": fam_n,
     }

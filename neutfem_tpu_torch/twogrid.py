@@ -42,6 +42,7 @@ import torch
 
 from .coarse import coarsen_xs, default_coarse_factors
 from .fespace import FESpace, make_fespace
+from .krylov import drop_plans
 from .mesh import CartesianMesh
 
 __all__ = ["attach_twogrid", "auto_twogrid", "coarse_fespace", "twogrid_correction",
@@ -179,6 +180,7 @@ def attach_twogrid(
     cctx = build_context(cfes, ng, cxs, bcs, device=C.device, dtype=C.dtype,
                          marshak_d_factor=marshak_d_factor)
     n_c = int(np.prod(cmesh.shape))
+    drop_plans(ctx)  # their two-grid closures hold the level replaced here
     if mode == "dense" and n_c <= dense_max:
         minv = _dense_coarse_inv(cfes, cctx, ng)
         store = torch.bfloat16 if minv.dtype == torch.float32 else minv.dtype

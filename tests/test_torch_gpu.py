@@ -1,9 +1,10 @@
 """Card-only tests of neutfem_tpu_torch's CUDA kernels against their plain versions.
 
 Each test compares one hand-written kernel (the tiled K1 / K2 / K3 kernel and its
-group-batched form, K1's batch and K5; the tiled K4, K4′, the tiled K6, the
-tiled K7, the tiled K8 on its three storage forms) with the plain PyTorch version
-of the same function, on the card, at a small shape.  They need a CUDA device and skip without one (the decision is made
+group-batched form, K1's batch and K5; the tiled K4, the tiled K4′, the tiled K6,
+the tiled K7, the tiled K8 on its three storage forms) with the plain PyTorch version
+of the same function, on the card, at a small shape; the last tests hold the CG's
+captured blocks (``krylov.CGGraph``) against the eager block loop on the card.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
 
@@ -167,8 +168,10 @@ def test_thomas_kernel_matches_plain(cuda, dtype, shape, axis):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 1, 1, 913, 912), (1, 1, 1, 257, 300), (1, 1, 1, 5000, 20)])
 def test_thomas_wide_kernel_matches_plain(cuda, dtype, shape):
-    """K4′ at wide 2D layouts: compute_current's at ZION 48x48, a line count
-    that is no multiple of the 32 lines of a block, and a few very long lines."""
+    """K4′ (the tiled kernel of csrc/thomas_wide_rows.cu) at wide 2D layouts:
+    compute_current's at ZION 48x48, a line count that is no multiple of a
+    tile's lines, and a few very long lines (256 chunks a line); counted
+    under thomas_wide_rows, never under the first K4′ kernel's thomas_y."""
     assert thomas.wide_rows(shape, -2)
     rng = np.random.default_rng(4)
     lshape = list(shape)
@@ -181,8 +184,8 @@ def test_thomas_wide_kernel_matches_plain(cuda, dtype, shape):
     got = thomas.thomas_solve(rhs, dinv, l, -2)
     torch.cuda.synchronize()
     assert _rel(got, want, torch.zeros_like(want)) <= TOL[dtype]
-    assert thomas.LAUNCHES["thomas_y"] == before["thomas_y"] + 1
-    assert thomas.LAUNCHES["thomas"] == before["thomas"]
+    assert {k: thomas.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == "thomas_wide_rows") for k in before}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -916,3 +919,289 @@ def test_thomas_rows_kernel_refuses_a_line_too_long(cuda):
     with pytest.raises(RuntimeError, match="tiled kernel"):
         thomas.thomas_solve(rhs, dinv, l, -2)
     assert thomas.LAUNCHES == before
+
+
+def _wide_old(rhs, dinv, l):
+    """The first K4′ kernel (thomas_wide_kernel), called through the library:
+    no launch counted."""
+    from neutfem_tpu_torch.ops import cuda_lib
+
+    n = rhs.shape[-2]
+    out = torch.empty_like(rhs)
+    fn = cuda_lib.library().neutfem_thomas_wide_f64 if rhs.dtype == torch.float64 else \
+        cuda_lib.library().neutfem_thomas_wide_f32
+    cuda_lib.check(fn(rhs.data_ptr(), dinv.data_ptr(), l.data_ptr(), out.data_ptr(), n,
+                      rhs.numel() // n, rhs.shape[-1], torch.cuda.current_stream().cuda_stream),
+                   "thomas_wide_kernel")
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 1, 1, 913, 912),   # ZION 48x48 compute_current y
+                                   (4, 1, 1, 545, 544),   # KOEBERG 32x32
+                                   (1, 1, 912, 912),      # the ZION line preconditioner
+                                   (3, 1, 1, 1, 70000)])  # n = 1
+def test_thomas_wide_rows_kernel_matches_plain_and_old(cuda, dtype, shape):
+    """The tiled K4′ at the paths' shapes against the plain version and the
+    kernel it replaced: rel 1e-12 (float64) / 1e-5 (float32)."""
+    assert thomas.wide_rows(shape, -2)
+    rhs, dinv, l = _thomas_operands(shape, -2, dtype, cuda, 30)
+    got = thomas.thomas_solve(rhs, dinv, l, -2)
+    want = thomas.thomas_solve_plain(rhs, dinv, l, -2)
+    zero = torch.zeros_like(want)
+    assert _rel(got, want, zero) <= TOL[dtype]
+    assert _rel(got, _wide_old(rhs, dinv, l), zero) <= TOL[dtype]
+
+
+def test_thomas_wide_rows_kernel_at_every_tile(cuda):
+    """Every tile (lines 1..16 x chunks 16..256, at most 256 threads) gives
+    the plain version's x (float64, rel 1e-12), and the same bits at every
+    line count for one chunk count; chunks of 8 are refused and raise."""
+    shape = (2, 1, 1, 300, 230)
+    assert thomas.wide_rows(shape, -2)
+    rhs, dinv, l = _thomas_operands(shape, -2, torch.float64, cuda, 31)
+    want = thomas.thomas_solve_plain(rhs, dinv, l, -2)
+    for ch in (16, 32, 64, 128, 256):
+        first = None
+        for tl in (1, 2, 4, 8, 16):
+            if tl * ch > thomas.WIDE_THREADS:
+                continue
+            got = thomas.thomas_solve(rhs, dinv, l, -2, (tl, ch))
+            torch.cuda.synchronize()
+            assert _rel(got, want, torch.zeros_like(want)) <= 1e-12, (tl, ch)
+            first = got if first is None else first
+            assert torch.equal(got, first), (tl, ch)
+    with pytest.raises(RuntimeError, match="K4′ tiled kernel"):
+        thomas.thomas_solve(rhs, dinv, l, -2, (8, 8))
+
+
+def test_thomas_wide_rows_kernel_is_deterministic(cuda):
+    rhs, dinv, l = _thomas_operands((2, 1, 1, 913, 912), -2, torch.float32, cuda, 32)
+    assert torch.equal(thomas.thomas_solve(rhs, dinv, l, -2), thomas.thomas_solve(rhs, dinv, l, -2))
+
+
+def test_thomas_wide_rows_kernel_refuses_a_line_too_long(cuda):
+    """A line whose three rows exceed the card's shared memory (19,100
+    float32 elements): no tile, the wrapper raises (no fallback) and nothing
+    is counted."""
+    rhs, dinv, l = _thomas_operands((1, 1, 1, 19100, 40), -2, torch.float32, cuda, 33)
+    before = dict(thomas.LAUNCHES)
+    with pytest.raises(ValueError, match="K4′"):
+        thomas.thomas_solve(rhs, dinv, l, -2)
+    assert thomas.LAUNCHES == before
+
+
+# --- the CG's captured blocks (krylov.CGGraph) --------------------------------
+
+def _spd(n, device, seed=40):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    A = torch.as_tensor(a @ a.T / n + np.diag(rng.uniform(0.5, 2.0, n)), device=device)
+    b = torch.as_tensor(rng.standard_normal(n), device=device)
+    x0 = torch.as_tensor(rng.standard_normal(n), device=device)
+    return A, b, x0, 1.0 / torch.diag(A)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("tol,maxiter", [(1e-11, 1000), (1e-10, 13), (1e3, 1000)])
+def test_cg_graph_matches_the_eager_blocks(cuda, fused, tol, maxiter):
+    """pcg / pcg_fused on the card (the captured graph) against their eager
+    block loop at BLOCK_ITERS on the card: the same bits and count; host
+    reads ceil(n / BLOCK_ITERS), at least one."""
+    from neutfem_tpu_torch import krylov
+
+    A, b, x0, minv = _spd(48, cuda)
+    kw = dict(precond=lambda r: minv * r, tol=tol, maxiter=maxiter)
+    run, blocks = ((krylov.pcg_fused, krylov.pcg_fused_blocks) if fused
+                   else (krylov.pcg, krylov.pcg_blocks))
+    krylov.reset_stats()
+    got = run(lambda x: A @ x, b, x0, **kw)
+    reads = krylov.STATS["host_reads"]
+    want = blocks(lambda x: A @ x, b, x0, block=krylov.BLOCK_ITERS, **kw)
+    assert got.iterations == want.iterations
+    assert torch.equal(got.x, want.x) and torch.equal(got.residual, want.residual)
+    assert reads == max(1, -(-got.iterations // krylov.BLOCK_ITERS))
+    assert krylov.STATS["captures"] == 1
+
+
+def test_cg_graph_is_reused_and_counts_launches(cuda):
+    """A CGGraph kept across solves is captured once; the kernel counters
+    add the captured block's launches at every replay (the capture itself
+    adds none): the operator is a K4 Thomas solve (T^-1, SPD)."""
+    from neutfem_tpu_torch import krylov
+
+    shape = (1, 20, 8, 8)
+    rhs, dinv, l = _thomas_operands(shape, -3, torch.float64, cuda, 41)
+    matvec = lambda x: thomas.thomas_solve(x, dinv, l, -3)
+    graph = krylov.CGGraph()
+    krylov.reset_stats()
+    first = krylov.pcg(matvec, rhs, torch.zeros_like(rhs), tol=1e-10, graph=graph)
+    for seed in (42, 43):
+        b = _thomas_operands(shape, -3, torch.float64, cuda, seed)[0]
+        before = thomas.LAUNCHES["thomas_rows"]
+        replays = krylov.STATS["replays"]
+        got = krylov.pcg(matvec, b, torch.zeros_like(b), tol=1e-10, graph=graph)
+        replays = krylov.STATS["replays"] - replays
+        assert replays == -(-got.iterations // krylov.BLOCK_ITERS)
+        # the prologue's matvec, then BLOCK_ITERS matvecs a replay
+        assert thomas.LAUNCHES["thomas_rows"] - before == 1 + replays * krylov.BLOCK_ITERS
+        want = krylov.pcg_blocks(matvec, b, torch.zeros_like(b), tol=1e-10)
+        assert got.iterations == want.iterations > 3 and torch.equal(got.x, want.x)
+    assert krylov.STATS["captures"] == 1 and first.iterations > 3
+
+
+@pytest.fixture(scope="module")
+def iaea_1x1_f32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from neutfem_tpu_torch import bench
+
+    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    return bench, spec
+
+
+def _graph_vs_eager(fes, ctx, opts, g=0):
+    """One group solve (the whole context for g None) through group_solve
+    (the plan's graph, kept in the context) and through the plan's eager
+    block loop: (graph result, eager result)."""
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.power import ctx_group, group_plan, group_solve
+
+    ctx.setdefault(krylov.CG_PLANS, krylov.CGPlans())
+    ctxg = ctx if g is None else ctx_group(ctx, g)
+    shape = ctx["C"].shape if g is None else ctx["C"].shape[1:]
+    rng = np.random.default_rng(44)
+    rhs = torch.as_tensor(rng.standard_normal(shape), dtype=ctx["C"].dtype, device="cuda")
+    x0 = torch.zeros_like(rhs)
+    got = group_solve(fes, ctxg, opts, rhs, x0)
+    again = group_solve(fes, ctxg, opts, rhs, x0)  # the plan's graph, replayed again
+    plan = group_plan(fes, ctxg, opts, rhs)
+    assert plan.graph.graph is not None
+    if plan.refill is not None:
+        plan.refill()
+    want = plan.blocks(plan.matvec, rhs * plan.sdi, x0 / plan.sdi, precond=plan.precond,
+                       tol=opts.inner_tol, maxiter=opts.max_inner,
+                       block=krylov.BLOCK_ITERS, **plan.kwargs())
+    assert torch.equal(got.x, again.x) and got.iterations == again.iterations
+    return got, want._replace(x=want.x * plan.sdi)
+
+
+@pytest.mark.parametrize("case", ["rt0", "rt1", "jacobi", "cgcg", "eqfold2"])
+def test_group_solve_graph_matches_eager_blocks(iaea_1x1_f32, case, monkeypatch):
+    """group_solve on the card (its plan's captured graph) against the plan's
+    eager block loop, IAEA-3D 1x1 float32: the same bits and count on the
+    default RT0 path, RT1-P1 (K8 on the E-form), the Jacobi sweep's batched
+    solve, NEUTFEM_CGCG=1 and NEUTFEM_EQFOLD=2."""
+    from neutfem_tpu_torch.power import SolveOptions
+
+    bench, spec = iaea_1x1_f32
+    if case == "cgcg":
+        monkeypatch.setenv("NEUTFEM_CGCG", "1")
+    if case == "eqfold2":
+        monkeypatch.setenv("NEUTFEM_EQFOLD", "2")
+    run = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32,
+                             rt_order=1 if case == "rt1" else 0)
+    s = run.solver
+    got, want = _graph_vs_eager(s._fes, s._ctx, SolveOptions(inner_tol=1e-5),
+                                None if case == "jacobi" else 0)
+    assert got.iterations == want.iterations > 2
+    assert torch.equal(got.x, want.x)
+
+
+def test_group_solve_graphs_share_one_block_copy(iaea_1x1_f32, monkeypatch):
+    """RT1-P1 under NEUTFEM_CGCG=1 takes the bmm block apply on a float32
+    copy of the blocks: the context keeps one copy, which both groups' plans
+    share and refill before each solve.  Group 0, group 1 and group 0 again
+    through their graphs each give the bits and count of the eager block
+    loop on a copy made for that group."""
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.power import (SolveOptions, _block_precond, ctx_group, group_plan,
+                                         group_solve)
+
+    bench, spec = iaea_1x1_f32
+    monkeypatch.setenv("NEUTFEM_CGCG", "1")
+    run = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32, rt_order=1)
+    fes, ctx = run.solver._fes, run.solver._ctx
+    ctx[krylov.CG_PLANS] = krylov.CGPlans()
+    opts = SolveOptions(inner_tol=1e-5)
+    rng = np.random.default_rng(45)
+    for g in (0, 1, 0):
+        ctxg = ctx_group(ctx, g)
+        rhs = torch.as_tensor(rng.standard_normal(ctx["C"].shape[1:]), dtype=torch.float32,
+                              device="cuda")
+        x0 = torch.zeros_like(rhs)
+        got = group_solve(fes, ctxg, opts, rhs, x0)
+        plan = group_plan(fes, ctxg, opts, rhs)
+        want = plan.blocks(plan.matvec, rhs * plan.sdi, x0 / plan.sdi,
+                           precond=_block_precond(ctxg, torch.float32), tol=opts.inner_tol,
+                           maxiter=opts.max_inner, block=krylov.BLOCK_ITERS)
+        assert got.iterations == want.iterations > 2
+        assert torch.equal(got.x, want.x * plan.sdi)
+    assert len(ctx[krylov.CG_PLANS].buffers) == 1
+
+
+def test_cg_plans_are_freed_with_their_context(iaea_1x1_f32, monkeypatch):
+    """A context's plans, graphs and static buffers go with it.  Two rounds of
+    build, one graph solve a group and release, at RT1-P1 under
+    NEUTFEM_CGCG=1 (``pcg_fused`` and the ``torch.bmm`` block apply, cuBLAS
+    in every capture): each round's ``CGPlans`` is unreachable once its
+    solver is dropped, and the second round leaves as much device memory
+    allocated as the first."""
+    import gc
+    import weakref
+
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.power import SolveOptions, ctx_group, group_solve
+
+    bench, spec = iaea_1x1_f32
+    monkeypatch.setenv("NEUTFEM_CGCG", "1")
+    opts = SolveOptions(inner_tol=1e-5)
+    after = []
+    for _ in range(2):
+        run = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32, rt_order=1)
+        fes, ctx = run.solver._fes, run.solver._ctx
+        ctx[krylov.CG_PLANS] = krylov.CGPlans()
+        plans = weakref.ref(ctx[krylov.CG_PLANS])
+        rhs = torch.ones(ctx["C"].shape[1:], dtype=torch.float32, device="cuda")
+        for g in range(ctx["C"].shape[0]):
+            group_solve(fes, ctx_group(ctx, g), opts, rhs, torch.zeros_like(rhs))
+        assert len(plans().plans) == ctx["C"].shape[0]
+        del run, fes, ctx, rhs
+        gc.collect()
+        torch.cuda.synchronize()
+        assert plans() is None
+        after.append(torch.cuda.memory_allocated())
+    assert after[1] == after[0]
+
+
+def test_group_solve_graph_matches_eager_blocks_twogrid(cuda):
+    """The same on KOEBERG 4x4 float32 with the two-grid level attached."""
+    from neutfem_tpu_torch import bench
+    from neutfem_tpu_torch.power import SolveOptions
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NEUTFEM_PRECOND", "twogrid")
+        run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["koeberg2d"], 4,
+                                 device="cuda", dtype=torch.float32)
+    s = run.solver
+    assert "tg" in s._ctx
+    got, want = _graph_vs_eager(s._fes, s._ctx, SolveOptions(inner_tol=1e-5,
+                                                             inner_precond="twogrid"))
+    assert got.iterations == want.iterations > 2
+    assert torch.equal(got.x, want.x)
+
+
+# last in the file: a failed capture must leave nothing behind for later tests
+def test_cg_graph_capture_failure_raises(cuda):
+    """An operator that reads the device from the host cannot be captured:
+    the solve raises, with no eager fallback."""
+    from neutfem_tpu_torch import krylov
+
+    A, b, x0, _ = _spd(16, cuda)
+
+    def matvec(x):
+        float(x[0])  # a host read: illegal while the stream is captured
+        return A @ x
+
+    with pytest.raises(RuntimeError):
+        krylov.pcg(matvec, b, x0, tol=1e-10)

@@ -364,3 +364,23 @@ def test_facade_rt1p1_matches_jax(name, n, anchor):
         assert t._last_outers == anchor[1]
         assert abs(t._last_inners - anchor[2]) <= 2
     assert _rel(t._phi.numpy(), np.asarray(j._phi)) <= 1e-7
+
+
+def test_ho_tables_are_dropped_with_their_direction():
+    """K6's coefficient tables, and their copies on the device, are kept per
+    direction object and dropped when the direction is freed: a process that
+    rebuilds its solver does not keep every old fespace's tables."""
+    import gc
+
+    fes = t_fespace.make_fespace(t_mesh.CartesianMesh.from_breaks(*[np.linspace(0, 2, 3)] * 3),
+                                 1, 1)
+    keys = {id(di) for di in fes.dirs}
+    tables = [fused_ho.ho_tables(fes, di) for di in fes.dirs]
+    assert all(t is not None for t in tables) and keys <= set(fused_ho._TABLES)
+    fused_ho._device_table(tables[0], torch.float64, torch.device("cpu"))
+    tkey = id(tables[0])
+    assert any(k[0] == tkey for k in fused_ho._DEVICE_TABLES)
+    del fes, tables
+    gc.collect()
+    assert not keys & set(fused_ho._TABLES)
+    assert not any(k[0] == tkey for k in fused_ho._DEVICE_TABLES)

@@ -357,13 +357,19 @@ def test_zion_baffle_matches_jax_runner(mesh_n):
 
 def test_main_2d_prints_the_jax_row():
     """bench.main_2d on the CPU at a tiny mesh: the JAX row's metric and detail
-    keys plus the device, dtype and resolved preconditioner."""
+    keys plus the device, dtype, resolved preconditioner and the timed
+    solve's CG counts (on the CPU one host read an iteration, one for a solve
+    that needs none)."""
     from neutfem_tpu_torch import bench
 
     out = bench.main_2d("koeberg2d", 1, device="cpu", dtype=F64)
     assert out["metric"] == "koeberg2d_4group_seconds_per_outer_iteration"
     assert set(out["detail"]) == {"keff", "pcm", "n_cells", "n_groups", "outer_iterations",
                                   "inner_iterations", "solve_wall_s", "mesh", "device",
-                                  "dtype", "preconditioner"}
+                                  "dtype", "preconditioner", "cg"}
+    cg = out["detail"]["cg"]
+    assert cg["iterations"] == out["detail"]["inner_iterations"]
+    assert cg["iterations"] <= cg["host_reads"] <= cg["iterations"] + cg["solves"]
+    assert cg["replays"] == cg["captures"] == 0
     assert out["detail"]["n_cells"] == 17 * 17 and out["detail"]["n_groups"] == 4
     assert out["detail"]["preconditioner"] == "jacobi" and out["detail"]["device"] == "cpu"
