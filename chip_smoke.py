@@ -87,7 +87,24 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    tiled K6 in every direction and the old K6 not at all, at the
    RT1-P1 anchors (inners against the JAX package's float32
    ``NEUTFEM_BLKFP8=0`` count); ``bench.main(6, 4)`` under ``NEUTFEM_CGCG=1``
-   at phase [5]'s anchors.
+   at phase [5]'s anchors;
+13. CG graphs: one cold group solve each through the plan's captured graph
+   against the eager block loop (the same bits, counts and launches);
+14. the facade's surface, each part with its own counts: (a) the accelerator
+   matrix ``bench.main_accel()`` (IAEA-2D and KOEBERG 8x8, IAEA-3D 6x6x4;
+   none, chebyshev and anderson) on ``ACCEL_ANCHORS``, K1-K4 launched in the
+   Anderson 6x6x4 solve; (b) the quarter core (IAEA-3D 6x6x4 ``quart_so``,
+   57x57x76 cells) and the half core (IAEA-2D 8x8 ``moitie_s``) within 2e-5
+   of their full cores' k; (c) the subcritical solve of IAEA-3D 6x6x4 with
+   nu-Sigma_f x 0.9 and a fast source in the fuel (``SolveKeff``,
+   ``reset_flux``, ``SolveSubcritical``): M finite and > 1, within 1e-3 of
+   the float64 M on the card, K1-K4 launched; (d) ``zoom_resolved([2, 2,
+   2])`` of IAEA-3D 3x3x2 onto 114x114x76 cells, K1-K4 launched, near
+   ``project_flux`` (``tests/test_compat_api.py``'s bounds); (e) a
+   checkpoint of a 6x6x4 solve loaded into a fresh facade (the warm solve at
+   the saved k in fewer outers) and ``ExportVTK``'s fields; (f) IAEA-3D 1x1
+   at float64, the card against the CPU: the Anderson solve (|dk| <= 1e-9,
+   the same outers), M and the zoomed flux (rel 1e-9).
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
@@ -201,6 +218,38 @@ ADJ_KEFF_TOL = 1e-5
 # from its own side of the fixed point (benchmarks/accel_compare.py allows 3x)
 VARIANT_KEFF_TOL = 3e-5
 DIRECT_KEFF_TOL = 1e-5
+# [14] the accelerator matrix (bench.main_accel), anchors of the JAX
+# package: (core, accel) -> (k, outers, inners).  IAEA-3D 6x6x4 from
+# ACCEL_r04.json (float32); the 2D rows measured with the JAX package on a
+# CPU at float32 (benchmarks.accel_compare.run_matrix, NEUTFEM_X64=0), but
+# IAEA-2D anderson at float64: at float32 the JAX package on a CPU gives 35 /
+# 1093 (35-37 outers from start fluxes perturbed by one float32 ulp), a
+# rounding basin that neither ACCEL_r04.json (52 / 1343) nor the port (50-51)
+# reaches; at float64 both packages give 50 / 1308
+ACCEL_ANCHORS = {
+    ("iaea2d", "none"): (1.0295749, 179, 5795),
+    ("iaea2d", "chebyshev"): (1.0295758, 49, 1937),
+    ("iaea2d", "anderson"): (1.0295755, 50, 1308),
+    ("koeberg2d", "none"): (1.0080199, 149, 5201),
+    ("koeberg2d", "chebyshev"): (1.0080212, 49, 2328),
+    ("koeberg2d", "anderson"): (1.0080205, 48, 1489),
+    ("iaea3d", "none"): (1.0290917, 172, 3704),
+    ("iaea3d", "chebyshev"): (1.0291045, 34, 1068),
+    ("iaea3d", "anderson"): (1.0291111, 80, 1322),
+}
+# a row whose count from a flat flux misses its anchor is solved again from
+# start fluxes perturbed by one float32 ulp (relative 1e-7, seeds 1-4): its
+# outer count moves with rounding (on an H100: KOEBERG chebyshev 36 outers
+# from the flat flux, 49 from every perturbed one; IAEA-3D anderson 59, then
+# 82-88, and 84-89 at float64 under 1e-15), and one of those solves must
+# land on the anchor, every k within KEFF_TOL
+ACCEL_PERTURB_SEEDS = (1, 2, 3, 4)
+# a quarter or half core against the full core at the same tolerances
+DOMAIN_KEFF_TOL = 2e-5
+# the subcritical solve's M at float32 against float64, relative: the source
+# iteration stops at dphi < 1e-5 (bench.SWEEP_TOL) and contracts at ~k = 0.93,
+# so its error may reach ~14 times that
+SUBCRIT_M_REL = 1e-3
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1028,6 +1077,233 @@ def _graph_case(label, s, opts, g, card, switches=None):
     return graph_l
 
 
+def _subcritical(bench, spec, mesh, device, dtype, keff_first=True, before=None):
+    """IAEA-3D at ``mesh`` with every nu-Sigma_f scaled by 0.9 and a unit
+    fast-group source in every fuel cell, in the call sequence of
+    examples/subcritical_source.py (SolveKeff, reset_flux, SolveSubcritical;
+    ``keff_first`` False skips the first, whose k the reset drops; ``before``
+    runs just before SolveSubcritical): (facade, k or None, M,
+    SolveSubcritical wall seconds)."""
+    import torch
+
+    s = bench.BenchmarkRun(spec, *mesh, device=device, dtype=dtype).solver
+    s.get_NSF()[...] *= 0.9
+    s.get_SRC()[0] = (s.get_NSF() > 0).any(axis=0)
+    s.BuildMatrices()
+    s.set_tol(*bench.SWEEP_TOL)
+    k = s.SolveKeff() if keff_first else None
+    s.reset_flux()
+    if s._device.type == "cuda":
+        torch.cuda.synchronize()
+    if before is not None:
+        before()
+    t0 = time.perf_counter()
+    m = s.SolveSubcritical()
+    return s, k, m, time.perf_counter() - t0
+
+
+def _facade_paths(bench, spec, dev, card, reset_counts, counts, cg_line):
+    """Phase [14]: the facade's surface on the card (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.rounding_probe import perturbed_start
+
+    f32, f64 = torch.float32, torch.float64
+    data = bench.load_benchmark_data()
+
+    def k14(launches, what):
+        """The K1-K4 launches of a path (all of them > 0, none of the replaced)."""
+        got = {k: launches.get(k, 0) for k in (*Z_KEYS, "thomas_rows")}
+        if min(got.values()) <= 0 or any(launches.get(k, 0) for k in (*Z_OLD, "thomas")):
+            raise RuntimeError(f"{what}: K1-K4 launches {got}, or a replaced kernel launched")
+        return got
+
+    def on_counts(outers, inners, anchor):
+        return (abs(outers - anchor[1]) <= OUTERS_TOL
+                and abs(inners - anchor[2]) <= INNERS_REL * anchor[2])
+
+    def perturbed(core, accel):
+        """(k, outers, inners) of the row's solves from start fluxes perturbed
+        by one float32 ulp (``ACCEL_PERTURB_SEEDS``)."""
+        _, kw, tol = next(c for c in bench.ACCEL_CONFIGS if c[0] == core)
+        s = bench.BenchmarkRun(data.BENCHMARKS[core], device=dev, dtype=f32, **kw).solver
+        s.set_tol(*tol)
+        s.set_acceleration(accel)
+        out = []
+        for seed in ACCEL_PERTURB_SEEDS:
+            s.reset_flux()
+            perturbed_start(s, 1e-7, seed)
+            out.append((s.SolveKeff(), s._last_outers, s._last_inners))
+        return out
+
+    # (a) the accelerator matrix; counts of each row's timed solve in the row
+    t0 = time.perf_counter()
+    print("[14a] accelerator matrix: neutfem_tpu_torch.bench.main_accel(), float32")
+    reset_counts()
+    rows = bench.main_accel()
+    launches = counts()
+    cg_line()
+    for r in rows:
+        what = f"{r['core']} {r['accel']}"
+        anchor = ACCEL_ANCHORS[(r["core"], r["accel"])]
+        print(f"    {what}: keff {r['keff']}, {r['outer_iterations']} / "
+              f"{r['inner_iterations']} (anchor {anchor}); {r['ms_per_outer']:.3f} ms/outer, "
+              f"host reads {r['cg']['host_reads_per_iteration']} per CG iteration ({card})")
+        runs = [(r["keff"], r["outer_iterations"], r["inner_iterations"])]
+        if not on_counts(*runs[0][1:], anchor):
+            runs += perturbed(r["core"], r["accel"])
+            print(f"    {what}: counts off the anchor; from perturbed start fluxes (k, outers, "
+                  f"inners): {runs[1:]}")
+        if any(abs(k - anchor[0]) > KEFF_TOL for k, _, _ in runs):
+            raise RuntimeError(f"{what}: keff {[k for k, _, _ in runs]} not within {KEFF_TOL} "
+                               f"of {anchor[0]}")
+        if not any(on_counts(o, i, anchor) for _, o, i in runs):
+            raise RuntimeError(f"{what}: no solve within {OUTERS_TOL} outers and "
+                               f"{INNERS_REL:.0%} inners of {anchor[1:]}")
+        if r["core"] == "iaea3d" and r["accel"] == "anderson":
+            print(f"    IAEA-3D 6x6x4 anderson: launches {k14(r['launches'], 'anderson 6x6x4')}")
+        if r["core"] != "iaea3d":  # K2 / K3, and K4 or K4′ (by line length) in 2D
+            two_d = {k: r["launches"].get(k, 0)
+                     for k in ("y_rows", "x_rows", "thomas_rows", "thomas_wide_rows")}
+            if (min(two_d["y_rows"], two_d["x_rows"]) <= 0
+                    or two_d["thomas_rows"] + two_d["thomas_wide_rows"] <= 0):
+                raise RuntimeError(f"{r['core']} {r['accel']}: 2D launches {two_d}")
+    k14(launches, "accelerator matrix")
+    k_cheb = {r["core"]: r["keff"] for r in rows if r["accel"] == "chebyshev"}
+    print(f"    [14a] {time.perf_counter() - t0:.1f} s")
+
+    # (b) the quarter and half cores against the full cores of (a)
+    t0 = time.perf_counter()
+    for core, mesh, domain, tol in (("iaea3d", (6, 4), "quart_so", bench.ACCEL_CONFIGS[2][2]),
+                                    ("iaea2d", (8,), "moitie_s", bench.ACCEL_CONFIGS[0][2])):
+        reset_counts()
+        run = bench.BenchmarkRun(data.BENCHMARKS[core], *mesh, domain=domain, device=dev,
+                                 dtype=f32)
+        t1 = time.perf_counter()
+        k = run.solve(tol=tol)
+        wall = time.perf_counter() - t1
+        s = run.solver
+        print(f"[14b] {core} {domain} {s._mesh.shape}: keff {k:.7f} (full core {k_cheb[core]}, "
+              f"dk {k - k_cheb[core]:+.2e}), {s._last_outers} / {s._last_inners}, "
+              f"{wall * 1e3 / max(s._last_outers, 1):.3f} ms/outer ({card})")
+        if not abs(k - k_cheb[core]) <= DOMAIN_KEFF_TOL:
+            raise RuntimeError(f"{core} {domain}: keff {k} not within {DOMAIN_KEFF_TOL} of the "
+                               f"full core's {k_cheb[core]}")
+        if core == "iaea3d":
+            if s.GetNumElements() != 57 * 57 * 76:
+                raise RuntimeError(f"quart_so: {s.GetNumElements()} cells")
+            k14(counts(), "quarter core")
+        del run, s
+    print(f"    [14b] {time.perf_counter() - t0:.1f} s")
+
+    # (c) the subcritical solve at full width, float32 against float64
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    s, k, m32, w32 = _subcritical(bench, spec, (6, 4), dev, f32, before=reset_counts)
+    launches = counts()
+    cg_line()
+    o32 = s.subcritical_outers
+    flux_ok = tuple(s._phi.shape) == (2, 76, 114, 114, 1) and bool(torch.isfinite(s._phi).all())
+    del s
+    s64, _, m64, w64 = _subcritical(bench, spec, (6, 4), dev, f64, keff_first=False)
+    o64 = s64.subcritical_outers
+    del s64
+    print(f"[14c] subcritical IAEA-3D 6x6x4 (nu-Sigma_f x 0.9, unit fast source in the fuel): "
+          f"keff {k:.7f}; M {m32:.6f} float32 ({w32:.3f} s, fixed-source outers with / without "
+          f"fission {o32}), {m64:.6f} float64 ({w64:.3f} s, {o64}); rel {abs(m32 - m64) / m64:.2e}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    print(f"    SolveSubcritical's launches {k14(launches, 'subcritical solve')}")
+    if not (flux_ok and np.isfinite(m32) and m32 > 1.0):
+        raise RuntimeError(f"subcritical: M {m32}, flux finite and shaped {flux_ok}")
+    if not abs(m32 - m64) <= SUBCRIT_M_REL * m64:
+        raise RuntimeError(f"subcritical: float32 M {m32} not within {SUBCRIT_M_REL} of {m64}")
+    print(f"    [14c] {time.perf_counter() - t0:.1f} s")
+
+    # (d) the zoom: IAEA-3D 3x3x2 refined (2, 2, 2) onto the main path's mesh
+    t0 = time.perf_counter()
+    run = bench.BenchmarkRun(spec, 3, 2, device=dev, dtype=f32)
+    run.solve(tol=bench.FULL_TOL)
+    s = run.solver
+    fr = s.project_flux([2, 2, 2])
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    zr = s.zoom_resolved([2, 2, 2])
+    wall = time.perf_counter() - t1
+    launches = counts()
+    max_rel = float(np.max(np.abs(zr - fr)) / np.max(np.abs(fr)))
+    mean_rel = float(abs(zr.mean() - fr.mean()) / fr.mean())
+    print(f"[14d] zoom IAEA-3D 3x3x2 {s._mesh.shape} -> {zr.shape[1:]}: {wall:.3f} s; against "
+          f"project_flux max rel {max_rel:.4f} (< 0.25), mean rel {mean_rel:.5f} (< 0.02) ({card})")
+    print(f"    launches {k14(launches, 'zoom')}")
+    cg_line()
+    if zr.shape != (2, 76, 114, 114) or not np.isfinite(zr).all():
+        raise RuntimeError(f"zoom: shape {zr.shape} or a non-finite flux")
+    if not (max_rel < 0.25 and mean_rel < 0.02):
+        raise RuntimeError("zoom: too far from the projected flux")
+    del run, s, fr, zr
+    print(f"    [14d] {time.perf_counter() - t0:.1f} s")
+
+    # (e) state IO and the VTK export
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = bench.BenchmarkRun(spec, 6, 4, device=dev, dtype=f32)
+        k_cold = run.solve(tol=bench.FULL_TOL)
+        cold = run.solver._last_outers
+        run.solver.save_state(os.path.join(tmp, "state"))
+        del run
+        fresh = bench.BenchmarkRun(spec, 6, 4, device=dev, dtype=f32).solver
+        fresh.load_state(os.path.join(tmp, "state"))
+        fresh.set_tol(*bench.FULL_TOL)
+        k_warm = fresh.SolveKeff()
+        warm = fresh._last_outers
+        print(f"[14e] checkpoint IAEA-3D 6x6x4: cold keff {k_cold:.7f} in {cold} outers; loaded "
+              f"into a fresh facade, warm keff {k_warm:.7f} in {warm} outers")
+        if not (abs(k_warm - k_cold) <= 1e-5 and warm < cold):
+            raise RuntimeError("checkpoint: the warm solve is off the saved k or not faster")
+        del fresh
+        s = bench.BenchmarkRun(spec, 1, 1, device=dev, dtype=f32).solver
+        s.set_tol(*bench.FULL_TOL)
+        s.SolveKeff()
+        s.SolveAdjoint()
+        path = os.path.join(tmp, "core")
+        s.ExportVTK(path, export_flux=True, export_current=True, export_xs=True,
+                    export_adjoint=True)
+        with open(path + ".vtk") as f:
+            text = f.read()
+        missing = [fld for fld in ("Flux_g0", "Flux_g1", "Flux_total", "Flux_adj_g0",
+                                   "Current_g0", "D_g0", "SigmaR_g1", "NuSigF_g1", "Chi_g0",
+                                   "KappaSigF_g0", "Source_g0", "SigS_0_to_1")
+                   if fld not in text]
+        print(f"    ExportVTK IAEA-3D 1x1: {len(text)} bytes, missing fields {missing}")
+        if missing or f"CELL_DATA {19 ** 3}" not in text:
+            raise RuntimeError(f"ExportVTK: fields missing {missing}")
+    print(f"    [14e] {time.perf_counter() - t0:.1f} s")
+
+    # (f) IAEA-3D 1x1 float64: the card against the CPU
+    t0 = time.perf_counter()
+    got = {}
+    for device in ("cpu", "cuda"):
+        run = bench.BenchmarkRun(spec, 1, 1, device=device, dtype=f64)
+        run.solver.set_acceleration("anderson")
+        k = run.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
+        outers = run.solver._last_outers
+        zoom = run.solver.zoom_resolved([2, 2, 2])
+        _, _, m, _ = _subcritical(bench, spec, (1, 1), device, f64)
+        got[device] = (k, outers, m, zoom)
+    (kc, oc, mc, zc), (kg, og, mg, zg) = got["cpu"], got["cuda"]
+    zoom_rel = float(np.max(np.abs(zg - zc)) / np.max(np.abs(zc)))
+    print(f"[14f] IAEA-3D 1x1 float64, card against CPU: anderson keff {kg!r} / {kc!r} "
+          f"({og} / {oc} outers); subcritical M {mg!r} / {mc!r}; zoom (2, 2, 2) rel {zoom_rel:.2e}")
+    if not (abs(kg - kc) <= 1e-9 and og == oc and abs(mg - mc) <= 1e-9 * mc
+            and zoom_rel <= 1e-9):
+        raise RuntimeError("IAEA-3D 1x1: the card disagrees with the CPU")
+    print(f"    [14f] {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -1661,6 +1937,9 @@ def main():
         raise RuntimeError("ZION line preconditioner: the tiled K4′ did not run in the graph")
     del run, s
     print(f"    [13] {time.perf_counter() - t0:.1f} s")
+
+    # [14] the facade's surface: each part with its own counts
+    _facade_paths(bench, spec, dev, card, reset_counts, counts, cg_line)
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

@@ -1,7 +1,8 @@
 """k-eff benchmarks on the PyTorch port (one JSON line each, as ``bench.py``).
 
-Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
-``bench.main`` and of rows of ``bench.main_full``:
+Port of ``benchmarks/runner.BenchmarkRun`` (the full core and the quarter and
+half domains with their mirror cut planes), of ``bench.main``, of rows of
+``bench.main_full`` and of ``benchmarks/accel_compare.run_matrix``:
 
 * ``main``: IAEA-3D at NxN per assembly and M axial subdivisions per plane,
   RT0-P0, two groups; one warm-up solve, then three timed solves from a cold
@@ -23,7 +24,10 @@ Port of ``benchmarks/runner.BenchmarkRun`` (full-core domain "entier"), of
   in one process, solves in turns: at RT0-P0 6x6x4 ``NEUTFEM_EQFOLD=1|2`` (K7)
   and ``NEUTFEM_CGCG=1``; at RT_k-P_k 4x4x2 the default fp8 block storage
   (K8 on the E-form), the bfloat16 one (``NEUTFEM_BLKFP8=0``) and bfloat16 with ``NEUTFEM_BLOCKJAC=1``
-  (K8).
+  (K8);
+* ``main_accel``: the accelerator matrix — IAEA-2D 8x8, KOEBERG 8x8 and
+  IAEA-3D 6x6x4, each under "none", "chebyshev" and "anderson": one solve,
+  then one timed solve from a cold flux; one JSON row each.
 
 ``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
 one solve, ``reset_flux``, then one timed solve from a cold flux.  The
@@ -31,8 +35,8 @@ benchmark data come from ``benchmarks/data.py``, loaded by file path (it
 imports only numpy), so nothing of the JAX package is loaded.
 
 Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
---core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi}]``, or
-``python -m neutfem_tpu_torch.bench --optin [--order K]``.
+--core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi} |
+--accel]``, or ``python -m neutfem_tpu_torch.bench --optin [--order K]``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import subprocess
 import time
 from typing import Optional
 
@@ -52,10 +57,11 @@ import torch
 from . import krylov
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
 from .mesh import boundary_attribute
+from .ops import launch_counters
 from .power import power_iteration
 
 __all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale",
-           "main_adjoint", "main_sweep", "main_optin", "env"]
+           "main_adjoint", "main_sweep", "main_optin", "main_accel", "env"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
@@ -90,18 +96,52 @@ def _expand_layout(rows, n):
 
 
 def _slice_domain(grid, domain):
-    """Domain slicing; the port runs the full core only."""
-    if domain != "entier":
-        raise NotImplementedError(f"domain {domain!r}: only 'entier' is ported")
+    """The reference's domain conventions (iaea2d.py:136-151): quarter / half
+    slicing.  Midpoints are taken on the y / x axes (the two last axes: in 3D
+    the first axis is nz, which need not equal ny)."""
+    hy = grid.shape[-2] // 2
+    hx = grid.shape[-1] // 2
+    m = {
+        "quart_so": (slice(hy, None), slice(None, hx)),
+        "quart_no": (slice(None, hy), slice(None, hx)),
+        "quart_ne": (slice(None, hy), slice(hx, None)),
+        "quart_se": (slice(hy, None), slice(hx, None)),
+        "moitie_s": (slice(hy, None), slice(None, None)),
+        "moitie_o": (slice(None, None), slice(None, hx)),
+        "moitie_n": (slice(None, hy), slice(None, None)),
+        "moitie_e": (slice(None, None), slice(hx, None)),
+    }
+    if domain in m:
+        ys, xs = m[domain]
+        return grid[..., ys, xs]
     return grid
+
+
+#: The cut planes of each domain as (axis, upper) pairs, MIRROR there and
+#: DIRICHLET elsewhere: the geometrically correct planes after the slicing
+#: above (the reference drivers name TOP / RIGHT for quart_so, which their
+#: no-op MIRROR hides; ``benchmarks/runner.py:110-135``).
+CUTS = {
+    "entier": (),
+    "quart_so": ((1, False), (0, True)),
+    "quart_no": ((1, True), (0, True)),
+    "quart_ne": ((1, True), (0, False)),
+    "quart_se": ((1, False), (0, False)),
+    "moitie_s": ((1, False),),
+    "moitie_n": ((1, True),),
+    "moitie_o": ((0, True),),
+    "moitie_e": ((0, False),),
+}
 
 
 class BenchmarkRun:
     """Holds the solver + results of one benchmark execution."""
 
     def __init__(self, spec, mesh_n: int = 2, mesh_nz: int = 1, domain: str = "entier",
-                 verbose: bool = False, *, device, dtype=None, rt_order: int = 0,
+                 verbose: bool = False, *, device="cuda", dtype=None, rt_order: int = 0,
                  p_order: Optional[int] = None):
+        if domain not in CUTS:
+            raise ValueError(f"unsupported domain {domain!r}")
         self.spec = spec
         self.mesh_n = mesh_n
         self.mesh_nz = mesh_nz
@@ -139,9 +179,13 @@ class BenchmarkRun:
                     device=device, dtype=dtype)
         s.set_verbosity(VerbosityLevel.NORMAL if self.verbose else VerbosityLevel.SILENT)
         s.set_linear_solver(LinearSolverType.BICGSTAB)
-        for axis in range(spec.dim):  # full core: vacuum (Marshak) on every face
+        cut = set(CUTS[self.domain])
+        if self.domain.startswith("quart"):
+            s.apply_quarter_rotational_symmetry(0, 1)
+        for axis in range(spec.dim):  # vacuum (Marshak) on every face but the cuts
             for upper in (False, True):
-                s.set_bc(boundary_attribute(spec.dim, axis, upper), BCType.DIRICHLET, 0.0)
+                kind = BCType.MIRROR if (axis, upper) in cut else BCType.DIRICHLET
+                s.set_bc(boundary_attribute(spec.dim, axis, upper), kind, 0.0)
         self._fill_xs(s)
         s.BuildMatrices()
         self.solver = s
@@ -491,6 +535,81 @@ def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device=
     return out
 
 
+#: ``benchmarks/accel_compare.py``'s matrix: (core, BenchmarkRun keywords,
+#: tolerances), each under every accelerator of ``ACCELS``.
+ACCEL_CONFIGS = (
+    ("iaea2d", dict(mesh_n=8), (1e-6, 1e-5, 1e-5, 600, 1000)),
+    ("koeberg2d", dict(mesh_n=8), (1e-6, 1e-5, 1e-5, 600, 1000)),
+    ("iaea3d", dict(mesh_n=6, mesh_nz=4), (1e-5, 1e-4, 1e-4, 600, 1000)),
+)
+ACCELS = ("none", "chebyshev", "anderson")
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (its first line), or the device's name
+    off the card."""
+    if device.type != "cuda":
+        return str(device)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
+               dtype=torch.float32) -> list:
+    """The accelerator matrix (``benchmarks/accel_compare.run_matrix``): for
+    each configuration and accelerator one solve, then one timed solve from a
+    cold flux; prints one JSON row each (k, outers, inners, wall, ms/outer,
+    the CG counts, the kernel launches of the timed solve and the card's name
+    and power limit) and returns the rows.  Asserts the accelerators reach
+    the same fixed point: their k spread below 3 tol_keff."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench.main_accel: no CUDA device available")
+    card = card_line(device)
+    data = load_benchmark_data()
+    rows = []
+    for name, kwargs, tol in configs:
+        run = BenchmarkRun(data.BENCHMARKS[name], verbose=False, device=device, dtype=dtype,
+                           **kwargs)
+        s = run.solver
+        s.set_tol(*tol)
+        keffs = {}
+        for accel in accels:
+            s.set_acceleration(accel)
+            s.reset_flux()
+            s.SolveKeff()
+            s.reset_flux()
+            krylov.reset_stats()
+            before = {k: v for c in launch_counters() for k, v in c.items()}
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.time()
+            keff = s.SolveKeff()  # ends in a device -> host read of k
+            wall = time.time() - t0
+            launches = {k: v - before[k] for c in launch_counters() for k, v in c.items()
+                        if v != before[k]}
+            keffs[accel] = keff
+            rows.append({
+                "core": name, "mesh": "x".join(str(v) for v in kwargs.values()),
+                "n_cells": s.GetNumElements(), "accel": accel, "keff": round(keff, 7),
+                "outer_iterations": s._last_outers, "inner_iterations": s._last_inners,
+                "wall_s": round(wall, 4),
+                "ms_per_outer": round(1e3 * wall / max(s._last_outers, 1), 4),
+                "cg": _cg_detail(), "launches": launches,
+                "dtype": str(dtype), "device": card,
+            })
+            print(json.dumps(rows[-1]), flush=True)
+        spread = max(keffs.values()) - min(keffs.values())
+        # each accelerator stops when |dk| < tol_keff, so two converged solves
+        # may sit up to a few tol_keff apart around the fixed point
+        if not spread < 3.0 * tol[0]:
+            raise RuntimeError(f"{name}: accelerators disagree by {spread} (tol_keff {tol[0]})")
+        del run, s
+    return rows
+
+
 @contextlib.contextmanager
 def env(**switches):
     """Set environment switches (``NEUTFEM_EQFOLD="1"``, ...) for the block and
@@ -592,11 +711,15 @@ if __name__ == "__main__":
                       help="the IAEA-3D free-running adjoint row (main_adjoint)")
     mode.add_argument("--sweep", choices=("gs", "jacobi"), default=None,
                       help="one IAEA-3D solve with this group sweep (main_sweep)")
+    mode.add_argument("--accel", action="store_true",
+                      help="the accelerator matrix (main_accel)")
     ap.add_argument("--optin", action="store_true",
                     help="the opt-in switches against the default path at --order (main_optin)")
     a = ap.parse_args()
     if a.optin:
         main_optin(a.order)
+    elif a.accel:
+        main_accel()
     elif a.scale:
         main_scale()
     elif a.adjoint:

@@ -21,8 +21,10 @@ optionally at a fixed eigenvalue), the Gauss-Seidel ("gs") and the Jacobi
 line-tridiagonal (``"line"``, ``"line2"``, P == 1) or the additive two-grid
 (``"twogrid"``, ``twogrid.py``) preconditioner, and ``inner_solver``
 "direct" (the dense Cholesky factors of ``ops/direct.py``); ``accel``
-"chebyshev" | "none"; CMFD (``cmfd.py``) in mode "fixed".  Everything else
-the JAX ``SolveOptions`` offers raises ``NotImplementedError``.
+"chebyshev" | "anderson" | "none"; CMFD (``cmfd.py``) in mode "fixed"; the
+fixed-source and subcritical solves (``fixed_source_solve``,
+``solve_subcritical``).  Everything else the JAX ``SolveOptions`` offers
+raises ``NotImplementedError``.
 
 The JAX package's opt-in switches select the same branches here (read at
 each group solve, as the JAX package reads them at trace time):
@@ -43,7 +45,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from .accel import chebyshev_apply_blend, chebyshev_init
+from .accel import anderson_apply, anderson_init, chebyshev_apply_blend, chebyshev_init
 from .cmfd import cmfd_correction
 from .fespace import GRID_AXIS, FESpace
 from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, pcg, pcg_blocks, pcg_fused,
@@ -64,7 +66,8 @@ from .ops.tridiag import tridiag_solve
 from .twogrid import twogrid_apply
 
 __all__ = ["SolveOptions", "ctx_group", "resolve_precond", "group_plan", "group_solve",
-           "compute_current", "power_iteration", "biorthogonal_inner", "CGPlan"]
+           "compute_current", "power_iteration", "biorthogonal_inner", "CGPlan",
+           "fixed_source_solve", "solve_subcritical"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +82,10 @@ class SolveOptions:
                                   # inner_tol, 0.1); 0 = fixed tolerance
     max_outer: int = 200
     max_inner: int = 1000
-    accel: str = "chebyshev"      # "none" | "chebyshev"
+    accel: str = "chebyshev"      # "none" | "chebyshev" | "anderson"
     cheby_nmax: int = 15
     cheby_sigma: float = 0.98
+    anderson_m: int = 4
     a_mode: str = "exact"
     warm_start: bool = True
     inner_solver: str = "cg"      # "cg" | "direct" (ops/direct.attach_dense_schur
@@ -375,6 +379,17 @@ def _scatter_all(ctx, phi, adjoint: bool = False):
                         for g in range(phi.shape[0])])
 
 
+def _external_source(ctx, g: int):
+    """Flux-space rhs of the per-element-constant external source Q_g: only
+    the P_0 mode is excited, with weight detJ * w_mode[0].  (The JAX
+    package's boundary source ``src_bc`` of a nonzero NEUMANN boundary is not
+    ported: ``build_context`` refuses such a boundary.)"""
+    wm = ctx["w_mode_col"]  # (P, 1, 1, 1)
+    onehot = torch.zeros_like(wm)
+    onehot[0] = wm[0]
+    return (ctx["src"][g] * ctx["detJ"]) * onehot  # (P, nz, ny, nx)
+
+
 def compute_current(fes: FESpace, ctx: Dict, phi, a_mode: str = "exact"):
     """J = A^{-1} B^T phi for all groups (internal layout), one batched Thomas
     solve per direction; with bubbles (k >= 1) also their DOFs ("bub")."""
@@ -398,8 +413,8 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
     C are symmetric, so the same Schur solve serves).  fixed_keff: if given,
     the eigenvalue is held at keff0 (the reference's use_direct_keff) and
     convergence is on the flux only."""
-    if opts.accel not in ("chebyshev", "none"):
-        raise NotImplementedError(f"accel={opts.accel!r} is not ported")
+    if opts.accel not in ("chebyshev", "anderson", "none"):
+        raise ValueError(f"unknown accel {opts.accel!r}")
     if opts.sweep not in ("gs", "jacobi"):
         raise NotImplementedError(f"sweep={opts.sweep!r} is not ported")
     use_cmfd = opts.use_cmfd and not adjoint
@@ -419,8 +434,12 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
     # Jacobi sweep, whose subdominant spectrum is not confined to the real
     # interval Chebyshev assumes (the JAX package's rule)
     use_cheby = opts.accel == "chebyshev" and not opts.use_cmfd and opts.sweep != "jacobi"
+    # Anderson also runs under the Jacobi sweep (and in the adjoint, and at a
+    # fixed eigenvalue), from outer 2 on
+    use_anderson = opts.accel == "anderson" and not opts.use_cmfd
     cheby_from = 5 if adjoint else 2  # reference NeutFEM.cpp:1786 vs :1990
     cheb = chebyshev_init(phi)
+    ands = anderson_init(phi.numel(), opts.anderson_m, dtype, device) if use_anderson else None
     rhs_w = ctx["nsf"] if adjoint else ctx["chi"]  # group-row weight of the fission rhs
     # Adjoint sweeps groups in REVERSE: importance flows up the group ladder
     # (the reference sweeps forward, NeutFEM.cpp:1936; with a forward adjoint
@@ -511,6 +530,11 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
         if use_cheby:
             cheb, phi = chebyshev_apply_blend(cheb, phi, it >= cheby_from,
                                               opts.cheby_nmax, opts.cheby_sigma)
+        elif use_anderson and it >= 2:
+            # x_prev: the iterate before the group solves; g(x): the
+            # normalised new flux (both internal layout, flattened)
+            ands, acc = anderson_apply(ands, phi_old, phi)
+            phi = acc.reshape(phi.shape)
         hist.append(torch.stack([keff, diff_k, diff_flux, scalar(float(inner_iters))]))
         it += 1
         inner_tot += inner_iters
@@ -537,3 +561,79 @@ def biorthogonal_inner(ctx, phi, phi_adj):
     sum_g sum_{e,p} phi phi_adj detJ_e w_mode_p, on public (ng, nz, ny, nx, P)
     fluxes."""
     return torch.sum(phi * phi_adj * ctx["detJ"][..., None] * ctx["w_mode"])
+
+
+def fixed_source_solve(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0,
+                       with_fission: bool = True, keff: float = 1.0):
+    """Fixed-source (subcritical) solve: H phi = (1/keff) F phi + Q, the
+    fission source iterated at fixed k until the flux stagnates (the JAX
+    package's ``fixed_source_solve``); the external source Q (``ctx["src"]``,
+    per element) drives the P_0 mode.  With ``with_fission=False`` a pure
+    source problem, still iterated to converge upscatter through the
+    Gauss-Seidel sweep.  One host read per outer (the stop test), as in
+    ``power_iteration``; the adaptive inner tolerance and its endgame guard
+    are the same."""
+    phi = phi_to_internal(phi0)
+    dtype, device = phi.dtype, phi.device
+    if device.type == "cuda":
+        ctx.setdefault(CG_PLANS, CGPlans())
+    # the adaptive schedule's endgame floor, as in power_iteration: only an
+    # outer solved at inner_tol accuracy certifies convergence
+    endgame_tol = max(opts.inner_tol, 0.1 * opts.tol_flux) * 1.0001
+    diff = torch.tensor(1.0, dtype=dtype, device=device)
+    tol_used = diff
+    it, inner_tot = 0, 0
+
+    def not_converged() -> bool:
+        nc = diff >= opts.tol_flux
+        if opts.inner_eta > 0:
+            nc = nc | (tol_used > endgame_tol)
+        return bool(nc)  # the one host sync per outer iteration
+
+    while it < opts.max_outer and not_converged():
+        phi_old = phi
+        total_fiss = _fission_source(ctx, phi) if with_fission else 0.0
+        tol_g = None
+        tol_used = torch.tensor(opts.inner_tol, dtype=dtype, device=device)
+        if opts.inner_eta > 0:
+            tol_g = torch.clamp(opts.inner_eta * diff, opts.inner_tol, 0.1)
+            tol_used = tol_g
+        phi = phi.clone()
+        for g in range(ng):
+            rhs = _external_source(ctx, g)
+            if with_fission:
+                rhs = rhs + ctx["chi"][g] * total_fiss / keff
+            rhs = rhs + _scatter_into(ctx, g, phi)
+            x0 = phi[g] if opts.warm_start else torch.zeros_like(phi[g])
+            res = group_solve(fes, ctx_group(ctx, g), opts, rhs, x0, tol=tol_g)
+            phi[g] = res.x
+            inner_tot += res.iterations
+        num = torch.sum((phi - phi_old) ** 2)
+        den = torch.sum(phi * phi)
+        diff = torch.sqrt(num / torch.where(den == 0, 1.0, den))
+        it += 1
+
+    J = compute_current(fes, ctx, phi, a_mode=opts.a_mode)
+    return {
+        "phi": phi_to_public(phi),
+        "J": J_to_public(J),
+        "outer_iterations": it,
+        "inner_iterations": inner_tot,
+        "diff_flux": diff,
+        "finite": torch.all(torch.isfinite(phi)),
+    }
+
+
+def solve_subcritical(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0,
+                      keff: float = 1.0):
+    """Subcritical amplification M = ||phi with fission|| / ||phi without
+    fission|| (wrapper.cpp:708).  The result is the with-fission solve's,
+    plus ``amplification``, ``phi_no_fission`` and the source-only solve's
+    ``outer_iterations_no_fission``."""
+    res_f = fixed_source_solve(fes, ng, opts, ctx, phi0, with_fission=True, keff=keff)
+    res_0 = fixed_source_solve(fes, ng, opts, ctx, phi0, with_fission=False)
+    n_f = torch.sqrt(torch.sum(res_f["phi"] ** 2))
+    n_0 = torch.sqrt(torch.sum(res_0["phi"] ** 2))
+    return {**res_f, "amplification": n_f / torch.where(n_0 == 0, 1.0, n_0),
+            "phi_no_fission": res_0["phi"],
+            "outer_iterations_no_fission": res_0["outer_iterations"]}

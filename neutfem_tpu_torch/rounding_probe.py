@@ -1,9 +1,10 @@
 """How far rounding in the condensed Schur directions (K6) and in the block
-preconditioner (K8) moves a solve's counts.
+preconditioner (K8) moves a solve's counts; and, with ``--accel``, how far it
+moves the accelerator matrix's (``accel_probe``).
 
 Run on the GPU from the root of the repository:
 
-    python -m neutfem_tpu_torch.rounding_probe
+    python -m neutfem_tpu_torch.rounding_probe [--accel]
 
 One IAEA-3D 4x4x2 RT2-P2 float32 context with bfloat16 block storage
 (``NEUTFEM_BLKFP8=0``), solved at ``bench.HO_TOL`` from a cold flux with the
@@ -33,6 +34,7 @@ rounding, not a kernel's error.
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
@@ -129,5 +131,49 @@ def main() -> None:
         power.blockjac_dev_dots = k8
 
 
+def perturbed_start(s, rel: float, seed: int):
+    """Set solver ``s``'s start flux to the flat flux times 1 + ``rel`` x a
+    seeded normal sample (drawn in float64 on the solver's device, cast to
+    its dtype): ``rel`` 1e-7 moves float32 entries by about one ulp."""
+    flat = s._flat_phi()
+    g = torch.Generator(device=flat.device).manual_seed(seed)
+    noise = torch.randn(flat.shape, generator=g, device=flat.device, dtype=torch.float64)
+    s._phi = flat * (1 + rel * noise.to(flat.dtype))
+
+
+def accel_probe(device="cuda") -> None:
+    """Every row of ``bench.ACCEL_CONFIGS`` x ``bench.ACCELS`` at float32 from
+    the flat flux and from four start fluxes perturbed by one float32 ulp
+    (seeds 1-4), and at float64 from the flat flux and two 1e-15
+    perturbations (seeds 1-2); one JSON line a row and dtype with each
+    solve's (k, outers, inners)."""
+    device = torch.device(device)
+    data = bench.load_benchmark_data()
+    for dtype, rel, seeds in ((torch.float32, 1e-7, (1, 2, 3, 4)),
+                              (torch.float64, 1e-15, (1, 2))):
+        for core, kw, tol in bench.ACCEL_CONFIGS:
+            s = bench.BenchmarkRun(data.BENCHMARKS[core], device=device, dtype=dtype,
+                                   **kw).solver
+            s.set_tol(*tol)
+            for accel in bench.ACCELS:
+                s.set_acceleration(accel)
+                out = []
+                for seed in (None, *seeds):
+                    s.reset_flux()
+                    if seed is not None:
+                        perturbed_start(s, rel, seed)
+                    out.append((round(s.SolveKeff(), 8), s._last_outers, s._last_inners))
+                print(json.dumps({"core": core, "accel": accel, "dtype": str(dtype),
+                                  "perturbation": rel, "flat_then_seeds": out,
+                                  "device": bench.card_line(device)}), flush=True)
+            del s
+
+
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description="counts under rounding, on the GPU")
+    ap.add_argument("--accel", action="store_true",
+                    help="the accelerator matrix's rows (accel_probe)")
+    if ap.parse_args().accel:
+        accel_probe()
+    else:
+        main()

@@ -4,7 +4,10 @@ Each test compares one hand-written kernel (the tiled K1 / K2 / K3 kernel and it
 group-batched form, K1's batch and K5; the tiled K4, the tiled K4′, the tiled K6,
 the tiled K7, the tiled K8 on its three storage forms) with the plain PyTorch version
 of the same function, on the card, at a small shape; the last tests hold the CG's
-captured blocks (``krylov.CGGraph``) against the eager block loop on the card.  They need a CUDA device and skip without one (the decision is made
+captured blocks (``krylov.CGGraph``) against the eager block loop on the card, then
+the facade's paths on the card: the Anderson solve against the CPU, a zero
+right-hand side through a captured CG, and the plans of a context that ``set_bc``
+replaced freed with it.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
 
@@ -1189,6 +1192,77 @@ def test_group_solve_graph_matches_eager_blocks_twogrid(cuda):
                                                              inner_precond="twogrid"))
     assert got.iterations == want.iterations > 2
     assert torch.equal(got.x, want.x)
+
+
+def test_anderson_solve_matches_the_cpu(iaea_1x1_f32):
+    """IAEA-3D 1x1 float64 under ``set_acceleration("anderson")``: the card
+    (kernels, CG graphs) against the CPU (plain versions), |dk| <= 1e-9 and
+    the same outer count."""
+    bench, spec = iaea_1x1_f32
+    out = {}
+    for device in ("cpu", "cuda"):
+        run = bench.BenchmarkRun(spec, 1, 1, device=device, dtype=torch.float64)
+        run.solver.set_acceleration("anderson")
+        out[device] = (run.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000)), run.solver._last_outers,
+                       run.solver._last_inners)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-9
+    assert out["cuda"][1] == out["cpu"][1] > 2
+    assert abs(out["cuda"][2] - out["cpu"][2]) <= 2
+
+
+def test_zero_rhs_group_solve_through_the_graph(iaea_1x1_f32):
+    """A zero right-hand side (a group without source in a source-only
+    solve): the captured CG stops at once with x = 0, no NaN, and so does a
+    second solve that replays the same graph; the eager block loop agrees."""
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.power import SolveOptions, ctx_group, group_plan, group_solve
+
+    bench, spec = iaea_1x1_f32
+    run = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32)
+    fes, ctx = run.solver._fes, run.solver._ctx
+    ctx[krylov.CG_PLANS] = krylov.CGPlans()
+    ctxg = ctx_group(ctx, 0)
+    opts = SolveOptions(inner_tol=1e-5)
+    rhs = torch.zeros(ctx["C"].shape[1:], dtype=torch.float32, device="cuda")
+    for x0 in (torch.zeros_like(rhs), torch.ones_like(rhs)):
+        got = group_solve(fes, ctxg, opts, rhs, x0)
+        assert got.iterations == 0
+        assert torch.equal(got.x, torch.zeros_like(rhs))
+        assert bool(torch.isfinite(got.residual)) and float(got.residual) == 0.0
+    plan = group_plan(fes, ctxg, opts, rhs)
+    assert plan.graph.graph is not None
+    want = plan.blocks(plan.matvec, rhs * plan.sdi, x0 / plan.sdi, precond=plan.precond,
+                       tol=opts.inner_tol, maxiter=opts.max_inner, block=krylov.BLOCK_ITERS,
+                       **plan.kwargs())
+    assert want.iterations == 0 and not want.x.any()
+
+
+def test_set_bc_rounds_free_the_replaced_plans(iaea_1x1_f32):
+    """Two rounds of ``set_bc`` (MIRROR on the lower x face, where the first
+    solve had DIRICHLET) and a solve on one facade: each round's context is
+    rebuilt, the replaced context's CG plans become unreachable, and the
+    second round ends at the allocated memory of the first."""
+    import gc
+    import weakref
+
+    from neutfem_tpu_torch import krylov
+
+    bench, spec = iaea_1x1_f32
+    s = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32).solver
+    s.set_tol(1e-5, 1e-4, 1e-4, 200, 1000)
+    s.SolveKeff()
+    after = []
+    for _ in range(2):
+        plans = weakref.ref(s._ctx[krylov.CG_PLANS])
+        s.set_bc(3, 2)
+        s.reset_flux()
+        s.SolveKeff()
+        assert krylov.CG_PLANS in s._ctx and s._ctx[krylov.CG_PLANS] is not plans()
+        gc.collect()
+        torch.cuda.synchronize()
+        assert plans() is None
+        after.append(torch.cuda.memory_allocated())
+    assert after[1] == after[0]
 
 
 # last in the file: a failed capture must leave nothing behind for later tests

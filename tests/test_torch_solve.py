@@ -185,14 +185,13 @@ def test_facade_iaea2d_matches_jax():
     assert abs(trun.solver._last_inners - jrun.solver._last_inners) <= 2
 
 
-@pytest.mark.parametrize("opt", ["bicgstab", "cmfd_wielandt", "anderson", "a_mode_diag",
-                                 "diagonal_solver"])
+@pytest.mark.parametrize("opt", ["bicgstab", "cmfd_wielandt", "a_mode_diag", "diagonal_solver"])
 def test_options_outside_the_slice_raise(opt):
     fes, _, tctx, _ = _problem((3, 4, 5), seed=2)
     phi0 = torch.ones((2, *fes.mesh.shape, 1), dtype=F64)
     kw = {"bicgstab": dict(inner_solver="bicgstab"),
           "cmfd_wielandt": dict(use_cmfd=True, cmfd_mode="wielandt", cmfd_from_iter=0),
-          "anderson": dict(accel="anderson"), "a_mode_diag": dict(a_mode="diag")}.get(opt, {})
+          "a_mode_diag": dict(a_mode="diag")}.get(opt, {})
     with pytest.raises(NotImplementedError):
         if opt == "bicgstab":
             g = ctx_group(tctx, 0)
