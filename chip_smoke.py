@@ -104,7 +104,35 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    checkpoint of a 6x6x4 solve loaded into a fresh facade (the warm solve at
    the saved k in fewer outers) and ``ExportVTK``'s fields; (f) IAEA-3D 1x1
    at float64, the card against the CPU: the Anderson solve (|dk| <= 1e-9,
-   the same outers), M and the zoomed flux (rel 1e-9).
+   the same outers), M and the zoomed flux (rel 1e-9);
+15. the last single-device solver features (``bench.main_variants``), each
+   run with its own counts: (a) the diagonal and lumped A-solves and the
+   elementwise bug-compat solve on IAEA-3D 6x6x4 (K1-K4 not launched: the
+   JAX package runs no kernel there either; the bug-compat solve warns and
+   runs 0 inners), and the first two at 3x3x2 on the JAX package's float32
+   anchors (``DIAG_ANCHOR``, ``LUMPED_ANCHOR``; k 1e-5, outers +-3, inners
+   +-15%); (b) IAEA-3D 6x6x4 with its four lateral faces PERIODIC within 2e-5
+   of the quadrant (``quart_so``, 57x57x76) with all four MIRROR, K4 launched
+   at least twice a CG iteration, K1 at least once, the one-group K2 / K3
+   not at all; (c) the same at RT1-P1 4x4x2, K6 in z only; (d) a subcritical
+   solve driven by an inward current q = 1 on the bottom face (NEUMANN), M at
+   float32 within 1e-3 of float64, the bottom current q within 1e-5, K1-K4
+   launched; (e) BiCGSTAB at float64 within 2e-5 of the CG (6x6x4, at
+   ``bench.SWEEP_TOL``), K1-K3 launched twice a BiCGSTAB iteration, graph
+   replays, at most 0.3 host reads an iteration, and at 3x3x2 on the JAX
+   package's float64 anchor (``BICGSTAB_ANCHOR``; float32 BiCGSTAB overflows
+   from the flat flux in both packages, so its 6x6x4 row and CMFD "wielandt"
+   are printed, not held); (f) IAEA-3D 1x1 at float64, the card against the
+   CPU, for every feature of (a)-(e), CMFD "wielandt" on a small 2D problem
+   where its eigensolve converges, and KOEBERG 4x4 with both y faces PERIODIC (|dk| <= 1e-9, M
+   and flux rel 1e-9, the same outers); (g) KOEBERG 32x32 with both y faces
+   PERIODIC (its cyclic y solve takes K4′'s layout, launched every CG
+   iteration) within 2e-5 of the half core (``moitie_s``) with both y faces
+   MIRROR; K4′ at that fold shape and K4 at [15b]'s x and y fold shapes
+   against the plain version (rows of the JSON line).
+
+``python3 chip_smoke.py --phase 15`` runs [1], [2] and [15] alone and prints
+the kernel rows of [15] but no result line.
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
@@ -250,6 +278,32 @@ DOMAIN_KEFF_TOL = 2e-5
 # iteration stops at dphi < 1e-5 (bench.SWEEP_TOL) and contracts at ~k = 0.93,
 # so its error may reach ~14 times that
 SUBCRIT_M_REL = 1e-3
+# [15] anchors of the JAX package on a CPU at float32 (NEUTFEM_X64=0), IAEA-3D
+# 3x3x2 RT0-P0 (57x57x38 cells; the 6x6x4 main-path mesh is not run on that
+# CPU): (k, outers, inners), from
+#   NEUTFEM_X64=0 JAX_PLATFORMS=cpu python -c "from benchmarks.runner import
+#   BenchmarkRun; from benchmarks.data import BENCHMARKS; s = BenchmarkRun(
+#   BENCHMARKS['iaea3d'], mesh_n=3, mesh_nz=2).solver; s.set_tol(1e-5, 1e-4,
+#   1e-4, 200, 1000); print(s.SolveKeff(use_diagonal_solver=True),
+#   s._last_outers, s._last_inners)"
+# and, for "lumped", power_iteration(s._fes, s._ng, dataclasses.replace(
+# s._opts('lumped'), a_mode='lumped'), s._ctx('lumped'), s._flat_phi(), 1.0)
+# at the same tolerances
+DIAG_ANCHOR = (1.0194131, 34, 374)
+LUMPED_ANCHOR = (1.0287660, 34, 303)
+# [15e] BiCGSTAB runs at float64: from the flat start flux its float32 dots
+# overflow on IAEA-3D (the residual of x0 = 1 / sdi in the 1e15 absorber
+# cells reaches |r|^2 ~ 1e22 and <t, t> overflows: omega = inf / inf), in the
+# JAX package (k NaN after one inner at 1x1 and at 3x3x2 on a CPU, float32)
+# and in the port alike.  Its anchor: the JAX package on a CPU at float64,
+# IAEA-3D 3x3x2 at bench.SWEEP_TOL, power_iteration(..., dataclasses.replace(
+# s._opts('exact'), inner_solver='bicgstab'), ...): (k, outers, inners)
+BICGSTAB_ANCHOR = (1.0287386, 49, 419)
+# a variant against the row it is held to: the same fixed point at
+# bench.SWEEP_TOL (tol_keff 1e-6) within the float32 band of SCALE_KEFF_TOL
+VARIANT_PAIR_TOL = 2e-5
+# the bottom face's current against the prescribed q = 1, relative (float32)
+NEUMANN_Q_REL = 1e-5
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1304,6 +1358,285 @@ def _facade_paths(bench, spec, dev, card, reset_counts, counts, cg_line):
     print(f"    [14f] {time.perf_counter() - t0:.1f} s")
 
 
+def _cyclic_rhs(fes, ctxg, di, v):
+    """The folded face rhs rc of a PERIODIC direction (``apply.solve_A_dir``'s
+    cyclic branch) from a flux ``v`` of one group, with the factors and the
+    axis K4 / K4′ solve it along: (rc, dinv, l, axis)."""
+    import torch
+
+    from neutfem_tpu_torch.ops.apply import apply_BT_dir
+
+    key = f"d{di.d}"
+    rF, _ = apply_BT_dir(fes, di, v)
+    rFs = rF / float(di.m_t[0])
+    ax = (di.axis - 3) % rFs.ndim
+    n1 = rFs.shape[ax]
+    rc = torch.cat([rFs.narrow(ax, 0, 1) + rFs.narrow(ax, n1 - 1, 1),
+                    rFs.narrow(ax, 1, n1 - 2)], dim=ax)
+    d = ctxg[f"tri_dinv_{key}"].unsqueeze(-4).expand(rc.shape).contiguous()
+    lsh = list(rc.shape)
+    lsh[ax] -= 1
+    lf = ctxg[f"tri_l_{key}"].unsqueeze(-4).expand(lsh).contiguous()
+    return rc, d, lf, ax
+
+
+def _wielandt_small(device):
+    """CMFD "wielandt" at float64 on a random 2-group 2D problem of 4x5 cells
+    with both y faces PERIODIC (the case of tests/test_torch_bicgstab.py, where
+    the low-order eigensolve converges; on IAEA-3D it walks off, in the JAX
+    package too, and two roundings part within a few outers): (k, outers,
+    flux on the host)."""
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.bc import BCKind, BCSpec
+    from neutfem_tpu_torch.fespace import make_fespace
+    from neutfem_tpu_torch.mesh import CartesianMesh, boundary_attribute
+    from neutfem_tpu_torch.ops.context import build_context
+    from neutfem_tpu_torch.power import SolveOptions, power_iteration
+
+    rng = np.random.default_rng(4)
+    shape = (1, 4, 5)
+    mesh = CartesianMesh.from_breaks(
+        *[np.concatenate([[0.0], np.cumsum(rng.uniform(0.8, 1.4, n))]) for n in (5, 4)])
+    fes = make_fespace(mesh, 0, 0)
+    xs = {"D": rng.uniform(0.3, 2.0, (2, *shape)), "SigR": rng.uniform(0.01, 0.2, (2, *shape)),
+          "NSF": rng.uniform(0.0, 0.2, (2, *shape)), "Chi": np.zeros((2, *shape)),
+          "SigS": np.zeros((2, 2, *shape)), "SRC": np.zeros((2, *shape))}
+    xs["Chi"][0] = 1.0
+    xs["SigS"][1, 0] = rng.uniform(0.01, 0.03, shape)
+    bcs = BCSpec()
+    for ax in range(2):
+        for up in (False, True):
+            bcs.set(boundary_attribute(2, ax, up), BCKind.PERIODIC if ax == 1 else BCKind.DIRICHLET)
+    ctx = build_context(fes, 2, xs, bcs, device, torch.float64)
+    opts = SolveOptions(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10, max_outer=60,
+                        accel="none", use_cmfd=True, cmfd_mode="wielandt", cmfd_lo_outers=20)
+    r = power_iteration(fes, 2, opts, ctx, torch.ones((2, *shape, 1), dtype=torch.float64,
+                                                      device=device), 1.0)
+    return float(r["keff"]), r["outer_iterations"], r["phi"].cpu()
+
+
+def _variant_paths(bench, dev, card, reset_counts, counts, rows):
+    """Phase [15]: the solver features outside the main path on the card
+    (``bench.main_variants``; module docstring).  Adds the K4 rows at the
+    periodic fold shapes and the K4′ row at KOEBERG 32's to ``rows``."""
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.compat import BCType
+    from neutfem_tpu_torch.power import ctx_group
+
+    f32, f64 = torch.float32, torch.float64
+    data = bench.load_benchmark_data()
+    one_group = (*Z_KEYS, "thomas_rows", "thomas_wide_rows")
+    old = (*Z_OLD, "thomas", "thomas_y", *HO_OLD, *K5_OLD)
+
+    def variants(names, **kw):
+        reset_counts()
+        out = {r["row"]: r for r in bench.main_variants(names, device=dev, **kw)}
+        for r in out.values():
+            d = r["detail"]
+            print(f"    {r['row']} ({d['mesh']}, {d['dtype']}): "
+                  f"{'M' if r['row'] == 'neumann' else 'keff'} "
+                  f"{d.get('keff', d.get('amplification'))!r}, {d['outer_iterations']} / "
+                  f"{d['inner_iterations']}, {d['ms_per_outer']:.3f} ms/outer, host reads "
+                  f"{d['cg']['host_reads_per_iteration']} per CG iteration ({card})")
+            print(f"      launches {d['launches']}")
+            if any(d["launches"].get(k, 0) for k in old):
+                raise RuntimeError(f"{r['row']}: a replaced kernel launched")
+        return out
+
+    def held(what, got, anchor, keff_tol=KEFF_TOL):
+        d = got["detail"]
+        print(f"    {what}: ({d['keff']:.7f}, {d['outer_iterations']}, {d['inner_iterations']}) "
+              f"against {anchor}")
+        _check_anchor(what, d["keff"], d["outer_iterations"], d["inner_iterations"], anchor,
+                      keff_tol)
+
+    def pair(what, a, b):
+        ka, kb = a["detail"]["keff"], b["detail"]["keff"]
+        print(f"    {what}: keff {ka:.8f} against {kb:.8f}, dk {ka - kb:+.2e}")
+        if not abs(ka - kb) <= VARIANT_PAIR_TOL:
+            raise RuntimeError(f"{what}: keff {ka} not within {VARIANT_PAIR_TOL} of {kb}")
+
+    # (a) the diagonal and lumped A-solves: no TPU kernel, in the JAX package too
+    t0 = time.perf_counter()
+    print("[15a] diagonal A-solves: neutfem_tpu_torch.bench.main_variants(), IAEA-3D, float32")
+    got = variants(("diag", "lumped", "diag_elementwise"))
+    for name, r in got.items():
+        launched = {k: r["detail"]["launches"].get(k, 0) for k in one_group}
+        if any(launched.values()) or r["detail"]["launches"].get("z_batched_rows", 0):
+            raise RuntimeError(f"{name}: K1-K4 launched on a diagonal A-solve: {launched}")
+        if not np.isfinite(r["detail"]["keff"]):
+            raise RuntimeError(f"{name}: keff {r['detail']['keff']}")
+    ew = got["diag_elementwise"]["detail"]
+    if ew["inner_iterations"] != 0 or not any("diag_elementwise" in w for w in ew["warnings"]):
+        raise RuntimeError(f"diag_elementwise: {ew['inner_iterations']} inners, warnings "
+                           f"{ew['warnings']}")
+    if not 0.5 <= got["diag"]["detail"]["keff"] <= 2.0:
+        raise RuntimeError("diag: implausible keff")
+    got3 = variants(("diag", "lumped"), mesh=(3, 2), warmup=False)
+    held("diag 3x3x2", got3["diag"], DIAG_ANCHOR)
+    held("lumped 3x3x2", got3["lumped"], LUMPED_ANCHOR)
+    print(f"    [15a] {time.perf_counter() - t0:.1f} s")
+
+    # (b, c) PERIODIC lateral faces against the mirrored quadrant
+    t0 = time.perf_counter()
+    print("[15b] PERIODIC lateral faces, RT0-P0 6x6x4, against the quadrant (quart_so) with "
+          "MIRROR lateral faces, float32")
+    got = variants(("periodic", "periodic_mirror"))
+    pair("periodic 6x6x4 / quadrant", got["periodic"], got["periodic_mirror"])
+    per = got["periodic"]["detail"]
+    its = per["cg"]["iterations"]
+    if (per["launches"].get("thomas_rows", 0) < 2 * its or per["launches"].get("z_rows", 0) < its
+            or per["launches"].get("y_rows", 0) or per["launches"].get("x_rows", 0)):
+        raise RuntimeError(f"periodic 6x6x4: launches {per['launches']} for {its} CG iterations")
+    k4_periodic = per["launches"]["thomas_rows"]
+    print(f"    [15b] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[15c] PERIODIC lateral faces, RT1-P1 4x4x2, against its quadrant, float32")
+    got = variants(("periodic_rt1", "periodic_rt1_mirror"), warmup=False)
+    pair("periodic RT1-P1 4x4x2 / quadrant", got["periodic_rt1"], got["periodic_rt1_mirror"])
+    per = got["periodic_rt1"]["detail"]
+    its = per["cg"]["iterations"]
+    if (per["launches"].get("thomas_rows", 0) < 2 * its or per["launches"].get("ho_z_rows", 0) <= 0
+            or per["launches"].get("ho_y_rows", 0) or per["launches"].get("ho_x_rows", 0)):
+        raise RuntimeError(f"periodic RT1-P1: launches {per['launches']} for {its} CG iterations")
+    print(f"    [15c] {time.perf_counter() - t0:.1f} s")
+
+    # (d) a subcritical solve driven by a NEUMANN inward current
+    t0 = time.perf_counter()
+    print("[15d] NEUMANN q = 1 on the bottom face, nu-Sigma_f x 0.9, no volume source: "
+          "SolveSubcritical, IAEA-3D 6x6x4, float32 and float64")
+    m = {}
+    for dt in (f32, f64):
+        r = variants(("neumann",), dtype=dt, warmup=dt == f32)["neumann"]["detail"]
+        m[dt] = r["amplification"]
+        qrel = max(abs(r["bottom_current_min"] - 1.0), abs(r["bottom_current_max"] - 1.0))
+        print(f"    {dt}: bottom-face current in [{r['bottom_current_min']!r}, "
+              f"{r['bottom_current_max']!r}] (q = 1, rel {qrel:.2e})")
+        if not qrel <= NEUMANN_Q_REL:
+            raise RuntimeError(f"NEUMANN {dt}: the bottom current is not q")
+        if min(r["launches"].get(k, 0) for k in (*Z_KEYS, "thomas_rows")) <= 0:
+            raise RuntimeError(f"NEUMANN {dt}: K1-K4 not launched")
+    rel = abs(m[f32] - m[f64]) / m[f64]
+    print(f"    M float32 {m[f32]!r}, float64 {m[f64]!r}, rel {rel:.2e}")
+    if not (np.isfinite(m[f32]) and rel <= SUBCRIT_M_REL):
+        raise RuntimeError(f"NEUMANN: float32 M {m[f32]} not within {SUBCRIT_M_REL} of {m[f64]}")
+    print(f"    [15d] {time.perf_counter() - t0:.1f} s")
+
+    # (e) BiCGSTAB against the CG, float64 (the float32 run overflows, as in
+    # the JAX package: BICGSTAB_ANCHOR's comment), and the float32 rows printed
+    t0 = time.perf_counter()
+    print("[15e] BiCGSTAB inner solver, IAEA-3D 6x6x4 at bench.SWEEP_TOL, against the CG, "
+          "float64")
+    got = variants(("bicgstab", "cg"), dtype=f64)
+    pair("bicgstab / cg 6x6x4", got["bicgstab"], got["cg"])
+    st = got["bicgstab"]["detail"]
+    its = st["cg"]["iterations"]
+    if (min(st["launches"].get(k, 0) for k in Z_KEYS) < 2 * its or st["cg"]["replays"] <= 0
+            or st["cg"]["host_reads_per_iteration"] > 0.3):
+        raise RuntimeError(f"bicgstab: launches {st['launches']}, CG {st['cg']}")
+    got3 = variants(("bicgstab",), mesh=(3, 2), dtype=f64, warmup=False)
+    held("bicgstab 3x3x2 float64", got3["bicgstab"], BICGSTAB_ANCHOR)
+    variants(("bicgstab", "wielandt"), dtype=f32, warmup=False)
+    print("    (printed, not held: float32 BiCGSTAB overflows from the flat flux; CMFD "
+          "\"wielandt\" is experimental in the JAX package)")
+    print(f"    [15e] {time.perf_counter() - t0:.1f} s")
+
+    # (f) the card against the CPU at float64 on IAEA-3D 1x1, every feature
+    t0 = time.perf_counter()
+    print("[15f] IAEA-3D 1x1 float64 (CMFD \"wielandt\": a 4x5 2D problem), card against CPU")
+    spec = data.BENCHMARKS["iaea3d"]
+    for row in ("diag", "lumped", "periodic", "neumann", "bicgstab", "wielandt"):
+        res = {}
+        for device in ("cpu", "cuda"):
+            if row == "wielandt":
+                res[device] = _wielandt_small(torch.device(device))
+                continue
+            _, s, solve = bench._variant_setup(row, spec, (1, 1), (1, 1), torch.device(device),
+                                               f64)
+            v, outers, _, _ = solve()
+            res[device] = (v, outers, s._phi.cpu())
+        (vc, oc, pc), (vg, og, pg) = res["cpu"], res["cuda"]
+        frel = float(torch.max(torch.abs(pg - pc)) / torch.max(torch.abs(pc)))
+        what = "M" if row == "neumann" else "keff"
+        print(f"    {row}: {what} {vg!r} / {vc!r} ({og} / {oc} outers), flux rel {frel:.2e}")
+        if not (abs(vg - vc) <= 1e-9 * max(1.0, abs(vc)) and og == oc and frel <= 1e-9):
+            raise RuntimeError(f"IAEA-3D 1x1 {row}: the card disagrees with the CPU")
+    res = {}
+    per_y = {(1, False): (BCType.PERIODIC, 0.0), (1, True): (BCType.PERIODIC, 0.0)}
+    for device in ("cpu", "cuda"):
+        r = bench.BenchmarkRun(data.BENCHMARKS["koeberg2d"], 4, device=device, dtype=f64,
+                               bc=per_y)
+        k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
+        res[device] = (k, r.solver._last_outers)
+    print(f"    KOEBERG 4x4 (68x68) y PERIODIC: keff {res['cuda'][0]!r} / {res['cpu'][0]!r} "
+          f"({res['cuda'][1]} / {res['cpu'][1]} outers)")
+    if not (abs(res["cuda"][0] - res["cpu"][0]) <= 1e-9 and res["cuda"][1] == res["cpu"][1]):
+        raise RuntimeError("KOEBERG 4x4 y PERIODIC: the card disagrees with the CPU")
+    print(f"    [15f] {time.perf_counter() - t0:.1f} s")
+
+    # (g) a 2D y direction PERIODIC where its cyclic solve takes K4′'s layout:
+    # KOEBERG 32 (544x544) against the mirrored half core (moitie_s), float32
+    t0 = time.perf_counter()
+    print("[15g] KOEBERG 32x32 (544x544) y PERIODIC against the half core (moitie_s) with both "
+          "y faces MIRROR, float32")
+    ks = {}
+    for name, kw in (("periodic", dict(bc=per_y)),
+                     ("half", dict(domain="moitie_s",
+                                   bc={(1, True): (BCType.MIRROR, 0.0)}))):
+        reset_counts()
+        r = bench.BenchmarkRun(data.BENCHMARKS["koeberg2d"], 32, device=dev, dtype=f32, **kw)
+        t1 = time.perf_counter()
+        ks[name] = r.solve(tol=bench.SWEEP_TOL)
+        wall = time.perf_counter() - t1
+        launches = counts()
+        s = r.solver
+        print(f"    {name} {s._mesh.shape}: keff {ks[name]:.7f}, {s._last_outers} / "
+              f"{s._last_inners}, {wall * 1e3 / max(s._last_outers, 1):.3f} ms/outer, "
+              f"preconditioner {s.preconditioner()} ({card})")
+        print(f"      launches {launches}")
+        if name == "periodic":
+            k4w_periodic = launches.get("thomas_wide_rows", 0)
+            if k4w_periodic < s._last_inners or launches.get("y_rows", 0):
+                raise RuntimeError("KOEBERG 32 y PERIODIC: K4′ not launched every CG "
+                                   "iteration, or the fused y kernel ran")
+            ctxg = ctx_group(s._context(), 0)
+            v = torch.as_tensor(np.random.default_rng(3).standard_normal((1, *s._mesh.shape)),
+                                dtype=f32, device=dev)
+            di_y = next(di for di in s._fes.dirs if di.d == 1)
+            wide = _cyclic_rhs(s._fes, ctxg, di_y, v)
+        del r, s
+    print(f"    dk {ks['periodic'] - ks['half']:+.2e}")
+    if not abs(ks["periodic"] - ks["half"]) <= VARIANT_PAIR_TOL:
+        raise RuntimeError("KOEBERG 32: the y-periodic core is off the mirrored half core")
+    row = _wide_case("periodic y fold (KOEBERG 32)", *wide[:3], card)
+    row.pop("key")
+    row["launches"] = k4w_periodic
+    rows["K4′ periodic y"] = row
+    print(f"    [15g] {time.perf_counter() - t0:.1f} s")
+
+    # K4 at the periodic fold shapes of [15b] (x and y of one group, 6x6x4)
+    run = bench.BenchmarkRun(spec, 6, 4, device=dev, dtype=f32,
+                             bc={f: (BCType.PERIODIC, 0.0) for f in bench.LATERAL})
+    s = run.solver
+    ctxg = ctx_group(s._context(), 0)
+    v = torch.as_tensor(np.random.default_rng(4).standard_normal((1, *s._mesh.shape)),
+                        dtype=f32, device=dev)
+    for di in s._fes.dirs:
+        if di.d == 2:
+            continue
+        key = "zyx"[di.axis]
+        row = _thomas_rows_case(f"periodic {key} fold (IAEA-3D 6x6x4)",
+                                *_cyclic_rhs(s._fes, ctxg, di, v), K4_REPLACES[key], card)
+        row.pop("key")
+        row["launches"] = k4_periodic  # [15b]'s periodic solve, every K4 layout
+        rows[f"K4 periodic {key}"] = row
+    del run, s
+
+
 def main():
     import torch
 
@@ -1356,6 +1689,12 @@ def main():
 
     dev = torch.device("cuda")
     f32 = torch.float32
+    if sys.argv[1:] == ["--phase", "15"]:  # phase [15] alone, for a change there: no result
+        rows = {}
+        _variant_paths(bench, dev, card, reset_counts, counts, rows)
+        print(f"    total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"kernels": list(rows.values())}))
+        return
     spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
     run = bench.BenchmarkRun(spec, mesh_n=6, mesh_nz=4, device=dev, dtype=f32)
     fes, ctx = run.solver._fes, run.solver._ctx
@@ -1940,6 +2279,11 @@ def main():
 
     # [14] the facade's surface: each part with its own counts
     _facade_paths(bench, spec, dev, card, reset_counts, counts, cg_line)
+
+    # [15] the last single-device solver features: each row with its own counts
+    t0 = time.perf_counter()
+    _variant_paths(bench, dev, card, reset_counts, counts, rows)
+    print(f"    [15] {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

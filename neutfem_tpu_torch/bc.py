@@ -4,10 +4,17 @@
   diagonal of A (``marshak_d_factor=True`` multiplies the reference's extra ``D``,
   NeutFEM.cpp:1350, for eigenvalue parity).
 * MIRROR: reflective condition ``J.n = 0`` — the boundary-face DOFs are pinned to zero.
-* NEUMANN(value=q): prescribed inward current density; q = 0 is MIRROR.  Nonzero q is
-  not part of the port yet (``build_context`` raises).
+* NEUMANN(value=q): prescribed inward current density q; q = 0 is MIRROR.  Nonzero q
+  is an inhomogeneous essential condition, lifted as J = J' + J_q with a fixed
+  flux-space source (``src_bc``) the fixed-source solves add and a current
+  correction (``jcorr``) added to the output current; the reference accepts the
+  value and ignores it (wrapper.cpp:401-423).
 * ROBIN(alpha, beta): albedo ``phi_b = (beta / (alpha * D)) (J.n)``.
-* PERIODIC: not part of the port yet (``build_context`` raises).
+* PERIODIC: true periodic coupling, set on BOTH ends of a direction — the face system
+  along it becomes cyclic tridiagonal, solved exactly by Sherman-Morrison on the
+  LDL^T factors (``ops/context.py``); B / B^T and CMFD wrap around.  The reference
+  never discretizes it (NeutFEM.cpp:2128-2131); ``build_context(...,
+  periodic_natural=True)`` gives that parity (a warning, then a natural boundary).
 """
 
 from __future__ import annotations

@@ -27,7 +27,13 @@ half domains with their mirror cut planes), of ``bench.main``, of rows of
   (K8);
 * ``main_accel``: the accelerator matrix — IAEA-2D 8x8, KOEBERG 8x8 and
   IAEA-3D 6x6x4, each under "none", "chebyshev" and "anderson": one solve,
-  then one timed solve from a cold flux; one JSON row each.
+  then one timed solve from a cold flux; one JSON row each;
+* ``main_variants``: the solver features outside the main path on IAEA-3D
+  (``VARIANTS``): the diagonal and lumped A-solves, the elementwise
+  bug-compat solve, the lateral faces PERIODIC (RT0 at 6x6x4, RT1-P1 at
+  4x4x2) beside the mirrored quadrant, a subcritical solve driven by a
+  NEUMANN inward current on the bottom face, BiCGSTAB beside the CG, and CMFD
+  "wielandt"; one JSON row each.
 
 ``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
 one solve, ``reset_flux``, then one timed solve from a cold flux.  The
@@ -36,7 +42,7 @@ imports only numpy), so nothing of the JAX package is loaded.
 
 Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
 --core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi} |
---accel]``, or ``python -m neutfem_tpu_torch.bench --optin [--order K]``.
+--accel | --variants]``, or ``python -m neutfem_tpu_torch.bench --optin [--order K]``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import json
 import os
 import subprocess
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -61,7 +68,7 @@ from .ops import launch_counters
 from .power import power_iteration
 
 __all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale",
-           "main_adjoint", "main_sweep", "main_optin", "main_accel", "env"]
+           "main_adjoint", "main_sweep", "main_optin", "main_accel", "main_variants", "env"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
@@ -139,7 +146,7 @@ class BenchmarkRun:
 
     def __init__(self, spec, mesh_n: int = 2, mesh_nz: int = 1, domain: str = "entier",
                  verbose: bool = False, *, device="cuda", dtype=None, rt_order: int = 0,
-                 p_order: Optional[int] = None):
+                 p_order: Optional[int] = None, bc: Optional[dict] = None):
         if domain not in CUTS:
             raise ValueError(f"unsupported domain {domain!r}")
         self.spec = spec
@@ -149,6 +156,8 @@ class BenchmarkRun:
         self.p_order = int(p_order) if p_order is not None else self.rt_order
         self.domain = domain
         self.verbose = verbose
+        # (axis, upper) -> (BCType, value) set in place of the domain's rule
+        self.bc = dict(bc or {})
         self.keff: Optional[float] = None
         self.solve_seconds: Optional[float] = None
         self._build(device, dtype)
@@ -185,7 +194,8 @@ class BenchmarkRun:
         for axis in range(spec.dim):  # vacuum (Marshak) on every face but the cuts
             for upper in (False, True):
                 kind = BCType.MIRROR if (axis, upper) in cut else BCType.DIRICHLET
-                s.set_bc(boundary_attribute(spec.dim, axis, upper), kind, 0.0)
+                kind, value = self.bc.get((axis, upper), (kind, 0.0))
+                s.set_bc(boundary_attribute(spec.dim, axis, upper), kind, value)
         self._fill_xs(s)
         s.BuildMatrices()
         self.solver = s
@@ -610,6 +620,136 @@ def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
     return rows
 
 
+#: ``main_variants``' rows: the diagonal A-solve (``SolveKeff(
+#: use_diagonal_solver=True)``), the lumped one (``power_iteration`` on the
+#: "lumped" context), the elementwise bug-compat solve, the four lateral
+#: faces PERIODIC and the quadrant (``quart_so``) with all four MIRROR, at
+#: RT0 (``mesh``) and at RT1-P1 (``ho_mesh``), a subcritical solve (nu-Sigma_f
+#: x 0.9, no volume source) driven by a unit inward current on the bottom
+#: face (NEUMANN), BiCGSTAB and the CG, and CMFD "wielandt"
+VARIANTS = ("diag", "lumped", "diag_elementwise", "periodic", "periodic_mirror",
+            "periodic_rt1", "periodic_rt1_mirror", "neumann", "bicgstab", "cg", "wielandt")
+#: the tolerances of each row: the rows held to another row's k at
+#: ``SWEEP_TOL``, the anchored ones at ``FULL_TOL``; CMFD "wielandt" stops
+#: after 3 outers (one correction) of at most 10 low-order outers: its
+#: low-order eigensolve walks off on IAEA-3D, in the JAX package too, at up
+#: to 60 BiCGSTAB solves a correction by default (6.7 s an outer at 6x6x4
+#: float32 on an NVIDIA H100)
+VARIANT_TOL = {"diag": FULL_TOL, "lumped": FULL_TOL, "diag_elementwise": FULL_TOL,
+               "wielandt": SWEEP_TOL[:3] + (3, SWEEP_TOL[4])}
+#: the lateral faces (axis, upper) of a 3D core, PERIODIC or MIRROR
+LATERAL = ((0, False), (0, True), (1, False), (1, True))
+
+
+def _variant_setup(row: str, spec, mesh, ho_mesh, device, dtype):
+    """(facade, solve) of one ``main_variants`` row: ``solve()`` runs the
+    row's solve from a cold flux and returns (k or M, outers, inners,
+    extra detail)."""
+    order = 1 if row.startswith("periodic_rt1") else 0
+    n, nz = ho_mesh if order else mesh
+    kw = dict(mesh_n=n, mesh_nz=nz, verbose=False, device=device, dtype=dtype, rt_order=order)
+    if row.startswith("periodic"):
+        mirror = row.endswith("_mirror")
+        kw["bc"] = {f: (BCType.MIRROR if mirror else BCType.PERIODIC, 0.0) for f in LATERAL}
+        if mirror:
+            kw["domain"] = "quart_so"
+    elif row == "neumann":
+        kw["bc"] = {(2, False): (BCType.NEUMANN, 1.0)}
+    run = BenchmarkRun(spec, **kw)
+    s = run.solver
+    s.set_tol(*VARIANT_TOL.get(row, SWEEP_TOL))
+    if row == "neumann":
+        s.get_NSF()[...] *= 0.9
+        s.BuildMatrices()
+
+    def facade(**solve_kw):
+        def solve():
+            s.reset_flux()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                k = s.SolveKeff(**solve_kw)
+            return k, s._last_outers, s._last_inners, {
+                "warnings": [str(w.message)[:80] for w in caught]}
+        return solve
+
+    def direct(**opt_kw):
+        def solve():
+            opts = dataclasses.replace(s._opts(), **opt_kw)
+            res = power_iteration(s._fes, s._ng, opts, s._context(opts.a_mode), s._flat_phi(),
+                                  1.0)
+            s._phi = res["phi"]
+            return float(res["keff"]), res["outer_iterations"], res["inner_iterations"], {}
+        return solve
+
+    def subcritical():
+        s.reset_flux()
+        m = s.SolveSubcritical()
+        # the bottom face's physical current, every group and cell: the lift
+        # makes it the prescribed inward current
+        ctx = s._context()
+        j0 = (s._J["d2"]["face"][..., 0] * ctx["jscale_d2"])[:, 0]
+        jmin, jmax = torch.aminmax(j0)
+        return m, sum(s.subcritical_outers), None, {
+            "bottom_current_min": float(jmin), "bottom_current_max": float(jmax),
+            "outers_with_without_fission": list(s.subcritical_outers)}
+
+    solve = {"diag": facade(use_diagonal_solver=True),
+             "diag_elementwise": facade(use_diagonal_solver=True, diag_elementwise=True),
+             "lumped": direct(a_mode="lumped"),
+             "neumann": subcritical,
+             "bicgstab": direct(inner_solver="bicgstab"),
+             "cg": direct(),
+             "wielandt": direct(use_cmfd=True, cmfd_mode="wielandt",
+                                cmfd_lo_outers=10)}.get(row, facade())
+    return run, s, solve
+
+
+def main_variants(rows=VARIANTS, mesh=(6, 4), ho_mesh=(4, 2), device="cuda",
+                  dtype=torch.float32, warmup: bool = True) -> list:
+    """The solver features outside the main path (``VARIANTS``) on IAEA-3D at
+    ``mesh`` (RT1-P1 rows at ``ho_mesh``): for each row one solve (without
+    ``warmup``, none: the timed solve then includes building its CG plans
+    and capturing their graphs), then one timed solve from a cold flux;
+    prints one JSON row each (k, or M for
+    "neumann", outers, inners, ms/outer, the CG counts, the kernel launches
+    of the timed solve and the card's name and power limit) in
+    ``bench.main``'s form and returns the rows.  ``device="cpu"`` runs them
+    through the plain versions (small meshes only)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench.main_variants: no CUDA device available")
+    card = card_line(device)
+    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    out = []
+    for row in rows:
+        run, s, solve = _variant_setup(row, spec, mesh, ho_mesh, device, dtype)
+        if warmup:
+            solve()
+        krylov.reset_stats()
+        before = {k: v for c in launch_counters() for k, v in c.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.time()
+        value, outers, inners, extra = solve()  # each ends in a device -> host read
+        wall = time.time() - t0
+        launches = {k: v - before[k] for c in launch_counters() for k, v in c.items()
+                    if v != before[k]}
+        detail = {"amplification" if row == "neumann" else "keff": value,
+                  "outer_iterations": outers, "inner_iterations": inners,
+                  "n_cells": s.GetNumElements(), "solve_wall_s": round(wall, 4),
+                  "ms_per_outer": 1e3 * wall / max(outers, 1), "cg": _cg_detail(),
+                  "launches": launches, "warm": warmup, **extra,
+                  "mesh": f"{run.mesh_n}x{run.mesh_n}x{run.mesh_nz} {run.domain} "
+                          f"RT{run.rt_order}-P{run.p_order}",
+                  "device": card, "dtype": str(dtype)}
+        out.append({"metric": f"iaea3d_{row}_seconds_per_outer_iteration",
+                    "value": round(wall / max(outers, 1), 6), "unit": "s/outer",
+                    "row": row, "detail": detail})
+        print(json.dumps(out[-1]), flush=True)
+        del run, s, solve
+    return out
+
+
 @contextlib.contextmanager
 def env(**switches):
     """Set environment switches (``NEUTFEM_EQFOLD="1"``, ...) for the block and
@@ -713,6 +853,8 @@ if __name__ == "__main__":
                       help="one IAEA-3D solve with this group sweep (main_sweep)")
     mode.add_argument("--accel", action="store_true",
                       help="the accelerator matrix (main_accel)")
+    mode.add_argument("--variants", action="store_true",
+                      help="the solver features outside the main path (main_variants)")
     ap.add_argument("--optin", action="store_true",
                     help="the opt-in switches against the default path at --order (main_optin)")
     a = ap.parse_args()
@@ -720,6 +862,8 @@ if __name__ == "__main__":
         main_optin(a.order)
     elif a.accel:
         main_accel()
+    elif a.variants:
+        main_variants()
     elif a.scale:
         main_scale()
     elif a.adjoint:

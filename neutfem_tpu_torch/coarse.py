@@ -59,14 +59,17 @@ def coarsen_xs(mesh: CartesianMesh, xs: Dict[str, np.ndarray],
 
 
 def coarse_init(fes, ng: int, xs: Dict[str, np.ndarray], bcs, factors: Sequence[int], opts,
-                device, dtype, keff0: float = 1.0, marshak_d_factor: bool = False):
+                device, dtype, keff0: float = 1.0, marshak_d_factor: bool = False,
+                coarse_a_mode: str = "exact"):
     """Solve the coarse RT0-P0 eigenproblem and return (keff_coarse, fine phi0).
 
     phi0 (ng, nz, ny, nx, P) on ``device`` carries the coarse flux in the fine
     P_0 mode (piecewise-constant prolongation) and zeros in the higher modes,
     ready to seed ``power_iteration`` on the fine space.  The coarse solve runs
-    the equilibrated CG whatever ``opts.inner_solver`` says: the coarse context
-    carries no dense factors."""
+    the equilibrated CG where ``opts.inner_solver`` is "direct" (the coarse
+    context carries no dense factors), with the A-solve ``coarse_a_mode`` (the
+    reference's coarse solve takes the standard exact Schur path,
+    NeutFEM.cpp:2568)."""
     from .fespace import make_fespace
     from .ops.context import build_context
     from .power import power_iteration
@@ -75,11 +78,13 @@ def coarse_init(fes, ng: int, xs: Dict[str, np.ndarray], bcs, factors: Sequence[
     cmesh, cxs = coarsen_xs(mesh, xs, factors)
     cfes = make_fespace(cmesh, 0, 0)  # coarse is always RT0-P0 (NeutFEM.cpp:2453-2458)
     cctx = build_context(cfes, ng, cxs, bcs, device=device, dtype=dtype,
-                         marshak_d_factor=marshak_d_factor)
+                         a_mode=coarse_a_mode, marshak_d_factor=marshak_d_factor)
     copts = dataclasses.replace(opts, tol_keff=opts.tol_keff * 10.0,
                                 tol_flux=opts.tol_flux * 10.0,
-                                max_outer=max(opts.max_outer // 2, 2), use_cmfd=False,
-                                inner_solver="cg")
+                                max_outer=max(opts.max_outer // 2, 2), a_mode=coarse_a_mode,
+                                use_cmfd=False,
+                                inner_solver="cg" if opts.inner_solver == "direct"
+                                else opts.inner_solver)
     cphi0 = torch.ones((ng, *cmesh.shape, 1), dtype=dtype, device=device)
     res = power_iteration(cfes, ng, copts, cctx, cphi0, keff0)
 

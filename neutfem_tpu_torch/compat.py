@@ -4,11 +4,15 @@ Port of ``neutfem/_neutfem_eigen.py``: construction (positional or by
 keyword), the cross-section views and getters, boundary conditions (with the
 symmetry helpers and the Robin coefficients), solver settings and the
 accelerator choice, ``BuildMatrices``, ``SolveKeff`` (with the coarse-grid
-initialization and CMFD), ``SolveAdjoint``, ``SolveSubcritical``,
-``SolveCoarse``, the explicit-Schur DIRECT_* solver types, the flux
-projections and the zoom, checkpoints and the VTK export.  Not ported: the
-diagonal A-solve (``use_diagonal_solver``, ``build_diagonal_cache`` at
-RT0-P0), PERIODIC and nonzero NEUMANN boundaries.
+initialization, CMFD and the diagonal A-solve: ``use_diagonal_solver``,
+``diag_elementwise``, ``build_diagonal_cache``), ``SolveAdjoint``,
+``SolveSubcritical`` (driven by the external source and by the inward current
+of a nonzero NEUMANN boundary), ``SolveCoarse``, the explicit-Schur DIRECT_*
+solver types, the flux projections and the zoom, checkpoints and the VTK
+export; every boundary kind, PERIODIC and nonzero NEUMANN included.  As in
+the JAX facade, every iterative ``LinearSolverType`` (BICGSTAB* too) runs the
+equilibrated Schur CG: BiCGSTAB is reached through ``power.SolveOptions``
+and CMFD "wielandt" only.
 
 The facade runs on the card (``device="cuda"``, the default) unless it is
 given ``device="cpu"``; without a CUDA device it raises and never falls back
@@ -18,7 +22,9 @@ relabel is not ported, so checkpoints record ``axperm`` (0, 1, 2)).
 The operator context is built by ``BuildMatrices`` and rebuilt lazily, at the
 next solve, after anything that changes the boundaries (``set_bc``,
 ``set_robin_coefficients``, the symmetry helpers), as the JAX facade's
-context cache is; the old context's CG plans go with it.
+context cache is; the old context's CG plans go with it.  As there, one
+context is kept per A-solve mode: the exact one (``_ctx``) and, once the
+diagonal solver has run, the "diag" one (``_ctxs``).
 
 The DIRECT_* solver types run the dense equilibrated Cholesky of
 ``ops/direct.py``, gated, as in the JAX facade, to n_phi <=
@@ -238,7 +244,8 @@ class NeutFEM:
         self._accel = "chebyshev"  # reference hardwires Chebyshev (NeutFEM.cpp:1673)
         self._sym_flags: List[str] = []
         self._built = False
-        self._ctx = None  # the operator context; None until built, or stale
+        self._ctx = None  # the exact operator context; None until built, or stale
+        self._ctxs: Dict[str, Dict] = {}  # the other A-solve modes' contexts
         self.build_seconds: Dict[str, float] = {}  # last context build: context, twogrid
         self._phi: Optional[torch.Tensor] = None  # (ng, nz, ny, nx, P)
         self._phi_adj: Optional[torch.Tensor] = None
@@ -275,12 +282,14 @@ class NeutFEM:
     # -- configuration --------------------------------------------------------
 
     def _stale(self):
-        """The boundaries changed: the next solve rebuilds the context.  The
-        old context's CG plans are dropped now (a plan outliving its context
+        """The boundaries changed: the next solve rebuilds the contexts.  The
+        old contexts' CG plans are dropped now (a plan outliving its context
         would hold its graph and operands)."""
-        if self._ctx is not None:
-            drop_plans(self._ctx)
+        for ctx in (self._ctx, *self._ctxs.values()):
+            if ctx is not None:
+                drop_plans(ctx)
         self._ctx = None
+        self._ctxs = {}
 
     def set_bc(self, attr: int, bc_type, value: float = 0.0):
         self._bcs.set(int(attr), BCKind(int(bc_type)), float(value))
@@ -445,16 +454,23 @@ class NeutFEM:
         self._context()
 
     def build_diagonal_cache(self):
-        """The JAX facade builds its diagonal-A ("diag") context here at
-        RT0-P0; the port has no diagonal A-solve yet."""
+        """The diagonal-A ("diag") context, at RT0-P0 (as the JAX facade)."""
         if self._fes.k == 0 and self._fes.m == 0:
-            raise NotImplementedError("the diagonal solver (a_mode 'diag') is not ported")
+            self._context("diag")
 
-    def _context(self) -> Dict:
-        """The operator context: built after BuildMatrices, and rebuilt here
-        when the boundaries have changed since (``_stale``)."""
+    def _context(self, a_mode: str = "exact") -> Dict:
+        """The operator context of the A-solve ``a_mode``: built after
+        BuildMatrices (at the first solve that needs it, for "diag"), and
+        rebuilt here when the boundaries have changed since (``_stale``).
+        Only the exact one gets the two-grid level (the JAX facade's rule)."""
         if not self._built:
             raise RuntimeError("BuildMatrices() must be called before solving")
+        if a_mode != "exact":
+            if a_mode not in self._ctxs:
+                self._ctxs[a_mode] = build_context(self._fes, self._ng, self._xs, self._bcs,
+                                                   device=self._device, dtype=self._dtype,
+                                                   a_mode=a_mode, marshak_d_factor=True)
+            return self._ctxs[a_mode]
         if self._ctx is not None:
             return self._ctx
         t0 = time.perf_counter()
@@ -479,11 +495,12 @@ class NeutFEM:
             self._log(VerbosityLevel.NORMAL, f"BuildMatrices: two-grid coarse level in {dt:.3f}s")
         return self._ctx
 
-    def _inner_solver(self) -> str:
+    def _inner_solver(self, a_mode: str = "exact") -> str:
         """The inner solver of the next solve: "direct" for the DIRECT_* types up
         to the dense gate (n_phi <= NEUTFEM_DIRECT_MAX_NPHI), else "cg" — above
         the gate with the JAX facade's loud warning.  Attaches the dense factors
-        to the context when they are needed and missing."""
+        of the ``a_mode`` A-solve to its context when they are needed and
+        missing."""
         if self._solver_type not in _DIRECT:
             return "cg"
         gate = int(os.environ.get("NEUTFEM_DIRECT_MAX_NPHI", DIRECT_MAX_NPHI))
@@ -494,14 +511,15 @@ class NeutFEM:
                 "equilibrated Schur-CG (raise NEUTFEM_DIRECT_MAX_NPHI to override)",
                 RuntimeWarning, stacklevel=3)
             return "cg"
-        ctx = self._context()
+        ctx = self._context(a_mode)
         if "schur_chol" not in ctx:
             self._log(VerbosityLevel.VERBOSE,
                       f"Building explicit Schur factors (n_phi={self._fes.n_phi})")
-            attach_dense_schur(self._fes, ctx, "exact")
+            attach_dense_schur(self._fes, ctx, a_mode)
         return "direct"
 
-    def _opts(self, inner_solver: str = "cg", use_cmfd: bool = False) -> SolveOptions:
+    def _opts(self, inner_solver: str = "cg", use_cmfd: bool = False, a_mode: str = "exact",
+              diag_elementwise: bool = False) -> SolveOptions:
         return SolveOptions(
             tol_keff=self._tol_keff,
             tol_flux=self._tol_flux,
@@ -514,6 +532,8 @@ class NeutFEM:
             # NEUTFEM_INNER_ETA=0 restores the reference's fixed tolerance
             inner_eta=float(os.environ.get("NEUTFEM_INNER_ETA", "0.03")),
             accel=self._accel,
+            a_mode=a_mode,
+            diag_elementwise=diag_elementwise,
             inner_solver=inner_solver,
             use_cmfd=use_cmfd,
             cmfd_omega=self._cmfd_omega,
@@ -556,8 +576,8 @@ class NeutFEM:
         residual, and at VERBOSE prints the reference's line every 5 outers
         (NeutFEM.cpp:1791-1796), after the solve, as the JAX facade does
         where the device has no host callbacks."""
-        res = power_iteration(self._fes, self._ng, opts, self._context(), phi0, keff0,
-                              adjoint=adjoint, fixed_keff=fixed_keff)
+        res = power_iteration(self._fes, self._ng, opts, self._context(opts.a_mode), phi0,
+                              keff0, adjoint=adjoint, fixed_keff=fixed_keff)
         host = torch.stack([res["keff"], res["diff_k"], res["diff_flux"],
                             res["finite"].to(self._dtype),
                             res["last_inner_residual"].to(self._dtype)]).tolist()
@@ -572,11 +592,30 @@ class NeutFEM:
         return res, host
 
     def SolveKeff(self, use_coarse_init: bool = False, coarse_factors: Sequence[int] = (),
-                  use_diagonal_solver: bool = False, use_cmfd: bool = False) -> float:
-        if use_diagonal_solver:
-            raise NotImplementedError("the diagonal solver (a_mode 'diag') is not ported")
-        self._context()
-        opts = self._opts(self._inner_solver(), use_cmfd=use_cmfd)
+                  use_diagonal_solver: bool = False, use_cmfd: bool = False,
+                  diag_elementwise: bool = False) -> float:
+        """``use_diagonal_solver`` at RT0-P0 runs the consistent diagonal-A
+        Schur (A^-1 ~ diag(A)^-1 inside the CG matvec, the B diag(A)^-1 B^T
+        coupling kept; the exact A-solve at other orders).  The reference's own
+        RT0-P0 "diagonal Schur" also drops that coupling, solving S_ee
+        elementwise, and its eigenvalue collapses under refinement: only as
+        bug-compat with ``diag_elementwise=True``, which warns (the JAX
+        facade's rules, ``neutfem/_neutfem_eigen.py:755-783``)."""
+        a_mode = ("diag" if use_diagonal_solver and self._fes.k == 0 and self._fes.m == 0
+                  else "exact")
+        if diag_elementwise:
+            if a_mode != "diag":
+                raise ValueError("diag_elementwise requires use_diagonal_solver=True "
+                                 "and RT0-P0")
+            warnings.warn(
+                "diag_elementwise replicates the reference's RT0-P0 diagonal-Schur "
+                "scheme (NeutFEM.cpp:459-634), which drops all inter-element "
+                "coupling: the eigenvalue it returns collapses toward 0 under mesh "
+                "refinement and is NOT a solution of the diffusion problem",
+                RuntimeWarning, stacklevel=2)
+        self._context(a_mode)
+        opts = self._opts(self._inner_solver(a_mode), use_cmfd=use_cmfd, a_mode=a_mode,
+                          diag_elementwise=diag_elementwise)
         keff0 = self._keff if self._keff else 1.0
         phi0 = self._phi if self._phi is not None else self._flat_phi()
         if use_coarse_init and len(coarse_factors) > 0:

@@ -1,31 +1,32 @@
-"""Conjugate gradient (port of ``neutfem_tpu/krylov.py`` ``pcg`` and ``pcg_fused``).
+"""Krylov solvers (port of ``neutfem_tpu/krylov.py``: ``pcg``, ``pcg_fused``, ``bicgstab``).
 
-The JAX package runs each CG as one ``lax.while_loop`` on the device.  Here
-the loop runs in blocks of iterations with one host read per block: each
+The JAX package runs each solve as one ``lax.while_loop`` on the device.
+Here the loop runs in blocks of iterations with one host read per block: each
 iteration computes the JAX loop's condition on the device,
 
     go = go_prev & (it < maxiter) & (rr > tol_sq) & ~breakdown & ~zero_rhs,
 
 and once ``go`` is false the iterations that follow are no-ops on the state the
-result is read from (alpha and beta are masked to 0, so x + 0 p == x; rr, rz
-and the count are selected back), so the iterates and the iteration count —
-a parity observable — are the ``while_loop``'s whatever the block size.
+result is read from (the CG's alpha and beta, BiCGSTAB's beta, alpha and
+omega are masked to 0, so x + 0 p == x; rr and the count are selected back),
+so the iterates and the iteration count — a parity observable — are the
+``while_loop``'s whatever the block size.
 After each block the host reads one small tensor, (it, go), and starts the
 next block only while ``go`` holds.  Stopping rule of the reference:
 ``||r||^2 < tol^2 ||b||^2`` (solvers.cpp:592, 620).
 
-* On a CUDA tensor ``pcg`` / ``pcg_fused`` replay a block of ``BLOCK_ITERS``
+* On a CUDA tensor ``pcg`` / ``pcg_fused`` / ``bicgstab`` replay a block of ``BLOCK_ITERS``
   iterations captured once as a ``torch.cuda.CUDAGraph`` (``CGGraph``): a solve
   of n iterations costs ceil(n / BLOCK_ITERS) host reads (at least one) and
   as many replays.  The prologue (r0 = rhs - A x0, the first preconditioner
   apply and the stop test's operands) runs eagerly and is copied into the
   graph's static state.  A capture that fails raises; there is no other loop.
-* ``pcg_blocks`` / ``pcg_fused_blocks`` are the same block loop run eagerly
-  (any device): on a CPU tensor ``pcg`` / ``pcg_fused`` run it with one
+* ``pcg_blocks`` / ``pcg_fused_blocks`` / ``bicgstab_blocks`` are the same
+  block loop run eagerly (any device): on a CPU tensor the solvers run it with one
   iteration a block, as a host read costs nothing there; on the card it is
   what the graph is held against.
 
-The two recurrences:
+The three recurrences:
 
 * ``pcg``: the textbook loop; ``precond_dots`` takes a fused preconditioner
   ``r -> (z, <r, z>, <r, r>)`` (the K8 block-Jacobi kernel, ``ops/blockjac.py``).
@@ -34,6 +35,9 @@ The two recurrences:
   package).  Its dot products are separate ``torch.sum`` reductions here: the
   port has no fused multi-result reduction, so it keeps the recurrence and
   the iteration counts, not the JAX package's one-reduction kernel.
+* ``bicgstab``: right-preconditioned BiCGSTAB, the JAX body's operations in
+  its order; taken by ``power.group_solve`` under ``inner_solver="bicgstab"``
+  and by CMFD's "wielandt" low-order eigensolve (``cmfd.py``).
 
 The kernels' launch counters (``ops/*.LAUNCHES``) count device launches: a
 replay adds what its capture launched, frozen iterations included (a block
@@ -48,7 +52,8 @@ import torch
 
 from .ops import launch_counters
 
-__all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "CGGraph", "CGPlans",
+__all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
+           "bicgstab_blocks", "CGGraph", "CGPlans",
            "CG_PLANS", "drop_plans", "KrylovResult", "BLOCK_ITERS", "STATS", "reset_stats"]
 
 #: Iterations per block (per host read) of a CG on a CUDA tensor: the
@@ -387,3 +392,81 @@ def pcg_fused_blocks(matvec: Callable, rhs, x0, precond: Optional[Callable] = No
     """``pcg_fused``'s block loop run eagerly, ``block`` iterations per host
     read, on any device."""
     return _pcg_fused(matvec, rhs, x0, precond, tol, maxiter, None, block)
+
+
+def _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter):
+    """bicgstab's prologue state and its masked step: the JAX body
+    (``neutfem_tpu/krylov.py:272-292``) in its order — rho, beta, p, phat, v,
+    alpha, s, shat, t, the (t, t) and (t, s) dots, omega, x, r — with beta,
+    alpha and omega masked to 0 once the stop test has failed."""
+    b_norm_sq = _dot(rhs, rhs)
+    tol_sq = tol * tol * b_norm_sq
+    zero_rhs = b_norm_sq == 0.0
+    r = rhs - matvec(x0)
+    rr = _dot(r, r)
+    tiny = torch.finfo(rr.dtype).tiny
+    one = torch.ones((), dtype=rr.dtype, device=rr.device)
+    st0 = {"x": x0, "r": r, "rhat": r, "p": r, "v": torch.zeros_like(r), "rho": one,
+           "alpha": one, "omega": one, "rr": rr, "tol_sq": torch.as_tensor(tol_sq),
+           "it": torch.zeros((), dtype=torch.int32, device=rhs.device),
+           "go": ~zero_rhs & (rr > tol_sq) & (maxiter > 0)}
+
+    def step(st):
+        go, r, rhat, omega = st["go"], st["r"], st["rhat"], st["omega"]
+        rho_new = _dot(rhat, r)
+        safe_rho = torch.where(st["rho"] == 0, 1.0, st["rho"])
+        safe_omega = torch.where(omega == 0, 1.0, omega)
+        beta = torch.where(go, (rho_new / safe_rho) * (st["alpha"] / safe_omega), 0.0)
+        p = r + beta * (st["p"] - omega * st["v"])
+        phat = p if precond is None else precond(p)
+        v = matvec(phat)
+        rv = _dot(rhat, v)
+        alpha = torch.where(go, rho_new / torch.where(rv == 0, 1.0, rv), 0.0)
+        s = r - alpha * v
+        shat = s if precond is None else precond(s)
+        t = matvec(shat)
+        tt, ts = _dot(t, t), _dot(t, s)
+        omega_new = torch.where(go, ts / torch.where(tt == 0, 1.0, tt), 0.0)
+        x = (st["x"] + omega_new * shat) + alpha * phat
+        r = s - omega_new * t
+        breakdown = (torch.abs(rho_new) <= tiny) | (tt == 0)
+        it = st["it"] + go
+        rr = torch.where(go, _dot(r, r), st["rr"])
+        return {"x": x, "r": r, "rhat": rhat, "p": p, "v": v,
+                "rho": torch.where(go, rho_new, st["rho"]), "alpha": alpha, "omega": omega_new,
+                "rr": rr, "tol_sq": st["tol_sq"], "it": it,
+                "go": go & ~breakdown & (rr > st["tol_sq"]) & (it < maxiter)}
+
+    return st0, step, b_norm_sq, zero_rhs
+
+
+def _bicgstab(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
+    st0, step, b_norm_sq, zero_rhs = _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter)
+    st, it = _run(step, st0, graph, block, maxiter)
+    return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
+
+
+def bicgstab(matvec: Callable, rhs, x0, precond: Optional[Callable] = None, tol=1e-10,
+             maxiter: int = 1000, graph: Optional[CGGraph] = None) -> KrylovResult:
+    """Right-preconditioned BiCGSTAB (the JAX ``bicgstab``; works for
+    non-symmetric operators): rhat = r0, rho = alpha = omega = 1, p = r0,
+    v = 0, then per iteration
+
+        rho' = <rhat, r>;  beta = (rho' / rho) (alpha / omega)
+        p <- r + beta (p - omega v);  v = A M p;  alpha = rho' / <rhat, v>
+        s = r - alpha v;  t = A M s;  omega = <t, s> / <t, t>
+        x <- x + omega M s + alpha M p;  r = s - omega t
+
+    with the JAX package's guards (a zero rho or omega reads as 1, a zero
+    <rhat, v> or <t, t> as 1) and its stop test: ||r||^2 < tol^2 ||b||^2, a
+    breakdown |rho'| <= tiny or <t, t> = 0, maxiter, or a zero rhs (x = 0).
+    ``graph`` as in ``pcg``: on a CUDA tensor the iterations replay it in
+    blocks of ``BLOCK_ITERS``."""
+    return _bicgstab(matvec, rhs, x0, precond, tol, maxiter, graph, None)
+
+
+def bicgstab_blocks(matvec: Callable, rhs, x0, precond: Optional[Callable] = None, tol=1e-10,
+                    maxiter: int = 1000, block: int = BLOCK_ITERS) -> KrylovResult:
+    """``bicgstab``'s block loop run eagerly, ``block`` iterations per host
+    read, on any device."""
+    return _bicgstab(matvec, rhs, x0, precond, tol, maxiter, None, block)

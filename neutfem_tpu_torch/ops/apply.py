@@ -1,21 +1,27 @@
 """Matrix-free applications of the mixed-FEM operators on structured grids.
 
-Port of ``neutfem_tpu/ops/apply.py`` (no PERIODIC direction, single device):
+Port of ``neutfem_tpu/ops/apply.py`` (single device):
 
 * ``apply_BT_dir`` / ``apply_B_dir``: the divergence pairing as (P x T) einsums
   (scalar multiplies at RT0-P0) plus shifted neighbour sums, with the bubble
   rows for k >= 1,
 * ``solve_A_dir``: the exact per-direction solve: static condensation of the
   bubble DOFs onto the face-tridiagonal system (``tridiag_solve``), then the
-  bubble back-substitution,
+  bubble back-substitution; on a PERIODIC direction the cyclic system folded
+  onto its n distinct faces and solved by Sherman-Morrison on the same
+  Thomas solve (``cyc_args``); under ``a_mode`` "diag" / "lumped" the
+  elementwise A^-1 ~ 1/diag(A),
 * ``schur_matvec``: S v = C v + sum_d B_d A_d^{-1} B_d^T v.  RT0-P0 goes through
   the fused direction kernels (``ops/fused.py``: K1-K3 on one group, the
   group-batched kernel (K5) on every group at once); k >= 1 through the
   condensed form (``DirectionInfo.BXc`` / ``Qbub``), on one group of a 3D mesh
   with m == k as one fused kernel per direction (``ops/fused_ho.py``, K6),
   otherwise (2D, m < k, or group-batched) as the unfused condensed chain, as
-  the JAX package does for those configurations.  ``fused=False`` runs the
-  unfused chains (a cross-check).
+  the JAX package does for those configurations.  The kernels take a
+  direction only under ``a_mode="exact"`` and where it is not PERIODIC (the
+  JAX rule, decided per direction): the others run the unfused chain, whose
+  Thomas solve is K4 (K4′ at its layout) on the card.  ``fused=False`` runs
+  the unfused chains (a cross-check).
 * ``equilibrated_schur_matvec``: the CG's equilibrated matvec sdi * S(sdi * y)
   with the scalings folded into the direction kernels (``ops/fused_eq.py``,
   K7), taken by ``power.group_solve`` under ``NEUTFEM_EQFOLD=1|2`` where
@@ -63,6 +69,8 @@ __all__ = [
     "apply_BT_dir",
     "apply_B_dir",
     "solve_A_dir",
+    "cyc_args",
+    "dir_factors",
     "schur_matvec",
     "eqfold_available",
     "equilibrated_schur_matvec",
@@ -176,17 +184,21 @@ def apply_B_dir(fes: FESpace, di: DirectionInfo, F, W):
 
 
 def solve_A_dir(fes: FESpace, di: DirectionInfo, dinv, l, mask, alpha, rF, rW,
-                a_mode: str):
-    """Exact solve of the per-direction RT mass block A_d J = r.
+                a_mode: str, cyc=None, aligned: bool = False):
+    """Solve of the per-direction RT mass block A_d J = r.
 
-    dinv, l : tridiagonal factors over faces (batch..., face_shape).
+    dinv, l : tridiagonal factors over faces (batch..., face_shape); l is None
+              unless a_mode == "exact".  ``aligned``: they already carry the
+              transverse-mode axis (the context's ``tri_cycT_*``, ``dir_factors``).
     mask    : (face_shape) 1.0 for free faces, 0.0 for pinned (MIRROR) ones.
     alpha   : (batch..., nz, ny, nx) element coefficient factor_d / D.
     rW      : bubble rhs (..., nbub, T, sp) for k >= 1, else None.
+    cyc     : (wt, a0, a1) of a PERIODIC direction (``cyc_args``): the face
+              grid has n+1 entries with face n tied to face 0; the n distinct
+              faces form a cyclic system solved as y = T~^-1 rc, then
+              x = y - wt (a0 y_0 + a1 y_{n-1}) (``ops/context.py``).
     Returns (F, W) face and bubble solutions in the internal layout (W None
     without bubbles)."""
-    if a_mode != "exact":
-        raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
     et = fes.et
     ax = di.axis - 3
     m_t = _const(di.m_t, rF).reshape(-1, 1, 1, 1)
@@ -197,8 +209,26 @@ def solve_A_dir(fes: FESpace, di: DirectionInfo, dinv, l, mask, alpha, rF, rW,
               - _pad_zero(corr.select(-5, 1), ax, front=True))
     rF = rF * mask
     rFs = rF / m_t
-    # factors have no T axis: align them against (..., T, face_shape)
-    F = tridiag_solve(rFs, dinv.unsqueeze(-4), l.unsqueeze(-4), axis=ax % rFs.ndim)
+    # factors have no T axis (unless aligned): align them against (..., T, face_shape)
+    dinv_e = dinv if aligned else dinv.unsqueeze(-4)
+    l_e = l if aligned or l is None else l.unsqueeze(-4)
+    axn = ax % rFs.ndim
+    if cyc is not None:
+        # fold the tied face n into face 0, solve the cyclic system by
+        # Sherman-Morrison, then re-expand (F[n] = F[0]); torch.cat makes the
+        # folded rhs contiguous, as the Thomas kernel takes it
+        wt, a0, a1 = (t.unsqueeze(-4) for t in cyc)
+        n1 = rFs.shape[axn]
+        rc = torch.cat([rFs.narrow(axn, 0, 1) + rFs.narrow(axn, n1 - 1, 1),
+                        rFs.narrow(axn, 1, n1 - 2)], dim=axn)
+        y = tridiag_solve(rc, dinv_e, l_e, axis=axn)
+        s = a0 * y.narrow(axn, 0, 1) + a1 * y.narrow(axn, n1 - 2, 1)
+        x = y - wt * s
+        F = torch.cat([x, x.narrow(axn, 0, 1)], dim=axn)
+    elif a_mode != "exact":
+        F = rFs * dinv_e
+    else:
+        F = tridiag_solve(rFs, dinv_e, l_e, axis=axn)
     F = F * mask
     W = None
     if rW is not None:
@@ -210,6 +240,26 @@ def solve_A_dir(fes: FESpace, di: DirectionInfo, dinv, l, mask, alpha, rF, rW,
     return F, W
 
 
+def cyc_args(ctx: Dict, key: str):
+    """The Sherman-Morrison bundle (wt, a0, a1) of a periodic direction, or None."""
+    wt = ctx.get(f"cyc_wt_{key}")
+    if wt is None:
+        return None
+    return (wt, ctx[f"cyc_a0_{key}"], ctx[f"cyc_a1_{key}"])
+
+
+def dir_factors(ctx: Dict, key: str):
+    """The keywords of ``solve_A_dir`` for direction ``key`` of ``ctx``: the
+    factors (``tri_l`` None under "diag" / "lumped"), the periodic bundle, and
+    the factors broadcast over the transverse modes where the context staged
+    them (a periodic direction with T > 1), so the solve copies none."""
+    staged = f"tri_cycT_dinv_{key}" in ctx
+    pre = "tri_cycT" if staged else "tri"
+    return {"dinv": ctx[f"{pre}_dinv_{key}"], "l": ctx.get(f"{pre}_l_{key}"),
+            "mask": ctx[f"mask_{key}"], "alpha": ctx[f"alpha_{key}"],
+            "cyc": cyc_args(ctx, key), "aligned": staged}
+
+
 def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool = True):
     """S v = C v + sum_d B_d A_d^{-1} B_d^T v   (matrix-free Schur complement).
 
@@ -219,10 +269,10 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
     group at once (``ctx`` not sliced, ``v`` (ng, P, nz, ny, nx): the Jacobi
     group sweep) RT0-P0 runs the group-batched kernel and k >= 1 the unfused
     condensed chain, where the JAX package's K6 wrapper declines too.  Each
-    kernel updates the accumulator in place.  ``fused=False`` runs the
-    unfused chains, and also takes all groups at once."""
-    if a_mode != "exact":
-        raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
+    kernel updates the accumulator in place.  A direction takes its kernel
+    only under ``a_mode="exact"`` and where it is not periodic (the JAX
+    rule, per direction); the others run the unfused chain.  ``fused=False``
+    runs the unfused chains, and also takes all groups at once."""
     out = ctx["C"] * v
     condensed = fes.et.nbub > 0
     batched = ctx["C"].ndim == 5  # (ng, P, nz, ny, nx): the context is not group-sliced
@@ -233,8 +283,9 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
                  and fes.m == fes.k)
     for di in fes.dirs:
         key = f"d{di.d}"
+        kernel = fused and a_mode == "exact" and f"cyc_wt_{key}" not in ctx
         if condensed:
-            if ho_kernel:
+            if ho_kernel and kernel:
                 tabs = ho_tables(fes, di)
                 if di.axis == 2:
                     fused_ho_x(out, v, ctx[f"tri_hoxT_dinvm_{key}"], ctx[f"tri_hoxT_l_{key}"],
@@ -249,8 +300,7 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
             # the bubble algebra folded into BXc (face pairing) and Qbub
             # (per-cell block), fespace.DirectionInfo
             rF = _face_rhs(di, v, di.BXc)
-            F, _ = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],
-                               ctx[f"mask_{key}"], ctx[f"alpha_{key}"], rF, None, a_mode)
+            F, _ = solve_A_dir(fes, di, rF=rF, rW=None, a_mode=a_mode, **dir_factors(ctx, key))
             out = out + _face_out(di, F, di.BXc)
             alpha_e = ctx[f"alpha_{key}"].unsqueeze(-4)
             if fes.P == 1:
@@ -258,7 +308,7 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
             else:
                 out = out + torch.einsum("...qzyx,pq->...pzyx", v, _const(di.Qbub, v)) / alpha_e
             continue
-        if fused:
+        if kernel:
             bx0 = float(di.BX[0, 0, 0])
             bx1 = float(di.BX[1, 0, 0])
             si = 1.0 / float(di.m_t[0])
@@ -273,8 +323,7 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
                 z_fn(out, v, ctx[f"tri_dinvm_{key}"], ctx[f"tri_l_{key}"], bx0, bx1, si)
             continue
         rF, _ = apply_BT_dir(fes, di, v)
-        F, _ = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],
-                           ctx[f"mask_{key}"], ctx[f"alpha_{key}"], rF, None, a_mode)
+        F, _ = solve_A_dir(fes, di, rF=rF, rW=None, a_mode=a_mode, **dir_factors(ctx, key))
         out = out + apply_B_dir(fes, di, F, None)
     return out
 
@@ -314,9 +363,7 @@ def equilibrated_schur_matvec(fes: FESpace, ctx: Dict, y, a_mode: str = "exact")
       kernel recomputes u = sdi*y from y and sdi, u is never stored.
 
     ``ctx`` is one group's context and ``y`` one group's flux; the caller
-    checked ``eqfold_available``."""
-    if a_mode != "exact":
-        raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
+    checked ``eqfold_available`` (which declines any ``a_mode`` but "exact")."""
     dis = {di.d: di for di in fes.dirs}
 
     def coef(d):  # (bx0, bx1, si) of direction d

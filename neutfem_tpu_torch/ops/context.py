@@ -1,14 +1,30 @@
 """Build the operator context ("BuildMatrices" equivalent) as torch tensors.
 
-Port of ``neutfem_tpu/ops/context.py`` for ``a_mode="exact"`` at any order
-RT_k-P_m (no PERIODIC direction, no nonzero NEUMANN lift).  The "matrices" are a
-handful of dense grids, built host-side in numpy (float64) and transferred once:
+Port of ``neutfem_tpu/ops/context.py``: ``a_mode`` "exact" at any order
+RT_k-P_m, "diag" and "lumped" at RT0; PERIODIC directions and nonzero NEUMANN
+boundaries.  The "matrices" are a handful of dense grids, built host-side in
+numpy (float64) and transferred once:
 
 * ``C``              (ng, P, nz, ny, nx): removal term Sigma_r * detJ * w_mode
 * ``alpha_d{d}``     (ng, nz, ny, nx): RT mass coefficient factor_d / D_g
 * ``tri_dinv_d{d}``, ``tri_l_d{d}``: LDL^T factors of the (bubble-condensed)
-  face-tridiagonal A-blocks (per group, per direction), along the face axis
-* ``mask_d{d}``      (face_shape): 0 at pinned (MIRROR / NEUMANN-0) faces
+  face-tridiagonal A-blocks (per group, per direction), along the face axis;
+  under ``a_mode`` "diag" / "lumped" (RT0 only) ``tri_dinv`` = 1 / diag(A)
+  (for "lumped", A lumped by row sums, ``diag(M1_lumped)``) and no ``tri_l``
+* ``mask_d{d}``      (face_shape): 0 at pinned (MIRROR / NEUMANN) faces
+* a PERIODIC direction (both ends PERIODIC): face n is tied to face 0, and the
+  n distinct faces form a cyclic tridiagonal system whose corner coupling c
+  is split off as a rank-1 update (Sherman-Morrison): ``tri_dinv`` /
+  ``tri_l`` factor T~ (n / n-1 entries along the axis), ``cyc_wt_d{d}`` =
+  T~^-1 w, ``cyc_a0_d{d}`` / ``cyc_a1_d{d}`` the correction's weights
+  (keepdims face planes), ``mask`` all ones, and no fused-kernel operands (the
+  matvec runs the unfused chain there, as the JAX package does); with T > 1
+  transverse modes the factors are also broadcast over T once,
+  ``tri_cycT_dinv_d{d}`` / ``tri_cycT_l_d{d}`` (ng, T, ...), so a solve
+  copies none of them
+* a nonzero NEUMANN value q (an inward current density): the lift
+  J = J' + J_q, ``jcorr_d{d}`` (ng, face_shape) added to the output current
+  and ``src_bc`` (ng, P, nz, ny, nx) added to every fixed-source group rhs
 * ``tri_dinvm_d{d}`` dinv * mask, the fused direction kernels' operand, plus the
   solve-axis-major staged copies the y and x kernels read: for RT0-P0
   ``tri_yT_*`` (ny+1 / ny, nz, nx) and ``tri_xT_*`` (nx+1 / nx, nz*ny); for
@@ -16,7 +32,9 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
   ``tri_hoxT_{dinvm,l,alpha}`` (same x layout; the JAX package pads ny up to a
   128-lane tile there, which the port does not)
 * ``precond_inv``    (ng, P, nz, ny, nx): 1 / exact diag(S), the Jacobi
-  equilibration of the Schur CG (with the bubble-condensation terms for k >= 1)
+  equilibration of the Schur CG (with the bubble-condensation terms for k >= 1;
+  a periodic direction keeps its diag-A estimate); under "diag" / "lumped"
+  1 / the diag-A estimate S_ee = C_ee + sum_f B_ef^2 / A_ff
 * for P == 1 the line preconditioner's LDL^T factors, along the highest active
   direction (``precond_line_dinv`` / ``precond_line_l``: z in 3D, y in 2D) and
   the next one (``precond_line2_*``), (ng, nz, ny, nx) with one entry fewer
@@ -34,7 +52,8 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
   ``sigs``, ``src``: the power iteration's fission / scattering weights;
 * the CMFD coupling data (``cmfd.py``, NeutFEM.cpp:714-809): ``dtilde_d{d}``
   (ng, face_shape), interior ``2 D_L D_R / (D_L h_R + D_R h_L)`` and boundary
-  ``2D/h``; ``area_d{d}`` (nz, ny, nx) the physical face area per cell;
+  ``2D/h`` (a periodic direction wraps the interior formula around the
+  seam); ``area_d{d}`` (nz, ny, nx) the physical face area per cell;
   ``jscale_d{d}`` (face_shape) the physical current per unit face DOF,
   jac_d / detJ; ``sigr`` (ng, nz, ny, nx) the raw removal cross section and
   ``vol`` (nz, ny, nx) the cell volumes.
@@ -43,6 +62,7 @@ handful of dense grids, built host-side in numpy (float64) and transferred once:
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -60,6 +80,20 @@ def _axslice(ndim: int, axis: int, s) -> tuple:
     out = [slice(None)] * ndim
     out[axis] = s
     return tuple(out)
+
+
+def _tri_solve_np(dinv: np.ndarray, l: np.ndarray, b: np.ndarray, axis: int):
+    """Host-side Thomas solve with precomputed LDL^T factors (build time only)."""
+    d = np.moveaxis(dinv, axis, -1)
+    ll = np.moveaxis(l, axis, -1)
+    r = np.moveaxis(b, axis, -1).copy()
+    n = r.shape[-1]
+    for i in range(1, n):
+        r[..., i] -= ll[..., i - 1] * r[..., i - 1]
+    r[..., n - 1] = r[..., n - 1] * d[..., n - 1]
+    for i in range(n - 2, -1, -1):
+        r[..., i] = r[..., i] * d[..., i] - ll[..., i] * r[..., i + 1]
+    return np.moveaxis(r, -1, axis)
 
 
 def _tinv_dd_od(dinv_a, l_a, fax_a):
@@ -152,6 +186,44 @@ def _store_block_precond(blk_inv: np.ndarray, P: int, device, dtype) -> Dict[str
     return {"precond_blk_inv": bi.to(torch.bfloat16)}
 
 
+def _dtilde_wrap(D, h_d, fax, ax):
+    """CMFD Dtilde of a PERIODIC direction: the interior formula at every
+    distinct face, the seam (face 0, whose left neighbour is the last cell)
+    included; face n repeats face 0.  (ng, face_shape)."""
+    D_l = np.roll(D, 1, axis=fax)
+    h_l = np.roll(h_d, 1, axis=ax)
+    dt = 2.0 * D_l * D / (D_l * h_d[None] + D * h_l[None])
+    return np.concatenate([dt, dt[_axslice(4, fax, slice(0, 1))]], axis=fax)
+
+
+def _cyclic_factors(alpha, K, fax: int):
+    """The cyclic A-block of a PERIODIC direction over its n distinct faces
+    (face i joins cells i-1 and i, cell n-1 closes the ring onto face 0),
+    with the corner coupling c split off (``neutfem_tpu/ops/context.py:
+    127-173``): A_cyc = T~ + w w^T / gamma, w = (gamma, 0, ..., 0, c), gamma =
+    -(|c| + 1e-300), T~ = A_cyc with d_0 -= gamma and d_{n-1} -= c^2 / gamma.
+    Returns (diag of T~, LDL^T factors of T~, wt = T~^-1 w, a0, a1): the
+    solve is x = y - wt (a0 y_0 + a1 y_{n-1}) with y = T~^-1 b."""
+    n = alpha.shape[fax]
+    diag_c = alpha * K[0, 0] + np.roll(alpha, 1, axis=fax) * K[1, 1]
+    offd_full = alpha * K[0, 1]  # entry i couples faces i and (i + 1) % n
+    c = offd_full[_axslice(4, fax, slice(n - 1, n))]  # the corner, keepdims
+    gamma = -(np.abs(c) + 1e-300)
+    diag_c[_axslice(4, fax, slice(0, 1))] -= gamma
+    diag_c[_axslice(4, fax, slice(n - 1, n))] -= c * c / gamma
+    dinv_l, ll = tridiag_ldlt_batch(np.moveaxis(diag_c, fax, -1),
+                                    np.moveaxis(offd_full[_axslice(4, fax, slice(0, n - 1))],
+                                                fax, -1))
+    dinv, l = np.moveaxis(dinv_l, -1, fax), np.moveaxis(ll, -1, fax)
+    w = np.zeros_like(diag_c)
+    w[_axslice(4, fax, slice(0, 1))] = gamma
+    w[_axslice(4, fax, slice(n - 1, n))] += c
+    wt = _tri_solve_np(dinv, l, w, axis=fax)
+    denom = (1.0 + wt[_axslice(4, fax, slice(0, 1))]
+             + (c / gamma) * wt[_axslice(4, fax, slice(n - 1, n))])
+    return diag_c, dinv, l, wt, 1.0 / denom, (c / gamma) / denom
+
+
 def build_context(
     fes: FESpace,
     ng: int,
@@ -161,12 +233,22 @@ def build_context(
     dtype,
     a_mode: str = "exact",
     marshak_d_factor: bool = False,
+    periodic_natural: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Operator context of the exact mixed discretization on ``device``."""
+    """Operator context of the mixed discretization on ``device``.
+
+    ``a_mode`` selects how A (the RT mass) is inverted in the Schur product:
+    "exact" (the per-direction tridiagonal solve), "diag" (A^-1 ~ 1/diag(A):
+    the reference's RT0-P0 "diagonal Schur", behind its published
+    eigenvalues) or "lumped" (row-sum mass lumping, mesh-centred finite
+    differences); the last two at RT0 only.  ``periodic_natural`` (reference
+    parity) treats PERIODIC as a natural zero-flux boundary, with a warning."""
     mesh = fes.mesh
     et = fes.et
-    if a_mode != "exact":
-        raise NotImplementedError(f"a_mode={a_mode!r}: only 'exact' is ported")
+    if a_mode not in ("exact", "diag", "lumped"):
+        raise ValueError(f"unknown a_mode {a_mode!r}")
+    if a_mode != "exact" and et.k != 0:
+        raise ValueError("diag/lumped A-solves are only defined for RT0")
 
     detJ = mesh.det_jac()  # (nz, ny, nx)
     w_mode = fes.w_mode  # (P,)
@@ -175,14 +257,18 @@ def build_context(
 
     w_col = w_mode.reshape(1, -1, 1, 1, 1)
     C = SigR[:, None] * detJ[None, None] * w_col  # (ng, P, nz, ny, nx)
-    K = et.K
+    # row-sum lumping -> mesh-centred finite differences
+    K = np.diag(et.M1_lumped[:2]) if a_mode == "lumped" else et.K
 
     ctx_np: Dict[str, np.ndarray] = {"C": C}
+    est = C.copy()  # the diag-A estimate of diag(S)
+    src_bc = np.zeros_like(C)  # fixed flux-space rhs of the nonzero NEUMANN lifts
     jacs = [mesh.h_grid(a) / 2.0 for a in range(3)]  # fake axes: h=2 -> jac=1
     # directions of the line preconditioner: the highest active one ("line")
     # and the next ("line2")
     pc_dirs = sorted((di.d for di in fes.dirs), reverse=True)[:2]
     line_offd = {}  # d -> (interior off-diagonal of the pc line, its face axis)
+    lr_stash = {}  # key -> the estimate's (left, right) face inverse diagonals
 
     for di in fes.dirs:
         d, ax = di.d, di.axis  # ax in (nz, ny, nx) order
@@ -193,19 +279,57 @@ def build_context(
         fshape = (ng, *di.face_shape)
         fax = 1 + ax  # face axis within (ng, *face_shape)
         n_faces = di.face_shape[ax]
+        tr_axes = [a for a in range(3) if a != d and mesh.active(a)]
+        n_tr = len(tr_axes)
+        fa = np.ones(mesh.shape)
+        for a in tr_axes:
+            fa = fa * mesh.h_grid(a)  # physical face area, broadcast over cells
+        js_cell = jacs[d] / detJ
+        m_t_of_p = di.m_t[di.p_to_t]  # (P,)
+        pd = fes.modes[:, d]
+        coefL = ((et.D1[pd, 0] ** 2) * m_t_of_p).reshape(1, -1, 1, 1, 1)
+        coefR = ((et.D1[pd, 1] ** 2) * m_t_of_p).reshape(1, -1, 1, 1, 1)
+
+        kinds = tuple(bcs.kind(boundary_attribute(mesh.dim, d, up)) for up in (False, True))
+        if BCKind.PERIODIC in kinds and not periodic_natural:
+            if kinds[0] != kinds[1]:
+                raise ValueError(f"PERIODIC must be set on BOTH ends of direction {d} "
+                                 f"(got {kinds[0].name}/{kinds[1].name})")
+            if a_mode != "exact":
+                raise ValueError("PERIODIC boundaries require a_mode='exact'")
+            if n_faces - 1 < 2:
+                raise ValueError("PERIODIC direction needs at least 2 cells")
+            diag_c, dinv, l, wt, a0, a1 = _cyclic_factors(alpha, K, fax)
+            ctx_np[f"cyc_wt_{key}"] = wt
+            ctx_np[f"cyc_a0_{key}"] = a0
+            ctx_np[f"cyc_a1_{key}"] = a1
+            ctx_np[f"alpha_{key}"] = alpha
+            ctx_np[f"tri_dinv_{key}"] = dinv
+            ctx_np[f"tri_l_{key}"] = l
+            if di.T > 1:
+                for name, a in (("dinv", dinv), ("l", l)):
+                    ctx_np[f"tri_cycT_{name}_{key}"] = np.repeat(a[:, None], di.T, axis=1)
+            ctx_np[f"mask_{key}"] = np.ones(di.face_shape)
+            ctx_np[f"dtilde_{key}"] = _dtilde_wrap(D, mesh.h_grid(d), fax, ax)
+            ctx_np[f"area_{key}"] = fa
+            ctx_np[f"jscale_{key}"] = np.concatenate(
+                [js_cell, js_cell[_axslice(3, ax, slice(-1, None))]], axis=ax)
+            # the estimate with cyclic neighbours: cell i's left face is face
+            # i, its right face (i + 1) % n
+            inv_diag_c = 1.0 / diag_c
+            left, right = inv_diag_c, np.roll(inv_diag_c, -1, axis=fax)
+            lr_stash[key] = (left, right)
+            est += left[:, None] * coefL + right[:, None] * coefR
+            continue
 
         diag = np.zeros(fshape)
         # element e contributes K00 to its left face (index e) and K11 to its right (e+1)
         diag[_axslice(4, fax, slice(0, n_faces - 1))] += alpha * K[0, 0]
         diag[_axslice(4, fax, slice(1, n_faces))] += alpha * K[1, 1]
         offd = alpha * K[0, 1]  # (ng, nz, ny, nx): coupling between faces e and e+1
-
         mask = np.ones(di.face_shape)
-        tr_axes = [a for a in range(3) if a != d and mesh.active(a)]
-        n_tr = len(tr_axes)
-        fa = np.ones(mesh.shape)
-        for a in tr_axes:
-            fa = fa * mesh.h_grid(a)  # physical face area, broadcast over cells
+        jpin = np.zeros(fshape)  # prescribed DOF values at pinned faces (t = 0)
+        neumann_c = np.zeros(fshape)  # (A J_q) restricted to the free faces
 
         for upper in (False, True):
             attr = boundary_attribute(mesh.dim, d, upper)
@@ -216,8 +340,6 @@ def build_context(
             elem_sl = _axslice(4, fax, e_idx)
             fa_b = fa[_axslice(3, ax, e_idx)]
 
-            if kind == BCKind.PERIODIC:
-                raise NotImplementedError("PERIODIC boundaries are not ported")
             if kind in (BCKind.DIRICHLET, BCKind.ROBIN):
                 if kind == BCKind.DIRICHLET:
                     # Marshak vacuum: per-mode base units, t-independent 2 * 2^{n_tr} / fa
@@ -228,29 +350,63 @@ def build_context(
                     c = bcs.robin_beta / (bcs.robin_alpha * D[elem_sl])
                 diag[face_sl] += c * (2.0**n_tr) / fa_b
             elif kind in (BCKind.MIRROR, BCKind.NEUMANN):
-                if kind == BCKind.NEUMANN and bcs.value(attr) != 0.0:
-                    raise NotImplementedError("nonzero NEUMANN currents are not ported")
+                q = bcs.value(attr) if kind == BCKind.NEUMANN else 0.0
+                if q != 0.0:
+                    # prescribed inward current density q: the essential
+                    # condition J.n = -q (lower end: J_d = +q), lifted as
+                    # J = J' + J_q; the DOF value (physical current over the
+                    # Piola scale) and the A-coupling it sheds onto the
+                    # adjacent free face, read BEFORE that coupling is zeroed
+                    qdof = (q if not upper else -q) / js_cell[_axslice(3, ax, e_idx)]
+                    jpin[face_sl] = qdof[None]
+                    adj_sl = _axslice(4, fax, n_faces - 2 if upper else 1)
+                    neumann_c[adj_sl] += offd[_axslice(4, fax, -1 if upper else 0)] * qdof[None]
                 # Pin the face: the off-diagonal out of it is zeroed BEFORE the
                 # factorization, so its l and dinv*mask are exactly 0 — the
                 # fused kernels rely on it (their rhs scale is the scalar 1/m_t).
                 mask[_axslice(3, ax, f_idx)] = 0.0
                 diag[face_sl] = 1.0
                 offd[_axslice(4, fax, -1 if upper else 0)] = 0.0
+            elif kind == BCKind.PERIODIC:
+                # periodic_natural: the reference accepts PERIODIC and never
+                # discretizes it (NeutFEM.cpp:2128-2131)
+                warnings.warn(
+                    "periodic_natural=True: PERIODIC treated as a natural zero-flux "
+                    "boundary (reference bug-parity); the default implements true "
+                    "periodic coupling", RuntimeWarning, stacklevel=2)
             # BCKind.NONE: natural => zero boundary flux, no term (reference default)
 
+        inv_diag = mask[None] / diag
         if d in pc_dirs and fes.P == 1:
             # line preconditioner: the off-diagonal of the (diagonal-A) Schur
             # along d, S_{e,e+1} = B(e,f) B(e+1,f) / A_ff at the shared
             # interior face f = e+1
             coef = float(et.D1[0, 0] * et.D1[0, 1] * di.m_t[0])
-            inv_diag = mask[None] / diag
             line_offd[d] = (coef * inv_diag[_axslice(4, fax, slice(1, n_faces - 1))], fax)
 
-        dd = np.moveaxis(diag, fax, -1)  # (..., n_faces)
-        bb = np.moveaxis(offd, fax, -1)  # (..., n_faces - 1)
-        dinv_l, ll = tridiag_ldlt_batch(dd, bb)
-        dinv = np.moveaxis(dinv_l, -1, fax)
-        l = np.moveaxis(ll, -1, fax)
+        if a_mode == "exact":
+            dinv_l, ll = tridiag_ldlt_batch(np.moveaxis(diag, fax, -1),
+                                            np.moveaxis(offd, fax, -1))
+            dinv = np.moveaxis(dinv_l, -1, fax)
+            l = np.moveaxis(ll, -1, fax)
+        else:
+            dinv, l = 1.0 / diag, None
+
+        if np.any(jpin != 0.0):
+            # the lift J = J' + J_q: A J' = -B^T phi - c with c = (A J_q)|free,
+            # so S phi = f + B (J_q - A^-1 c); jcorr = J_q - A_free^-1 c is
+            # added to the output current and B jcorr (with the solver's sign:
+            # S phi = f with J = +A^-1 B^T phi) to every fixed-source rhs
+            if l is not None:
+                y = _tri_solve_np(dinv, l, neumann_c, axis=fax)
+            else:
+                y = neumann_c * dinv
+            jcorr = jpin - y * mask[None]
+            ctx_np[f"jcorr_{key}"] = jcorr
+            bx0 = di.BX[0, :, 0].reshape(1, -1, 1, 1, 1)  # (P,) t = 0 pairing rows
+            bx1 = di.BX[1, :, 0].reshape(1, -1, 1, 1, 1)
+            src_bc = src_bc - (jcorr[_axslice(4, fax, slice(0, n_faces - 1))][:, None] * bx0
+                               + jcorr[_axslice(4, fax, slice(1, n_faces))][:, None] * bx1)
 
         # CMFD coupling data: Dtilde per face, the face area, the Piola scale
         h_d = mesh.h_grid(d)
@@ -264,14 +420,23 @@ def build_context(
                                                  / h_d[_axslice(3, ax, -1)])
         ctx_np[f"dtilde_{key}"] = dtilde
         ctx_np[f"area_{key}"] = fa
-        js_cell = jacs[d] / detJ
         ctx_np[f"jscale_{key}"] = np.concatenate(
             [js_cell, js_cell[_axslice(3, ax, slice(-1, None))]], axis=ax)
 
+        # the diag-A estimate of diag(S) (the generalized diagonal-Schur
+        # formula; pinned faces carry no coupling, so under "diag" it is
+        # exactly S_ee = C_ee + sum_f B_ef^2 / A_ff, NeutFEM.cpp:459-473)
+        left = inv_diag[_axslice(4, fax, slice(0, n_faces - 1))]
+        right = inv_diag[_axslice(4, fax, slice(1, n_faces))]
+        lr_stash[key] = (left, right)
+        est += left[:, None] * coefL + right[:, None] * coefR
+
         ctx_np[f"alpha_{key}"] = alpha
         ctx_np[f"tri_dinv_{key}"] = dinv
-        ctx_np[f"tri_l_{key}"] = l
         ctx_np[f"mask_{key}"] = mask
+        if l is None:
+            continue
+        ctx_np[f"tri_l_{key}"] = l
         dmm = dinv * mask[None]
         ctx_np[f"tri_dinvm_{key}"] = dmm
         # staged kernel operands: y solve-axis-major (ny+1 / ny, nz, nx), x
@@ -288,41 +453,53 @@ def build_context(
             elif ax == 1:
                 ctx_np[f"tri_{tag}yT_{name}_{key}"] = np.moveaxis(a, 2, 1)
 
-    # Exact Schur diagonal: the diag-A estimate underestimates diag(S) by up to
-    # ~460x at higher orders; the per-cell quadratic form of the condensed
-    # exact solve is  c^T T^-1 c / m_t + b_W^T Mbb^-1 b_W / (alpha m_t)  with
-    # c = b_F - G^T b_W over the element's two faces.
-    pre = C.copy()
     blk_terms = []  # (P x P coefficient, (ng, cells) factor) of every direction
-    for di in fes.dirs:
-        key = f"d{di.d}"
-        ax = di.axis
-        fax = 1 + ax
-        ncell = mesh.shape[ax]
-        imt = 1.0 / di.m_t
-        mask_d = ctx_np[f"mask_{key}"]
-        dd, od = _tinv_dd_od(ctx_np[f"tri_dinv_{key}"], ctx_np[f"tri_l_{key}"], fax)
-        dd = dd * mask_d[None]
-        mL = mask_d[_axslice(3, ax, slice(0, ncell))]
-        mR = mask_d[_axslice(3, ax, slice(1, ncell + 1))]
-        od = od * (mL * mR)[None]
-        ddL = dd[_axslice(4, fax, slice(0, ncell))]
-        ddR = dd[_axslice(4, fax, slice(1, ncell + 1))]
-        chat = np.array(di.BX[:2], dtype=np.float64)
-        if et.nbub > 0:
-            chat = chat - np.einsum("bf,bpt->fpt", et.G, di.BX[2:])
-        c00 = np.einsum("pt,qt,t->pq", chat[0], chat[0], imt)
-        c11 = np.einsum("pt,qt,t->pq", chat[1], chat[1], imt)
-        c01 = np.einsum("pt,qt,t->pq", chat[0], chat[1], imt)
-        pre += (np.diagonal(c00).reshape(1, -1, 1, 1, 1) * ddL[:, None]
-                + np.diagonal(c11).reshape(1, -1, 1, 1, 1) * ddR[:, None]
-                + 2.0 * np.diagonal(c01).reshape(1, -1, 1, 1, 1) * od[:, None])
-        blk_terms += [(c00, ddL), (c11, ddR), (c01 + c01.T, od)]
-        if et.nbub > 0:
-            w_pq = np.einsum("bpt,bc,cqt,t->pq", di.BX[2:], et.Mbb_inv, di.BX[2:], imt)
-            inv_alpha = 1.0 / ctx_np[f"alpha_{key}"]
-            pre += np.diagonal(w_pq).reshape(1, -1, 1, 1, 1) * inv_alpha[:, None]
-            blk_terms.append((w_pq, inv_alpha))
+    if a_mode == "exact":
+        # Exact Schur diagonal: the diag-A estimate underestimates diag(S) by up
+        # to ~460x at higher orders; the per-cell quadratic form of the
+        # condensed exact solve is  c^T T^-1 c / m_t + b_W^T Mbb^-1 b_W / (alpha m_t)
+        # with c = b_F - G^T b_W over the element's two faces.  A periodic
+        # direction keeps its diag-A estimate (neutfem_tpu/ops/context.py:471-474).
+        pre = C.copy()
+        for di in fes.dirs:
+            key = f"d{di.d}"
+            ax = di.axis
+            fax = 1 + ax
+            ncell = mesh.shape[ax]
+            imt = 1.0 / di.m_t
+            if f"cyc_wt_{key}" in ctx_np:
+                left, right = lr_stash[key]
+                M0 = np.einsum("pt,qt,t->pq", di.BX[0], di.BX[0], imt)
+                M1 = np.einsum("pt,qt,t->pq", di.BX[1], di.BX[1], imt)
+                pre += (np.diagonal(M0).reshape(1, -1, 1, 1, 1) * left[:, None]
+                        + np.diagonal(M1).reshape(1, -1, 1, 1, 1) * right[:, None])
+                blk_terms += [(M0, left), (M1, right)]
+                continue
+            mask_d = ctx_np[f"mask_{key}"]
+            dd, od = _tinv_dd_od(ctx_np[f"tri_dinv_{key}"], ctx_np[f"tri_l_{key}"], fax)
+            dd = dd * mask_d[None]
+            mL = mask_d[_axslice(3, ax, slice(0, ncell))]
+            mR = mask_d[_axslice(3, ax, slice(1, ncell + 1))]
+            od = od * (mL * mR)[None]
+            ddL = dd[_axslice(4, fax, slice(0, ncell))]
+            ddR = dd[_axslice(4, fax, slice(1, ncell + 1))]
+            chat = np.array(di.BX[:2], dtype=np.float64)
+            if et.nbub > 0:
+                chat = chat - np.einsum("bf,bpt->fpt", et.G, di.BX[2:])
+            c00 = np.einsum("pt,qt,t->pq", chat[0], chat[0], imt)
+            c11 = np.einsum("pt,qt,t->pq", chat[1], chat[1], imt)
+            c01 = np.einsum("pt,qt,t->pq", chat[0], chat[1], imt)
+            pre += (np.diagonal(c00).reshape(1, -1, 1, 1, 1) * ddL[:, None]
+                    + np.diagonal(c11).reshape(1, -1, 1, 1, 1) * ddR[:, None]
+                    + 2.0 * np.diagonal(c01).reshape(1, -1, 1, 1, 1) * od[:, None])
+            blk_terms += [(c00, ddL), (c11, ddR), (c01 + c01.T, od)]
+            if et.nbub > 0:
+                w_pq = np.einsum("bpt,bc,cqt,t->pq", di.BX[2:], et.Mbb_inv, di.BX[2:], imt)
+                inv_alpha = 1.0 / ctx_np[f"alpha_{key}"]
+                pre += np.diagonal(w_pq).reshape(1, -1, 1, 1, 1) * inv_alpha[:, None]
+                blk_terms.append((w_pq, inv_alpha))
+    else:
+        pre = est
 
     ctx_np["precond_inv"] = 1.0 / pre
     if et.k == 0 and fes.m == 0 and os.environ.get("NEUTFEM_EQFOLD", "0") in ("1", "2"):
@@ -332,10 +509,13 @@ def build_context(
         sdi = 1.0 / np.sqrt(pre)
         ctx_np["precond_eq_sdi"] = sdi
         ctx_np["precond_eq_csdi"] = C * sdi
-    for name, d in zip(("line", "line2"), pc_dirs):
-        if d in line_offd:
-            ctx_np[f"precond_{name}_dinv"], ctx_np[f"precond_{name}_l"] = _line_factors(
-                pre[:, 0], *line_offd[d])
+    # the line factors, where the highest active direction has them (a
+    # periodic one has none, and then neither line is built: the JAX rule)
+    if pc_dirs[0] in line_offd:
+        for name, d in zip(("line", "line2"), pc_dirs):
+            if d in line_offd:
+                ctx_np[f"precond_{name}_dinv"], ctx_np[f"precond_{name}_l"] = _line_factors(
+                    pre[:, 0], *line_offd[d])
     blk_inv = None
     if fes.P > 1:
         # P x P per-cell block-Jacobi for higher orders, equilibrated by the exact
@@ -355,6 +535,8 @@ def build_context(
             bh = np.moveaxis(blk * sdi[:, None] * sdi[None, :], -1, 0)  # (cells, P, P)
             blk_inv[g] = np.moveaxis(np.linalg.inv(bh), 0, -1).reshape((P, P) + mesh.shape)
             del blk, bh
+    if np.any(src_bc != 0.0):
+        ctx_np["src_bc"] = src_bc
     ctx_np["detJ"] = detJ
     ctx_np["w_mode"] = w_mode                           # (P,) public trailing-mode weight
     ctx_np["w_mode_col"] = w_mode.reshape(-1, 1, 1, 1)  # internal mode-first broadcast

@@ -16,15 +16,19 @@ the JAX loop step for step, so outer and inner counts agree.
 Ported: direct and adjoint solves (transposed couplings, reverse group sweep,
 optionally at a fixed eigenvalue), the Gauss-Seidel ("gs") and the Jacobi
 ("jacobi": every group in one batched CG) group sweeps, ``inner_solver``
-"cg" on the Jacobi (diag-S) equilibrated system with the identity
-(``"jacobi"``), the P x P block-Jacobi (``"block"``, k >= 1), the
+"cg" or "bicgstab" on the Jacobi (diag-S) equilibrated system with the
+identity (``"jacobi"``), the P x P block-Jacobi (``"block"``, k >= 1), the
 line-tridiagonal (``"line"``, ``"line2"``, P == 1) or the additive two-grid
 (``"twogrid"``, ``twogrid.py``) preconditioner, and ``inner_solver``
-"direct" (the dense Cholesky factors of ``ops/direct.py``); ``accel``
-"chebyshev" | "anderson" | "none"; CMFD (``cmfd.py``) in mode "fixed"; the
-fixed-source and subcritical solves (``fixed_source_solve``,
-``solve_subcritical``).  Everything else the JAX ``SolveOptions`` offers
-raises ``NotImplementedError``.
+"direct" (the dense Cholesky factors of ``ops/direct.py``); ``a_mode``
+"exact", "diag" and "lumped" (with "diag", ``diag_elementwise``: the
+reference's elementwise bug-compat solve); ``accel`` "chebyshev" |
+"anderson" | "none"; CMFD (``cmfd.py``) in modes "fixed" and "wielandt";
+the fixed-source and subcritical solves (``fixed_source_solve``,
+``solve_subcritical``), with the boundary source of a nonzero NEUMANN
+boundary.  The JAX package's ``cheby_blend=False`` and ``log_every`` are not
+carried over (the port's Chebyshev is the blend; the facade prints the
+history after a solve).
 
 The JAX package's opt-in switches select the same branches here (read at
 each group solve, as the JAX package reads them at trace time):
@@ -48,11 +52,12 @@ import torch
 from .accel import anderson_apply, anderson_init, chebyshev_apply_blend, chebyshev_init
 from .cmfd import cmfd_correction
 from .fespace import GRID_AXIS, FESpace
-from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, pcg, pcg_blocks, pcg_fused,
-                     pcg_fused_blocks)
+from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, bicgstab, bicgstab_blocks, pcg,
+                     pcg_blocks, pcg_fused, pcg_fused_blocks)
 from .ops.apply import (
     J_to_public,
     apply_BT_dir,
+    dir_factors,
     eqfold_available,
     equilibrated_schur_matvec,
     phi_to_internal,
@@ -86,10 +91,12 @@ class SolveOptions:
     cheby_nmax: int = 15
     cheby_sigma: float = 0.98
     anderson_m: int = 4
-    a_mode: str = "exact"
+    a_mode: str = "exact"         # A-inverse mode: "exact" | "diag" | "lumped" (RT0;
+                                  # the context must be built with the same one)
     warm_start: bool = True
-    inner_solver: str = "cg"      # "cg" | "direct" (ops/direct.attach_dense_schur
-                                  # must have put the dense factors on the context)
+    inner_solver: str = "cg"      # "cg" | "bicgstab" | "direct"
+                                  # (ops/direct.attach_dense_schur must have put
+                                  # the dense factors on the context)
     inner_precond: str = "auto"   # "jacobi" | "block" | "line" | "line2" |
                                   # "twogrid" | "auto" (resolve_precond: twogrid
                                   # when a coarse level is attached and P == 1,
@@ -101,12 +108,19 @@ class SolveOptions:
     use_cmfd: bool = False        # CMFD nonlinear acceleration (excludes Chebyshev)
     cmfd_omega: float = 1.0       # CMFD correction relaxation (SetCMFDRelaxation)
     cmfd_from_iter: int = 2       # first outer with CMFD (NeutFEM.cpp:1750)
-    cmfd_mode: str = "fixed"      # "fixed" (ported) | "wielandt" (not ported)
+    cmfd_mode: str = "fixed"      # "fixed": one fixed-source lo solve | "wielandt":
+                                  # the lo eigensolve by Wielandt-shifted inverse
+                                  # iteration with BiCGSTAB (experimental in the
+                                  # JAX package)
     cmfd_use_lo_k: bool = False   # take keff from the lo solve (its k is the
                                   # current one in mode "fixed")
-    cmfd_lo_outers: int = 60      # wielandt-mode cap on lo iterations (not ported)
+    cmfd_lo_outers: int = 60      # wielandt-mode cap on lo iterations
     sweep: str = "gs"             # "gs" (reference Gauss-Seidel) | "jacobi" (all
                                   # groups in ONE batched Schur CG; no Chebyshev)
+    diag_elementwise: bool = False  # with a_mode "diag" at RT0-P0: the reference's
+                                  # elementwise S_ee solve (NeutFEM.cpp:459-634),
+                                  # which drops the inter-element coupling and
+                                  # collapses under refinement; bug-compat only
 
 
 def ctx_group(ctx: Dict, g: int) -> Dict:
@@ -251,7 +265,7 @@ def group_plan(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs) -> CGPlan:
                                                  "NEUTFEM_BLOCKJAC"))
     cache = ctxg.get(CG_PLANS) if rhs.device.type == "cuda" else None
     key = (ctxg["precond_inv"].data_ptr(), tuple(rhs.shape), rhs.dtype, pc_mode, env,
-           opts.a_mode, opts.tg_degree, opts.tg_kappa, opts.max_inner)
+           opts.a_mode, opts.inner_solver, opts.tg_degree, opts.tg_kappa, opts.max_inner)
     if cache is not None and key in cache.plans:
         return cache.plans[key]
     # the plan keeps this group's context without the plans (no cycle)
@@ -267,8 +281,10 @@ def group_plan(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs) -> CGPlan:
 
         def matvec(y):
             return sdi * schur_matvec(fes, ctxg, y * sdi, a_mode=opts.a_mode)
-    cgcg = os.environ.get("NEUTFEM_CGCG", "0") == "1"
-    solver, blocks = (pcg_fused, pcg_fused_blocks) if cgcg else (pcg, pcg_blocks)
+    stab = opts.inner_solver == "bicgstab"
+    cgcg = not stab and os.environ.get("NEUTFEM_CGCG", "0") == "1"
+    solver, blocks = ((bicgstab, bicgstab_blocks) if stab else
+                      (pcg_fused, pcg_fused_blocks) if cgcg else (pcg, pcg_blocks))
     tg_corr = None
     if pc_mode == "twogrid":
         if "tg" in ctxg:
@@ -282,8 +298,14 @@ def group_plan(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs) -> CGPlan:
         # blocks is made
         fused = tg_corr is None and not cgcg and rhs.dtype == torch.float32
         if fused and dev is not None and dev.ndim == 5:
-            precond_dots = lambda r: blockjac_dev_dots(dev, r)
-        elif (fused and bi is not None and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
+            if stab:
+                # BiCGSTAB takes K8's apply; the two dots the kernel also
+                # returns are the CG's fusion and go unused here
+                precond = lambda r: blockjac_dev_dots(dev, r)[0]
+            else:
+                precond_dots = lambda r: blockjac_dev_dots(dev, r)
+        elif (fused and not stab and bi is not None
+                and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
                 and bi.dtype in (torch.float32, torch.bfloat16) and bi.ndim == 5):
             precond_dots = lambda r: blockjac_dots(bi, r)
         else:
@@ -320,19 +342,26 @@ def group_solve(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs, x0, tol=None)
     (``precond_blk_dev``, the float32 default) always, on a
     ``precond_blk_inv`` context (float32 or bf16 blocks) under
     ``NEUTFEM_BLOCKJAC=1``.  ``tol`` (0-d tensor) overrides
-    ``opts.inner_tol``.  ``inner_solver="direct"`` instead runs the two triangular solves of the dense equilibrated Cholesky factors
+    ``opts.inner_tol``.  ``inner_solver="bicgstab"`` runs BiCGSTAB on the
+    same equilibrated operator with the same preconditioner (K8's apply
+    without its dots).  ``inner_solver="direct"`` instead runs the two
+    triangular solves of the dense equilibrated Cholesky factors
     (``ops/direct.py``; one "iteration", residual 0, as in the JAX package).
+    ``diag_elementwise`` (with ``a_mode="diag"`` at RT0-P0) is the reference's
+    elementwise scheme: x = precond_inv * rhs, 0 iterations, residual 0.
 
     ``ctxg`` is one group's context (``ctx_group``), or the whole context for
     the Jacobi sweep's batched solve of every group at once, ``rhs`` and
     ``x0`` then (ng, P, nz, ny, nx): the CG's dot products run over all
     groups, as the JAX ``pcg`` reduces over the whole array.  On the card the
     CG replays the plan's captured graph (``group_plan``, ``krylov``)."""
+    zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
+    if opts.diag_elementwise and opts.a_mode == "diag" and fes.k == 0 and fes.m == 0:
+        return KrylovResult(x=ctxg["precond_inv"] * rhs, iterations=0, residual=zero)
     if opts.inner_solver == "direct":
-        return KrylovResult(x=direct_solve(ctxg, rhs), iterations=1,
-                            residual=torch.zeros((), dtype=rhs.dtype, device=rhs.device))
-    if opts.inner_solver != "cg":
-        raise NotImplementedError(f"inner_solver={opts.inner_solver!r} is not ported")
+        return KrylovResult(x=direct_solve(ctxg, rhs), iterations=1, residual=zero)
+    if opts.inner_solver not in ("cg", "bicgstab"):
+        raise ValueError(f"unknown inner_solver {opts.inner_solver!r}")
     plan = group_plan(fes, ctxg, opts, rhs)
     if plan.refill is not None:
         plan.refill()
@@ -381,24 +410,30 @@ def _scatter_all(ctx, phi, adjoint: bool = False):
 
 def _external_source(ctx, g: int):
     """Flux-space rhs of the per-element-constant external source Q_g: only
-    the P_0 mode is excited, with weight detJ * w_mode[0].  (The JAX
-    package's boundary source ``src_bc`` of a nonzero NEUMANN boundary is not
-    ported: ``build_context`` refuses such a boundary.)"""
+    the P_0 mode is excited, with weight detJ * w_mode[0].  Adds the fixed
+    boundary source ``src_bc`` of a nonzero NEUMANN boundary."""
     wm = ctx["w_mode_col"]  # (P, 1, 1, 1)
     onehot = torch.zeros_like(wm)
     onehot[0] = wm[0]
-    return (ctx["src"][g] * ctx["detJ"]) * onehot  # (P, nz, ny, nx)
+    out = (ctx["src"][g] * ctx["detJ"]) * onehot  # (P, nz, ny, nx)
+    if "src_bc" in ctx:
+        out = out + ctx["src_bc"][g]
+    return out
 
 
 def compute_current(fes: FESpace, ctx: Dict, phi, a_mode: str = "exact"):
     """J = A^{-1} B^T phi for all groups (internal layout), one batched Thomas
-    solve per direction; with bubbles (k >= 1) also their DOFs ("bub")."""
+    solve per direction (the cyclic one on a periodic direction, none under
+    "diag" / "lumped"); with bubbles (k >= 1) also their DOFs ("bub").  A
+    nonzero NEUMANN boundary's lift ``jcorr`` is added to the face current."""
     J = {}
     for di in fes.dirs:
         key = f"d{di.d}"
         rF, rW = apply_BT_dir(fes, di, phi)
-        F, W = solve_A_dir(fes, di, ctx[f"tri_dinv_{key}"], ctx[f"tri_l_{key}"],
-                           ctx[f"mask_{key}"], ctx[f"alpha_{key}"], rF, rW, a_mode)
+        F, W = solve_A_dir(fes, di, rF=rF, rW=rW, a_mode=a_mode, **dir_factors(ctx, key))
+        jc = ctx.get(f"jcorr_{key}")
+        if jc is not None:
+            F = F + jc.unsqueeze(-4)  # J = J' + J_q
         J[key] = {"face": F} if W is None else {"face": F, "bub": W}
     return J
 
@@ -418,9 +453,8 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
     if opts.sweep not in ("gs", "jacobi"):
         raise NotImplementedError(f"sweep={opts.sweep!r} is not ported")
     use_cmfd = opts.use_cmfd and not adjoint
-    if use_cmfd and opts.cmfd_mode != "fixed":
-        raise NotImplementedError(f"cmfd_mode={opts.cmfd_mode!r} is not ported "
-                                  "(it needs bicgstab)")
+    if use_cmfd and opts.cmfd_mode not in ("fixed", "wielandt"):
+        raise ValueError(f"unknown cmfd_mode {opts.cmfd_mode!r}")
 
     phi = phi_to_internal(phi0)
     dtype, device = phi.dtype, phi.device
@@ -507,7 +541,7 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
             # NeutFEM.cpp:1750-1761); the JAX lax.cond on the count is this if
             J = compute_current(fes, ctx, phi, a_mode=opts.a_mode)
             ratio, k_lo = cmfd_correction(fes, ctx, phi, J, keff, omega=opts.cmfd_omega,
-                                          mode=opts.cmfd_mode)
+                                          lo_outers=opts.cmfd_lo_outers, mode=opts.cmfd_mode)
             phi = phi * ratio.unsqueeze(-4)
 
         prod_new = _production(ctx, phi, adjoint)

@@ -1,7 +1,8 @@
 """Where the time of one k-eff solve goes on the GPU (torch.profiler).
 
     python -m neutfem_tpu_torch.trace_solve [N [M]] [--order K | --core CORE | --scale |
-                                            --sweep jacobi | --adjoint] [--out DIR]
+                                            --sweep jacobi | --adjoint | --periodic |
+                                            --bicgstab] [--out DIR]
 
 Builds IAEA-3D at NxN per assembly and M axial subdivisions (default 6x6x4,
 RT0-P0; with ``--order K`` RT_k-P_k, default 4x4x2, at the higher-order rows'
@@ -11,7 +12,11 @@ two-grid coarse level), float32.  The solve traced is ``SolveKeff`` from a
 cold flux; with ``--sweep jacobi`` the Jacobi group sweep at
 ``bench.SWEEP_TOL`` (``bench.main_sweep``), with ``--adjoint`` the
 free-running ``SolveAdjoint`` from a cold adjoint flux (``bench.py
---full``'s adjoint row).  Prints the context and two-grid build
+--full``'s adjoint row), with ``--periodic`` ``SolveKeff`` with the four
+lateral faces PERIODIC (x and y run the unfused cyclic chain on K4), with
+``--bicgstab`` ``power_iteration(inner_solver="bicgstab")`` at
+``bench.SWEEP_TOL`` and float64 (``bench.main_variants``' rows: from the flat
+flux its float32 dots overflow on IAEA-3D, as in the JAX package).  Prints the context and two-grid build
 seconds, runs one warm-up solve, one untimed-by-the-profiler solve (the
 end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall, the
@@ -35,7 +40,8 @@ import time
 import torch
 
 from . import krylov
-from .bench import FULL_TOL, HO_TOL, SWEEP_TOL, BenchmarkRun, load_benchmark_data
+from .bench import FULL_TOL, HO_TOL, LATERAL, SWEEP_TOL, BenchmarkRun, load_benchmark_data
+from .compat import BCType
 from .power import power_iteration
 
 # kernel-name fragment -> family (first match wins)
@@ -74,12 +80,13 @@ def _family(name: str) -> str:
 
 
 def _solver_run(s, mode: str):
-    """One solve of ``mode`` ("keff", "jacobi", "adjoint") from a cold flux:
-    returns (wall seconds, outers, inners)."""
+    """One solve of ``mode`` ("keff", "jacobi", "adjoint", "bicgstab") from a
+    cold flux: returns (wall seconds, outers, inners)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if mode == "jacobi":
-        opts = dataclasses.replace(s._opts(), sweep="jacobi")
+    if mode in ("jacobi", "bicgstab"):
+        opts = dataclasses.replace(s._opts(), **({"sweep": "jacobi"} if mode == "jacobi"
+                                                 else {"inner_solver": "bicgstab"}))
         res = power_iteration(s._fes, s._ng, opts, s._ctx, s._flat_phi(), 1.0)
         counts = (res["outer_iterations"], res["inner_iterations"])
     elif mode == "adjoint":
@@ -96,16 +103,18 @@ def _solver_run(s, mode: str):
 
 
 def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
-         order: int = 0, core: str = "iaea3d", mode: str = "keff") -> dict:
+         order: int = 0, core: str = "iaea3d", mode: str = "keff",
+         periodic: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve: no CUDA device available")
     spec = load_benchmark_data().BENCHMARKS[core]
+    bc = {f: (BCType.PERIODIC, 0.0) for f in LATERAL} if periodic else None
     run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, device="cuda", dtype=dtype,
-                       rt_order=order)
+                       rt_order=order, bc=bc)
     s = run.solver
     print(f"build seconds: {s.build_seconds}; preconditioner {s.preconditioner()}")
     run.solve(tol=HO_TOL if order else FULL_TOL)  # warm-up (and the adjoint's direct k)
-    if mode == "jacobi":
+    if mode in ("jacobi", "bicgstab"):
         s.set_tol(*SWEEP_TOL)
     wall, outers, inners = _solver_run(s, mode)
 
@@ -128,7 +137,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
 
     card = torch.cuda.get_device_name(0)
     mesh = f"{mesh_n}x{mesh_n}" + (f"x{mesh_nz}" if spec.dim == 3 else "")
-    print(f"{core} {mesh} RT{order}-P{order} {mode} {dtype}: "
+    print(f"{core} {mesh} RT{order}-P{order} {mode}{' periodic' if periodic else ''} {dtype}: "
           f"{outers} outers, {inners} inners, "
           f"wall {wall * 1e3:.3f} ms (traced {wall_traced * 1e3:.3f} ms), {card}")
     reads_per_it = cg["host_reads"] / max(cg["iterations"], 1)
@@ -147,7 +156,8 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "solve_trace.json"))
     summary = {
-        "core": core, "mesh": mesh, "order": order, "solve": mode, "dtype": str(dtype),
+        "core": core, "mesh": mesh, "order": order, "solve": mode, "periodic": periodic,
+        "dtype": str(dtype),
         "device": card, "preconditioner": s.preconditioner(),
         "build_s": s.build_seconds,
         "outers": outers, "inners": inners,
@@ -176,10 +186,18 @@ if __name__ == "__main__":
                       help="trace the Jacobi group sweep (IAEA-3D, default 6x6x4)")
     mode.add_argument("--adjoint", action="store_true",
                       help="trace the free-running adjoint (IAEA-3D, default 6x6x4)")
+    mode.add_argument("--periodic", action="store_true",
+                      help="the lateral faces PERIODIC (IAEA-3D, default 6x6x4)")
+    mode.add_argument("--bicgstab", action="store_true",
+                      help="trace the BiCGSTAB inner solver (IAEA-3D, default 6x6x4)")
     p.add_argument("--out", default=None, help="directory for solve_trace.json")
     a = p.parse_args()
-    if a.sweep or a.adjoint:
+    if a.bicgstab:
+        main(a.mesh_n or 6, a.mesh_nz or 4, a.out, dtype=torch.float64, mode="bicgstab")
+    elif a.sweep or a.adjoint:
         main(a.mesh_n or 6, a.mesh_nz or 4, a.out, mode="jacobi" if a.sweep else "adjoint")
+    elif a.periodic:
+        main(a.mesh_n or 6, a.mesh_nz or 4, a.out, periodic=True)
     elif a.core is not None:
         main(a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core], 1, a.out, core=a.core)
     elif a.scale:

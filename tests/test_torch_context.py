@@ -132,30 +132,6 @@ def test_ctx_from_numpy_roundtrip():
         assert np.array_equal(v.numpy(), jctx[k].astype(np.float32)), k
 
 
-@pytest.mark.parametrize("what", ["periodic", "rt1", "diag", "neumann_q"])
-def test_context_outside_the_slice_raises(what):
-    mesh = t_mesh.CartesianMesh.from_breaks(np.linspace(0, 4, 5), np.linspace(0, 3, 4),
-                                            np.linspace(0, 2, 3))
-    rng = np.random.default_rng(0)
-    xs = _xs(mesh.shape, 2, rng)
-    bcs = BCSpec()
-    for ax in range(3):
-        for up in (False, True):
-            bcs.set(t_mesh.boundary_attribute(3, ax, up), BCKind.DIRICHLET)
-    k, a_mode = 0, "exact"
-    if what in ("periodic", "rt1"):  # rt1: the higher orders are ported, PERIODIC not
-        k = 1 if what == "rt1" else 0
-        for up in (False, True):
-            bcs.set(t_mesh.boundary_attribute(3, 0, up), BCKind.PERIODIC)
-    elif what == "diag":
-        a_mode = "diag"
-    else:
-        bcs.set(t_mesh.boundary_attribute(3, 1, False), BCKind.NEUMANN, 0.5)
-    fes = t_fespace.make_fespace(mesh, k, k)
-    with pytest.raises(NotImplementedError):
-        build_context(fes, 2, xs, bcs, device="cpu", dtype=torch.float64, a_mode=a_mode)
-
-
 @pytest.mark.parametrize("name,n", [("iaea3d", 1), ("zion2d", 2), ("koeberg2d", 1)])
 def test_benchmark_cross_sections_match_jax_runner(name, n):
     """The port's vectorized per-material fill equals the JAX runner's per-cell

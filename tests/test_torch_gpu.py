@@ -1111,6 +1111,33 @@ def test_group_solve_graph_matches_eager_blocks(iaea_1x1_f32, case, monkeypatch)
     assert torch.equal(got.x, want.x)
 
 
+@pytest.mark.parametrize("case", ["bicgstab", "bicgstab_rt1", "periodic", "periodic_rt1",
+                                  "diag"])
+def test_new_paths_graph_matches_eager_blocks(iaea_1x1_f32, case):
+    """The paths of the diagonal A-solve, PERIODIC and BiCGSTAB on the card:
+    group_solve through its plan's captured graph against the eager block
+    loop, IAEA-3D 1x1 float32 (the lateral faces PERIODIC: the cyclic solve on
+    K4 in x and y; BiCGSTAB with K8's apply at RT1-P1): the same bits and
+    count."""
+    from neutfem_tpu_torch.compat import BCType
+    from neutfem_tpu_torch.power import SolveOptions
+
+    bench, spec = iaea_1x1_f32
+    bc = ({f: (BCType.PERIODIC, 0.0) for f in bench.LATERAL} if case.startswith("periodic")
+          else None)
+    run = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32,
+                             rt_order=1 if case.endswith("rt1") else 0, bc=bc)
+    s = run.solver
+    opts = SolveOptions(inner_tol=1e-5, a_mode="diag" if case == "diag" else "exact",
+                        inner_solver="bicgstab" if case.startswith("bicgstab") else "cg")
+    before = thomas.LAUNCHES["thomas_rows"]
+    got, want = _graph_vs_eager(s._fes, s._context(opts.a_mode), opts, 0)
+    assert got.iterations == want.iterations > 2
+    assert torch.equal(got.x, want.x)
+    launched = thomas.LAUNCHES["thomas_rows"] - before
+    assert (launched > 0) == case.startswith("periodic")
+
+
 def test_group_solve_graphs_share_one_block_copy(iaea_1x1_f32, monkeypatch):
     """RT1-P1 under NEUTFEM_CGCG=1 takes the bmm block apply on a float32
     copy of the blocks: the context keeps one copy, which both groups' plans
@@ -1261,6 +1288,36 @@ def test_set_bc_rounds_free_the_replaced_plans(iaea_1x1_f32):
         gc.collect()
         torch.cuda.synchronize()
         assert plans() is None
+        after.append(torch.cuda.memory_allocated())
+    assert after[1] == after[0]
+
+
+def test_set_bc_rounds_free_both_contexts_plans(iaea_1x1_f32):
+    """The facade with two contexts on the card (the exact one and the
+    diagonal solver's): two rounds of ``set_bc`` and both solves; each
+    round drops both replaced contexts' CG plans, and the second round ends
+    at the allocated memory of the first."""
+    import gc
+    import weakref
+
+    from neutfem_tpu_torch import krylov
+
+    bench, spec = iaea_1x1_f32
+    s = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32).solver
+    s.set_tol(1e-5, 1e-4, 1e-4, 200, 1000)
+    s.SolveKeff(use_diagonal_solver=True)
+    s.SolveKeff()
+    after = []
+    for _ in range(2):
+        plans = [weakref.ref(c[krylov.CG_PLANS]) for c in (s._ctx, s._ctxs["diag"])]
+        s.set_bc(3, 2)
+        s.reset_flux()
+        s.SolveKeff(use_diagonal_solver=True)
+        s.reset_flux()
+        s.SolveKeff()
+        gc.collect()
+        torch.cuda.synchronize()
+        assert all(p() is None for p in plans)
         after.append(torch.cuda.memory_allocated())
     assert after[1] == after[0]
 

@@ -29,7 +29,7 @@ from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.krylov import pcg
 from neutfem_tpu_torch.ops.apply import phi_to_internal, schur_matvec
 from neutfem_tpu_torch.ops.context import ctx_from_numpy
-from neutfem_tpu_torch.power import SolveOptions, ctx_group, group_solve, power_iteration
+from neutfem_tpu_torch.power import SolveOptions, ctx_group, power_iteration
 
 torch.set_num_threads(1)
 
@@ -183,25 +183,3 @@ def test_facade_iaea2d_matches_jax():
     assert abs(trun.keff - jrun.keff) <= 1e-9
     assert trun.solver._last_outers == jrun.solver._last_outers
     assert abs(trun.solver._last_inners - jrun.solver._last_inners) <= 2
-
-
-@pytest.mark.parametrize("opt", ["bicgstab", "cmfd_wielandt", "a_mode_diag", "diagonal_solver"])
-def test_options_outside_the_slice_raise(opt):
-    fes, _, tctx, _ = _problem((3, 4, 5), seed=2)
-    phi0 = torch.ones((2, *fes.mesh.shape, 1), dtype=F64)
-    kw = {"bicgstab": dict(inner_solver="bicgstab"),
-          "cmfd_wielandt": dict(use_cmfd=True, cmfd_mode="wielandt", cmfd_from_iter=0),
-          "a_mode_diag": dict(a_mode="diag")}.get(opt, {})
-    with pytest.raises(NotImplementedError):
-        if opt == "bicgstab":
-            g = ctx_group(tctx, 0)
-            x = phi_to_internal(phi0)[0]
-            group_solve(fes, g, SolveOptions(**kw), x, x)
-        elif opt == "diagonal_solver":
-            from neutfem_tpu_torch.compat import NeutFEM
-
-            s = NeutFEM(0, 2, *(np.linspace(0.0, 3.0, 4),) * 3, device="cpu", dtype=F64)
-            s.BuildMatrices()
-            s.SolveKeff(use_diagonal_solver=True)
-        else:
-            power_iteration(fes, 2, SolveOptions(**kw), tctx, phi0, 1.0)

@@ -203,15 +203,3 @@ def test_cmfd_solve_matches_jax():
     assert abs(t._last_outers - j._last_outers) <= 0.1 * j._last_outers
     _, g = _runs("iaea2d", 2)
     assert abs(kt - g.SolveKeff()) <= 1e-5
-
-
-@pytest.mark.parametrize("what", ["wielandt", "diagonal"])
-def test_variants_outside_the_slice_raise(what):
-    _, t = _runs("iaea2d", 1)
-    with pytest.raises(NotImplementedError):
-        if what == "diagonal":
-            t.SolveKeff(use_diagonal_solver=True)
-        else:
-            power_iteration(t._fes, 2, SolveOptions(use_cmfd=True, cmfd_mode="wielandt",
-                                                    cmfd_from_iter=0), t._ctx,
-                            torch.ones((2, *t._fes.mesh.shape, 1), dtype=F64), 1.0)
