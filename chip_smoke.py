@@ -131,8 +131,32 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    MIRROR; K4′ at that fold shape and K4 at [15b]'s x and y fold shapes
    against the plain version (rows of the JSON line).
 
+16. the multi-device solve (``neutfem_tpu_torch/parallel.py``), each path
+   with its own counts: (a) the NCCL world of one in this process,
+   IAEA-3D 6x6x4 RT0-P0 float32 with a z cut and with a y cut, on [5]'s
+   anchors, the CG replaying its graphs (the collectives captured in them),
+   K4 at least once a CG iteration (the segment solve) and the uncut
+   directions' kernels every iteration (K1 on the y cut), ms/outer beside
+   the unsharded solve's from the same call; (b) RT1-P1 4x4x2, z cut, on
+   ``main_ho(1)``'s anchors with K6 in x and y, K4 and K8 on the E-form
+   every CG iteration; (c) two ranks in processes of their own sharing the
+   card over gloo (host-staged: the eager CG block loop), IAEA-3D 6x6x4 z
+   cut (38 planes a rank), k within 2e-5 and the gathered flux within 1e-4
+   of the unsharded solve, k and the counts identical on both ranks, K2-K4
+   every CG iteration on each (K1's direction is the cut one), the bytes
+   staged and ms/outer printed as transport-bound.  After each solve of
+   (a)-(c), K4 at that path's segment shape (T transverse modes, the rank's
+   s body faces along the cut, its slab across: (1, 76, 114, 114) on both
+   cuts of (a), (4, 38, 76, 76) in (b), (1, 38, 114, 114) in (c)) with the
+   rank's own segment factors, and in (c) K2 / K3 on rank 0's restaged
+   slab operands (1, 38, 114, 114), against the plain version (rows of the
+   JSON line, with the path's launches); (d) float64 card against the CPU's unsharded solve
+   (|dk| <= 1e-9, the same outers, flux rel 1e-9): IAEA-3D 1x1 on the NCCL
+   world of one, IAEA-3D 1x1x2 on the two gloo ranks (1x1 has 19 cells on
+   every axis: no even cut).  A failing rank kills the other and fails.
+
 ``python3 chip_smoke.py --phase 15`` runs [1], [2] and [15] alone and prints
-the kernel rows of [15] but no result line.
+the kernel rows of [15] but no result line; ``--phase 16`` likewise for [16].
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
@@ -1636,6 +1660,335 @@ def _variant_paths(bench, dev, card, reset_counts, counts, rows):
         rows[f"K4 periodic {key}"] = row
     del run, s
 
+# [16] the multi-device solve: k of a sharded solve against the unsharded one
+# (float32, two ranks over gloo on one card: the same iteration, another
+# summation order of every dot product), its gathered flux (relative to its
+# largest entry), and float64 card against CPU
+SHARD_KEFF_TOL, SHARD_FLUX_REL, SHARD_F64_TOL = 2e-5, 1e-4, 1e-9
+# the ranks of [16c] / [16d] must answer within this many seconds
+RANK_TIMEOUT = 420.0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _zero_counts():
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.ops import launch_counters
+
+    for c in launch_counters():
+        c.update(dict.fromkeys(c, 0))
+    krylov.reset_stats()
+
+
+def _sharded_solve(bench, mesh, ga, case, dev, check=None):
+    """One rank's sharded power iteration of ``case`` = (core, mesh_n,
+    mesh_nz, rt_order, tol, dtype name) on ``dev``: the facade's problem and
+    options (built on the CPU, not on the card), the rank's slab of the host
+    context, one solve (captures, warm-up), then a timed solve from the flat
+    flux with every count set to 0 just before it and read just after.
+    Returns its k, counts, history, launches, CG and transport counts, wall
+    and the gathered flux (every rank gathers; numpy); ``check(ctx, fes)``,
+    when given, runs after that and its kernel rows come back as "rows"."""
+    import torch
+
+    from neutfem_tpu_torch import krylov, parallel
+    from neutfem_tpu_torch.ops import launch_counters
+    from neutfem_tpu_torch.ops.context import build_host_context
+
+    core, n, nz, order, tol, dt = case
+    dtype = getattr(torch, dt)
+    run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS[core], mesh_n=n,
+                             mesh_nz=nz, device="cpu", dtype=dtype, rt_order=order)
+    s = run.solver
+    s.set_tol(*tol)
+    fes, ng = s._fes, s._ng
+    t0 = time.perf_counter()
+    host = build_host_context(fes, ng, s._xs, s._bcs, marshak_d_factor=True)
+    ctx = parallel.shard_context(host, mesh, fes, ga, device=dev, dtype=dtype)
+    del host, run
+    build_s = time.perf_counter() - t0
+    phi0 = parallel.shard_state(torch.ones((ng, *fes.mesh.shape, fes.P), dtype=dtype), mesh,
+                                ga, device=dev)
+    solve, _ = parallel.sharded_power_iteration(fes, ng, s._opts(), mesh, ga)
+    solve(ctx, phi0, 1.0)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = solve(ctx, phi0, 1.0)
+    keff = float(res["keff"])  # a device -> host read ends the solve
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in launch_counters() for k, v in c.items()}
+    cg = dict(krylov.STATS)
+    phi = parallel.gather_state(res["phi"], mesh, ga)
+    if not bool(res["finite"]) or not bool(torch.isfinite(phi).all()):
+        raise RuntimeError(f"sharded {case}: the flux is not finite")
+    return {"keff": keff, "outers": res["outer_iterations"], "inners": res["inner_iterations"],
+            "history": res["history"].cpu().numpy(), "launches": launches, "cg": cg,
+            "loop": res["sharding"]["cg"], "wall": wall, "build_s": build_s,
+            "ms_per_outer": 1e3 * wall / max(res["outer_iterations"], 1),
+            "local_shape": tuple(res["phi"].shape),
+            "phi": phi.to(torch.float64).cpu().numpy(),
+            "rows": {} if check is None else check(ctx, fes)}
+
+
+def _segment_row(ctx, fes, ga, label, card):
+    """K4 at a rank's segment of the cut grid axis ``ga``, as the
+    partitioned solve calls it (``ops/parttri.tridiag_solve_partitioned``):
+    a random rhs of the path's shape (T transverse modes, the rank's slab
+    with its s body faces along the cut) through the rank's own segment
+    factors (``tri_part_dinv`` / ``tri_part_l`` of group 0), broadcast over T
+    and contiguous; the row without its launches."""
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.power import ctx_group
+
+    di = next(d for d in fes.dirs if d.axis == ga)
+    key, ctxg = f"d{di.d}", ctx_group(ctx, 0)
+    modes = (di.BXc if fes.et.nbub else di.BX[:2]).shape[-1]
+    dinv = ctxg[f"tri_part_dinv_{key}"].unsqueeze(-4)
+    ll = ctxg[f"tri_part_l_{key}"].unsqueeze(-4)
+    shape = (modes, *dinv.shape[-3:])
+    lshape = list(shape)
+    lshape[ga - 3] -= 1
+    r = torch.as_tensor(np.random.default_rng(16).standard_normal(shape), dtype=dinv.dtype,
+                        device=dinv.device)
+    row = _thomas_rows_case(label, r, dinv.expand(shape).contiguous(),
+                            ll.expand(lshape).contiguous(), ga - 3, K4_REPLACES["zyx"[ga]], card)
+    row.pop("key")
+    return row
+
+
+def _slab_rows(ctx, fes, card):
+    """[16c]'s kernels at rank 0's shapes: K4 at its z segment (1, 38, 114,
+    114) and K2 / K3 on its slab, with the operands ``shard_context``
+    restaged from it (random flux and accumulator of the slab's shape); the
+    rows without their launches."""
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.power import ctx_group
+
+    label = " ([16c] rank 0 slab, IAEA-3D 6x6x4 z cut over 2 ranks)"
+    rows = {"K4": _segment_row(ctx, fes, 0, "partitioned segment, z cut" + label[:-1] +
+                               ", random rhs)", card)}
+    ctxg = ctx_group(ctx, 0)
+    dirs = {di.axis: di for di in fes.dirs}
+    rng = np.random.default_rng(16)
+    shape = (1, *ctxg["C"].shape[-3:])
+    v, acc0 = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                               device=ctxg["C"].device) for _ in range(2))
+    for kid, key, ga in (("K2", "y", 1), ("K3", "x", 2)):
+        rows[kid] = _rows_case(kid, key, ctxg, dirs[ga], v, acc0, card, label)
+        rows[kid].pop("key")
+    return rows
+
+
+def _gloo_rank(rank, world, init, args):
+    """A rank of [16c] / [16d]: gloo between the processes, the card shared
+    (cuda:0), each case a z cut; rank 0 checks [16c]'s kernels at its
+    shapes while the other waits.  Returns {case: results}."""
+    import torch
+    import torch.distributed as dist
+
+    cases, card = args
+    torch.cuda.set_device(0)
+    from neutfem_tpu_torch import bench, parallel
+
+    mesh = parallel.device_mesh("gloo", init_method=init, rank=rank, world_size=world)
+    out = {}
+    for name, case in cases.items():
+        check = None
+        if rank == 0 and name == "6x6x4":
+            check = lambda ctx, fes: _slab_rows(ctx, fes, card)  # noqa: E731
+        out[name] = _sharded_solve(bench, mesh, 0, case, torch.device("cuda"), check)
+        dist.barrier()
+        if rank:
+            out[name]["phi"] = None
+    return out
+
+
+def _gloo_world(cases, card, world=2):
+    """[16c] / [16d]'s ranks, spawned (``parallel.spawn_ranks``): each case's
+    per-rank results.  A rank that fails, or the deadline, kills every rank
+    and raises."""
+    from neutfem_tpu_torch import parallel
+
+    results = parallel.spawn_ranks(_gloo_rank, world, f"tcp://localhost:{_free_port()}",
+                                   (cases, card), RANK_TIMEOUT)
+    return {name: [results[r][name] for r in range(world)] for name in cases}
+
+
+def _same_on_ranks(what, per_rank):
+    first = per_rank[0]
+    for r in per_rank[1:]:
+        if (r["keff"] != first["keff"] or (r["outers"], r["inners"]) !=
+                (first["outers"], first["inners"]) or not (r["history"] == first["history"]).all()):
+            seen = [(x["keff"], x["outers"], x["inners"]) for x in per_rank]
+            raise RuntimeError(f"{what}: the ranks disagree: {seen}")
+
+
+def _flux_rel(got, want):
+    import numpy as np
+
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _cpu_reference(bench, mesh_n, mesh_nz, tol):
+    """The unsharded IAEA-3D float64 solve on the CPU: (k, outers, flux)."""
+    import torch
+
+    r = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea3d"], mesh_n=mesh_n,
+                           mesh_nz=mesh_nz, device="cpu", dtype=torch.float64)
+    k = r.solve(tol=tol)
+    return k, r.solver._last_outers, r.solver._phi.numpy()
+
+
+def _sharded_paths(bench, dev, card, rows):
+    """Phase [16]: the multi-device solve (``neutfem_tpu_torch/parallel.py``)
+    on the card, each path with its own counts (module docstring).  Adds
+    the rows of K4 at each path's segment shape, and of K2 / K3 at [16c]'s
+    slab, to ``rows``."""
+    import torch
+    import torch.distributed as dist
+
+    from neutfem_tpu_torch import parallel, shardctx
+
+    f32 = torch.float32
+    small_tol = (1e-6, 1e-5, 1e-5, 300, 1000)
+    t0 = time.perf_counter()
+    # the NCCL world of one in this process; [16c] / [16d]'s gloo ranks are
+    # processes of their own
+    mesh = parallel.device_mesh("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+    print(f"[16a] world of one over {mesh.backend} ({mesh}): IAEA-3D 6x6x4 RT0-P0, float32, "
+          "sharded_power_iteration with a z cut and a y cut")
+    run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea3d"], mesh_n=6,
+                             mesh_nz=4, device=dev, dtype=f32)
+    run.solve(tol=bench.FULL_TOL)
+    run.solver.reset_flux()
+    t1 = time.perf_counter()
+    k_flat = run.solver.SolveKeff()
+    unsharded_ms = 1e3 * (time.perf_counter() - t1) / max(run.solver._last_outers, 1)
+    phi_unsharded = run.solver._phi.to(torch.float64).cpu().numpy()
+    print(f"    unsharded: keff {k_flat}, {run.solver._last_outers} / "
+          f"{run.solver._last_inners}, {unsharded_ms:.3f} ms/outer ({card})")
+    del run
+    torch.cuda.empty_cache()
+    k1 = 0
+    for ga, cut in ((0, "z"), (1, "y")):
+        label = f"partitioned segment, {cut} cut (IAEA-3D 6x6x4, world of one, random rhs)"
+        got = _sharded_solve(bench, mesh, ga, ("iaea3d", 6, 4, 0, bench.FULL_TOL, "float32"), dev,
+                             lambda ctx, fes, ga=ga, label=label: _segment_row(ctx, fes, ga,
+                                                                              label, card))
+        L = got["launches"]
+        print(f"    {cut} cut: keff {got['keff']}, {got['outers']} / {got['inners']}, "
+              f"{got['ms_per_outer']:.3f} ms/outer against the unsharded {unsharded_ms:.3f} "
+              f"(same call; {card}); context slab built in {got['build_s']:.1f} s")
+        comm = {k: L[k] for k in shardctx.COMM}
+        print(f"      CG: {got['cg']} ({got['loop']}); transport {comm}")
+        print(f"      launches {{{', '.join(f'{k}: {v}' for k, v in L.items() if v)}}}; flux rel "
+              f"{_flux_rel(got['phi'], phi_unsharded):.2e} of the unsharded")
+        _check_anchor(f"sharded 6x6x4 {cut} cut", got["keff"], got["outers"], got["inners"],
+                      (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
+        if got["loop"] != "graph" or got["cg"]["replays"] < got["cg"]["solves"]:
+            raise RuntimeError(f"{cut} cut: the CG did not replay its graphs under NCCL")
+        if L["thomas_rows"] < got["inners"]:
+            raise RuntimeError(f"{cut} cut: K4 launched {L['thomas_rows']} times for "
+                               f"{got['inners']} CG iterations (the segment solve)")
+        uncut = {"z": ("y_rows", "x_rows"), "y": ("z_rows", "x_rows")}[cut]
+        if any(L[k] < got["inners"] for k in uncut) or any(L[k] for k in (*Z_OLD, "thomas")):
+            raise RuntimeError(f"{cut} cut: the uncut directions' kernels did not run every CG "
+                               "iteration, or a replaced kernel ran")
+        rows[f"K4 segment {cut}"] = dict(got["rows"], launches=L["thomas_rows"])
+        k1 += L["z_rows"]
+    if not k1:
+        raise RuntimeError("[16a]: K1 did not run on the y-cut path")
+    print(f"    [16a] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print(f"[16b] world of one over nccl: IAEA-3D 4x4x2 RT1-P1, float32, z cut, on "
+          f"main_ho(1)'s anchors {HO_ANCHORS[1]}")
+    got = _sharded_solve(bench, mesh, 0, ("iaea3d", 4, 2, 1, bench.HO_TOL, "float32"), dev,
+                         lambda ctx, fes: _segment_row(
+                             ctx, fes, 0, "partitioned segment, z cut (IAEA-3D 4x4x2 RT1-P1, "
+                             "world of one, random rhs)", card))
+    L = got["launches"]
+    print(f"    keff {got['keff']}, {got['outers']} / {got['inners']}, "
+          f"{got['ms_per_outer']:.3f} ms/outer ({card}); CG {got['cg']} ({got['loop']})")
+    print(f"    launches {{{', '.join(f'{k}: {v}' for k, v in L.items() if v)}}}")
+    _check_anchor("sharded RT1-P1 4x4x2 z cut", got["keff"], got["outers"], got["inners"],
+                  HO_ANCHORS[1])
+    for key in ("ho_y_rows", "ho_x_rows", "thomas_rows", "blockjac_dev"):
+        if L[key] < got["inners"]:
+            raise RuntimeError(f"[16b]: {key} launched {L[key]} times for {got['inners']} CG "
+                               "iterations")
+    if L["ho_z_rows"] or any(L[k] for k in HO_OLD):
+        raise RuntimeError("[16b]: K6 ran along the cut z, or a replaced K6 ran")
+    rows["K4 segment RT1-P1 z"] = dict(got["rows"], launches=L["thomas_rows"])
+    print(f"    [16b] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("[16d] IAEA-3D 1x1 float64, z cut, the world of one over nccl on the card against "
+          "the unsharded solve on the CPU")
+    k_cpu, o_cpu, phi_cpu = _cpu_reference(bench, 1, 1, small_tol)
+    got = _sharded_solve(bench, mesh, 0, ("iaea3d", 1, 1, 0, small_tol, "float64"), dev)
+    dk, rel = got["keff"] - k_cpu, _flux_rel(got["phi"], phi_cpu)
+    print(f"    keff {got['keff']!r} vs CPU {k_cpu!r} (dk {dk:+.2e}), outers {got['outers']} / "
+          f"{o_cpu}, flux rel {rel:.2e}")
+    if not (abs(dk) <= SHARD_F64_TOL and got["outers"] == o_cpu and rel <= SHARD_F64_TOL):
+        raise RuntimeError("[16d] world of one: the sharded float64 solve disagrees with the CPU")
+    dist.destroy_process_group()
+
+    # [16c] and [16d]'s gloo pair: two ranks sharing the card
+    k_cpu2, o_cpu2, phi_cpu2 = _cpu_reference(bench, 1, 2, small_tol)
+    ranks = _gloo_world({
+        "6x6x4": ("iaea3d", 6, 4, 0, bench.FULL_TOL, "float32"),
+        "1x1x2 f64": ("iaea3d", 1, 2, 0, small_tol, "float64")}, card)
+    print("[16c] two ranks sharing the card over gloo (host-staged, eager CG block loop): "
+          "IAEA-3D 6x6x4, z cut, float32")
+    per = ranks["6x6x4"]
+    _same_on_ranks("[16c]", per)
+    got = per[0]
+    dk, rel = got["keff"] - k_flat, _flux_rel(got["phi"], phi_unsharded)
+    for rank, r in enumerate(per):
+        L = r["launches"]
+        print(f"    rank {rank}: slab {r['local_shape']}, keff {r['keff']}, {r['outers']} / "
+              f"{r['inners']}, {r['ms_per_outer']:.3f} ms/outer TRANSPORT-BOUND (host-staged "
+              f"gloo on one card; not a scaling figure), {L['collectives']} collectives, "
+              f"{L['comm_bytes']} bytes, {L['staged_bytes']} bytes staged; CG {r['cg']} "
+              f"({r['loop']})")
+        print(f"      launches {{{', '.join(f'{k}: {v}' for k, v in L.items() if v)}}}")
+        if any(L[k] < r["inners"] for k in ("y_rows", "x_rows", "thomas_rows")):
+            raise RuntimeError(f"[16c] rank {rank}: K2-K4 did not run every CG iteration")
+        cg = r["cg"]
+        if r["loop"] != "eager" or cg["eager_solves"] < cg["solves"] or cg["replays"]:
+            raise RuntimeError(f"[16c] rank {rank}: the staged transport must run the eager loop")
+    print(f"    keff {got['keff']} against the unsharded {k_flat} (dk {dk:+.2e}), flux rel "
+          f"{rel:.2e}; K1 not launched: z, its direction, is the cut one ({card})")
+    if not (abs(dk) <= SHARD_KEFF_TOL and rel <= SHARD_FLUX_REL):
+        raise RuntimeError("[16c]: the two-rank solve disagrees with the unsharded one")
+    L = got["launches"]
+    for kid, key in (("K4", "thomas_rows"), ("K2", "y_rows"), ("K3", "x_rows")):
+        rows[f"{kid} [16c] slab"] = dict(got["rows"][kid], launches=L[key])
+    print("[16d] IAEA-3D 1x1x2 float64 (19 cells on every axis of 1x1: no even cut), z cut, two "
+          "gloo ranks on the card against the unsharded solve on the CPU")
+    per = ranks["1x1x2 f64"]
+    _same_on_ranks("[16d]", per)
+    got = per[0]
+    dk, rel = got["keff"] - k_cpu2, _flux_rel(got["phi"], phi_cpu2)
+    print(f"    keff {got['keff']!r} vs CPU {k_cpu2!r} (dk {dk:+.2e}), outers {got['outers']} / "
+          f"{o_cpu2}, flux rel {rel:.2e}")
+    if not (abs(dk) <= SHARD_F64_TOL and got["outers"] == o_cpu2 and rel <= SHARD_F64_TOL):
+        raise RuntimeError("[16d] gloo ranks: the sharded float64 solve disagrees with the CPU")
+    print(f"    [16c] + [16d] {time.perf_counter() - t0:.1f} s")
+
 
 def main():
     import torch
@@ -1692,6 +2045,12 @@ def main():
     if sys.argv[1:] == ["--phase", "15"]:  # phase [15] alone, for a change there: no result
         rows = {}
         _variant_paths(bench, dev, card, reset_counts, counts, rows)
+        print(f"    total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"kernels": list(rows.values())}))
+        return
+    if sys.argv[1:] == ["--phase", "16"]:  # phase [16] alone: no result
+        rows = {}
+        _sharded_paths(bench, dev, card, rows)
         print(f"    total {time.perf_counter() - t_all:.1f} s")
         print(json.dumps({"kernels": list(rows.values())}))
         return
@@ -2284,6 +2643,11 @@ def main():
     t0 = time.perf_counter()
     _variant_paths(bench, dev, card, reset_counts, counts, rows)
     print(f"    [15] {time.perf_counter() - t0:.1f} s")
+
+    # [16] the multi-device solve: each path with its own counts
+    t0 = time.perf_counter()
+    _sharded_paths(bench, dev, card, rows)
+    print(f"    [16] {time.perf_counter() - t0:.1f} s")
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

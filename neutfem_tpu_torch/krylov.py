@@ -51,6 +51,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from .ops import launch_counters
+from .shardctx import allsum, current_sharding
 
 __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
            "bicgstab_blocks", "CGGraph", "CGPlans",
@@ -64,8 +65,11 @@ __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
 BLOCK_ITERS = 4
 
 #: Counts since ``reset_stats``: CG solves, their iterations, host reads of
-#: the stop test, graph replays and graph captures.
-STATS = {"solves": 0, "iterations": 0, "host_reads": 0, "replays": 0, "captures": 0}
+#: the stop test, graph replays, graph captures, and the solves on the card
+#: that ran the eager block loop because their sharding scope's transport
+#: cannot be captured (``shardctx.Transport.capturable``).
+STATS = {"solves": 0, "iterations": 0, "host_reads": 0, "replays": 0, "captures": 0,
+         "eager_solves": 0}
 
 
 def reset_stats() -> None:
@@ -74,7 +78,9 @@ def reset_stats() -> None:
 
 
 def _dot(a, b):
-    return torch.sum(a * b)
+    """<a, b>: summed over the ranks under a sharding scope (``shardctx``),
+    so every rank reads the same stop test."""
+    return allsum(torch.sum(a * b))
 
 
 class KrylovResult(NamedTuple):
@@ -216,12 +222,19 @@ def _run(step, st0, graph: Optional[CGGraph], block: Optional[int], maxiter: int
     per host read.  Returns (final state, iterations)."""
     STATS["solves"] += 1
     if block is None:
-        if st0["x"].device.type == "cuda":
+        sh = current_sharding()
+        if st0["x"].device.type == "cuda" and sh is not None and not sh[0].world.capturable:
+            # a host-staged transport (gloo on the card) cannot be captured:
+            # the same blocks, run eagerly
+            STATS["eager_solves"] += 1
+            block = BLOCK_ITERS
+        elif st0["x"].device.type == "cuda":
             graph = graph if graph is not None else CGGraph()
             st, it = graph.run(step, st0, BLOCK_ITERS, maxiter)
             STATS["iterations"] += it
             return st, it
-        block = 1
+        else:
+            block = 1
     st = st0
     while True:
         for _ in range(block):
@@ -244,7 +257,8 @@ def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
     """pcg's prologue state and its masked step."""
     def apply(r):  # (z, <r, z>, <r, r>)
         if precond_dots is not None:
-            return precond_dots(r)
+            z, rz, rr = precond_dots(r)  # the rank's local dots
+            return (z, *allsum(rz, rr)) if current_sharding() is not None else (z, rz, rr)
         rr = _dot(r, r)
         if precond is None:
             return r, rr, rr

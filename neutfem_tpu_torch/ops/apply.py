@@ -27,6 +27,12 @@ Port of ``neutfem_tpu/ops/apply.py`` (single device):
   K7), taken by ``power.group_solve`` under ``NEUTFEM_EQFOLD=1|2`` where
   ``eqfold_available`` allows it.
 
+Under a sharding scope (``shardctx``: one rank's slab of a multi-device
+solve, ``parallel.py``) ``schur_matvec`` runs a direction along a cut as the
+partitioned solve of ``ops/parttri.py`` and every other direction as above on
+the rank's complete local lines (the context's staged operands are the
+slab's); the equilibration fold declines there, as in the JAX package.
+
 Axis convention (INTERNAL, mode-axis-first, as the JAX package):
 
 * flux      ``(..., P, nz, ny, nx)``          — mode axis at position -4
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from ..fespace import DirectionInfo, FESpace
+from ..shardctx import current_sharding
 from .fused import (
     fused_schur_x_batched,
     fused_schur_x_pre,
@@ -69,6 +76,7 @@ __all__ = [
     "apply_BT_dir",
     "apply_B_dir",
     "solve_A_dir",
+    "bubble_solve",
     "cyc_args",
     "dir_factors",
     "schur_matvec",
@@ -230,14 +238,23 @@ def solve_A_dir(fes: FESpace, di: DirectionInfo, dinv, l, mask, alpha, rF, rW,
     else:
         F = tridiag_solve(rFs, dinv_e, l_e, axis=axn)
     F = F * mask
-    W = None
-    if rW is not None:
-        n = F.shape[ax]
-        F_loc = torch.stack([F.narrow(ax, 0, n - 1), F.narrow(ax, 1, n - 1)], dim=-5)
-        alpha_e = alpha.unsqueeze(-4).unsqueeze(-5)
-        W = torch.einsum("bc,...ctzyx->...btzyx", _const(et.Mbb_inv, rW), rW) / (alpha_e * m_t)
-        W = W - torch.einsum("bf,...ftzyx->...btzyx", _const(et.G, F_loc), F_loc)
+    W = None if rW is None else bubble_solve(fes, di, F, rW, alpha)
     return F, W
+
+
+def bubble_solve(fes: FESpace, di: DirectionInfo, F, rW, alpha):
+    """``solve_A_dir``'s bubble back-substitution: the bubble solution (...,
+    nbub, T, sp) from the face solution F (n+1 faces along the direction),
+    the bubble rhs rW and alpha: W = Mbb^-1 rW / (alpha m_t) - G F_loc, with
+    F_loc each cell's two faces."""
+    et = fes.et
+    ax = di.axis - 3
+    m_t = _const(di.m_t, rW).reshape(-1, 1, 1, 1)
+    n = F.shape[ax]
+    F_loc = torch.stack([F.narrow(ax, 0, n - 1), F.narrow(ax, 1, n - 1)], dim=-5)
+    alpha_e = alpha.unsqueeze(-4).unsqueeze(-5)
+    W = torch.einsum("bc,...ctzyx->...btzyx", _const(et.Mbb_inv, rW), rW) / (alpha_e * m_t)
+    return W - torch.einsum("bf,...ftzyx->...btzyx", _const(et.G, F_loc), F_loc)
 
 
 def cyc_args(ctx: Dict, key: str):
@@ -260,6 +277,15 @@ def dir_factors(ctx: Dict, key: str):
             "cyc": cyc_args(ctx, key), "aligned": staged}
 
 
+def _bubble_block(fes: FESpace, di: DirectionInfo, v, ctx: Dict, key: str):
+    """The condensed chain's per-cell P x P term of direction ``di``,
+    Qbub v / alpha (``fespace.DirectionInfo``)."""
+    alpha_e = ctx[f"alpha_{key}"].unsqueeze(-4)
+    if fes.P == 1:
+        return v * (float(di.Qbub[0, 0]) / alpha_e)
+    return torch.einsum("...qzyx,pq->...pzyx", v, _const(di.Qbub, v)) / alpha_e
+
+
 def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool = True):
     """S v = C v + sum_d B_d A_d^{-1} B_d^T v   (matrix-free Schur complement).
 
@@ -276,6 +302,14 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
     out = ctx["C"] * v
     condensed = fes.et.nbub > 0
     batched = ctx["C"].ndim == 5  # (ng, P, nz, ny, nx): the context is not group-sliced
+    sh = current_sharding()
+    cut = {}  # direction key -> the transport of its cut axis (a sharding scope)
+    if sh is not None:
+        if a_mode != "exact":
+            raise NotImplementedError(f"a_mode={a_mode!r} under a sharding scope is not ported "
+                                      "(ROADMAP queue 4 item 1)")
+        mesh, amap = sh
+        cut = {f"d{di.d}": mesh.axes[amap[di.axis]] for di in fes.dirs if di.axis in amap}
     # the JAX package's static rule for K6: a 3D mesh and m == k (the flux
     # modes factor as K1^3), one group; other k >= 1 configurations run the
     # unfused chain
@@ -283,6 +317,18 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
                  and fes.m == fes.k)
     for di in fes.dirs:
         key = f"d{di.d}"
+        if key in cut:
+            # the direction along a cut: the partitioned solve of this rank's
+            # segments (ops/parttri.py); every other direction runs below on
+            # the rank's complete local lines, with the kernel operands
+            # parallel.shard_context restaged from its slab
+            from .parttri import partitioned_schur_dir
+
+            out = out + partitioned_schur_dir(fes, di, v, ctx, key, cut[key],
+                                              di.BXc if condensed else di.BX[:2])
+            if condensed:
+                out = out + _bubble_block(fes, di, v, ctx, key)
+            continue
         kernel = fused and a_mode == "exact" and f"cyc_wt_{key}" not in ctx
         if condensed:
             if ho_kernel and kernel:
@@ -301,12 +347,7 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
             # (per-cell block), fespace.DirectionInfo
             rF = _face_rhs(di, v, di.BXc)
             F, _ = solve_A_dir(fes, di, rF=rF, rW=None, a_mode=a_mode, **dir_factors(ctx, key))
-            out = out + _face_out(di, F, di.BXc)
-            alpha_e = ctx[f"alpha_{key}"].unsqueeze(-4)
-            if fes.P == 1:
-                out = out + v * (float(di.Qbub[0, 0]) / alpha_e)
-            else:
-                out = out + torch.einsum("...qzyx,pq->...pzyx", v, _const(di.Qbub, v)) / alpha_e
+            out = out + _face_out(di, F, di.BXc) + _bubble_block(fes, di, v, ctx, key)
             continue
         if kernel:
             bx0 = float(di.BX[0, 0, 0])
@@ -341,6 +382,8 @@ def eqfold_available(fes: FESpace, ctx: Dict, shape, dtype, a_mode: str) -> bool
     up to the association of the scalings."""
     if os.environ.get("NEUTFEM_EQFOLD", "0") not in ("1", "2"):
         return False
+    if current_sharding() is not None:
+        return False  # the JAX rule (neutfem_tpu/ops/apply.py:521-523)
     if a_mode != "exact" or fes.et.k != 0 or fes.m != 0 or len(fes.dirs) != 3:
         return False
     if dtype not in (torch.float32, torch.float64):

@@ -73,7 +73,8 @@ from ..fespace import FESpace
 from ..mesh import boundary_attribute
 from ..native import tridiag_ldlt_batch
 
-__all__ = ["build_context", "ctx_from_numpy"]
+__all__ = ["build_context", "build_host_context", "context_to_device", "ctx_from_numpy",
+           "stage_operands"]
 
 
 def _axslice(ndim: int, axis: int, s) -> tuple:
@@ -168,22 +169,35 @@ def ctx_from_numpy(ctx_np: Dict, device, dtype) -> Dict:
     return out
 
 
-def _store_block_precond(blk_inv: np.ndarray, P: int, device, dtype) -> Dict[str, torch.Tensor]:
+def _store_block_precond(blk_inv: np.ndarray, P: int, fp8: bool, device,
+                         dtype) -> Dict[str, torch.Tensor]:
     """The JAX package's storage rule for the equilibrated block inverse
     (``neutfem_tpu/ops/context.py:580-600``): at float32, under the default
     ``NEUTFEM_BLKFP8=1``, the deviation E = Binv - I in float8 e4m3 (the
-    identity part is applied exactly) unless max|E| would come near e4m3's 448
-    saturation; with ``NEUTFEM_BLKFP8=0``, or near saturation, the inverse in
-    bfloat16; any other dtype keeps the inverse as it is."""
-    bi = torch.from_numpy(blk_inv).to(device=device, dtype=dtype)  # blk_inv is ours alone
+    identity part is applied exactly) when ``fp8`` (``_block_fp8``: max|E|
+    stays clear of e4m3's 448 saturation); with ``NEUTFEM_BLKFP8=0``, or near
+    saturation, the inverse in bfloat16; any other dtype keeps the inverse
+    as it is."""
+    bi = torch.from_numpy(np.ascontiguousarray(blk_inv)).to(device=device, dtype=dtype)
     if dtype != torch.float32:
         return {"precond_blk_inv": bi}
-    eye = torch.eye(P, dtype=dtype, device=device).reshape(1, P, P, 1, 1, 1)
-    dev = bi - eye
-    if (os.environ.get("NEUTFEM_BLKFP8", "1") != "0"
-            and float(torch.max(torch.abs(dev))) < 440.0):
-        return {"precond_blk_dev": dev.to(torch.float8_e4m3fn)}
+    if fp8 and os.environ.get("NEUTFEM_BLKFP8", "1") != "0":
+        eye = torch.eye(P, dtype=dtype, device=device).reshape(1, P, P, 1, 1, 1)
+        return {"precond_blk_dev": (bi - eye).to(torch.float8_e4m3fn)}
     return {"precond_blk_inv": bi.to(torch.bfloat16)}
+
+
+def _block_fp8(blk_inv: np.ndarray) -> bool:
+    """The float8 storage test on the whole block inverse (ng, P, P, cells...):
+    max|Binv - I| < 440 in float32 arithmetic, as the card would compute it
+    from the float32 inverse (one row of blocks at a time)."""
+    emax = 0.0
+    for g in range(blk_inv.shape[0]):
+        for i in range(blk_inv.shape[1]):
+            row = blk_inv[g, i].astype(np.float32)
+            row[i] -= np.float32(1.0)
+            emax = max(emax, float(np.max(np.abs(row))))
+    return emax < 440.0
 
 
 def _dtilde_wrap(D, h_d, fax, ax):
@@ -224,6 +238,24 @@ def _cyclic_factors(alpha, K, fax: int):
     return diag_c, dinv, l, wt, 1.0 / denom, (c / gamma) / denom
 
 
+def stage_operands(ctx_np: Dict, key: str, ax: int, ho: bool) -> None:
+    """Add the staged kernel operands of direction ``key`` (grid axis ``ax``)
+    to a host context, from its ``tri_dinvm`` / ``tri_l`` (and ``alpha`` for
+    k >= 1): y solve-axis-major (ny+1 / ny, nz, nx), x transposed to (nx+1 /
+    nx, nz*ny); RT0 stages dm and l ("yT" / "xT"), k >= 1 also alpha ("hoyT" /
+    "hoxT").  ``parallel.shard_context`` restages a rank's slab with it."""
+    staged = {"dinvm": ctx_np[f"tri_dinvm_{key}"], "l": ctx_np[f"tri_l_{key}"]}
+    tag = ""
+    if ho:
+        tag, staged["alpha"] = "ho", ctx_np[f"alpha_{key}"]
+    for name, a in staged.items():
+        if ax == 2:
+            ctx_np[f"tri_{tag}xT_{name}_{key}"] = np.swapaxes(
+                a.reshape(a.shape[0], -1, a.shape[-1]), -1, -2)
+        elif ax == 1:
+            ctx_np[f"tri_{tag}yT_{name}_{key}"] = np.moveaxis(a, 2, 1)
+
+
 def build_context(
     fes: FESpace,
     ng: int,
@@ -242,7 +274,36 @@ def build_context(
     the reference's RT0-P0 "diagonal Schur", behind its published
     eigenvalues) or "lumped" (row-sum mass lumping, mesh-centred finite
     differences); the last two at RT0 only.  ``periodic_natural`` (reference
-    parity) treats PERIODIC as a natural zero-flux boundary, with a warning."""
+    parity) treats PERIODIC as a natural zero-flux boundary, with a warning.
+    The context is made on the host first (``build_host_context``), then
+    placed (``context_to_device``)."""
+    host = build_host_context(fes, ng, xs, bcs, a_mode=a_mode,
+                              marshak_d_factor=marshak_d_factor,
+                              periodic_natural=periodic_natural)
+    return context_to_device(*host, fes.P, device, dtype)
+
+
+def context_to_device(ctx_np: Dict, blk_inv, blk_fp8: bool, P: int, device,
+                      dtype) -> Dict[str, torch.Tensor]:
+    """A host context (``build_host_context``'s three parts) as tensors on
+    ``device``: every array through ``ctx_from_numpy``, and the block inverse
+    ``blk_inv`` (None for P == 1) stored by ``_store_block_precond`` as
+    ``blk_fp8`` decides."""
+    out = ctx_from_numpy(ctx_np, device, dtype)
+    if blk_inv is not None:
+        out.update(_store_block_precond(blk_inv, P, blk_fp8, device, dtype))
+    return out
+
+
+def build_host_context(fes: FESpace, ng: int, xs: Dict[str, np.ndarray], bcs: BCSpec,
+                       a_mode: str = "exact", marshak_d_factor: bool = False,
+                       periodic_natural: bool = False):
+    """``build_context``'s arrays on the host, float64: (the context as a
+    dict of numpy arrays, the equilibrated P x P block inverse (ng, P, P, nz,
+    ny, nx) or None for P == 1, and whether float32 stores that inverse's
+    deviation in float8 (``_block_fp8``; False for P == 1)).
+    ``parallel.shard_context`` slices it into each rank's slab, which keeps
+    the whole context's storage decision."""
     mesh = fes.mesh
     et = fes.et
     if a_mode not in ("exact", "diag", "lumped"):
@@ -439,19 +500,7 @@ def build_context(
         ctx_np[f"tri_l_{key}"] = l
         dmm = dinv * mask[None]
         ctx_np[f"tri_dinvm_{key}"] = dmm
-        # staged kernel operands: y solve-axis-major (ny+1 / ny, nz, nx), x
-        # transposed to (nx+1 / nx, nz*ny); RT0 stages dm and l ("yT"/"xT"),
-        # k >= 1 also alpha ("hoyT"/"hoxT")
-        staged = {"dinvm": dmm, "l": l}
-        tag = ""
-        if et.k > 0:
-            tag, staged["alpha"] = "ho", alpha
-        for name, a in staged.items():
-            if ax == 2:
-                ctx_np[f"tri_{tag}xT_{name}_{key}"] = np.swapaxes(
-                    a.reshape(ng, -1, a.shape[-1]), -1, -2)
-            elif ax == 1:
-                ctx_np[f"tri_{tag}yT_{name}_{key}"] = np.moveaxis(a, 2, 1)
+        stage_operands(ctx_np, key, ax, et.k > 0)
 
     blk_terms = []  # (P x P coefficient, (ng, cells) factor) of every direction
     if a_mode == "exact":
@@ -546,7 +595,4 @@ def build_context(
     ctx_np["src"] = np.asarray(xs["SRC"], dtype=np.float64)
     ctx_np["sigr"] = SigR
     ctx_np["vol"] = mesh.volumes()
-    out = ctx_from_numpy(ctx_np, device, dtype)
-    if blk_inv is not None:
-        out.update(_store_block_precond(blk_inv, fes.P, device, dtype))
-    return out
+    return ctx_np, blk_inv, blk_inv is not None and _block_fp8(blk_inv)

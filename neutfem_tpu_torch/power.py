@@ -30,6 +30,14 @@ boundary.  The JAX package's ``cheby_blend=False`` and ``log_every`` are not
 carried over (the port's Chebyshev is the blend; the facade prints the
 history after a solve).
 
+Under a sharding scope (``parallel.sharded_power_iteration``: one rank's
+slab) every global sum is all-reduced over the ranks (``shardctx.allsum``:
+the fission production, the flux norms, ``finite``; the CG's dot products in
+``krylov``), so every rank reads the same stop tests; ``compute_current``
+runs the cut direction's partitioned solve; a line preconditioner along a cut
+is left out; CMFD, Anderson, the Jacobi sweep, BiCGSTAB and the fixed-source
+solves raise ``NotImplementedError`` there.
+
 The JAX package's opt-in switches select the same branches here (read at
 each group solve, as the JAX package reads them at trace time):
 ``NEUTFEM_EQFOLD=1|2`` the equilibration-folded matvec (``ops/fused_eq.py``,
@@ -56,7 +64,10 @@ from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, bicgstab, bicgsta
                      pcg_blocks, pcg_fused, pcg_fused_blocks)
 from .ops.apply import (
     J_to_public,
+    _const,
+    _pair,
     apply_BT_dir,
+    bubble_solve,
     dir_factors,
     eqfold_available,
     equilibrated_schur_matvec,
@@ -67,7 +78,9 @@ from .ops.apply import (
 )
 from .ops.blockjac import blockjac_dev_dots, blockjac_dots
 from .ops.direct import direct_solve
+from .ops.parttri import partitioned_face_solve
 from .ops.tridiag import tridiag_solve
+from .shardctx import allsum, current_sharding
 from .twogrid import twogrid_apply
 
 __all__ = ["SolveOptions", "ctx_group", "resolve_precond", "group_plan", "group_solve",
@@ -211,20 +224,27 @@ def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
     iteration along the highest active direction (z in 3D, y in 2D) with the
     factors of ``build_context``; "line2" adds the next direction additively
     (M^-1 = M1^-1 + M2^-1, SPD as a sum of SPD solves).  None when the
-    context has no line factors (P > 1), as in the JAX package."""
+    context has no line factors (P > 1), as in the JAX package.  Under a
+    sharding scope a line orthogonal to every cut is solved on the rank's
+    complete local lines; a line along a cut is left out (the JAX
+    ``_usable`` rule: with no line left, the CG runs Jacobi — the same fixed
+    point, other iteration counts)."""
     if "precond_line_dinv" not in ctxg:
         return None
+    sh = current_sharding()
     pc_dirs = sorted((di.d for di in fes.dirs), reverse=True)
     names = ["line"] + (["line2"] if pc_mode == "line2" and len(pc_dirs) > 1
                         and "precond_line2_dinv" in ctxg else [])
     applies = []
     for name, d in zip(names, pc_dirs):
+        if sh is not None and GRID_AXIS[d] in sh[1]:
+            continue
         dinv = ctxg[f"precond_{name}_dinv"].unsqueeze(-4)
         l = ctxg[f"precond_{name}_l"].unsqueeze(-4)
         ax = GRID_AXIS[d] - 3
         applies.append(lambda r, dinv=dinv, l=l, ax=ax: tridiag_solve(r, dinv, l, ax % r.ndim))
-    if len(applies) == 1:
-        return applies[0]
+    if len(applies) < 2:
+        return applies[0] if applies else None
     return lambda r: applies[0](r) + applies[1](r)
 
 
@@ -304,7 +324,7 @@ def group_plan(fes: FESpace, ctxg: Dict, opts: SolveOptions, rhs) -> CGPlan:
                 precond = lambda r: blockjac_dev_dots(dev, r)[0]
             else:
                 precond_dots = lambda r: blockjac_dev_dots(dev, r)
-        elif (fused and not stab and bi is not None
+        elif (fused and not stab and bi is not None and current_sharding() is None
                 and os.environ.get("NEUTFEM_BLOCKJAC", "0") == "1"
                 and bi.dtype in (torch.float32, torch.bfloat16) and bi.ndim == 5):
             precond_dots = lambda r: blockjac_dots(bi, r)
@@ -380,12 +400,13 @@ def _fission_source(ctx, phi, adjoint: bool = False):
 
 
 def _production(ctx, phi, adjoint: bool = False):
-    """Reference 'production' functional: total of F phi (F^T phi_adj)."""
+    """Reference 'production' functional: total of F phi (F^T phi_adj),
+    summed over the ranks under a sharding scope."""
     if adjoint:
         # sum_g sum_dofs nuSigf_g * total_chi  (NeutFEM.cpp:1929-1932, 1963-1966)
-        return torch.sum(torch.sum(ctx["nsf"], dim=0) * _fission_source(ctx, phi, True))
+        return allsum(torch.sum(torch.sum(ctx["nsf"], dim=0) * _fission_source(ctx, phi, True)))
     w = ctx["nsf"] * ctx["detJ"]
-    return torch.sum(w.unsqueeze(-4) * (ctx["w_mode_col"] * phi))
+    return allsum(torch.sum(w.unsqueeze(-4) * (ctx["w_mode_col"] * phi)))
 
 
 def _scatter_into(ctx, g: int, phi, adjoint: bool = False):
@@ -421,21 +442,57 @@ def _external_source(ctx, g: int):
     return out
 
 
+def _current_cut(fes: FESpace, di, ctx: Dict, key: str, phi, tr):
+    """``compute_current``'s direction along a cut (a sharding scope): the
+    bubble-condensed left / right face contributions of the rank's cells,
+    the partitioned solve (``ops/parttri.py``: the previous rank's last
+    right contribution and the next rank's first face are sent), then the
+    bubbles from the rank's s+1 faces."""
+    L, R = _pair(phi, di.BX[0]), _pair(phi, di.BX[1])
+    rW = None
+    if fes.et.nbub > 0:
+        rW = torch.einsum("...pzyx,lpt->...ltzyx", phi, _const(di.BX[2:], phi))
+        corr = torch.einsum("fb,...btzyx->...ftzyx", _const(fes.et.G.T, rW), rW)
+        L, R = L - corr.select(-5, 0), R - corr.select(-5, 1)
+    F = partitioned_face_solve(di, L, R, ctx, key, tr)
+    W = None if rW is None else bubble_solve(fes, di, F, rW, ctx[f"alpha_{key}"])
+    return F, W
+
+
 def compute_current(fes: FESpace, ctx: Dict, phi, a_mode: str = "exact"):
     """J = A^{-1} B^T phi for all groups (internal layout), one batched Thomas
     solve per direction (the cyclic one on a periodic direction, none under
     "diag" / "lumped"); with bubbles (k >= 1) also their DOFs ("bub").  A
-    nonzero NEUMANN boundary's lift ``jcorr`` is added to the face current."""
+    nonzero NEUMANN boundary's lift ``jcorr`` is added to the face current.
+    Under a sharding scope a direction along a cut runs the partitioned
+    solve; the rank's face array then holds the s+1 faces of its slab."""
+    sh = current_sharding()
     J = {}
     for di in fes.dirs:
         key = f"d{di.d}"
-        rF, rW = apply_BT_dir(fes, di, phi)
-        F, W = solve_A_dir(fes, di, rF=rF, rW=rW, a_mode=a_mode, **dir_factors(ctx, key))
+        if sh is not None and di.axis in sh[1]:
+            F, W = _current_cut(fes, di, ctx, key, phi, sh[0].axes[sh[1][di.axis]])
+        else:
+            rF, rW = apply_BT_dir(fes, di, phi)
+            F, W = solve_A_dir(fes, di, rF=rF, rW=rW, a_mode=a_mode, **dir_factors(ctx, key))
         jc = ctx.get(f"jcorr_{key}")
         if jc is not None:
             F = F + jc.unsqueeze(-4)  # J = J' + J_q
         J[key] = {"face": F} if W is None else {"face": F, "bub": W}
     return J
+
+
+def _sharded_ported(opts: SolveOptions, use_cmfd: bool = False) -> None:
+    """Raise for what the multi-device solve does not run yet (ROADMAP queue
+    4 item 1): CMFD, Anderson, the Jacobi sweep, BiCGSTAB and the dense
+    direct solve under a sharding scope."""
+    missing = [what for what, on in (
+        ("CMFD", use_cmfd), ("accel='anderson'", opts.accel == "anderson"),
+        ("sweep='jacobi'", opts.sweep == "jacobi"),
+        (f"inner_solver={opts.inner_solver!r}", opts.inner_solver != "cg")) if on]
+    if missing:
+        raise NotImplementedError(f"{', '.join(missing)} under a sharding scope is not ported "
+                                  "(ROADMAP queue 4 item 1)")
 
 
 def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, keff0,
@@ -455,6 +512,9 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
     use_cmfd = opts.use_cmfd and not adjoint
     if use_cmfd and opts.cmfd_mode not in ("fixed", "wielandt"):
         raise ValueError(f"unknown cmfd_mode {opts.cmfd_mode!r}")
+    sharded = current_sharding() is not None
+    if sharded:
+        _sharded_ported(opts, use_cmfd)
 
     phi = phi_to_internal(phi0)
     dtype, device = phi.dtype, phi.device
@@ -508,7 +568,7 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
             tol_used = tol_g
 
         total_fiss = _fission_source(ctx, phi, adjoint)
-        prod_old = _production(ctx, phi, adjoint) if adjoint else torch.sum(total_fiss)
+        prod_old = _production(ctx, phi, adjoint) if adjoint else allsum(torch.sum(total_fiss))
 
         inner_iters = 0
         if opts.sweep == "jacobi":
@@ -555,8 +615,7 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
         elif it >= 1:
             keff = keff_new
 
-        sol_norm_sq = torch.sum(phi * phi)
-        diff_norm_sq = torch.sum((phi - phi_old) ** 2)
+        sol_norm_sq, diff_norm_sq = allsum(torch.sum(phi * phi), torch.sum((phi - phi_old) ** 2))
         diff_flux = torch.sqrt(diff_norm_sq / torch.where(sol_norm_sq == 0, 1.0, sol_norm_sq))
         norm = torch.sqrt(sol_norm_sq)
         phi = phi / torch.where(norm > 1e-14, norm, 1.0)
@@ -574,6 +633,9 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
         inner_tot += inner_iters
 
     J = compute_current(fes, ctx, phi, a_mode=opts.a_mode)
+    finite = torch.isfinite(keff) & torch.all(torch.isfinite(phi))
+    if sharded:
+        finite = allsum((~finite).to(dtype)) == 0
     return {
         "keff": keff,
         "phi": phi_to_public(phi),
@@ -586,7 +648,7 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
         "diff_flux": diff_flux,
         # (outer_iterations, 4) per-outer history [k, dk, dphi, inner iters]
         "history": torch.stack(hist) if hist else torch.zeros((0, 4), dtype=dtype),
-        "finite": torch.isfinite(keff) & torch.all(torch.isfinite(phi)),
+        "finite": finite,
     }
 
 
@@ -607,6 +669,9 @@ def fixed_source_solve(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi
     Gauss-Seidel sweep.  One host read per outer (the stop test), as in
     ``power_iteration``; the adaptive inner tolerance and its endgame guard
     are the same."""
+    if current_sharding() is not None:
+        raise NotImplementedError("fixed-source solves under a sharding scope are not ported "
+                                  "(ROADMAP queue 4 item 1)")
     phi = phi_to_internal(phi0)
     dtype, device = phi.dtype, phi.device
     if device.type == "cuda":

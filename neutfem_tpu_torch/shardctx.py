@@ -1,0 +1,159 @@
+"""Run-time sharding scope and the collectives of the multi-device solve.
+
+Port of ``neutfem_tpu/shardctx.py``.  The JAX package traces its power
+iteration once under ``jit`` with a sharding scope active, and GSPMD inserts
+every halo exchange and sum.  Here each process (rank) runs its own slab of
+the mesh eagerly: the scope is consulted at RUN time, by the operator layer
+(``ops/apply.py``: a cut direction takes the partitioned solve of
+``ops/parttri.py``, every other direction its kernel on the rank's complete
+local lines), by the CG (``krylov``: every dot product is summed over the
+ranks) and by the power iteration (its global sums).  With no scope active
+none of them runs a collective.
+
+``Transport`` is the collectives of one process group, over the backend the
+caller named:
+
+* ``"nccl"``: device tensors on the card; capturable in a CUDA graph (the CG's
+  blocks replay their collectives);
+* ``"gloo"``: CPU tensors (the CPU tests), or CUDA tensors staged through host
+  memory — for two ranks sharing one card, which NCCL does not allow.  A
+  staged collective copies to the host and back, so it cannot be captured:
+  the CG then runs its eager block loop (``Transport.capturable``).
+
+Nothing picks a backend by itself: a tensor a transport does not take raises.
+``COMM`` counts collectives, their payload bytes and the bytes staged through
+the host (a launch counter: a graph replay adds what its capture ran).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .ops import launch_counter
+
+__all__ = ["sharding_scope", "current_sharding", "Transport", "allsum", "COMM"]
+
+_CURRENT: Optional[Tuple[object, Dict[int, str]]] = None
+
+#: Collectives run (``collectives``), their payload bytes (``comm_bytes``) and
+#: the bytes a gloo transport staged between the card and the host
+#: (``staged_bytes``), summed over this process's transports.
+COMM = launch_counter({"collectives": 0, "comm_bytes": 0, "staged_bytes": 0})
+
+
+@contextlib.contextmanager
+def sharding_scope(mesh, axis_map: Dict[int, str]):
+    """axis_map: spatial grid axis (0=nz, 1=ny, 2=nx) -> mesh axis name;
+    ``mesh``: a ``parallel.Mesh``."""
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = (mesh, dict(axis_map))
+    try:
+        yield
+    finally:
+        _CURRENT = prev
+
+
+def current_sharding() -> Optional[Tuple[object, Dict[int, str]]]:
+    """(mesh, axis_map) of the active scope, or None."""
+    return _CURRENT
+
+
+def allsum(*ts):
+    """The sums over every rank of the local sums ``ts`` (0-d tensors): the
+    tensors themselves with no scope active, else one all-reduce over the
+    mesh's world for all of them.  Returns a tensor for one argument, a
+    tuple for several."""
+    if _CURRENT is None:
+        return ts[0] if len(ts) == 1 else ts
+    world = _CURRENT[0].world
+    if len(ts) == 1:
+        return world.all_sum(ts[0])
+    return tuple(world.all_sum(torch.stack(ts)).unbind())
+
+
+class Transport:
+    """The collectives of one process group (``group``: a
+    ``torch.distributed`` group, ``backend``: the one the caller named).
+    ``rank`` / ``size`` are this process's place in the group and its size."""
+
+    def __init__(self, group, backend: str):
+        import torch.distributed as dist
+
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"unknown backend {backend!r}: 'nccl' or 'gloo'")
+        actual = dist.get_backend(group)
+        if actual != backend:
+            raise RuntimeError(f"the process group runs {actual!r}, the caller asked for "
+                               f"{backend!r}")
+        self.group, self.backend = group, backend
+        self.rank, self.size = dist.get_rank(group), dist.get_world_size(group)
+        self._ranks = dist.get_process_group_ranks(group)
+
+    @property
+    def capturable(self) -> bool:
+        """True where the collectives may run inside a captured CUDA graph:
+        NCCL on device tensors.  Gloo stages CUDA tensors through the host."""
+        return self.backend == "nccl"
+
+    def _wire(self, t):
+        """``t`` as the backend takes it (contiguous; a CUDA tensor copied to
+        the host for gloo), counted."""
+        if self.backend == "nccl" and t.device.type != "cuda":
+            raise RuntimeError(f"nccl transport: a {t.device.type} tensor; the caller asked for "
+                               "nccl, which takes device tensors only")
+        t = t.contiguous()
+        COMM["collectives"] += 1
+        COMM["comm_bytes"] += t.numel() * t.element_size()
+        if self.backend == "gloo" and t.device.type == "cuda":
+            COMM["staged_bytes"] += t.numel() * t.element_size()
+            return t.cpu()
+        return t
+
+    def _back(self, h, like):
+        if h.device != like.device:
+            COMM["staged_bytes"] += h.numel() * h.element_size()
+            return h.to(like.device)
+        return h
+
+    def all_sum(self, t):
+        """The sum of ``t`` over the group (a new tensor)."""
+        import torch.distributed as dist
+
+        w = self._wire(t)
+        w = w.clone() if w is t else w
+        dist.all_reduce(w, group=self.group)
+        return self._back(w, t)
+
+    def all_gather(self, t):
+        """(size, *t.shape): every rank's ``t`` in group-rank order."""
+        import torch.distributed as dist
+
+        w = self._wire(t)
+        out = [torch.empty_like(w) for _ in range(self.size)]
+        dist.all_gather(out, w, group=self.group)
+        return self._back(torch.stack(out), t)
+
+    def shift(self, t, step: int):
+        """The ``t`` of group rank ``rank - step`` (step +1: from the previous
+        rank; -1: from the next), zeros where that rank does not exist.  One
+        point-to-point send and receive per rank."""
+        import torch.distributed as dist
+
+        src, dst = self.rank - step, self.rank + step
+        have_src, have_dst = 0 <= src < self.size, 0 <= dst < self.size
+        if not (have_src or have_dst):
+            return torch.zeros_like(t)
+        ops = []
+        if have_dst:
+            ops.append(dist.P2POp(dist.isend, self._wire(t), self._ranks[dst], group=self.group))
+        got = torch.zeros(t.shape, dtype=t.dtype,
+                          device="cpu" if self.backend == "gloo" else t.device)
+        if have_src:
+            ops.append(dist.P2POp(dist.irecv, got, self._ranks[src], group=self.group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return self._back(got, t)

@@ -1322,6 +1322,107 @@ def test_set_bc_rounds_free_both_contexts_plans(iaea_1x1_f32):
     assert after[1] == after[0]
 
 
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """The NCCL world of one (``parallel.device_mesh``), for the module's
+    sharded tests; destroyed after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+
+    from neutfem_tpu_torch import parallel
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh = parallel.device_mesh("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                                world_size=1)
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _sharded_problem(mesh, dtype):
+    """A heterogeneous 3D core (``torch_dist_cases.core3d``, 16x12x8) on the
+    card: (fes, ng, the rank's z-cut context, the unsharded context)."""
+    import torch_dist_cases as dc
+
+    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch.ops.context import build_host_context, context_to_device
+
+    fes, ng, xs, bcs = dc.port_problem(dc.core3d(16, 12, 8))
+    host = build_host_context(fes, ng, xs, bcs)
+    ctx = parallel.shard_context(host, mesh, fes, 0, device="cuda", dtype=dtype)
+    return fes, ng, ctx, context_to_device(*host, fes.P, "cuda", dtype)
+
+
+def test_nccl_world_of_one_sharded_solve_matches_unsharded(nccl_mesh):
+    """The NCCL world of one, z cut: the partitioned solve, the collectives
+    and the graph-replayed CG give the unsharded solve's k within float32
+    rounding, its outer count and its flux."""
+    from neutfem_tpu_torch import krylov, parallel
+    from neutfem_tpu_torch.ops import parttri
+    from neutfem_tpu_torch.power import SolveOptions, power_iteration
+
+    fes, ng, ctx, full = _sharded_problem(nccl_mesh, torch.float32)
+    opts = SolveOptions(tol_keff=1e-6, tol_flux=1e-5, inner_tol=1e-6, max_outer=100)
+    phi0 = torch.ones((ng, *fes.mesh.shape, 1), dtype=torch.float32, device="cuda")
+    want = power_iteration(fes, ng, opts, full, phi0, 1.0)
+    run, _ = parallel.sharded_power_iteration(fes, ng, opts, nccl_mesh, 0)
+    krylov.reset_stats()
+    before = parttri.LAUNCHES["parttri"]
+    got = run(ctx, parallel.shard_state(phi0, nccl_mesh, 0), 1.0)
+    assert got["sharding"]["cg"] == "graph" and krylov.STATS["replays"] > 0
+    assert parttri.LAUNCHES["parttri"] - before >= got["inner_iterations"]
+    assert abs(float(got["keff"]) - float(want["keff"])) <= 2e-6
+    assert got["outer_iterations"] == want["outer_iterations"]
+    phi = parallel.gather_state(got["phi"], nccl_mesh, 0)
+    assert _rel(phi, want["phi"], torch.zeros_like(phi)) <= 1e-4
+
+
+def test_sharded_graph_equals_eager_under_nccl(nccl_mesh):
+    """One group solve under the NCCL scope: the captured graph (its
+    collectives inside) and the eager block loop give the same bits and
+    count."""
+    from neutfem_tpu_torch import krylov, parallel
+    from neutfem_tpu_torch.power import SolveOptions, _fission_source, ctx_group, group_plan, \
+        group_solve
+    from neutfem_tpu_torch.shardctx import sharding_scope
+
+    fes, ng, ctx, _ = _sharded_problem(nccl_mesh, torch.float32)
+    ctx[krylov.CG_PLANS] = krylov.CGPlans()
+    ctxg = ctx_group(ctx, 0)
+    opts = SolveOptions(inner_tol=1e-6)
+    phi = torch.ones((ng, 1, 16, 12, 8), dtype=torch.float32, device="cuda")  # one rank: all
+    with sharding_scope(nccl_mesh, {0: parallel.SPATIAL_AXIS}):
+        rhs = ctx["chi"][0] * _fission_source(ctx, phi)
+        x0 = torch.zeros_like(rhs)
+        group_solve(fes, ctxg, opts, rhs, x0)  # the capture
+        krylov.reset_stats()
+        got = group_solve(fes, ctxg, opts, rhs, x0)
+        assert krylov.STATS["replays"] >= 1 and krylov.STATS["captures"] == 0
+        plan = group_plan(fes, ctxg, opts, rhs)
+        want = plan.blocks(plan.matvec, rhs * plan.sdi, x0 / plan.sdi, precond=plan.precond,
+                           tol=opts.inner_tol, maxiter=opts.max_inner,
+                           block=krylov.BLOCK_ITERS, **plan.kwargs())
+    assert got.iterations == want.iterations > 3
+    assert torch.equal(got.x, want.x * plan.sdi)
+
+
+def test_transport_refuses_what_was_not_asked(nccl_mesh):
+    """The backend is the caller's: the NCCL transport takes no CPU tensor
+    (no gloo behind it), and a mesh over another backend than the running
+    process group's is refused."""
+    from neutfem_tpu_torch import parallel
+
+    with pytest.raises(RuntimeError, match="nccl"):
+        nccl_mesh.world.all_sum(torch.ones(()))
+    with pytest.raises(RuntimeError, match="gloo"):
+        parallel.device_mesh("gloo")
+    assert nccl_mesh.world.capturable and nccl_mesh.backend == "nccl"
+
+
 # last in the file: a failed capture must leave nothing behind for later tests
 def test_cg_graph_capture_failure_raises(cuda):
     """An operator that reads the device from the host cannot be captured:
