@@ -154,9 +154,33 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    (|dk| <= 1e-9, the same outers, flux rel 1e-9): IAEA-3D 1x1 on the NCCL
    world of one, IAEA-3D 1x1x2 on the two gloo ranks (1x1 has 19 cells on
    every axis: no even cut).  A failing rank kills the other and fails.
+17. the solver variants under a sharding scope (``parallel.shard_context``,
+   ``shardctx.sharding_scope``), each path with its own counts: (a) the NCCL
+   world of one, IAEA-3D 6x6x4 RT0-P0 float32, each variant sharded (z cut
+   unless stated) and unsharded in this call with its ms/outer: the Jacobi
+   sweep on a z and a y cut within SWEEP_KEFF_TOL of the unsharded Jacobi k
+   (K5 y / x and K4 every CG iteration on the z cut, K1's batch and K5 x on
+   the y cut), CMFD "fixed" and coarse init (3, 3, 4) within
+   VARIANT_KEFF_TOL of the Chebyshev k, Anderson on ``ACCEL_ANCHORS``' row
+   (k; its counts in a rounding basin of the unsharded solve's, flat and
+   perturbed starts), BiCGSTAB at float64 within VARIANT_PAIR_TOL of the
+   float64 CG, [14c]'s subcritical M within SUBCRIT_M_REL of the float64 M,
+   the diag / lumped A-solves on ``DIAG_ANCHOR`` / ``LUMPED_ANCHOR`` at
+   3x3x2 and beside the unsharded solve at 6x6x4 (no K1-K4), DIRECT_LLT on
+   IAEA-2D 3x3 (y cut) within DIRECT_KEFF_TOL of its CG k; every CG
+   replaying its graphs; (c) K5 y / x, K1's batch and K4 at rank 0's slab
+   of a two-way cut of 6x6x4 ((2, 1, 38, 114, 114) on a z cut, (2, 1, 76,
+   57, 114) on a y cut; K4 at the group-batched segment) against the plain
+   version, with (a)'s Jacobi launches; (b) two gloo ranks sharing the card,
+   float64, every variant against the unsharded run on the CPU (|dk| <=
+   1e-9, the same outers, flux rel 1e-9, CMFD's 1e-6; k, counts and history
+   the same on both ranks): IAEA-3D 1x1x2 z cut; CMFD (three outers),
+   BiCGSTAB and DIRECT_LLT on IAEA-2D 2x2 and CMFD "wielandt" on 6x4 cells,
+   each a y cut (``V17B``).
 
 ``python3 chip_smoke.py --phase 15`` runs [1], [2] and [15] alone and prints
-the kernel rows of [15] but no result line; ``--phase 16`` likewise for [16].
+the kernel rows of [15] but no result line; ``--phase 16`` and ``--phase 17``
+likewise for [16] and [17].
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
@@ -216,6 +240,7 @@ ROWS_SWEEP = ((2, 32), (4, 32), (8, 32), (16, 32), (8, 16), (16, 16))
 ROWS_REPLACES = {"z": "neutfem_tpu/ops/pallas_fused.py:466",
                  "y": "neutfem_tpu/ops/pallas_fused.py:518",
                  "x": "neutfem_tpu/ops/pallas_fused.py:547"}
+K5_REPLACES = {"y": "neutfem_tpu/ops/pallas_fused.py:489", "x": "neutfem_tpu/ops/pallas_fused.py:704"}
 # the tiles [3] sweeps the tiled kernels over on z lines (K1, its batch, K2's
 # kernel at the z strides beside them, and the z variants of K7): every
 # lines x chunks of {8, 16, 32, 64} x {2, 4, 8, 16, 32} (a tile under one
@@ -1990,6 +2015,519 @@ def _sharded_paths(bench, dev, card, rows):
     print(f"    [16c] + [16d] {time.perf_counter() - t0:.1f} s")
 
 
+# [17] the solver variants under a sharding scope.  Held: a sharded Jacobi
+# sweep against the unsharded one within SWEEP_KEFF_TOL, CMFD and coarse init
+# against the Chebyshev k within VARIANT_KEFF_TOL, BiCGSTAB against the CG
+# within VARIANT_PAIR_TOL, DIRECT_LLT within DIRECT_KEFF_TOL, the rest on
+# their phases' anchors.  The meshes: (a)'s IAEA-3D, its coarse factors, the
+# diag / lumped anchors' mesh and DIRECT_LLT's IAEA-2D; (b)'s IAEA-3D and
+# IAEA-2D (two ranks: a cut of 38 cells)
+V17_MESH, V17_COARSE, V17_SMALL, V17_2D = (6, 4), (3, 3, 4), (3, 2), (3,)
+V17B_MESH, V17B_2D = (1, 2), (2,)
+V17_TOL = (1e-5, 1e-4, 1e-4, 600, 1000)  # [17b]'s Jacobi sweep: fewer gloo outers
+
+
+def _v17_run(kind, s, opts, ctx, phi0, dev, dtype, scope=None, factors=None):
+    """One solve of a [17] variant on ``ctx`` / ``phi0`` (a rank's slab under
+    ``scope`` = (mesh, axis map), or the whole problem): "power"
+    (``power_iteration``), "subcritical" (``solve_subcritical`` at k = 1
+    from a zero flux, as ``SolveSubcritical`` after ``reset_flux``) or
+    "coarse" (``coarse_init`` at ``factors``, then the power iteration from
+    its flux and k).  ``s``: the facade that holds the problem.  Returns the
+    result dict, "value" its k or M."""
+    import contextlib
+
+    from neutfem_tpu_torch.coarse import coarse_init
+    from neutfem_tpu_torch.power import power_iteration, solve_subcritical
+    from neutfem_tpu_torch.shardctx import sharding_scope
+
+    fes, ng = s._fes, s._ng
+    with sharding_scope(*scope) if scope else contextlib.nullcontext():
+        if kind == "subcritical":
+            res = solve_subcritical(fes, ng, opts, ctx, phi0 * 0.0, keff=1.0)
+            return dict(res, value=float(res["amplification"]))
+        k0 = 1.0
+        if kind == "coarse":
+            k_c, phi0 = coarse_init(fes, ng, s._xs, s._bcs, factors, opts, dev, dtype,
+                                    marshak_d_factor=True)
+            k0 = float(k_c)
+        res = power_iteration(fes, ng, opts, ctx, phi0, k0)
+    return dict(res, value=float(res["keff"]))
+
+
+def _v17_timed(kind, s, opts, ctx, phi0, dev, dtype, scope=None, factors=None, warm=True):
+    """A [17] variant: one warm-up run of three outers (the CG captures;
+    ``warm``), then one timed run from the same start with every count set
+    to 0 just before it and read just after.  Returns its value, counts,
+    history, launches, CG counts, ms/outer and the result."""
+    import dataclasses
+
+    import torch
+
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.ops import launch_counters
+
+    if warm:
+        _v17_run(kind, s, dataclasses.replace(opts, max_outer=3), ctx, phi0, dev, dtype, scope,
+                 factors)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = _v17_run(kind, s, opts, ctx, phi0, dev, dtype, scope, factors)
+    wall = time.perf_counter() - t0  # the value's host read ended the run
+    outers = res["outer_iterations"]
+    if not bool(res["finite"]):
+        raise RuntimeError(f"[17] {kind}: the flux is not finite")
+    return {"value": res["value"], "outers": outers, "inners": res["inner_iterations"],
+            "history": res["history"].cpu().numpy() if "history" in res else None,
+            "launches": {k: v for c in launch_counters() for k, v in c.items()},
+            "cg": dict(krylov.STATS), "ms": 1e3 * wall / max(outers, 1), "res": res}
+
+
+def _v17_facade(bench, core, mesh, bc=None, subcritical=False, tol=None):
+    """The facade of ``core`` at ``mesh`` on the CPU at float64 (its context is
+    the host context every rank slices), at ``tol`` (``bench.SWEEP_TOL``); with
+    ``subcritical`` [14c]'s problem: nu-Sigma_f x 0.9, a unit fast source in
+    every fuel cell."""
+    import torch
+
+    data = bench.load_benchmark_data()
+    kw = {"bc": bc} if bc else {}
+    s = bench.BenchmarkRun(data.BENCHMARKS[core], *mesh, device="cpu", dtype=torch.float64,
+                           **kw).solver
+    if subcritical:
+        s.get_NSF()[...] *= 0.9
+        s.get_SRC()[0] = (s.get_NSF() > 0).any(axis=0)
+        s.BuildMatrices()
+    s.set_tol(*(tol or bench.SWEEP_TOL))
+    return s
+
+
+def _v17_host(s, a_mode="exact", extra=None):
+    """The host context of facade ``s`` (float64 on the CPU, P == 1), with
+    ``extra`` host arrays (the dense Schur factors)."""
+    ctx = s._context(a_mode)
+    host = {k: v.numpy() for k, v in ctx.items() if hasattr(v, "numpy")}
+    host.update(extra or {})
+    return host, None, False
+
+
+def _v17_dense(s, dev):
+    """The dense Schur factors of facade ``s``'s problem (``attach_dense_schur``
+    on the whole context, built on ``dev`` at float64), as host arrays."""
+    import torch
+
+    from neutfem_tpu_torch.ops.context import context_to_device
+    from neutfem_tpu_torch.ops.direct import attach_dense_schur
+
+    whole = context_to_device(*_v17_host(s), s._fes.P, dev, torch.float64)
+    attach_dense_schur(s._fes, whole)
+    return {k: whole[k].cpu().numpy() for k in ("schur_chol", "schur_sdi")}
+
+
+def _v17_wielandt_facade():
+    """CMFD "wielandt"'s problem for a cut: [15f]'s random 2-group recipe on
+    6x4 cells with x PERIODIC (across a y cut) and vacuum y faces, where the
+    low-order eigensolve converges; a facade-like holder of (fes, ng, xs,
+    bcs, context) on the CPU at float64."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.bc import BCKind, BCSpec
+    from neutfem_tpu_torch.fespace import make_fespace
+    from neutfem_tpu_torch.mesh import CartesianMesh, boundary_attribute
+    from neutfem_tpu_torch.ops.context import build_context
+
+    rng = np.random.default_rng(4)
+    shape = (1, 4, 6)
+    mesh = CartesianMesh.from_breaks(
+        *[np.concatenate([[0.0], np.cumsum(rng.uniform(0.8, 1.4, n))]) for n in (6, 4)])
+    xs = {"D": rng.uniform(0.3, 2.0, (2, *shape)), "SigR": rng.uniform(0.01, 0.2, (2, *shape)),
+          "NSF": rng.uniform(0.0, 0.2, (2, *shape)), "Chi": np.zeros((2, *shape)),
+          "SigS": np.zeros((2, 2, *shape)), "SRC": np.zeros((2, *shape))}
+    xs["Chi"][0] = 1.0
+    xs["SigS"][1, 0] = rng.uniform(0.01, 0.03, shape)
+    bcs = BCSpec()
+    for ax in range(2):
+        for up in (False, True):
+            bcs.set(boundary_attribute(2, ax, up), BCKind.PERIODIC if ax == 0 else BCKind.DIRICHLET)
+    fes = make_fespace(mesh, 0, 0)
+    ctx = build_context(fes, 2, xs, bcs, "cpu", torch.float64)
+    return types.SimpleNamespace(_fes=fes, _ng=2, _xs=xs, _bcs=bcs,
+                                 _context=lambda a_mode="exact": ctx)
+
+
+#: [17b]'s variants: name -> (problem, run kind, option overrides, a_mode)
+V17B = {
+    "jacobi": ("1x1x2", "power", dict(sweep="jacobi"), "exact"),
+    # IAEA-2D: on IAEA-3D 1x1x2 the first correction does not reproduce to
+    # rounding (a 1e-15 change of the start flux moves k at three outers by
+    # up to 6.7e-4 on the CPU, unsharded); on IAEA-2D 2x2 by 4e-11
+    "cmfd 3 outers": ("iaea2d 2x2", "power", dict(use_cmfd=True, max_outer=3), "exact"),
+    "anderson": ("1x1x2", "power", dict(accel="anderson"), "exact"),
+    # IAEA-2D too: on IAEA-3D 1x1x2 BiCGSTAB at bench.SWEEP_TOL moves k by up
+    # to 1.9e-6 (50 / 232 -> 49 / 216) under a 1e-15 change of the start flux
+    # (the CPU, unsharded); on IAEA-2D 2x2 by 5e-16
+    "bicgstab": ("iaea2d 2x2", "power", dict(inner_solver="bicgstab"), "exact"),
+    "subcritical": ("1x1x2 subcritical", "subcritical", {}, "exact"),
+    "coarse init": ("1x1x2", "coarse", {}, "exact"),
+    "diag": ("1x1x2", "power", dict(a_mode="diag"), "diag"),
+    "lumped": ("1x1x2", "power", dict(a_mode="lumped"), "lumped"),
+    "wielandt": ("wielandt", "power", dict(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10,
+                                           max_outer=60, accel="none", use_cmfd=True,
+                                           cmfd_mode="wielandt", cmfd_lo_outers=20), "exact"),
+    "direct_llt": ("iaea2d 2x2", "power", dict(inner_solver="direct"), "exact"),
+}
+
+
+def _v17b_problem(bench, name, dev):
+    """(facade, host context, cut grid axis, options, run kind, coarse
+    factors) of a [17b] variant; the dense factors are made on ``dev``."""
+    import dataclasses
+
+    problem, kind, over, a_mode = V17B[name]
+    if problem == "wielandt":
+        from neutfem_tpu_torch.power import SolveOptions
+
+        s, ga = _v17_wielandt_facade(), 1
+        opts = SolveOptions(**over)
+        return s, _v17_host(s), ga, opts, kind, None
+    if problem == "iaea2d 2x2":
+        s, ga = _v17_facade(bench, "iaea2d", V17B_2D), 1
+        host = _v17_host(s, extra=_v17_dense(s, dev) if kind == "power" and over.get(
+            "inner_solver") == "direct" else None)
+    else:
+        s = _v17_facade(bench, "iaea3d", V17B_MESH, subcritical="subcritical" in problem,
+                        tol=V17_TOL if name == "jacobi" else None)
+        ga, host = 0, _v17_host(s, a_mode)
+    opts = dataclasses.replace(s._opts(), **over)
+    return s, host, ga, opts, kind, (1, 1, 2) if kind == "coarse" else None  # 19x19x19
+
+
+def _v17b_rank(rank, world, init, args):
+    """A rank of [17b]: gloo between the processes, the card shared
+    (cuda:0; ``device``), float64; every variant of ``V17B`` on the rank's
+    slab.
+    Returns {variant: (value, outers, inners, history, gathered flux on
+    rank 0)}."""
+    import torch
+    import torch.distributed as dist
+
+    names, device = args
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    from neutfem_tpu_torch import bench, parallel
+
+    dev = torch.device(device)
+    mesh = parallel.device_mesh("gloo", init_method=init, rank=rank, world_size=world)
+    out = {}
+    for name in names:
+        s, host, ga, opts, kind, factors = _v17b_problem(bench, name, dev)
+        fes = s._fes
+        ctx = parallel.shard_context(host, mesh, fes, ga, device=dev, dtype=torch.float64)
+        phi0 = parallel.shard_state(torch.ones((s._ng, *fes.mesh.shape, 1), dtype=torch.float64),
+                                    mesh, ga, device=dev)
+        got = _v17_timed(kind, s, opts, ctx, phi0, dev, torch.float64,
+                         (mesh, parallel._axis_map(mesh, ga)), factors, warm=False)
+        phi = parallel.gather_state(got["res"]["phi"], mesh, ga)
+        out[name] = {"value": got["value"], "outers": got["outers"], "inners": got["inners"],
+                     "history": got["history"], "ms": got["ms"],
+                     "collectives": got["launches"]["collectives"],
+                     "phi": phi.cpu().numpy() if rank == 0 else None}
+        dist.barrier()
+    return out
+
+
+def _v17b_cpu(bench, names):
+    """[17b]'s references: every variant unsharded on the CPU, float64:
+    {variant: (value, outers, flux)}."""
+    import torch
+
+    from neutfem_tpu_torch.ops.context import context_to_device
+
+    cpu, out = torch.device("cpu"), {}
+    for name in names:
+        s, host, _, opts, kind, factors = _v17b_problem(bench, name, cpu)
+        ctx = context_to_device(*host, 1, cpu, torch.float64)
+        phi0 = torch.ones((s._ng, *s._fes.mesh.shape, 1), dtype=torch.float64)
+        res = _v17_run(kind, s, opts, ctx, phi0, cpu, torch.float64, factors=factors)
+        out[name] = (res["value"], res["outer_iterations"], res["phi"].numpy())
+    return out
+
+
+def _v17_rows(s, host, card, rows, launches):
+    """[17c]: K5 y / x and K4 on rank 0's restaged slab of a two-way z cut
+    of IAEA-3D 6x6x4 ((2, 1, 38, 114, 114): both groups, as the Jacobi sweep
+    runs them), K1's batch on rank 0's slab of a two-way y cut ((2, 1, 76,
+    57, 114)), each against its plain version at those shapes (random flux,
+    accumulator and rhs) with the launches of [17a]'s Jacobi paths
+    (``launches``: z cut, y cut)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch import parallel
+
+    fes = s._fes
+    dirs = {di.axis: di for di in fes.dirs}
+    rng = np.random.default_rng(17)
+    for ga, cut in ((0, "z"), (1, "y")):
+        # rank 0 of two along the cut: its slab, sliced as a world of two would
+        half = types.SimpleNamespace(axis_names=(parallel.SPATIAL_AXIS,),
+                                     sizes={parallel.SPATIAL_AXIS: 2},
+                                     coords={parallel.SPATIAL_AXIS: 0})
+        ctx = parallel.shard_context(host, half, fes, ga, device="cuda", dtype=torch.float32)
+        shape = (2, 1, *ctx["C"].shape[-3:])
+        v, acc0 = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                   device="cuda") for _ in range(2))
+        label = f"[17c] rank 0's slab of a two-way {cut} cut, IAEA-3D 6x6x4"
+        kernels = ((("K5", "y", 1), ("K5", "x", 2)) if cut == "z" else (("K1 batch", "z", 0),))
+        for kid, key, axis in kernels:
+            row = _batched_case(kid, key, ctx, dirs[axis], v, acc0, card, label,
+                                (K5_REPLACES if kid == "K5" else ROWS_REPLACES)[key])
+            row["launches"] = launches[cut][row.pop("key")]
+            rows[f"{kid} {key} [17] slab"] = row
+        if cut == "z":
+            di = dirs[0]
+            key = f"d{di.d}"
+            dinv = ctx[f"tri_part_dinv_{key}"].unsqueeze(1).expand(shape).contiguous()
+            lsh = list(shape)
+            lsh[2] -= 1
+            ll = ctx[f"tri_part_l_{key}"].unsqueeze(1).expand(lsh).contiguous()
+            r = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device="cuda")
+            row = _thomas_rows_case("group-batched partitioned segment, z cut (" + label[6:] +
+                                    ", random rhs)", r, dinv, ll, -3, K4_REPLACES["z"], card)
+            row.pop("key")
+            row["launches"] = launches["z"]["thomas_rows"]
+            rows["K4 [17] batched segment"] = row
+
+
+def _v17_line(what, got, ref=None, card=""):
+    beside = (f"; unsharded {ref['value']!r}, {ref['outers']} / {ref['inners']}, "
+              f"{ref['ms']:.3f} ms/outer" if ref else "")
+    cg = got["cg"]
+    print(f"    {what}: {got['value']!r}, {got['outers']} / {got['inners']}, {got['ms']:.3f} "
+          f"ms/outer{beside} ({card}); CG {cg['solves']} solves, {cg['replays']} replays, "
+          f"{cg['eager_solves']} eager; {got['launches']['collectives']} collectives")
+    print(f"      launches {{{', '.join(f'{k}: {v}' for k, v in got['launches'].items() if v)}}}")
+
+
+def _sharded_variants(bench, dev, card, rows):
+    """Phase [17]: the solver variants under a sharding scope on the card,
+    each path with its own counts (module docstring).  Adds [17c]'s rows."""
+    import concurrent.futures
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch.ops.context import context_to_device
+
+    f32, f64 = torch.float32, torch.float64
+    t_all = t0 = time.perf_counter()
+    mesh = parallel.device_mesh("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+    print(f"[17a] the variants under a sharding scope, world of one over {mesh.backend}: "
+          "IAEA-3D 6x6x4 RT0-P0 float32 at bench.SWEEP_TOL unless stated, each sharded and "
+          "unsharded in this call")
+    s = _v17_facade(bench, "iaea3d", V17_MESH)
+    fes, ng = s._fes, s._ng
+    host = _v17_host(s)
+    opts = s._opts()
+    whole = context_to_device(*host, 1, dev, f32)
+    cuts = {ga: (parallel.shard_context(host, mesh, fes, ga, device=dev, dtype=f32),
+                 (mesh, parallel._axis_map(mesh, ga))) for ga in (0, 1)}
+    flat = torch.ones((ng, *fes.mesh.shape, 1), dtype=f32, device=dev)
+    slab = {ga: parallel.shard_state(flat, mesh, ga) for ga in (0, 1)}
+
+    def both(kind, o, what, ga=0, ctx_whole=whole, ctx_cut=None, dtype=f32, factors=None,
+             start=flat, ref=None, fac=s):
+        if ref is None:
+            ref = _v17_timed(kind, fac, o, ctx_whole, start, dev, dtype, factors=factors)
+        c, scope = ctx_cut or cuts[ga]
+        got = _v17_timed(kind, fac, o, c, parallel.shard_state(start, mesh, ga), dev, dtype,
+                         scope, factors)
+        _v17_line(f"{what}, {'zy'[ga]} cut", got, ref, card)
+        cg = got["cg"]
+        if dev.type == "cuda" and cg["solves"] and (cg["replays"] <= 0 or cg["eager_solves"]):
+            raise RuntimeError(f"[17a] {what}: the CG did not replay its graphs under NCCL")
+        return got, ref
+
+    cheb = _v17_timed("power", s, opts, whole, flat, dev, f32)
+    _v17_line("Chebyshev (unsharded; CMFD's and coarse init's reference)", cheb, card=card)
+
+    # the Jacobi sweep: every group in one batched CG on the slab
+    jopts = dataclasses.replace(opts, sweep="jacobi")
+    launches, ref = {}, None
+    for ga, cut in ((0, "z"), (1, "y")):
+        got, ref = both("power", jopts, "Jacobi sweep", ga, ref=ref)
+        L = launches[cut] = got["launches"]
+        if not (abs(got["value"] - ref["value"]) <= SWEEP_KEFF_TOL and got["outers"] < 600):
+            raise RuntimeError(f"[17a] Jacobi sweep {cut} cut: k {got['value']} not within "
+                               f"{SWEEP_KEFF_TOL} of {ref['value']}, or capped")
+        need = (("y_batched_rows", "x_batched_rows", "thomas_rows") if cut == "z"
+                else ("z_batched_rows", "x_batched_rows"))
+        if dev.type == "cuda" and (any(L[k] < got["inners"] for k in need)
+                                   or any(L[k] for k in (*Z_KEYS, *Z_OLD, *K5_OLD))):
+            raise RuntimeError(f"[17a] Jacobi sweep {cut} cut: {need} not launched every CG "
+                               "iteration, or a one-group or replaced kernel ran")
+    # CMFD "fixed" and coarse init against the Chebyshev k
+    for what, kind, o, factors in (("CMFD \"fixed\"", "power",
+                                    dataclasses.replace(opts, use_cmfd=True), None),
+                                   (f"coarse init {V17_COARSE}", "coarse", opts, V17_COARSE)):
+        got, ref = both(kind, o, what, factors=factors)
+        if not abs(got["value"] - cheb["value"]) <= VARIANT_KEFF_TOL:
+            raise RuntimeError(f"[17a] {what}: k {got['value']} not within {VARIANT_KEFF_TOL} of "
+                               f"the Chebyshev k {cheb['value']}")
+    # Anderson on [14a]'s row.  Its float32 counts on IAEA-3D fall in one of
+    # two rounding basins (57-59 or 82-92 outers, [14a]): every k is held to
+    # the anchor, and each sharded solve from the flat flux and from four
+    # start fluxes perturbed by one float32 ulp must land in a basin the
+    # unsharded solve visits from those five starts: its outers and inners
+    # within INNERS_REL of one unsharded solve's
+    _, _, atol = next(c for c in bench.ACCEL_CONFIGS if c[0] == "iaea3d")
+    s.set_tol(*atol)
+    s.set_acceleration("anderson")
+    aopts = s._opts()
+    s.set_tol(*bench.SWEEP_TOL)
+    s.set_acceleration("chebyshev")
+    anchor = ACCEL_ANCHORS[("iaea3d", "anderson")]
+    got, ref = both("power", aopts, "Anderson (ACCEL_CONFIGS' tolerances)")
+    runs = {"sharded": [(got["value"], got["outers"], got["inners"])],
+            "unsharded": [(ref["value"], ref["outers"], ref["inners"])]}
+    for seed in ACCEL_PERTURB_SEEDS:  # rounding_probe.perturbed_start's start flux
+        g = torch.Generator(device=dev).manual_seed(seed)
+        noise = torch.randn(flat.shape, generator=g, device=dev, dtype=f64)
+        start = flat * (1 + 1e-7 * noise.to(f32))
+        for what, c, scope, phi in (("sharded", cuts[0][0], cuts[0][1],
+                                     parallel.shard_state(start, mesh, 0)),
+                                    ("unsharded", whole, None, start)):
+            r = _v17_run("power", s, aopts, c, phi, dev, f32, scope)
+            runs[what].append((r["value"], r["outer_iterations"], r["inner_iterations"]))
+    print(f"    Anderson from the flat flux and four perturbed starts (k, outers, inners), "
+          f"anchor {anchor}: sharded {runs['sharded']}; unsharded {runs['unsharded']}")
+    def basin(o, i):
+        return any(abs(o - uo) <= INNERS_REL * uo and abs(i - ui) <= INNERS_REL * ui
+                   for _, uo, ui in runs["unsharded"])
+
+    if any(abs(k - anchor[0]) > KEFF_TOL for k, _, _ in runs["sharded"] + runs["unsharded"]) or (
+            not all(basin(o, i) for _, o, i in runs["sharded"])):
+        raise RuntimeError(f"[17a] Anderson: k off the anchor {anchor}, or a sharded solve in "
+                           f"no basin of the unsharded solves: {runs}")
+    # BiCGSTAB at float64 against the float64 CG
+    whole64 = context_to_device(*host, 1, dev, f64)
+    cut64 = (parallel.shard_context(host, mesh, fes, 0, device=dev, dtype=f64), cuts[0][1])
+    flat64 = flat.to(f64)
+    cg64 = _v17_timed("power", s, opts, whole64, flat64, dev, f64)
+    _v17_line("CG float64 (unsharded; BiCGSTAB's reference)", cg64, card=card)
+    got, _ = both("power", dataclasses.replace(opts, inner_solver="bicgstab"),
+                  "BiCGSTAB float64", ctx_whole=whole64, ctx_cut=cut64, dtype=f64, start=flat64)
+    if not abs(got["value"] - cg64["value"]) <= VARIANT_PAIR_TOL:
+        raise RuntimeError(f"[17a] BiCGSTAB: k {got['value']} not within {VARIANT_PAIR_TOL} of "
+                           f"the CG's {cg64['value']}")
+    del whole64, cut64
+    # the subcritical solve of [14c]: M at float32 against the float64 M
+    sub = _v17_facade(bench, "iaea3d", V17_MESH, subcritical=True)
+    hsub = _v17_host(sub)
+    sopts = sub._opts()
+    m64 = _v17_timed("subcritical", sub, sopts, context_to_device(*hsub, 1, dev, f64), flat64,
+                     dev, f64)
+    csub = (parallel.shard_context(hsub, mesh, fes, 0, device=dev, dtype=f32), cuts[0][1])
+    got, _ = both("subcritical", sopts, "subcritical M", ctx_whole=context_to_device(
+        *hsub, 1, dev, f32), ctx_cut=csub, fac=sub)
+    print(f"      M float64 (unsharded) {m64['value']!r}")
+    if not abs(got["value"] / m64["value"] - 1.0) <= SUBCRIT_M_REL:
+        raise RuntimeError(f"[17a] subcritical: M {got['value']} not within {SUBCRIT_M_REL} of "
+                           f"{m64['value']}")
+    del sub, hsub, csub
+    # diag and lumped: at 3x3x2 on their anchors, at 6x6x4 beside the
+    # unsharded solve; no K1-K4 (no kernel in the JAX package either)
+    small = _v17_facade(bench, "iaea3d", V17_SMALL, tol=bench.FULL_TOL)
+    for a_mode, anchor in (("diag", DIAG_ANCHOR), ("lumped", LUMPED_ANCHOR)):
+        o3 = dataclasses.replace(small._opts(), a_mode=a_mode)
+        h3 = _v17_host(small, a_mode)
+        f3 = torch.ones((ng, *small._fes.mesh.shape, 1), dtype=f32, device=dev)
+        c3 = parallel.shard_context(h3, mesh, small._fes, 0, device=dev, dtype=f32)
+        got = _v17_timed("power", small, o3, c3, parallel.shard_state(f3, mesh, 0), dev, f32,
+                         cuts[0][1])
+        _v17_line(f"{a_mode} 3x3x2 (anchor {anchor}), z cut", got, card=card)
+        _check_anchor(f"[17a] {a_mode} 3x3x2", got["value"], got["outers"], got["inners"], anchor)
+        h6 = _v17_host(s, a_mode)
+        s.set_tol(*bench.FULL_TOL)
+        o6 = dataclasses.replace(s._opts(), a_mode=a_mode)
+        s.set_tol(*bench.SWEEP_TOL)
+        got, ref = both("power", o6, f"{a_mode} 6x6x4 (bench.FULL_TOL)",
+                        ctx_whole=context_to_device(*h6, 1, dev, f32),
+                        ctx_cut=(parallel.shard_context(h6, mesh, fes, 0, device=dev, dtype=f32),
+                                 cuts[0][1]))
+        for r in (got, ref):
+            if any(r["launches"][k] for k in (*Z_KEYS, "thomas_rows", "z_batched_rows",
+                                               *K5_KEYS)):
+                raise RuntimeError(f"[17a] {a_mode}: K1-K4 launched on a diagonal A-solve")
+    del small
+    # DIRECT_LLT on IAEA-2D 3x3, y cut, against its CG k
+    d2 = _v17_facade(bench, "iaea2d", V17_2D)
+    h2 = _v17_host(d2, extra=_v17_dense(d2, dev))
+    f2 = torch.ones((ng, *d2._fes.mesh.shape, 1), dtype=f32, device=dev)
+    w2 = context_to_device(*h2, 1, dev, f32)
+    cg2 = _v17_timed("power", d2, d2._opts(), w2, f2, dev, f32)
+    _v17_line("CG IAEA-2D 3x3 (unsharded; DIRECT_LLT's reference)", cg2, card=card)
+    c2 = (parallel.shard_context(h2, mesh, d2._fes, 1, device=dev, dtype=f32),
+          (mesh, parallel._axis_map(mesh, 1)))
+    got, _ = both("power", dataclasses.replace(d2._opts(), inner_solver="direct"),
+                  f"DIRECT_LLT IAEA-2D 3x3 ({d2._fes.n_phi} flux DOFs)", 1, w2, c2, start=f2,
+                  fac=d2)
+    if not abs(got["value"] - cg2["value"]) <= DIRECT_KEFF_TOL:
+        raise RuntimeError(f"[17a] DIRECT_LLT: k {got['value']} not within {DIRECT_KEFF_TOL} of "
+                           f"its CG k {cg2['value']}")
+    del d2, h2, c2, w2
+    dist.destroy_process_group()
+    print(f"    [17a] {time.perf_counter() - t0:.1f} s")
+
+    # (c) the kernels at rank 0's slab of a two-way cut, with (a)'s launches
+    t0 = time.perf_counter()
+    print(f"[17c] K5 y / x, K1's batch and K4 at rank 0's slab of a two-way cut ({card})")
+    _v17_rows(s, host, card, rows, launches)
+    print(f"    [17c] {time.perf_counter() - t0:.1f} s")
+
+    # (b) the gloo pair (processes of its own) against the CPU's unsharded
+    # runs, made in a thread of this process meanwhile
+    t0 = time.perf_counter()
+    names_b = tuple(V17B)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_refs = pool.submit(_v17b_cpu, bench, names_b)
+        ranks = parallel.spawn_ranks(_v17b_rank, 2, f"tcp://localhost:{_free_port()}",
+                                     (names_b, dev.type), RANK_TIMEOUT)
+        refs = cpu_refs.result()
+    per = ranks
+    print("[17b] two ranks sharing the card over gloo (host-staged: the eager CG block loop), "
+          "float64, IAEA-3D 1x1x2 z cut (CMFD, BiCGSTAB and DIRECT_LLT: IAEA-2D 2x2, CMFD "
+          "\"wielandt\": 6x4 cells, each a y cut) against the unsharded run on the CPU")
+    for name in names_b:
+        a, b = per[0][name], per[1][name]
+        if (a["value"], a["outers"], a["inners"]) != (b["value"], b["outers"], b["inners"]) or (
+                a["history"] is not None and not np.array_equal(a["history"], b["history"])):
+            raise RuntimeError(f"[17b] {name}: the ranks disagree")
+        v_cpu, o_cpu, phi_cpu = refs[name]
+        rel = _flux_rel(a["phi"], phi_cpu)
+        dv = a["value"] - v_cpu
+        flux_tol = 1e-6 if name.startswith("cmfd") else SHARD_F64_TOL
+        print(f"    {name}: {a['value']!r} vs CPU {v_cpu!r} (d {dv:+.2e}), outers {a['outers']} / "
+              f"{o_cpu}, inners {a['inners']}, flux rel {rel:.2e}; {a['ms']:.1f} ms/outer "
+              f"TRANSPORT-BOUND, {a['collectives']} collectives a rank ({card})")
+        if not (abs(dv) <= SHARD_F64_TOL * max(1.0, abs(v_cpu)) and a["outers"] == o_cpu
+                and rel <= flux_tol):
+            raise RuntimeError(f"[17b] {name}: the sharded run on the card disagrees with the CPU")
+    print(f"    [17b] {time.perf_counter() - t0:.1f} s; [17] "
+          f"{time.perf_counter() - t_all:.1f} s")
+
+
 def main():
     import torch
 
@@ -2051,6 +2589,12 @@ def main():
     if sys.argv[1:] == ["--phase", "16"]:  # phase [16] alone: no result
         rows = {}
         _sharded_paths(bench, dev, card, rows)
+        print(f"    total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"kernels": list(rows.values())}))
+        return
+    if sys.argv[1:] == ["--phase", "17"]:  # phase [17] alone: no result
+        rows = {}
+        _sharded_variants(bench, dev, card, rows)
         print(f"    total {time.perf_counter() - t_all:.1f} s")
         print(json.dumps({"kernels": list(rows.values())}))
         return
@@ -2648,6 +3192,9 @@ def main():
     t0 = time.perf_counter()
     _sharded_paths(bench, dev, card, rows)
     print(f"    [16] {time.perf_counter() - t0:.1f} s")
+
+    # [17] the solver variants under a sharding scope: each path with its own counts
+    _sharded_variants(bench, dev, card, rows)
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

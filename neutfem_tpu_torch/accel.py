@@ -20,6 +20,7 @@ Anderson(m) (``anderson_apply``) is the JAX package's update: least squares on
 the residual differences of a ring buffer of the last m (iterate, residual)
 pairs, Tikhonov-regularized, with the step clipped to a relative norm.  Its
 pair count is a host integer too, so the valid window is a host slice.
+Under a sharding scope its sums over the flux are all-reduced.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .shardctx import allsum, current_sharding
 
 __all__ = ["ChebyshevState", "chebyshev_coeffs", "chebyshev_init", "chebyshev_apply_blend",
            "AndersonState", "anderson_init", "anderson_apply"]
@@ -109,7 +112,12 @@ def anderson_apply(state: AndersonState, x_prev, gx, beta: float = 1.0, reg: flo
     of the differences outside the valid window are zeroed, as the JAX mask
     does.  The (m-1) x (m-1) system goes through ``torch.linalg.solve_ex``,
     which checks nothing on the host (``solve`` would read its status back
-    every outer)."""
+    every outer).
+
+    Under a sharding scope the buffers hold the rank's slab: its local Gram
+    matrix and right-hand side are summed over the ranks in one all-reduce,
+    every rank solves the same small system, and the two squared norms take
+    one more (the step needs theta)."""
     m = state.X.shape[0]
     x_prev = x_prev.reshape(-1)
     gx = gx.reshape(-1)
@@ -126,15 +134,20 @@ def anderson_apply(state: AndersonState, x_prev, gx, beta: float = 1.0, reg: flo
     dF[:invalid] = 0.0
     dX[:invalid] = 0.0
 
-    G = dF @ dF.T + reg * torch.eye(m - 1, dtype=x_prev.dtype, device=x_prev.device)
-    theta = torch.linalg.solve_ex(G, dF @ f).result
+    gram, rhs = allsum(dF @ dF.T, dF @ f)
+    G = gram + reg * torch.eye(m - 1, dtype=x_prev.dtype, device=x_prev.device)
+    theta = torch.linalg.solve_ex(G, rhs).result
 
     correction = theta @ (dX + dF)
     x_acc = x_prev + beta * f - correction
 
     step = x_acc - gx
-    step_norm = torch.linalg.vector_norm(step)
-    x_norm = torch.linalg.vector_norm(gx)
+    if current_sharding() is None:
+        step_norm = torch.linalg.vector_norm(step)
+        x_norm = torch.linalg.vector_norm(gx)
+    else:  # the step depends on theta: a second all-reduce
+        step_sq, x_sq = allsum(torch.sum(step * step), torch.sum(gx * gx))
+        step_norm, x_norm = torch.sqrt(step_sq), torch.sqrt(x_sq)
     scale = torch.clamp(max_rel * x_norm / torch.where(step_norm == 0, 1.0, step_norm), max=1.0)
     x_acc = gx + scale * step
 

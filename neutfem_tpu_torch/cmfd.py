@@ -25,6 +25,15 @@ fine mixed-FEM solution is an exact fixed point of the CMFD system.
 
 On the card each low-order solve replays a captured graph (``krylov``) whose
 operator reads static buffers made once per context and refilled per call.
+
+Under a sharding scope (one rank's slab, ``parallel.py``) the stencils pad
+along a cut with the neighbour ranks' planes (``shardctx.halo``; under NCCL
+the low-order graph captures those sends), the face arrays that
+``parallel.shard_context`` split into body and seam are joined into the
+slab's s+1 faces (``shardctx.seam_faces``; the current's faces come from
+``power.compute_current`` as s+1 already), and every sum that decides a
+branch or a stop test is all-reduced (the CG's and BiCGSTAB's dots in
+``krylov``, mode "wielandt"'s norms and productions here).
 """
 
 from __future__ import annotations
@@ -35,23 +44,42 @@ import torch
 
 from .fespace import FESpace
 from .krylov import CG_PLANS, CGGraph, bicgstab, pcg
+from .shardctx import all_ranks, allsum, cut_transport, halo, seam_faces
 
 __all__ = ["cmfd_correction"]
+
+
+def _faces(ctx: Dict, name: str, di, ax: int):
+    """The face array ``name`` of direction ``di`` with every face of the
+    rank's cells along tensor axis ``ax``: the context's own, or along a cut
+    (where ``parallel.shard_context`` split it into body and seam) its slab's
+    s+1 faces (``shardctx.seam_faces``)."""
+    tr = cut_transport(di.axis)
+    if tr is None:
+        return ctx[name]
+    return seam_faces(ctx[name], ctx[name + "__seam"], ax, tr)
 
 
 def _face_currents(fes: FESpace, ctx: Dict, J) -> Dict[str, torch.Tensor]:
     """Physical cell-average normal current density per face and direction (all
     groups): the t=0 transverse mode of the face DOF grid times the Piola scale
     jac_d/detJ.  J internal: (ng, T, *face_shape)."""
-    return {f"d{di.d}": J[f"d{di.d}"]["face"].select(-4, 0) * ctx[f"jscale_d{di.d}"]
-            for di in fes.dirs}
+    return {f"d{di.d}": J[f"d{di.d}"]["face"].select(-4, 0)
+            * _faces(ctx, f"jscale_d{di.d}", di, di.axis) for di in fes.dirs}
 
 
-def _neighbor_pad(ctx: Dict, key: str, x, ax: int):
-    """x with its out-of-domain neighbours along ``ax`` on each side: zeros on
-    a bounded direction, the cells of the other end on a PERIODIC one (its
-    ``cyc_*`` data in the context)."""
+def _neighbor_pad(ctx: Dict, di, x, ax: int):
+    """x with its out-of-domain neighbours along ``ax`` (direction ``di``'s
+    axis) on each side: zeros on a bounded direction, the cells of the other
+    end on a PERIODIC one (its ``cyc_*`` data in the context); along a cut,
+    the neighbour ranks' planes (``shardctx.halo``: zeros at the domain's
+    ends)."""
+    key = f"d{di.d}"
     n = x.shape[ax]
+    tr = cut_transport(di.axis)
+    if tr is not None:
+        lo, hi = halo(x, ax, tr)
+        return torch.cat([lo, x, hi], dim=ax)
     if f"cyc_wt_{key}" in ctx:
         return torch.cat([x.narrow(ax, n - 1, 1), x, x.narrow(ax, 0, 1)], dim=ax)
     shape = list(x.shape)
@@ -66,11 +94,11 @@ def _deff(fes: FESpace, ctx: Dict, phi_bar, j_phys) -> Dict[str, torch.Tensor]:
     for di in fes.dirs:
         key = f"d{di.d}"
         ax = di.axis + 1  # group axis in front
-        padded = _neighbor_pad(ctx, key, phi_bar, ax)
+        padded = _neighbor_pad(ctx, di, phi_bar, ax)
         n = padded.shape[ax]
         left, right = padded.narrow(ax, 0, n - 1), padded.narrow(ax, 1, n - 1)
         dphi = left - right  # phi_L - phi_R at every face
-        dtilde = ctx[f"dtilde_{key}"]
+        dtilde = _faces(ctx, f"dtilde_{key}", di, ax)
         # RELATIVE degeneracy guard (the JAX package's: an absolute clamp biases
         # the fixed point by +52 pcm on IAEA-2D)
         small = torch.abs(dphi) <= 1e-12 * (torch.abs(left) + torch.abs(right)) + 1e-300
@@ -85,7 +113,7 @@ def _lo_matvec(fes: FESpace, ctx: Dict, deff: Dict, x):
     for di in fes.dirs:
         key = f"d{di.d}"
         ax = di.axis + 1
-        xp = _neighbor_pad(ctx, key, x, ax)
+        xp = _neighbor_pad(ctx, di, x, ax)
         n = xp.shape[ax]
         nf = deff[key].shape[ax]
         d_left = deff[key].narrow(ax, 0, nf - 1)
@@ -168,7 +196,7 @@ def _wielandt(fes: FESpace, ctx: Dict, phi_bar, deff, diag_lo, keff, tol, maxite
     """The low-order eigensolve of mode "wielandt" (``neutfem_tpu/cmfd.py:
     216-263``): (phi_lo, k_lo), k_lo in the trust region [0.8 k, 1.25 k].
     One host read per low-order outer (its stop test)."""
-    norm0 = torch.sqrt(torch.sum(phi_bar * phi_bar))
+    norm0 = torch.sqrt(allsum(torch.sum(phi_bar * phi_bar)))
     inv_ks = torch.clamp(1.0 / keff - 0.03, min=0.0)  # the reactivity gap 1/k - 1/ks
     diag_w = diag_lo - inv_ks * ctx["chi"] * ctx["nsf"] * ctx["vol"]
     diag_w = torch.where(torch.abs(diag_w) < 1e-30, 1.0, diag_w)
@@ -179,17 +207,17 @@ def _wielandt(fes: FESpace, ctx: Dict, phi_bar, deff, diag_lo, keff, tol, maxite
     p, inv_k = phi_bar, 1.0 / keff
     for _ in range(lo_outers):
         Fp = _fission_lo(ctx, p)
-        prod_old = torch.sum(Fp)
+        prod_old = allsum(torch.sum(Fp))
         res = bicgstab(matvec, sdi * ((inv_k - inv_ks) * Fp), p / sdi, tol=tol, maxiter=maxiter,
                        graph=graph)
         p_new = sdi * res.x
-        prod_new = torch.sum(_fission_lo(ctx, p_new))
+        prod_new = allsum(torch.sum(_fission_lo(ctx, p_new)))
         inv_k_new = inv_ks + (inv_k - inv_ks) * prod_old / torch.where(prod_new == 0, 1.0,
                                                                       prod_new)
-        nrm = torch.sqrt(torch.sum(p_new * p_new))
+        nrm = torch.sqrt(allsum(torch.sum(p_new * p_new)))
         p_new = p_new * (norm0 / torch.where(nrm == 0, 1.0, nrm))
         # the NaN net: a broken-down lo solve must not poison the fine iteration
-        ok = torch.isfinite(p_new).all() & torch.isfinite(inv_k_new)
+        ok = all_ranks(torch.isfinite(p_new).all()) & torch.isfinite(inv_k_new)
         p_new = torch.where(ok, p_new, p)
         inv_k_new = torch.where(ok, inv_k_new, inv_k)
         dk = torch.where(ok, torch.abs(1.0 / inv_k_new - 1.0 / inv_k), 0.0)

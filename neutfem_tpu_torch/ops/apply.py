@@ -29,9 +29,12 @@ Port of ``neutfem_tpu/ops/apply.py`` (single device):
 
 Under a sharding scope (``shardctx``: one rank's slab of a multi-device
 solve, ``parallel.py``) ``schur_matvec`` runs a direction along a cut as the
-partitioned solve of ``ops/parttri.py`` and every other direction as above on
-the rank's complete local lines (the context's staged operands are the
-slab's); the equilibration fold declines there, as in the JAX package.
+partitioned solve of ``ops/parttri.py`` (under "diag" / "lumped" its
+elementwise counterpart), on one group or on every group at once (the
+Jacobi sweep: the bundle then carries the group axis), and every other
+direction as above on the rank's complete local lines (the context's staged
+operands are the slab's, so K1-K3, K5 and K1's batch run there); the
+equilibration fold declines there, as in the JAX package.
 
 Axis convention (INTERNAL, mode-axis-first, as the JAX package):
 
@@ -305,9 +308,6 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
     sh = current_sharding()
     cut = {}  # direction key -> the transport of its cut axis (a sharding scope)
     if sh is not None:
-        if a_mode != "exact":
-            raise NotImplementedError(f"a_mode={a_mode!r} under a sharding scope is not ported "
-                                      "(ROADMAP queue 4 item 1)")
         mesh, amap = sh
         cut = {f"d{di.d}": mesh.axes[amap[di.axis]] for di in fes.dirs if di.axis in amap}
     # the JAX package's static rule for K6: a 3D mesh and m == k (the flux

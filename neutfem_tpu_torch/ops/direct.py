@@ -27,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from ..shardctx import current_sharding, gather_slabs, take_slab
 from .apply import schur_matvec
 
 __all__ = ["dense_schur_group", "attach_dense_schur", "direct_solve", "DIRECT_MAX_NPHI"]
@@ -84,7 +85,22 @@ def attach_dense_schur(fes, ctx: Dict, a_mode: str = "exact") -> None:
 def direct_solve(ctxg: Dict, rhs):
     """x = S^-1 rhs from the equilibrated Cholesky factors: solve
     S_hat y = D^-1/2 rhs, then x = D^-1/2 y.  One group (L (n, n)) or the
-    Jacobi sweep's batch (L (ng, n, n), rhs with a leading group axis)."""
+    Jacobi sweep's batch (L (ng, n, n), rhs with a leading group axis).
+
+    Under a sharding scope ``rhs`` is the rank's slab and the factors are
+    whole on every rank (``parallel.shard_context``, the JAX package's
+    replicated ``schur_*``): the slabs are all-gathered over the world, every
+    rank runs the two triangular solves of the whole system, and keeps its
+    slab of x.  The dense path is gated to small problems (the facade's
+    ``DIRECT_MAX_NPHI``), so the gather is small."""
+    sh = current_sharding()
+    if sh is None:
+        return _solve(ctxg, rhs)
+    base = rhs.ndim - 3
+    return take_slab(_solve(ctxg, gather_slabs(rhs, *sh, base)), *sh, base)
+
+
+def _solve(ctxg: Dict, rhs):
     L, sdi = ctxg["schur_chol"], ctxg["schur_sdi"]
     b = (rhs.reshape(*L.shape[:-2], -1) * sdi).unsqueeze(-1)
     y = torch.linalg.solve_triangular(L, b, upper=False)

@@ -38,6 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..shardctx import seam_faces
 from . import launch_counter
 from .apply import _const, _face_out, _pair
 from .tridiag import tridiag_solve
@@ -47,9 +48,11 @@ __all__ = ["build_partitioned", "tridiag_solve_partitioned", "partitioned_face_s
 
 PART_NAMES = ("dinv", "l", "vrs", "vls", "minv", "seamd", "seamc")
 
-#: Applications of the partitioned solve (``"parttri"``, one per cut
-#: direction per matvec or ``compute_current``): the engagement count the
-#: tests read.  It counts applications, not kernels (the solve launches K4);
+#: Applications of the cut direction's face solve (``"parttri"``, one per
+#: cut direction per matvec or ``compute_current``; the partitioned solve,
+#: or the elementwise one under "diag" / "lumped"): the engagement count the
+#: tests read.  It counts applications, not kernels (the exact solve
+#: launches K4);
 #: a launch counter, so a CG graph's replay adds its capture's applications.
 LAUNCHES = launch_counter({"parttri": 0})
 
@@ -211,24 +214,28 @@ def partitioned_face_solve(di, L, R, ctx: Dict, key: str, tr):
     (``solve_A_dir``'s semantics): the face rhs of face j is L_j + R_{j-1}
     (L, R: the left- and right-face contributions of the rank's cells, (...,
     T, s cells along the axis, ...); face 0 takes the previous rank's last R
-    plane, one plane sent), the seam's is the last rank's last R.  Returns
-    the rank's s+1 faces' solution: its s body faces and the face that
-    closes its slab (the next rank's first face, one plane sent, or the
-    seam on the last rank)."""
+    plane, one plane sent), the seam's is the last rank's last R.  The exact
+    A solves by the partitioned method (the ``tri_part_*`` bundle); under
+    "diag" / "lumped" (no bundle) each face is its own system, x =
+    rhs * ``tri_dinv``, on the body faces and the seam alike, so no
+    interface exchange is needed.  Returns the rank's s+1 faces' solution:
+    its s body faces and the face that closes its slab (the next rank's
+    first face, one plane sent, or the seam on the last rank)."""
     LAUNCHES["parttri"] += 1
     axis = (di.axis - 3) % L.ndim
     s = L.shape[axis]
-    part = {nm: ctx[f"tri_part_{nm}_{key}"] for nm in PART_NAMES}
     m_t = _const(di.m_t, L).reshape(-1, 1, 1, 1)
     mb, ms = ctx[f"mask_{key}"], ctx[f"mask_{key}__seam"]
     prev = tr.shift(R.narrow(axis, s - 1, 1), +1)
     rb = L + torch.cat([prev, R.narrow(axis, 0, s - 1)], dim=axis)
     rs = R.narrow(axis, s - 1, 1)
-    x, x_seam = tridiag_solve_partitioned(rb * mb / m_t, rs * ms / m_t, part, axis, tr)
-    x = x * mb
-    nxt = tr.shift(x.narrow(axis, 0, 1), -1)
-    last = x_seam * ms if tr.rank == tr.size - 1 else nxt
-    return torch.cat([x, last], dim=axis)
+    if f"tri_part_dinv_{key}" in ctx:
+        part = {nm: ctx[f"tri_part_{nm}_{key}"] for nm in PART_NAMES}
+        x, x_seam = tridiag_solve_partitioned(rb * mb / m_t, rs * ms / m_t, part, axis, tr)
+    else:
+        x = rb * mb / m_t * ctx[f"tri_dinv_{key}"].unsqueeze(-4)
+        x_seam = rs * ms / m_t * ctx[f"tri_dinv_{key}__seam"].unsqueeze(-4)
+    return seam_faces(x * mb, x_seam * ms, axis, tr)
 
 
 def partitioned_schur_dir(fes, di, v, ctx: Dict, key: str, tr, BXt):

@@ -43,7 +43,7 @@ from .fespace import GRID_AXIS, FESpace
 from .ops.context import context_to_device, stage_operands
 from .ops.parttri import build_partitioned
 from .power import SolveOptions, power_iteration
-from .shardctx import Transport, sharding_scope
+from .shardctx import Transport, gather_slabs, sharding_scope
 
 __all__ = ["Mesh", "device_mesh", "shard_context", "shard_state", "gather_state",
            "sharded_power_iteration", "spawn_ranks", "SPATIAL_AXIS", "SPATIAL_AXES_2D"]
@@ -61,6 +61,9 @@ _FUSED_PREFIXES = ("tri_dinvm_",)
 #: face arrays (n + 1 along their own axis) split along a cut into the rank's
 #: body and the seam face (``<key>__seam``), as the JAX package splits them
 _SPLIT_PREFIXES = ("tri_dinv_", "mask_", "dtilde_", "jscale_")
+#: kept whole on every rank: the dense Schur factors (``ops/direct.py``),
+#: which the JAX package replicates (``neutfem_tpu/parallel.py:85``)
+_WHOLE_PREFIXES = ("schur_",)
 
 
 class Mesh:
@@ -209,7 +212,14 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
       faces; ``tri_part_*_{key}``: the partitioned solve's bundle of each cut
       direction (``ops/parttri.build_partitioned`` on the whole factors,
       then sliced: ``l`` with its s-1 couplings, ``minv`` with its line dims
-      cut only by the other axis of a 2D mesh);
+      cut only by the other axis of a 2D mesh); under "diag" / "lumped"
+      (no ``tri_l``) the cut direction's ``tri_dinv`` is split the same way
+      and has no bundle (``ops/parttri.partitioned_face_solve`` multiplies
+      by it);
+    * the dense Schur factors ``schur_*`` of the DIRECT_* solver (put on
+      the host context by the caller: ``ops/direct.attach_dense_schur`` on
+      the whole problem) are kept whole on every rank: each rank solves the
+      whole system (``ops/direct.direct_solve``);
     * the staged operands of the directions along no cut (``tri_xT_*``,
       ``tri_yT_*``, ``tri_hoyT_*``, ``tri_hoxT_*``) are restaged from the
       slab (``ops/context.stage_operands``), so K2 / K3 and K6 run on the
@@ -228,11 +238,10 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
         if f"cyc_wt_{key}" in ctx_np:
             raise NotImplementedError(f"a PERIODIC direction ({key}) along a cut is not ported "
                                       "(ROADMAP queue 4 item 2)")
-        if f"tri_l_{key}" not in ctx_np:
-            raise NotImplementedError("the diag / lumped A-solves under a sharding scope are "
-                                      "not ported (ROADMAP queue 4 item 1)")
     arrays = dict(ctx_np)
     for key, ga in cut_keys.items():
+        if f"tri_l_{key}" not in ctx_np:
+            continue  # "diag" / "lumped": the elementwise cut solve needs no bundle
         bundle = build_partitioned(ctx_np[f"tri_dinv_{key}"], ctx_np[f"tri_l_{key}"], 1 + ga,
                                    cuts[ga][1])
         arrays.update({f"tri_part_{nm}_{key}": a for nm, a in bundle.items()})
@@ -249,6 +258,9 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
         if k.startswith("precond_line") and k.split("_")[1] in line_cut:
             continue
         v = np.asarray(v)
+        if k.startswith(_WHOLE_PREFIXES):
+            local[k] = v
+            continue
         if k.startswith("tri_part_minv_"):
             local[k] = _minv_slab(v, cuts, own)
             continue
@@ -303,21 +315,7 @@ def gather_state(x, mesh: Mesh, grid_axis: GridAxes = 1, *, base: int = 1,
     axis along which ``x`` holds faces (a face current); along a cut each
     rank then holds its slab's s+1 faces, and the slab's last face is the
     next one's first."""
-    amap = _axis_map(mesh, grid_axis)
-    g = mesh.world.all_gather(x)
-    ga_of = {nm: ga for ga, nm in amap.items()}
-
-    def join(ranks, level):
-        if level == len(mesh.axis_names):
-            return g[int(ranks)]
-        ga = ga_of[mesh.axis_names[level]]
-        parts = [join(ranks[i], level + 1) for i in range(ranks.shape[0])]
-        if ga == face_axis:
-            s = parts[0].shape[base + ga] - 1
-            parts = [p.narrow(base + ga, 0, s) for p in parts[:-1]] + parts[-1:]
-        return torch.cat(parts, dim=base + ga)
-
-    return join(mesh.dmesh.mesh, 0)
+    return gather_slabs(x, mesh, _axis_map(mesh, grid_axis), base, face_axis)
 
 
 def sharded_power_iteration(fes: FESpace, ng: int, opts: SolveOptions, mesh: Mesh,

@@ -31,12 +31,18 @@ carried over (the port's Chebyshev is the blend; the facade prints the
 history after a solve).
 
 Under a sharding scope (``parallel.sharded_power_iteration``: one rank's
-slab) every global sum is all-reduced over the ranks (``shardctx.allsum``:
-the fission production, the flux norms, ``finite``; the CG's dot products in
-``krylov``), so every rank reads the same stop tests; ``compute_current``
-runs the cut direction's partitioned solve; a line preconditioner along a cut
-is left out; CMFD, Anderson, the Jacobi sweep, BiCGSTAB and the fixed-source
-solves raise ``NotImplementedError`` there.
+slab) every variant runs, each rank on its slab: every global sum is
+all-reduced over the ranks (``shardctx.allsum``: the fission production, the
+flux norms, ``finite``, the fixed-source and subcritical norms,
+``biorthogonal_inner``; the Krylov dot products in ``krylov``; Anderson's
+Gram matrix in ``accel``; CMFD's "wielandt" sums in ``cmfd``), so every rank
+reads the same stop tests and takes the same branches; ``compute_current``
+runs the cut direction's partitioned solve (the elementwise one under
+"diag" / "lumped"); the Jacobi sweep's batched matvec runs the group-batched
+partitioned solve on the cut direction and K5 / K1's batch on the others;
+CMFD exchanges its halos and seam faces (``cmfd``); the DIRECT_* solve
+gathers its right-hand side (``ops/direct.py``); a line preconditioner along
+a cut is left out.
 
 The JAX package's opt-in switches select the same branches here (read at
 each group solve, as the JAX package reads them at trace time):
@@ -80,7 +86,7 @@ from .ops.blockjac import blockjac_dev_dots, blockjac_dots
 from .ops.direct import direct_solve
 from .ops.parttri import partitioned_face_solve
 from .ops.tridiag import tridiag_solve
-from .shardctx import allsum, current_sharding
+from .shardctx import all_ranks, allsum, current_sharding
 from .twogrid import twogrid_apply
 
 __all__ = ["SolveOptions", "ctx_group", "resolve_precond", "group_plan", "group_solve",
@@ -446,8 +452,9 @@ def _current_cut(fes: FESpace, di, ctx: Dict, key: str, phi, tr):
     """``compute_current``'s direction along a cut (a sharding scope): the
     bubble-condensed left / right face contributions of the rank's cells,
     the partitioned solve (``ops/parttri.py``: the previous rank's last
-    right contribution and the next rank's first face are sent), then the
-    bubbles from the rank's s+1 faces."""
+    right contribution and the next rank's first face are sent; under
+    "diag" / "lumped" its elementwise counterpart), then the bubbles from the
+    rank's s+1 faces."""
     L, R = _pair(phi, di.BX[0]), _pair(phi, di.BX[1])
     rW = None
     if fes.et.nbub > 0:
@@ -482,19 +489,6 @@ def compute_current(fes: FESpace, ctx: Dict, phi, a_mode: str = "exact"):
     return J
 
 
-def _sharded_ported(opts: SolveOptions, use_cmfd: bool = False) -> None:
-    """Raise for what the multi-device solve does not run yet (ROADMAP queue
-    4 item 1): CMFD, Anderson, the Jacobi sweep, BiCGSTAB and the dense
-    direct solve under a sharding scope."""
-    missing = [what for what, on in (
-        ("CMFD", use_cmfd), ("accel='anderson'", opts.accel == "anderson"),
-        ("sweep='jacobi'", opts.sweep == "jacobi"),
-        (f"inner_solver={opts.inner_solver!r}", opts.inner_solver != "cg")) if on]
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)} under a sharding scope is not ported "
-                                  "(ROADMAP queue 4 item 1)")
-
-
 def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, keff0,
                     adjoint: bool = False, fixed_keff=None):
     """Run the accelerated power iteration.  Returns a result dict.
@@ -512,9 +506,6 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
     use_cmfd = opts.use_cmfd and not adjoint
     if use_cmfd and opts.cmfd_mode not in ("fixed", "wielandt"):
         raise ValueError(f"unknown cmfd_mode {opts.cmfd_mode!r}")
-    sharded = current_sharding() is not None
-    if sharded:
-        _sharded_ported(opts, use_cmfd)
 
     phi = phi_to_internal(phi0)
     dtype, device = phi.dtype, phi.device
@@ -633,9 +624,7 @@ def power_iteration(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0, 
         inner_tot += inner_iters
 
     J = compute_current(fes, ctx, phi, a_mode=opts.a_mode)
-    finite = torch.isfinite(keff) & torch.all(torch.isfinite(phi))
-    if sharded:
-        finite = allsum((~finite).to(dtype)) == 0
+    finite = all_ranks(torch.isfinite(keff) & torch.all(torch.isfinite(phi)))
     return {
         "keff": keff,
         "phi": phi_to_public(phi),
@@ -656,7 +645,7 @@ def biorthogonal_inner(ctx, phi, phi_adj):
     """<phi, phi_adj>_M with the Legendre mass weights (NeutFEM.cpp:2020-2066):
     sum_g sum_{e,p} phi phi_adj detJ_e w_mode_p, on public (ng, nz, ny, nx, P)
     fluxes."""
-    return torch.sum(phi * phi_adj * ctx["detJ"][..., None] * ctx["w_mode"])
+    return allsum(torch.sum(phi * phi_adj * ctx["detJ"][..., None] * ctx["w_mode"]))
 
 
 def fixed_source_solve(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0,
@@ -668,10 +657,8 @@ def fixed_source_solve(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi
     source problem, still iterated to converge upscatter through the
     Gauss-Seidel sweep.  One host read per outer (the stop test), as in
     ``power_iteration``; the adaptive inner tolerance and its endgame guard
-    are the same."""
-    if current_sharding() is not None:
-        raise NotImplementedError("fixed-source solves under a sharding scope are not ported "
-                                  "(ROADMAP queue 4 item 1)")
+    are the same.  Under a sharding scope its two sums and ``finite`` are
+    all-reduced, as in ``power_iteration``."""
     phi = phi_to_internal(phi0)
     dtype, device = phi.dtype, phi.device
     if device.type == "cuda":
@@ -707,19 +694,19 @@ def fixed_source_solve(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi
             res = group_solve(fes, ctx_group(ctx, g), opts, rhs, x0, tol=tol_g)
             phi[g] = res.x
             inner_tot += res.iterations
-        num = torch.sum((phi - phi_old) ** 2)
-        den = torch.sum(phi * phi)
+        num, den = allsum(torch.sum((phi - phi_old) ** 2), torch.sum(phi * phi))
         diff = torch.sqrt(num / torch.where(den == 0, 1.0, den))
         it += 1
 
     J = compute_current(fes, ctx, phi, a_mode=opts.a_mode)
+    finite = all_ranks(torch.all(torch.isfinite(phi)))
     return {
         "phi": phi_to_public(phi),
         "J": J_to_public(J),
         "outer_iterations": it,
         "inner_iterations": inner_tot,
         "diff_flux": diff,
-        "finite": torch.all(torch.isfinite(phi)),
+        "finite": finite,
     }
 
 
@@ -731,8 +718,8 @@ def solve_subcritical(fes: FESpace, ng: int, opts: SolveOptions, ctx: Dict, phi0
     ``outer_iterations_no_fission``."""
     res_f = fixed_source_solve(fes, ng, opts, ctx, phi0, with_fission=True, keff=keff)
     res_0 = fixed_source_solve(fes, ng, opts, ctx, phi0, with_fission=False)
-    n_f = torch.sqrt(torch.sum(res_f["phi"] ** 2))
-    n_0 = torch.sqrt(torch.sum(res_0["phi"] ** 2))
+    sq_f, sq_0 = allsum(torch.sum(res_f["phi"] ** 2), torch.sum(res_0["phi"] ** 2))
+    n_f, n_0 = torch.sqrt(sq_f), torch.sqrt(sq_0)
     return {**res_f, "amplification": n_f / torch.where(n_0 == 0, 1.0, n_0),
             "phi_no_fission": res_0["phi"],
             "outer_iterations_no_fission": res_0["outer_iterations"]}

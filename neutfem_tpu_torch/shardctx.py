@@ -34,7 +34,8 @@ import torch
 
 from .ops import launch_counter
 
-__all__ = ["sharding_scope", "current_sharding", "Transport", "allsum", "COMM"]
+__all__ = ["sharding_scope", "no_sharding", "current_sharding", "cut_transport", "Transport",
+           "allsum", "all_ranks", "halo", "seam_faces", "gather_slabs", "take_slab", "COMM"]
 
 _CURRENT: Optional[Tuple[object, Dict[int, str]]] = None
 
@@ -57,22 +58,107 @@ def sharding_scope(mesh, axis_map: Dict[int, str]):
         _CURRENT = prev
 
 
+@contextlib.contextmanager
+def no_sharding():
+    """Suspend the active scope: what runs inside is a whole problem on
+    this rank alone, with no collective (``coarse.coarse_init``'s coarse
+    solve)."""
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = None
+    try:
+        yield
+    finally:
+        _CURRENT = prev
+
+
 def current_sharding() -> Optional[Tuple[object, Dict[int, str]]]:
     """(mesh, axis_map) of the active scope, or None."""
     return _CURRENT
 
 
+def cut_transport(grid_axis: int) -> Optional["Transport"]:
+    """The transport of the mesh axis that cuts spatial grid axis
+    ``grid_axis`` (0=nz, 1=ny, 2=nx) under the active scope, or None (no
+    scope, or that axis is not cut)."""
+    if _CURRENT is None or grid_axis not in _CURRENT[1]:
+        return None
+    mesh, amap = _CURRENT
+    return mesh.axes[amap[grid_axis]]
+
+
 def allsum(*ts):
-    """The sums over every rank of the local sums ``ts`` (0-d tensors): the
-    tensors themselves with no scope active, else one all-reduce over the
-    mesh's world for all of them.  Returns a tensor for one argument, a
-    tuple for several."""
+    """The sums over every rank of the local sums ``ts``: the tensors
+    themselves with no scope active, else one all-reduce over the mesh's
+    world for all of them (0-d tensors stacked, others packed flat).
+    Returns a tensor for one argument, a tuple for several."""
     if _CURRENT is None:
         return ts[0] if len(ts) == 1 else ts
     world = _CURRENT[0].world
     if len(ts) == 1:
         return world.all_sum(ts[0])
-    return tuple(world.all_sum(torch.stack(ts)).unbind())
+    if all(t.dim() == 0 for t in ts):
+        return tuple(world.all_sum(torch.stack(ts)).unbind())
+    flat = world.all_sum(torch.cat([t.reshape(-1) for t in ts]))
+    return tuple(part.reshape(t.shape) for part, t in zip(flat.split([t.numel() for t in ts]),
+                                                           ts))
+
+
+def all_ranks(flag):
+    """A 0-d bool tensor that holds on every rank iff ``flag`` holds on every
+    rank (one all-reduce under a scope; ``flag`` itself otherwise), so every
+    rank takes the same branch on it."""
+    if _CURRENT is None:
+        return flag
+    return allsum((~flag).to(torch.float32)) == 0
+
+
+def halo(x, ax: int, tr: "Transport"):
+    """(lo, hi): the previous rank's last plane and the next rank's first
+    plane of ``x`` along tensor axis ``ax`` (a cut axis, ``tr`` its
+    transport), zeros at the domain's ends; two point-to-point exchanges."""
+    n = x.shape[ax]
+    return tr.shift(x.narrow(ax, n - 1, 1), +1), tr.shift(x.narrow(ax, 0, 1), -1)
+
+
+def seam_faces(body, seam, ax: int, tr: "Transport"):
+    """The s+1 faces of a rank's slab of a face array split into body and
+    seam (``parallel.shard_context``): its s body faces along tensor axis
+    ``ax``, then the face that closes the slab — the next rank's first body
+    face (one plane sent), or on the last rank the seam face."""
+    nxt = tr.shift(body.narrow(ax, 0, 1), -1)
+    return torch.cat([body, seam if tr.rank == tr.size - 1 else nxt], dim=ax)
+
+
+def gather_slabs(x, mesh, amap: Dict[int, str], base: int, face_axis: Optional[int] = None):
+    """The whole problem's array from every rank's slab ``x`` (one
+    all-gather over the world), on every rank: its spatial (nz, ny, nx)
+    dims start at ``base``; ``face_axis``: the grid axis along which ``x``
+    holds the s+1 faces of its slab (the slab's last face is the next one's
+    first)."""
+    g = mesh.world.all_gather(x)
+    ga_of = {nm: ga for ga, nm in amap.items()}
+
+    def join(ranks, level):
+        if level == len(mesh.axis_names):
+            return g[int(ranks)]
+        ga = ga_of[mesh.axis_names[level]]
+        parts = [join(ranks[i], level + 1) for i in range(ranks.shape[0])]
+        if ga == face_axis:
+            s = parts[0].shape[base + ga] - 1
+            parts = [p.narrow(base + ga, 0, s) for p in parts[:-1]] + parts[-1:]
+        return torch.cat(parts, dim=base + ga)
+
+    return join(mesh.dmesh.mesh, 0)
+
+
+def take_slab(x, mesh, amap: Dict[int, str], base: int):
+    """This rank's even slab of a whole problem's cell array ``x`` (spatial
+    dims from ``base``), contiguous."""
+    for ga, nm in amap.items():
+        s = x.shape[base + ga] // mesh.sizes[nm]
+        x = x.narrow(base + ga, mesh.coords[nm] * s, s)
+    return x.contiguous()
 
 
 class Transport:

@@ -7,7 +7,8 @@ of the same function, on the card, at a small shape; the last tests hold the CG'
 captured blocks (``krylov.CGGraph``) against the eager block loop on the card, then
 the facade's paths on the card: the Anderson solve against the CPU, a zero
 right-hand side through a captured CG, and the plans of a context that ``set_bc``
-replaced freed with it.  They need a CUDA device and skip without one (the decision is made
+replaced freed with it; last the NCCL world of one: the sharded solve, and the
+sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
 
@@ -1408,6 +1409,56 @@ def test_sharded_graph_equals_eager_under_nccl(nccl_mesh):
                            block=krylov.BLOCK_ITERS, **plan.kwargs())
     assert got.iterations == want.iterations > 3
     assert torch.equal(got.x, want.x * plan.sdi)
+
+
+@pytest.mark.parametrize("variant", ["bicgstab", "jacobi_sweep"])
+def test_sharded_variant_graph_equals_eager_under_nccl(nccl_mesh, variant):
+    """BiCGSTAB (one group, float64) and the Jacobi sweep's batched CG
+    (every group, float32) under the NCCL scope: the captured graph, with its
+    collectives and the partitioned solve inside, gives the eager block
+    loop's bits and count, and each replay adds its capture's counts (the
+    collectives and the partitioned-solve applications of a solve equal the
+    eager loop's, block for block)."""
+    from neutfem_tpu_torch import krylov, parallel, shardctx
+    from neutfem_tpu_torch.ops import parttri
+    from neutfem_tpu_torch.power import SolveOptions, _fission_source, ctx_group, group_plan, \
+        group_solve
+    from neutfem_tpu_torch.shardctx import sharding_scope
+
+    dtype = torch.float64 if variant == "bicgstab" else torch.float32
+    fes, ng, ctx, _ = _sharded_problem(nccl_mesh, dtype)
+    ctx[krylov.CG_PLANS] = krylov.CGPlans()
+    opts = SolveOptions(inner_tol=1e-6, inner_solver="bicgstab" if variant == "bicgstab"
+                        else "cg", sweep="jacobi" if variant == "jacobi_sweep" else "gs")
+    phi = torch.ones((ng, 1, 16, 12, 8), dtype=dtype, device="cuda")  # one rank: all
+    with sharding_scope(nccl_mesh, {0: parallel.SPATIAL_AXIS}):
+        fiss = _fission_source(ctx, phi)
+        if variant == "jacobi_sweep":
+            ctxg, rhs = ctx, ctx["chi"].unsqueeze(-4) * fiss
+        else:
+            ctxg, rhs = ctx_group(ctx, 0), ctx["chi"][0] * fiss
+        x0 = torch.zeros_like(rhs)
+        group_solve(fes, ctxg, opts, rhs, x0)  # the capture
+
+        def counts():
+            return shardctx.COMM["collectives"], parttri.LAUNCHES["parttri"]
+
+        krylov.reset_stats()
+        c0 = counts()
+        got = group_solve(fes, ctxg, opts, rhs, x0)
+        c1 = counts()
+        assert krylov.STATS["replays"] >= 1 and krylov.STATS["captures"] == 0
+        assert krylov.STATS["eager_solves"] == 0
+        plan = group_plan(fes, ctxg, opts, rhs)
+        want = plan.blocks(plan.matvec, rhs * plan.sdi, x0 / plan.sdi, precond=plan.precond,
+                           tol=opts.inner_tol, maxiter=opts.max_inner,
+                           block=krylov.BLOCK_ITERS, **plan.kwargs())
+        c2 = counts()
+    assert got.iterations == want.iterations > 3
+    assert torch.equal(got.x, want.x * plan.sdi)
+    graph_counts = (c1[0] - c0[0], c1[1] - c0[1])
+    assert graph_counts == (c2[0] - c1[0], c2[1] - c1[1])
+    assert graph_counts[0] > 0 and graph_counts[1] >= got.iterations
 
 
 def test_transport_refuses_what_was_not_asked(nccl_mesh):

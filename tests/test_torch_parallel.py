@@ -165,4 +165,4 @@ def test_not_ported_under_a_scope_raises(runs, name):
     ranks, _ = runs
     for r in ranks["2b"]:
         assert r["declines"][name].startswith("NotImplementedError"), r["declines"][name]
-        assert "ROADMAP queue 4" in r["declines"][name]
+        assert "ROADMAP queue 4 item 2" in r["declines"][name]

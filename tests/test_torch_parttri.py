@@ -8,8 +8,9 @@ cases):
   against the JAX package's global solve;
 * ``partitioned_schur_dir`` (4 ranks, z cut) against the port's own unfused
   chain (``_face_rhs`` -> ``solve_A_dir`` -> ``_face_out``) to 1e-12 at RT0
-  (``BX[:2]``) and condensed RT1 (``BXc``), with the partitioned path's
-  application count; and, as the reference side, the JAX function on the
+  (``BX[:2]``) and condensed RT1 (``BXc``), on both groups at once (the
+  Jacobi sweep's group-batched bundle) and under the diagonal A (the
+  elementwise cut solve), with the partitioned path's application count; and, as the reference side, the JAX function on the
   8-device virtual mesh of ``tests/conftest.py`` against the JAX unfused
   chain, with its ``_segments_solve`` calls counted.
 """
@@ -102,17 +103,22 @@ SOLVES = ("free", "pinned", "batched")
 
 
 def _schur_data():
+    """name -> (data, v, the case's options): RT0 and condensed RT1 on one
+    group, RT0 on both groups at once with the context not group-sliced (the
+    Jacobi sweep's group-batched bundle), and RT0 under the diagonal A."""
     rng = np.random.default_rng(5)
     rt0, rt1 = dc.core3d(16, 6, 5), dc.core3d(16, 4, 4, k=1)
-    return {"rt0": (rt0, rng.standard_normal((1, 16, 6, 5))),
-            "rt1": (rt1, rng.standard_normal((8, 16, 4, 4)))}
+    return {"rt0": (rt0, rng.standard_normal((1, 16, 6, 5)), {}),
+            "rt1": (rt1, rng.standard_normal((8, 16, 4, 4)), {}),
+            "rt0_batched": (rt0, rng.standard_normal((2, 1, 16, 6, 5)), {"batched": True}),
+            "rt0_diag": (rt0, rng.standard_normal((1, 16, 6, 5)), {"a_mode": "diag"})}
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parttri")
     cases = [{"name": nm, "solve": (*_factors(nm), _rhs(nm))} for nm in SOLVES]
-    cases += [{"name": nm, "schur": data, "v": v} for nm, (data, v) in _schur_data().items()]
+    cases += [dict(kw, name=nm, schur=data, v=v) for nm, (data, v, kw) in _schur_data().items()]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         four = pool.submit(dc.spawn_world, P_RANKS, "parttri_cases", cases, tmp / "four", 240.0)
         one = pool.submit(dc.spawn_world, 1, "parttri_cases",
@@ -131,18 +137,20 @@ def test_partitioned_solve_on_ranks_matches_jax_global(ranks, name):
     np.testing.assert_allclose(x, want, rtol=5e-11, atol=5e-11)
 
 
-def _port_unfused(data, v, key="d2"):
-    """The port's unfused chain of the z direction, group 0, unsharded."""
+def _port_unfused(data, v, key="d2", batched=False, a_mode="exact"):
+    """The port's unfused chain of the z direction, unsharded: group 0, or
+    every group at once (``batched``)."""
     from neutfem_tpu_torch.ops.apply import _face_out, _face_rhs, dir_factors, solve_A_dir
     from neutfem_tpu_torch.ops.context import build_context
     from neutfem_tpu_torch.power import ctx_group
 
     fes, ng, xs, bcs = dc.port_problem(data)
-    ctxg = ctx_group(build_context(fes, ng, xs, bcs, "cpu", torch.float64), 0)
+    ctx = build_context(fes, ng, xs, bcs, "cpu", torch.float64, a_mode=a_mode)
+    ctxg = ctx if batched else ctx_group(ctx, 0)
     di = next(d for d in fes.dirs if d.axis == 0)
     BXt = di.BXc if fes.et.nbub else di.BX[:2]
     vt = torch.as_tensor(v)
-    F, _ = solve_A_dir(fes, di, rF=_face_rhs(di, vt, BXt), rW=None, a_mode="exact",
+    F, _ = solve_A_dir(fes, di, rF=_face_rhs(di, vt, BXt), rW=None, a_mode=a_mode,
                        **dir_factors(ctxg, key))
     return _face_out(di, F, BXt).numpy()
 
@@ -151,14 +159,16 @@ def _rel(got, want):
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
-@pytest.mark.parametrize("order", ["rt0", "rt1"])
+@pytest.mark.parametrize("order", ["rt0", "rt1", "rt0_batched", "rt0_diag"])
 def test_partitioned_schur_dir_matches_unfused_chain(ranks, order):
     """ADVICE.md's missing test, the port's side: the partitioned cut-axis
     direction equals the unfused chain, and the partitioned path ran (one
-    application on every rank)."""
+    application on every rank); also on both groups at once (the bundle
+    with its group axis) and under the diagonal A (the elementwise cut
+    solve)."""
     four, _ = ranks
-    data, v = _schur_data()[order]
-    want = _port_unfused(data, v)
+    data, v, kw = _schur_data()[order]
+    want = _port_unfused(data, v, **kw)
     for r in four:
         got, count = r[order]
         assert count == 1
@@ -181,7 +191,7 @@ def test_jax_partitioned_schur_dir_matches_its_unfused_chain(ranks, order, monke
     from neutfem_tpu.parallel import device_mesh, shard_context
     from neutfem_tpu.power import ctx_group
 
-    data, v = _schur_data()[order]
+    data, v, _ = _schur_data()[order]
     breaks, k, m, xs, dim = data
     fes = make_fespace(CartesianMesh.from_breaks(*breaks), k, m)
     bcs = BCSpec()

@@ -1,5 +1,5 @@
 """Ranks of the port's multi-device CPU tests (``test_torch_parallel.py``,
-``test_torch_parttri.py``).
+``test_torch_parttri.py``, ``test_torch_parallel_variants.py``).
 
 ``spawn_world`` starts one process per rank (the spawn start method, a
 ``file://`` rendezvous in the test's temporary directory, gloo), runs one of
@@ -52,9 +52,44 @@ def _xs(fuel, ng):
     return xs
 
 
-def port_problem(data, periodic=()):
+def source2d(nx=8, ny=8):
+    """``het2d``'s core made subcritical (nu-Sigma_f x 0.5) with a unit fast
+    source in the fuel: the fixed-source and subcritical solves' data."""
+    breaks, k, m, xs, dim = het2d(nx, ny)
+    xs = dict(xs, NSF=0.5 * xs["NSF"], SRC=xs["SRC"].copy())
+    xs["SRC"][0] = np.where(xs["NSF"][1] > 0, 1.0, 0.0)
+    return breaks, k, m, xs, dim
+
+
+def random2d(nx=6, ny=4, seed=4):
+    """A random 2-group 2D problem (``chip_smoke.py``'s CMFD "wielandt"
+    recipe, where the low-order eigensolve converges), unit-ish cells."""
+    rng = np.random.default_rng(seed)
+    shape = (1, ny, nx)
+    breaks = tuple(np.concatenate([[0.0], np.cumsum(rng.uniform(0.8, 1.4, n))])
+                   for n in (nx, ny))
+    xs = {"D": rng.uniform(0.3, 2.0, (2, *shape)), "SigR": rng.uniform(0.01, 0.2, (2, *shape)),
+          "NSF": rng.uniform(0.0, 0.2, (2, *shape)), "Chi": np.zeros((2, *shape)),
+          "SigS": np.zeros((2, 2, *shape)), "SRC": np.zeros((2, *shape))}
+    xs["Chi"][0] = 1.0
+    xs["SigS"][1, 0] = rng.uniform(0.01, 0.03, shape)
+    return breaks, 0, 0, xs, 2
+
+
+def bc_kinds(dim, periodic=(), faces=None):
+    """{(axis (0 = x), upper end): (kind name, value)}: DIRICHLET, PERIODIC
+    on the axes in ``periodic``, then ``faces`` on top; the same spec builds
+    both packages' boundary conditions."""
+    out = {(ax, up): ("PERIODIC" if ax in periodic else "DIRICHLET", 0.0)
+           for ax in range(dim) for up in (False, True)}
+    out.update(faces or {})
+    return out
+
+
+def port_problem(data, periodic=(), faces=None):
     """(fes, ng, xs, bcs) of the port from ``het2d`` / ``core3d`` data; the
-    axes in ``periodic`` (0 = x) get PERIODIC faces."""
+    axes in ``periodic`` (0 = x) get PERIODIC faces, ``faces`` as in
+    ``bc_kinds``."""
     from neutfem_tpu_torch.bc import BCKind, BCSpec
     from neutfem_tpu_torch.fespace import make_fespace
     from neutfem_tpu_torch.mesh import CartesianMesh, boundary_attribute
@@ -62,10 +97,8 @@ def port_problem(data, periodic=()):
     breaks, k, m, xs, dim = data
     fes = make_fespace(CartesianMesh.from_breaks(*breaks), k, m)
     bcs = BCSpec()
-    for ax in range(dim):
-        for up in (False, True):
-            bcs.set(boundary_attribute(dim, ax, up),
-                    BCKind.PERIODIC if ax in periodic else BCKind.DIRICHLET)
+    for (ax, up), (kind, value) in bc_kinds(dim, periodic, faces).items():
+        bcs.set(boundary_attribute(dim, ax, up), BCKind[kind], value)
     return fes, 2, xs, bcs
 
 
@@ -168,38 +201,24 @@ def unsharded_cases(rank, world, init, cases):
     return out
 
 
-#: What the multi-device solve does not run yet, each raising
-#: NotImplementedError on every rank before any collective.
-DECLINES = ("periodic_cut", "indivisible", "thin_segments", "parttri_off", "diag", "cmfd",
-            "anderson", "jacobi_sweep", "bicgstab", "fixed_source", "coarse_init")
+#: What the multi-device solve does not run yet (ROADMAP queue 4 item 2),
+#: each raising NotImplementedError on every rank before any collective.
+DECLINES = ("periodic_cut", "indivisible", "thin_segments", "parttri_off")
 
 
 def _declines(mesh):
     """{decline: the exception each raised ("" if none)} on a 1D y-cut."""
-    import dataclasses
-
     import torch
 
-    from neutfem_tpu_torch import coarse, parallel, power
+    from neutfem_tpu_torch import parallel
     from neutfem_tpu_torch.ops.context import build_host_context
-    from neutfem_tpu_torch.shardctx import sharding_scope
 
-    opts = power.SolveOptions(max_outer=3)
-    fes, ng, xs, bcs = port_problem(het2d(8, 8))
-    host = build_host_context(fes, ng, xs, bcs)
-    ctx = parallel.shard_context(host, mesh, fes, 1, device="cpu", dtype=torch.float64)
-    phi = parallel.shard_state(torch.ones((ng, *fes.mesh.shape, 1), dtype=torch.float64),
-                               mesh, 1)
     p = mesh.sizes[parallel.SPATIAL_AXIS]
 
-    def shard(data, periodic=(), a_mode="exact"):
+    def shard(data, periodic=()):
         f, g, x, b = port_problem(data, periodic)
-        return parallel.shard_context(build_host_context(f, g, x, b, a_mode=a_mode), mesh, f,
-                                      1, device="cpu", dtype=torch.float64)
-
-    def solve(**kw):
-        with sharding_scope(mesh, {1: parallel.SPATIAL_AXIS}):
-            power.power_iteration(fes, ng, dataclasses.replace(opts, **kw), ctx, phi, 1.0)
+        return parallel.shard_context(build_host_context(f, g, x, b), mesh, f, 1, device="cpu",
+                                      dtype=torch.float64)
 
     def parttri_off():
         os.environ["NEUTFEM_PARTTRI"] = "0"
@@ -208,26 +227,11 @@ def _declines(mesh):
         finally:
             del os.environ["NEUTFEM_PARTTRI"]
 
-    def fixed_source():
-        with sharding_scope(mesh, {1: parallel.SPATIAL_AXIS}):
-            power.fixed_source_solve(fes, ng, opts, ctx, phi)
-
-    def coarse_init():
-        with sharding_scope(mesh, {1: parallel.SPATIAL_AXIS}):
-            coarse.coarse_init(fes, ng, xs, bcs, (2, 2, 1), opts, "cpu", torch.float64)
-
     calls = {
         "periodic_cut": lambda: shard(het2d(8, 8), periodic=(1,)),
         "indivisible": lambda: shard(het2d(8, 4 * p + 1)),
         "thin_segments": lambda: shard(het2d(8, p)),
         "parttri_off": parttri_off,
-        "diag": lambda: shard(het2d(8, 8), a_mode="diag"),
-        "cmfd": lambda: solve(use_cmfd=True),
-        "anderson": lambda: solve(accel="anderson"),
-        "jacobi_sweep": lambda: solve(sweep="jacobi"),
-        "bicgstab": lambda: solve(inner_solver="bicgstab"),
-        "fixed_source": fixed_source,
-        "coarse_init": coarse_init,
     }
     out = {}
     for name in DECLINES:
@@ -239,13 +243,127 @@ def _declines(mesh):
     return out
 
 
+def _variant_problem(case, device):
+    """(fes, ng, xs, bcs, the whole problem's host context) of a variant
+    case; with "direct" the host context carries the dense Schur factors
+    (``ops/direct.attach_dense_schur`` on the whole problem)."""
+    import torch
+
+    from neutfem_tpu_torch.ops.context import build_host_context, context_to_device
+    from neutfem_tpu_torch.ops.direct import attach_dense_schur
+
+    fes, ng, xs, bcs = port_problem(case["data"], case.get("periodic", ()), case.get("faces"))
+    host = build_host_context(fes, ng, xs, bcs, a_mode=case.get("a_mode", "exact"))
+    if case.get("direct"):
+        whole = context_to_device(*host, fes.P, device, torch.float64)
+        attach_dense_schur(fes, whole, case.get("a_mode", "exact"))
+        host[0].update({k: whole[k].cpu().numpy() for k in ("schur_chol", "schur_sdi")})
+    return fes, ng, xs, bcs, host
+
+
+def run_variant(case, fes, ng, xs, bcs, ctx, phi0, device):
+    """One variant case on ``ctx`` / ``phi0`` (a rank's slab under the
+    caller's sharding scope, or the whole problem): "run" is "power"
+    (``power_iteration`` with ``case["opts"]``), "fixed_source",
+    "subcritical" or "coarse" (``coarse_init`` with ``case["factors"]``,
+    then the power iteration from its flux and k).  Returns the result dict
+    (its k for "coarse" the fine solve's, the coarse one as "k_coarse")."""
+    import torch
+
+    from neutfem_tpu_torch import coarse, power
+
+    opts = power.SolveOptions(**case["opts"])
+    run = case.get("run", "power")
+    if run == "fixed_source":
+        return power.fixed_source_solve(fes, ng, opts, ctx, phi0,
+                                        with_fission=case.get("with_fission", True),
+                                        keff=case.get("keff", 1.0))
+    if run == "subcritical":
+        return power.solve_subcritical(fes, ng, opts, ctx, phi0, keff=case.get("keff", 1.0))
+    if run == "coarse":
+        k_c, phi_c = coarse.coarse_init(fes, ng, xs, bcs, case["factors"], opts, device,
+                                        torch.float64)
+        res = power.power_iteration(fes, ng, opts, ctx, phi_c, float(k_c))
+        return dict(res, k_coarse=float(k_c), phi_coarse=phi_c)
+    return power.power_iteration(fes, ng, opts, ctx, phi0, 1.0)
+
+
+def _summary(res, phi, rank):
+    """The observables of a variant's result: k (or None), counts, history,
+    finite, M, and the gathered flux on rank 0."""
+    hist = res.get("history")
+    return {"keff": float(res["keff"]) if "keff" in res else None,
+            "k_coarse": res.get("k_coarse"), "outers": res["outer_iterations"],
+            "inners": res["inner_iterations"],
+            "history": None if hist is None else hist.numpy(),
+            "finite": bool(res["finite"]),
+            "amplification": (float(res["amplification"]) if "amplification" in res
+                              else None),
+            "phi": phi.numpy() if rank == 0 else None}
+
+
+def variant_cases(rank, world, init, cases):
+    """Each case (``run_variant``'s, with "grid_axis" and the mesh "shape"):
+    the rank's slab of the whole problem's context and flat flux, the
+    variant under a sharding scope, its observables (``_summary``) with the
+    gathered flux, the coarse flux for "coarse", the partitioned-solve
+    applications and the collectives of the run."""
+    import torch
+
+    from neutfem_tpu_torch import parallel, shardctx
+    from neutfem_tpu_torch.ops import parttri
+
+    out, meshes = {}, {}
+    for case in cases:
+        shape = case.get("shape")
+        if shape not in meshes:
+            meshes[shape] = _mesh(rank, world, init, shape)
+        mesh, ga = meshes[shape], case["grid_axis"]
+        fes, ng, xs, bcs, host = _variant_problem(case, "cpu")
+        ctx = parallel.shard_context(host, mesh, fes, ga, device="cpu", dtype=torch.float64)
+        phi0 = parallel.shard_state(torch.ones((ng, *fes.mesh.shape, fes.P),
+                                               dtype=torch.float64), mesh, ga)
+        before = (parttri.LAUNCHES["parttri"], shardctx.COMM["collectives"])
+        with shardctx.sharding_scope(mesh, parallel._axis_map(mesh, ga)):
+            res = run_variant(case, fes, ng, xs, bcs, ctx, phi0, "cpu")
+        counts = (parttri.LAUNCHES["parttri"] - before[0],
+                  shardctx.COMM["collectives"] - before[1])
+        got = _summary(res, parallel.gather_state(res["phi"], mesh, ga), rank)
+        if "phi_coarse" in res:
+            whole = parallel.gather_state(res["phi_coarse"], mesh, ga)
+            got["phi_coarse"] = whole.numpy() if rank == 0 else None
+        got["parttri"], got["collectives"] = counts
+        out[case["name"]] = got
+    return out
+
+
+def variant_unsharded(rank, world, init, cases):
+    """The port's single-device run of each variant case (``_summary``)."""
+    import torch
+
+    from neutfem_tpu_torch.ops.context import context_to_device
+
+    out = {}
+    for case in cases:
+        fes, ng, xs, bcs, host = _variant_problem(case, "cpu")
+        ctx = context_to_device(*host, fes.P, "cpu", torch.float64)
+        phi0 = torch.ones((ng, *fes.mesh.shape, fes.P), dtype=torch.float64)
+        res = run_variant(case, fes, ng, xs, bcs, ctx, phi0, "cpu")
+        out[case["name"]] = _summary(res, res["phi"], rank)
+        if "phi_coarse" in res:
+            out[case["name"]]["phi_coarse"] = res["phi_coarse"].numpy()
+    return out
+
+
 def parttri_cases(rank, world, init, cases):
     """The partitioned solve and ``partitioned_schur_dir`` on one rank.
     Case {"name", "solve": (dinv, l, rhs)}: the global LDL^T factors (face
     axis 1) and a rhs (face axis 2): the rank's body and seam solutions.
     Case {"name", "schur": data, "v": v (P, nz, ny, nx)}: the z-cut
     direction's contribution of the rank's slab of v, group 0, gathered, with
-    the partitioned-path applications counted."""
+    the partitioned-path applications counted; with "batched" v is (ng, P,
+    nz, ny, nx) and the context not group-sliced (the Jacobi sweep's), with
+    "a_mode" the context's A-solve ("diag": the elementwise cut solve)."""
     import torch
 
     from neutfem_tpu_torch import parallel
@@ -275,9 +393,10 @@ def parttri_cases(rank, world, init, cases):
             out[case["name"]] = (x.numpy(), x_seam.numpy())
             continue
         fes, ng, xs, bcs = port_problem(case["schur"])
-        ctx = parallel.shard_context(build_host_context(fes, ng, xs, bcs), mesh, fes, 0,
-                                     device="cpu", dtype=torch.float64)
-        ctxg = ctx_group(ctx, 0)
+        ctx = parallel.shard_context(build_host_context(fes, ng, xs, bcs,
+                                                        a_mode=case.get("a_mode", "exact")),
+                                     mesh, fes, 0, device="cpu", dtype=torch.float64)
+        ctxg = ctx if case.get("batched") else ctx_group(ctx, 0)
         di = next(d for d in fes.dirs if d.axis == 0)
         v = torch.as_tensor(case["v"])
         s = v.shape[-3] // tr.size
