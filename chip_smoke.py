@@ -177,10 +177,29 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    the same on both ranks): IAEA-3D 1x1x2 z cut; CMFD (three outers),
    BiCGSTAB and DIRECT_LLT on IAEA-2D 2x2 and CMFD "wielandt" on 6x4 cells,
    each a y cut (``V17B``).
+18. the scan cut-axis solve (``ops/parttri.tridiag_solve_scan``: where the
+   JAX package takes its associative scan), each path with its own counts:
+   (a) the NCCL world of one, IAEA-3D 6x6x4 RT0-P0 float32 at
+   ``bench.FULL_TOL``, a z and a y cut under ``NEUTFEM_PARTTRI=0`` beside
+   the partitioned cut in this call, each on [5]'s anchors with its
+   ms/outer: the scan applied at least once a CG iteration and the
+   partitioned solve not at all (and the reverse on the partitioned path),
+   the uncut directions' kernels (K1-K3) every CG iteration, the CG
+   replaying its graphs; (b) a PERIODIC cut direction, y cut, at
+   ``bench.SWEEP_TOL``: IAEA-3D 6x6x4 with [15b]'s lateral faces PERIODIC
+   within SHARD_KEFF_TOL of its unsharded run and VARIANT_PAIR_TOL of the
+   MIRROR quadrant, KOEBERG 32x32 y PERIODIC within VARIANT_PAIR_TOL of
+   [15g]'s half core; (c) two gloo ranks sharing the card, float64, each
+   case against the unsharded run on the CPU (|dk| <= 1e-9, the same
+   outers, flux rel 1e-9, k, counts and history the same on both ranks):
+   one y cell a rank (a random 6x2 core), IAEA-2D 2x2 y PERIODIC, IAEA-3D
+   1x1x2 z cut under ``NEUTFEM_PARTTRI=0`` (``V18C``).  The scan runs no
+   kernel of its own (the JAX package's is XLA, no Pallas kernel): [18]
+   adds no kernel row.
 
 ``python3 chip_smoke.py --phase 15`` runs [1], [2] and [15] alone and prints
 the kernel rows of [15] but no result line; ``--phase 16`` and ``--phase 17``
-likewise for [16] and [17].
+likewise for [16] and [17]; ``--phase 18`` runs [1], [2] and [18] alone.
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
@@ -1615,7 +1634,7 @@ def _variant_paths(bench, dev, card, reset_counts, counts, rows):
         if not (abs(vg - vc) <= 1e-9 * max(1.0, abs(vc)) and og == oc and frel <= 1e-9):
             raise RuntimeError(f"IAEA-3D 1x1 {row}: the card disagrees with the CPU")
     res = {}
-    per_y = {(1, False): (BCType.PERIODIC, 0.0), (1, True): (BCType.PERIODIC, 0.0)}
+    per_y = _per_y()
     for device in ("cpu", "cuda"):
         r = bench.BenchmarkRun(data.BENCHMARKS["koeberg2d"], 4, device=device, dtype=f64,
                                bc=per_y)
@@ -2528,6 +2547,254 @@ def _sharded_variants(bench, dev, card, rows):
           f"{time.perf_counter() - t_all:.1f} s")
 
 
+# [18] the scan cut-axis solve (``ops/parttri.tridiag_solve_scan``): the cut
+# directions where the JAX package takes its associative scan.  [18c]'s
+# problems: a small random core with an axis of 2 cells (s = 1 needs p = n;
+# no benchmark core has such an axis), IAEA-2D 2x2 with y PERIODIC, IAEA-3D
+# 1x1x2 under NEUTFEM_PARTTRI=0 (name -> (problem, cut grid axis, env))
+V18C = {"one cell a rank": ("random", 1, {}),
+        "periodic y": ("iaea2d periodic y", 1, {}),
+        "parttri=0": ("1x1x2", 0, {"NEUTFEM_PARTTRI": "0"})}
+V18C_TOL = (1e-9, 1e-8, 1e-11, 200, 1000)  # the random core's: tight, float64
+
+
+def _per_y():
+    from neutfem_tpu_torch.compat import BCType
+
+    return {(1, False): (BCType.PERIODIC, 0.0), (1, True): (BCType.PERIODIC, 0.0)}
+
+
+def _v18_random():
+    """[18c]'s one-cell problem: [15f]'s random 2-group recipe on 6x2 cells
+    (the y axis of 2 cells: one a rank of two), vacuum faces; a facade-like
+    holder as ``_v17_wielandt_facade``'s."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch.bc import BCKind, BCSpec
+    from neutfem_tpu_torch.fespace import make_fespace
+    from neutfem_tpu_torch.mesh import CartesianMesh, boundary_attribute
+    from neutfem_tpu_torch.ops.context import build_context
+    from neutfem_tpu_torch.power import SolveOptions
+
+    rng = np.random.default_rng(18)
+    shape = (1, 2, 6)
+    mesh = CartesianMesh.from_breaks(
+        *[np.concatenate([[0.0], np.cumsum(rng.uniform(0.8, 1.4, n))]) for n in (6, 2)])
+    xs = {"D": rng.uniform(0.3, 2.0, (2, *shape)), "SigR": rng.uniform(0.01, 0.2, (2, *shape)),
+          "NSF": rng.uniform(0.0, 0.2, (2, *shape)), "Chi": np.zeros((2, *shape)),
+          "SigS": np.zeros((2, 2, *shape)), "SRC": np.zeros((2, *shape))}
+    xs["Chi"][0] = 1.0
+    xs["SigS"][1, 0] = rng.uniform(0.01, 0.03, shape)
+    bcs = BCSpec()
+    for ax in range(2):
+        for up in (False, True):
+            bcs.set(boundary_attribute(2, ax, up), BCKind.DIRICHLET)
+    fes = make_fespace(mesh, 0, 0)
+    ctx = build_context(fes, 2, xs, bcs, "cpu", torch.float64)
+    opts = SolveOptions(**dict(zip(("tol_keff", "tol_flux", "inner_tol", "max_outer",
+                                    "max_inner"), V18C_TOL)))
+    return types.SimpleNamespace(_fes=fes, _ng=2, _xs=xs, _bcs=bcs,
+                                 _context=lambda a_mode="exact": ctx, _opts=lambda: opts)
+
+
+def _v18c_problem(bench, name):
+    """(facade, host context, cut grid axis, options, env) of a [18c] case,
+    float64 on the CPU."""
+    problem, ga, env = V18C[name]
+    if problem == "random":
+        s = _v18_random()
+    elif problem == "iaea2d periodic y":
+        s = _v17_facade(bench, "iaea2d", V17B_2D, bc=_per_y())
+    else:
+        s = _v17_facade(bench, "iaea3d", V17B_MESH)
+    return s, _v17_host(s), ga, s._opts(), env
+
+
+def _v18c_rank(rank, world, init, args):
+    """A rank of [18c]: gloo between the processes, the card shared (cuda:0),
+    float64; every case of ``V18C`` on the rank's slab (its context sliced
+    under the case's env).  Returns {case: (k, counts, history, the scan
+    and partitioned applications, gathered flux on rank 0)}."""
+    import torch
+    import torch.distributed as dist
+
+    names, device = args
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    from neutfem_tpu_torch import bench, parallel
+
+    dev = torch.device(device)
+    mesh = parallel.device_mesh("gloo", init_method=init, rank=rank, world_size=world)
+    out = {}
+    for name in names:
+        s, host, ga, opts, env = _v18c_problem(bench, name)
+        with bench.env(**env):
+            ctx = parallel.shard_context(host, mesh, s._fes, ga, device=dev, dtype=torch.float64)
+        phi0 = parallel.shard_state(torch.ones((s._ng, *s._fes.mesh.shape, 1),
+                                               dtype=torch.float64), mesh, ga, device=dev)
+        got = _v17_timed("power", s, opts, ctx, phi0, dev, torch.float64,
+                         (mesh, parallel._axis_map(mesh, ga)), warm=False)
+        phi = parallel.gather_state(got["res"]["phi"], mesh, ga)
+        L = got["launches"]
+        out[name] = {"value": got["value"], "outers": got["outers"], "inners": got["inners"],
+                     "history": got["history"], "ms": got["ms"], "scan": L["scan"],
+                     "parttri": L["parttri"], "collectives": L["collectives"],
+                     "phi": phi.cpu().numpy() if rank == 0 else None}
+        dist.barrier()
+    return out
+
+
+def _v18c_cpu(bench, names):
+    """[18c]'s references: every case unsharded on the CPU, float64:
+    {case: (k, outers, flux)}."""
+    import torch
+
+    from neutfem_tpu_torch.ops.context import context_to_device
+
+    cpu, out = torch.device("cpu"), {}
+    for name in names:
+        s, host, _, opts, _ = _v18c_problem(bench, name)
+        ctx = context_to_device(*host, 1, cpu, torch.float64)
+        phi0 = torch.ones((s._ng, *s._fes.mesh.shape, 1), dtype=torch.float64)
+        res = _v17_run("power", s, opts, ctx, phi0, cpu, torch.float64)
+        out[name] = (res["value"], res["outer_iterations"], res["phi"].numpy())
+    return out
+
+
+def _scan_cuts(bench, dev, card):
+    """Phase [18]: the scan cut-axis solve on the card, each path with its
+    own counts (module docstring)."""
+    import concurrent.futures
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch.compat import BCType
+    from neutfem_tpu_torch.ops.context import build_host_context, context_to_device
+
+    f32 = torch.float32
+    t_all = t0 = time.perf_counter()
+    mesh = parallel.device_mesh("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+    data = bench.load_benchmark_data()
+    print(f"[18a] the scan cut under NEUTFEM_PARTTRI=0 beside the partitioned cut, world of one "
+          f"over {mesh.backend}: IAEA-3D 6x6x4 RT0-P0 float32 (bench.FULL_TOL), on [5]'s anchors")
+    run = bench.BenchmarkRun(data.BENCHMARKS["iaea3d"], 6, 4, device="cpu", dtype=f32)
+    s = run.solver
+    s.set_tol(*bench.FULL_TOL)
+    fes, ng, opts = s._fes, s._ng, s._opts()
+    host = build_host_context(fes, ng, s._xs, s._bcs, marshak_d_factor=True)
+    del run
+    flat = torch.ones((ng, *fes.mesh.shape, 1), dtype=f32, device=dev)
+    for ga, cut in ((0, "z"), (1, "y")):
+        scope = (mesh, parallel._axis_map(mesh, ga))
+        got = {}
+        for path, env in (("partitioned", {}), ("scan", {"NEUTFEM_PARTTRI": "0"})):
+            with bench.env(**env):
+                ctx = parallel.shard_context(host, mesh, fes, ga, device=dev, dtype=f32)
+            got[path] = r = _v17_timed("power", s, opts, ctx, parallel.shard_state(flat, mesh, ga),
+                                       dev, f32, scope)
+            del ctx
+            _v17_line(f"{path}, {cut} cut", r, card=card)
+            _check_anchor(f"[18a] {path} {cut} cut", r["value"], r["outers"], r["inners"],
+                          (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
+            cg, L = r["cg"], r["launches"]
+            if cg["replays"] < cg["solves"] or cg["eager_solves"]:
+                raise RuntimeError(f"[18a] {path} {cut} cut: the CG did not replay its graphs")
+            uncut = {"z": ("y_rows", "x_rows"), "y": ("z_rows", "x_rows")}[cut]
+            if any(L[k] < r["inners"] for k in uncut) or any(L[k] for k in (*Z_OLD, "thomas")):
+                raise RuntimeError(f"[18a] {path} {cut} cut: the uncut directions' kernels did "
+                                   "not run every CG iteration, or a replaced kernel ran")
+        sc, pt = got["scan"]["launches"], got["partitioned"]["launches"]
+        if not (sc["scan"] >= got["scan"]["inners"] and sc["parttri"] == 0 and pt["scan"] == 0
+                and pt["parttri"] >= got["partitioned"]["inners"]):
+            raise RuntimeError(f"[18a] {cut} cut: scan {sc['scan']} / parttri {sc['parttri']} on "
+                               f"the scan path, {pt['scan']} / {pt['parttri']} on the "
+                               "partitioned one")
+        print(f"    {cut} cut: scan {got['scan']['ms']:.3f} ms/outer against the partitioned "
+              f"{got['partitioned']['ms']:.3f}, ratio "
+              f"{got['scan']['ms'] / got['partitioned']['ms']:.2f}; K1-K3 on the scan path "
+              f"z {sc['z_rows']}, y {sc['y_rows']}, x {sc['x_rows']}; scan applications "
+              f"{sc['scan']} ({card})")
+    del host
+    print(f"    [18a] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("[18b] a PERIODIC cut direction at full width, y cut, world of one over nccl, float32 "
+          "at bench.SWEEP_TOL: IAEA-3D 6x6x4 with the lateral faces PERIODIC against its "
+          "unsharded run and the MIRROR quadrant (quart_so); KOEBERG 32x32 y PERIODIC against "
+          "the half core (moitie_s)")
+    lateral = {f: (BCType.PERIODIC, 0.0) for f in bench.LATERAL}
+    for core, mesh_n, bc, ref_kw in (
+            ("iaea3d", (6, 4), lateral,
+             dict(domain="quart_so", bc={f: (BCType.MIRROR, 0.0) for f in bench.LATERAL})),
+            ("koeberg2d", (32,), _per_y(),
+             dict(domain="moitie_s", bc={(1, True): (BCType.MIRROR, 0.0)}))):
+        per = _v17_facade(bench, core, mesh_n, bc=bc)
+        host = _v17_host(per)
+        start = torch.ones((per._ng, *per._fes.mesh.shape, 1), dtype=f32, device=dev)
+        ctx = parallel.shard_context(host, mesh, per._fes, 1, device=dev, dtype=f32)
+        whole = context_to_device(*host, 1, dev, f32) if core == "iaea3d" else None
+        del host
+        got = _v17_timed("power", per, per._opts(), ctx, parallel.shard_state(start, mesh, 1),
+                         dev, f32, (mesh, parallel._axis_map(mesh, 1)))
+        ref = (_v17_timed("power", per, per._opts(), whole, start, dev, f32) if whole is not None
+               else None)
+        _v17_line(f"{core} PERIODIC y cut", got, ref, card)
+        del ctx, whole, per
+        q = bench.BenchmarkRun(data.BENCHMARKS[core], *mesh_n, device=dev, dtype=f32, **ref_kw)
+        k_q = q.solve(tol=bench.SWEEP_TOL)
+        print(f"      {ref_kw['domain']} {q.solver._mesh.shape}: keff {k_q!r}, "
+              f"{q.solver._last_outers} / {q.solver._last_inners}; sharded - it "
+              f"{got['value'] - k_q:+.2e}" + (f", sharded - unsharded "
+                                              f"{got['value'] - ref['value']:+.2e}" if ref else ""))
+        del q
+        L = got["launches"]
+        if not (abs(got["value"] - k_q) <= VARIANT_PAIR_TOL and L["scan"] >= got["inners"]
+                and L["parttri"] == 0 and (ref is None or abs(got["value"] - ref["value"])
+                                           <= SHARD_KEFF_TOL)):
+            raise RuntimeError(f"[18b] {core}: the periodic y cut is off its references, or the "
+                               f"scan did not run every CG iteration ({L['scan']} / "
+                               f"{got['inners']})")
+    dist.destroy_process_group()
+    print(f"    [18b] {time.perf_counter() - t0:.1f} s")
+
+    # (c) the gloo pair (processes of its own) against the CPU's unsharded
+    # runs, made in a thread of this process meanwhile
+    t0 = time.perf_counter()
+    names = tuple(V18C)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_refs = pool.submit(_v18c_cpu, bench, names)
+        ranks = parallel.spawn_ranks(_v18c_rank, 2, f"tcp://localhost:{_free_port()}",
+                                     (names, dev.type), RANK_TIMEOUT)
+        refs = cpu_refs.result()
+    print("[18c] two ranks sharing the card over gloo, float64, against the unsharded run on "
+          "the CPU: a random 6x2 core (one y cell a rank), IAEA-2D 2x2 y PERIODIC (y cut), "
+          "IAEA-3D 1x1x2 under NEUTFEM_PARTTRI=0 (z cut)")
+    for name in names:
+        a, b = ranks[0][name], ranks[1][name]
+        if (a["value"], a["outers"], a["inners"]) != (b["value"], b["outers"], b["inners"]) or (
+                not np.array_equal(a["history"], b["history"])):
+            raise RuntimeError(f"[18c] {name}: the ranks disagree")
+        v_cpu, o_cpu, phi_cpu = refs[name]
+        rel, dv = _flux_rel(a["phi"], phi_cpu), a["value"] - v_cpu
+        print(f"    {name}: {a['value']!r} vs CPU {v_cpu!r} (d {dv:+.2e}), outers "
+              f"{a['outers']} / {o_cpu}, inners {a['inners']}, flux rel {rel:.2e}; scan "
+              f"{a['scan']}, partitioned {a['parttri']}; {a['ms']:.1f} ms/outer "
+              f"TRANSPORT-BOUND, {a['collectives']} collectives a rank ({card})")
+        if not (abs(dv) <= SHARD_F64_TOL and a["outers"] == o_cpu and rel <= SHARD_F64_TOL
+                and a["scan"] >= a["inners"] and a["parttri"] == 0):
+            raise RuntimeError(f"[18c] {name}: the sharded run on the card disagrees with the CPU, "
+                               "or the scan did not run")
+    print(f"    [18c] {time.perf_counter() - t0:.1f} s; [18] {time.perf_counter() - t_all:.1f} s")
+
+
 def main():
     import torch
 
@@ -2597,6 +2864,10 @@ def main():
         _sharded_variants(bench, dev, card, rows)
         print(f"    total {time.perf_counter() - t_all:.1f} s")
         print(json.dumps({"kernels": list(rows.values())}))
+        return
+    if sys.argv[1:] == ["--phase", "18"]:  # phase [18] alone: no result, no kernel rows
+        _scan_cuts(bench, dev, card)
+        print(f"    total {time.perf_counter() - t_all:.1f} s")
         return
     spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
     run = bench.BenchmarkRun(spec, mesh_n=6, mesh_nz=4, device=dev, dtype=f32)
@@ -3195,6 +3466,9 @@ def main():
 
     # [17] the solver variants under a sharding scope: each path with its own counts
     _sharded_variants(bench, dev, card, rows)
+
+    # [18] the scan cut-axis solve: each path with its own counts
+    _scan_cuts(bench, dev, card)
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

@@ -27,8 +27,9 @@ On the card each low-order solve replays a captured graph (``krylov``) whose
 operator reads static buffers made once per context and refilled per call.
 
 Under a sharding scope (one rank's slab, ``parallel.py``) the stencils pad
-along a cut with the neighbour ranks' planes (``shardctx.halo``; under NCCL
-the low-order graph captures those sends), the face arrays that
+along a cut with the neighbour ranks' planes (``shardctx.halo``, round the
+ring on a PERIODIC cut direction; under NCCL the low-order graph captures
+those sends), the face arrays that
 ``parallel.shard_context`` split into body and seam are joined into the
 slab's s+1 faces (``shardctx.seam_faces``; the current's faces come from
 ``power.compute_current`` as s+1 already), and every sum that decides a
@@ -73,14 +74,16 @@ def _neighbor_pad(ctx: Dict, di, x, ax: int):
     axis) on each side: zeros on a bounded direction, the cells of the other
     end on a PERIODIC one (its ``cyc_*`` data in the context); along a cut,
     the neighbour ranks' planes (``shardctx.halo``: zeros at the domain's
-    ends)."""
+    ends, or on a PERIODIC direction the planes of the ranks at the other
+    end, round the ring)."""
     key = f"d{di.d}"
     n = x.shape[ax]
+    periodic = f"cyc_wt_{key}" in ctx
     tr = cut_transport(di.axis)
     if tr is not None:
-        lo, hi = halo(x, ax, tr)
+        lo, hi = halo(x, ax, tr, cyclic=periodic)
         return torch.cat([lo, x, hi], dim=ax)
-    if f"cyc_wt_{key}" in ctx:
+    if periodic:
         return torch.cat([x.narrow(ax, n - 1, 1), x, x.narrow(ax, 0, 1)], dim=ax)
     shape = list(x.shape)
     shape[ax] = 1

@@ -46,6 +46,7 @@ launches its kernels BLOCK_ITERS times whether or not ``go`` still holds).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -198,14 +199,23 @@ class CGGraph:
         torch.cuda.current_stream().wait_stream(side)
         before = {id(c): dict(c) for c in launch_counters()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            st = dict(self.state)
-            for _ in range(k):
-                st = step(st)
-            for n, t in st.items():
-                if t is not self.state[n]:
-                    self.state[n].copy_(t)
-            self.status = _status(self.state)
+        # no garbage collection while capturing: a graph it frees (a dropped
+        # plan's, held in a reference cycle) is destroyed inside the capture,
+        # which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                st = dict(self.state)
+                for _ in range(k):
+                    st = step(st)
+                for n, t in st.items():
+                    if t is not self.state[n]:
+                        self.state[n].copy_(t)
+                self.status = _status(self.state)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = []
         for c in launch_counters():
             b = before.get(id(c), {})

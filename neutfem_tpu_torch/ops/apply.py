@@ -29,9 +29,11 @@ Port of ``neutfem_tpu/ops/apply.py`` (single device):
 
 Under a sharding scope (``shardctx``: one rank's slab of a multi-device
 solve, ``parallel.py``) ``schur_matvec`` runs a direction along a cut as the
-partitioned solve of ``ops/parttri.py`` (under "diag" / "lumped" its
-elementwise counterpart), on one group or on every group at once (the
-Jacobi sweep: the bundle then carries the group axis), and every other
+partitioned solve of ``ops/parttri.py``, or its scan solve where the JAX
+package takes its associative scan (a PERIODIC cut direction, a segment of
+one face, ``NEUTFEM_PARTTRI=0``), under "diag" / "lumped" their elementwise
+counterpart, on one group or on every group at once (the Jacobi sweep: the
+bundle then carries the group axis), and every other
 direction as above on the rank's complete local lines (the context's staged
 operands are the slab's, so K1-K3, K5 and K1's batch run there); the
 equilibration fold declines there, as in the JAX package.
@@ -318,8 +320,8 @@ def schur_matvec(fes: FESpace, ctx: Dict, v, a_mode: str = "exact", fused: bool 
     for di in fes.dirs:
         key = f"d{di.d}"
         if key in cut:
-            # the direction along a cut: the partitioned solve of this rank's
-            # segments (ops/parttri.py); every other direction runs below on
+            # the direction along a cut: the partitioned or the scan solve of
+            # this rank's segment (ops/parttri.py); every other direction runs below on
             # the rank's complete local lines, with the kernel operands
             # parallel.shard_context restaged from its slab
             from .parttri import partitioned_schur_dir

@@ -29,6 +29,17 @@ The JAX package keeps its face arrays in GSPMD's ceil sharding and realigns
 them with ``ppermute`` block hops (``neutfem_tpu/ops/parttri.py:310-352``);
 here a rank holds the even slab from the start (``parallel.shard_context``),
 so that realignment has no counterpart.
+
+Where the JAX package attaches no bundle — a PERIODIC cut direction, a
+segment of one face, ``NEUTFEM_PARTTRI=0`` — it solves the cut direction by
+the GSPMD-partitioned associative scan (``neutfem_tpu/ops/apply.py:211-259``).
+``tridiag_solve_scan`` is that solve with GSPMD's carries written out: each
+rank composes the affine maps of its own faces at log depth
+(``ops/tridiag.affine_pairs``), one all-gather a sweep brings every rank's
+composed pair, and each rank folds those of the ranks before it (after it,
+backward) into its carry; on a PERIODIC direction the tied face is folded
+into face 0 across the ring and the Sherman-Morrison correction takes one
+more all-gather.  No TPU kernel runs there, so no CUDA kernel does here.
 """
 
 from __future__ import annotations
@@ -40,21 +51,21 @@ import torch
 
 from ..shardctx import seam_faces
 from . import launch_counter
-from .apply import _const, _face_out, _pair
-from .tridiag import tridiag_solve
+from .apply import _const, _face_out, _pair, cyc_args
+from .tridiag import affine_pairs, tridiag_solve
 
-__all__ = ["build_partitioned", "tridiag_solve_partitioned", "partitioned_face_solve",
-           "partitioned_schur_dir", "PART_NAMES", "LAUNCHES"]
+__all__ = ["build_partitioned", "tridiag_solve_partitioned", "tridiag_solve_scan",
+           "partitioned_face_solve", "partitioned_schur_dir", "PART_NAMES", "LAUNCHES"]
 
 PART_NAMES = ("dinv", "l", "vrs", "vls", "minv", "seamd", "seamc")
 
-#: Applications of the cut direction's face solve (``"parttri"``, one per
-#: cut direction per matvec or ``compute_current``; the partitioned solve,
-#: or the elementwise one under "diag" / "lumped"): the engagement count the
-#: tests read.  It counts applications, not kernels (the exact solve
-#: launches K4);
-#: a launch counter, so a CG graph's replay adds its capture's applications.
-LAUNCHES = launch_counter({"parttri": 0})
+#: Applications of the cut direction's face solve, one per cut direction per
+#: matvec or ``compute_current``: ``"parttri"`` the partitioned solve (or the
+#: elementwise one under "diag" / "lumped"), ``"scan"`` the scan solve
+#: (``tridiag_solve_scan``): the engagement counts the tests read.  They
+#: count applications, not kernels (the partitioned solve launches K4); a
+#: launch counter, so a CG graph's replay adds its capture's applications.
+LAUNCHES = launch_counter({"parttri": 0, "scan": 0})
 
 
 def _ldlt_np(a: np.ndarray, b: np.ndarray):
@@ -209,33 +220,114 @@ def tridiag_solve_partitioned(rb, rs, part: Dict, axis: int, tr):
     return x, x_seam
 
 
+def _carry(A, B, axis: int, tr, first: bool):
+    """The carry of this rank's sweep: every rank's composed pair at its end
+    plane (``first``: its first face, for the backward sweep; else its last
+    face) in one all-gather, and those of the ranks before it (after it,
+    backward) folded in rank order from a zero carry at the domain's end."""
+    n = B.shape[axis]
+    end = 0 if first else n - 1
+    b = B.narrow(axis, end, 1)
+    g = tr.all_gather(torch.stack([A.narrow(axis, end, 1).expand_as(b), b]))
+    c = torch.zeros_like(b)
+    for j in (range(tr.size - 1, tr.rank, -1) if first else range(tr.rank)):
+        c = g[j, 0] * c + g[j, 1]
+    return c
+
+
+def tridiag_solve_scan(rb, rs, dinv, l, axis: int, tr, cyclic=None):
+    """One rank's share of the scan solve of T x = rhs along the cut
+    ``axis`` (the JAX ``_scan_solve`` under GSPMD): the forward recurrence
+    z_j = r_j - l_{j-1} z_{j-1}, w = z * dinv, the backward one x_j = w_j -
+    l_j x_{j+1}, each composed over the rank's faces with a zero carry-in,
+    then the carry from the other ranks (one all-gather a sweep) applied as
+    z = A c + B.
+
+    rb: the rank's body rhs (..., T, s faces along ``axis``, ...); rs: the
+    seam face's rhs (1 face), scanned by the last rank as its (s+1)-th face,
+    or None where the direction has no seam (PERIODIC); dinv: (the body's s
+    pivots, the seam's or None), l: (the coupling into the slab's first face
+    (0 on rank 0), the s couplings of the body faces to their next face (the
+    last to the next rank's first face, the seam, or 0 at a PERIODIC
+    direction's end)), each broadcasting against rb.  ``cyclic``: (wt, a0,
+    a1) of a PERIODIC direction (``cyc_args``, the rank's slab): the
+    Sherman-Morrison correction x - wt (a0 y_0 + a1 y_{n-1}) of the folded
+    system, y_0 from rank 0 and y_{n-1} from the last rank in one more
+    all-gather.  ``tr``: the cut axis's transport.  Returns (x_body, x_seam);
+    x_seam is None except on the last rank of a direction with a seam."""
+    LAUNCHES["scan"] += 1
+    axis = axis % rb.ndim
+    s = rb.shape[axis]
+    (dinv_b, dinv_s), (l_prev, l_b) = dinv, l
+    seam = rs is not None and tr.rank == tr.size - 1
+    r, piv, a_fwd, a_bwd = rb, dinv_b, torch.cat([l_prev, l_b.narrow(axis, 0, s - 1)], axis), l_b
+    if seam:  # the seam face n closes the last rank's scan: its l_{n-1} is l_b's last
+        r, piv = torch.cat([rb, rs], axis), torch.cat([dinv_b, dinv_s], axis)
+        a_fwd = torch.cat([l_prev, l_b], axis)
+        a_bwd = torch.cat([l_b, torch.zeros_like(l_prev)], axis)
+    A, B = affine_pairs(-a_fwd, r, axis)
+    z = A * _carry(A, B, axis, tr, first=False) + B
+    A, B = affine_pairs(-a_bwd, z * piv, axis, reverse=True)
+    x = A * _carry(A, B, axis, tr, first=True) + B
+    if cyclic is not None:
+        wt, a0, a1 = cyclic
+        g = tr.all_gather(torch.stack([x.narrow(axis, 0, 1), x.narrow(axis, s - 1, 1)]))
+        x = x - wt * (a0 * g[0, 0] + a1 * g[tr.size - 1, 1])
+    if seam:
+        return x.narrow(axis, 0, s), x.narrow(axis, s, 1)
+    return x, None
+
+
 def partitioned_face_solve(di, L, R, ctx: Dict, key: str, tr):
     """The cut direction's masked, m_t-scaled A-solve on a rank's faces
     (``solve_A_dir``'s semantics): the face rhs of face j is L_j + R_{j-1}
     (L, R: the left- and right-face contributions of the rank's cells, (...,
     T, s cells along the axis, ...); face 0 takes the previous rank's last R
-    plane, one plane sent), the seam's is the last rank's last R.  The exact
-    A solves by the partitioned method (the ``tri_part_*`` bundle); under
-    "diag" / "lumped" (no bundle) each face is its own system, x =
-    rhs * ``tri_dinv``, on the body faces and the seam alike, so no
-    interface exchange is needed.  Returns the rank's s+1 faces' solution:
-    its s body faces and the face that closes its slab (the next rank's
-    first face, one plane sent, or the seam on the last rank)."""
-    LAUNCHES["parttri"] += 1
+    plane, one plane sent), the seam's is the last rank's last R.  The JAX
+    rule picks the solve (``parallel.shard_context`` decided it when it
+    sliced the context):
+
+    * the ``tri_part_*`` bundle: the partitioned method;
+    * an exact A with no bundle (a segment of one face, ``NEUTFEM_PARTTRI=0``;
+      ``tri_l_{key}__prev`` present): the scan solve (``tridiag_solve_scan``);
+    * a PERIODIC direction (its ``cyc_*`` slab): the tied face n folded into
+      face 0 (rank 0 takes the last rank's last R: the shift wraps round the
+      ring), the folded system of n faces by the scan solve with its
+      Sherman-Morrison correction;
+    * "diag" / "lumped" (no ``tri_l``): each face its own system, x = rhs *
+      ``tri_dinv``, on the body faces and the seam alike.
+
+    Returns the rank's s+1 faces' solution: its s body faces and the face
+    that closes its slab (the next rank's first face, one plane sent, or the
+    seam on the last rank; rank 0's first face on a PERIODIC direction)."""
     axis = (di.axis - 3) % L.ndim
     s = L.shape[axis]
     m_t = _const(di.m_t, L).reshape(-1, 1, 1, 1)
-    mb, ms = ctx[f"mask_{key}"], ctx[f"mask_{key}__seam"]
-    prev = tr.shift(R.narrow(axis, s - 1, 1), +1)
-    rb = L + torch.cat([prev, R.narrow(axis, 0, s - 1)], dim=axis)
-    rs = R.narrow(axis, s - 1, 1)
+    cyc = cyc_args(ctx, key)
+    mb = ctx[f"mask_{key}"]
+    prev = tr.shift(R.narrow(axis, s - 1, 1), +1, cyc is not None)
+    rb = (L + torch.cat([prev, R.narrow(axis, 0, s - 1)], dim=axis)) * mb / m_t
+    dinv = ctx[f"tri_dinv_{key}"].unsqueeze(-4)
+    lf = None  # the scan solve's couplings, where shard_context attached them
+    if f"tri_l_{key}__prev" in ctx:
+        lf = (ctx[f"tri_l_{key}__prev"].unsqueeze(-4), ctx[f"tri_l_{key}"].unsqueeze(-4))
+    if cyc is not None:
+        x, _ = tridiag_solve_scan(rb, None, (dinv, None), lf, axis, tr,
+                                  tuple(t.unsqueeze(-4) for t in cyc))
+        return seam_faces(x * mb, None, axis, tr, cyclic=True)
+    ms = ctx[f"mask_{key}__seam"]
+    rs = R.narrow(axis, s - 1, 1) * ms / m_t
+    dinv_s = ctx[f"tri_dinv_{key}__seam"].unsqueeze(-4)
     if f"tri_part_dinv_{key}" in ctx:
+        LAUNCHES["parttri"] += 1
         part = {nm: ctx[f"tri_part_{nm}_{key}"] for nm in PART_NAMES}
-        x, x_seam = tridiag_solve_partitioned(rb * mb / m_t, rs * ms / m_t, part, axis, tr)
+        x, x_seam = tridiag_solve_partitioned(rb, rs, part, axis, tr)
+    elif lf is not None:
+        x, x_seam = tridiag_solve_scan(rb, rs, (dinv, dinv_s), lf, axis, tr)
     else:
-        x = rb * mb / m_t * ctx[f"tri_dinv_{key}"].unsqueeze(-4)
-        x_seam = rs * ms / m_t * ctx[f"tri_dinv_{key}__seam"].unsqueeze(-4)
-    return seam_faces(x * mb, x_seam * ms, axis, tr)
+        LAUNCHES["parttri"] += 1
+        x, x_seam = rb * dinv, rs * dinv_s
+    return seam_faces(x * mb, None if x_seam is None else x_seam * ms, axis, tr)
 
 
 def partitioned_schur_dir(fes, di, v, ctx: Dict, key: str, tr, BXt):

@@ -11,15 +11,21 @@ written out:
   ``compute_current``) on the rank's complete local lines;
 * the direction along a cut runs the partitioned solve
   (``ops/parttri.py``: K4 on each segment, one all-gather of the segments'
-  first and last planes, one plane to each neighbour);
+  first and last planes, one plane to each neighbour) where the JAX package
+  does; where it takes its associative scan instead — a PERIODIC cut
+  direction, a segment of one face, ``NEUTFEM_PARTTRI=0`` — the scan solve
+  (``ops/parttri.tridiag_solve_scan``: each rank's faces composed at log
+  depth, one all-gather of the composed end planes a sweep);
 * every dot product of the CG and every sum of the power iteration is
   all-reduced, so every rank takes the same branch.
 
 Decomposition: a 1D mesh ("space") cuts one grid axis (y by default, z for
 tall 3D problems); a 2D mesh ("space_z", "space_y") cuts z and y.  Each rank
-holds an even slab: n/p cells along a cut axis, and, of the cut direction's
-n+1 faces, the n/p body faces of its cells plus the seam face n, which every
-rank holds (``__seam``).  The rank's context is sliced from the HOST context
+holds an even slab: n/p cells along a cut axis (p must divide n, as the JAX
+package's ``shard_state`` requires; one cell a rank is allowed), and, of the
+cut direction's n+1 faces, the n/p body faces of its cells plus the seam
+face n, which every rank holds (``__seam``); a PERIODIC cut direction's
+folded system has n faces and no seam.  The rank's context is sliced from the HOST context
 (``ops/context.build_host_context``), so no device holds the whole problem.
 
 The transport is the backend the caller names (``device_mesh``): "nccl" for
@@ -138,21 +144,15 @@ def _axis_map(mesh: Mesh, grid_axis: GridAxes) -> Dict[int, str]:
 
 
 def _cuts(mesh: Mesh, amap: Dict[int, str], shape) -> Dict[int, Tuple[int, int, int]]:
-    """{cut grid axis: (cells n, parts p, this rank's part k)}; raises where
-    the JAX package takes its associative-scan path instead of the partition
-    method (ROADMAP queue 4 item 2): p does not divide n, or a segment would
-    hold fewer than 2 faces, or ``NEUTFEM_PARTTRI=0``."""
-    if os.environ.get("NEUTFEM_PARTTRI", "1") == "0":
-        raise NotImplementedError("NEUTFEM_PARTTRI=0 (the associative-scan cut-axis solve) is "
-                                  "not ported (ROADMAP queue 4 item 2)")
+    """{cut grid axis: (cells n, parts p, this rank's part k)}.  Raises
+    ``ValueError`` where p does not divide n: every rank holds an even slab,
+    as the JAX package's ``shard_state`` (``jax.device_put``) requires."""
     out = {}
     for ga, nm in amap.items():
         n, p = int(shape[ga]), mesh.sizes[nm]
-        if n % p or n // p < 2:
-            raise NotImplementedError(
-                f"grid axis {ga} ({n} cells) over {p} ranks: the partition method needs p to "
-                "divide n and at least 2 faces a segment; the associative-scan path is not "
-                "ported (ROADMAP queue 4 item 2)")
+        if n % p:
+            raise ValueError(f"grid axis {ga} ({n} cells) over {p} ranks: each rank holds an "
+                             f"even slab of n/p cells, so p must divide n")
         out[ga] = (n, p, mesh.coords[nm])
     return out
 
@@ -169,18 +169,17 @@ def _slab(a, cuts, base: int, own: Optional[int] = None, split: bool = False):
     along ``own`` (the array's own direction, n+1 faces) ``split`` gives the
     s body faces and returns the seam face apart, else the s+1 faces of the
     slab.  Unit dims broadcast.  Returns (slab, seam or None)."""
-    seam = None
+    seam, faces = None, False
     if own is not None and own in cuts and a.shape[base + own] == cuts[own][0] + 1:
         n, p, k = cuts[own]
         s, ax = n // p, base + own
         if split:
             seam = _take(a, ax, n, n + 1)
         a = _take(a, ax, k * s, k * s + s + (0 if split else 1))
+        faces = True
     for ga, (n, p, k) in cuts.items():
-        if ga == own and seam is not None or a.shape[base + ga] == 1:
-            continue
-        if ga == own and a.shape[base + ga] == n // p + 1:
-            continue  # the faces of the slab, taken above
+        if ga == own and faces or a.shape[base + ga] == 1:
+            continue  # the faces of the slab, taken above; a unit dim
         if a.shape[base + ga] != n:
             raise ValueError(f"shard: a dim of {a.shape[base + ga]} along cut grid axis {ga} "
                              f"({n} cells)")
@@ -229,22 +228,41 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
     * the two-grid level, the cut direction's fused operands and the line
       preconditioner's factors along a cut are dropped (none runs there).
 
-    A PERIODIC cut direction raises (ROADMAP queue 4 item 2)."""
+    The cut direction's solve is chosen here, by the JAX rule: an exact A
+    gets the partitioned bundle unless the direction is PERIODIC, a segment
+    would hold one face (n = p) or ``NEUTFEM_PARTTRI=0``; without a bundle
+    it keeps its ``tri_dinv`` / ``tri_l`` slab (the body couplings, and
+    ``tri_l_{key}__prev``: the coupling into the slab's first face, 0 on
+    rank 0) for the scan solve.  A PERIODIC cut direction keeps its folded
+    factors (n faces, no seam; ``tri_l`` padded with a 0 past its last
+    face), ``cyc_wt`` slab and ``cyc_a0`` / ``cyc_a1`` per line, and drops
+    its T-staged ``tri_cycT_*`` factors.  Raises ``ValueError`` where p does
+    not divide n (``_cuts``)."""
     ctx_np, blk_inv, blk_fp8 = host
     amap = _axis_map(mesh, grid_axis)
     cuts = _cuts(mesh, amap, fes.mesh.shape)
     cut_keys = {f"d{di.d}": di.axis for di in fes.dirs if di.axis in amap}
-    for key in cut_keys:
-        if f"cyc_wt_{key}" in ctx_np:
-            raise NotImplementedError(f"a PERIODIC direction ({key}) along a cut is not ported "
-                                      "(ROADMAP queue 4 item 2)")
-    arrays = dict(ctx_np)
+    partition = os.environ.get("NEUTFEM_PARTTRI", "1") != "0"
+    arrays, scan = dict(ctx_np), {}
     for key, ga in cut_keys.items():
         if f"tri_l_{key}" not in ctx_np:
             continue  # "diag" / "lumped": the elementwise cut solve needs no bundle
-        bundle = build_partitioned(ctx_np[f"tri_dinv_{key}"], ctx_np[f"tri_l_{key}"], 1 + ga,
-                                   cuts[ga][1])
-        arrays.update({f"tri_part_{nm}_{key}": a for nm, a in bundle.items()})
+        bundle = None
+        if partition and f"cyc_wt_{key}" not in ctx_np:
+            bundle = build_partitioned(ctx_np[f"tri_dinv_{key}"], ctx_np[f"tri_l_{key}"],
+                                       1 + ga, cuts[ga][1])  # None where n // p < 2
+        if bundle is not None:
+            arrays.update({f"tri_part_{nm}_{key}": a for nm, a in bundle.items()})
+            continue
+        l = np.asarray(ctx_np[f"tri_l_{key}"])
+        fax = l.ndim - 3 + ga
+        if l.shape[fax] < cuts[ga][0]:  # PERIODIC: n-1 couplings of n faces
+            l = np.concatenate([l, np.zeros_like(_take(l, fax, 0, 1))], axis=fax)
+        arrays[f"tri_l_{key}"] = l
+        # face j's incoming coupling l_{j-1} (0 for face 0), sliced below to
+        # the slab's first face
+        scan[key] = np.concatenate([np.zeros_like(_take(l, fax, 0, 1)),
+                                    _take(l, fax, 0, l.shape[fax] - 1)], axis=fax)
     pc_dirs = sorted((di.d for di in fes.dirs), reverse=True)
     line_cut = {name for name, d in zip(("line", "line2"), pc_dirs) if GRID_AXIS[d] in amap}
 
@@ -253,7 +271,7 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
         own = _direction_axis(k)
         if isinstance(v, dict) or k.startswith(_STAGED_PREFIXES):
             continue  # the two-grid level declines; the staged operands are remade
-        if own in amap and k.startswith(_FUSED_PREFIXES):
+        if own in amap and k.startswith(_FUSED_PREFIXES + ("tri_cycT_",)):
             continue
         if k.startswith("precond_line") and k.split("_")[1] in line_cut:
             continue
@@ -274,6 +292,10 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
         local[k] = body
         if seam is not None:
             local[k + "__seam"] = seam
+    for key, prev in scan.items():
+        body, _ = _slab(prev, cuts, prev.ndim - 3)
+        local[f"tri_l_{key}__prev"] = np.ascontiguousarray(
+            _take(body, prev.ndim - 3 + cut_keys[key], 0, 1))
     for di in fes.dirs:
         key = f"d{di.d}"
         if f"tri_dinvm_{key}" in local and di.axis in (1, 2):
@@ -297,7 +319,8 @@ def _minv_slab(minv: np.ndarray, cuts, own: int) -> np.ndarray:
 def shard_state(phi, mesh: Mesh, grid_axis: GridAxes = 1, *, device=None):
     """This rank's slab of a flux (ng, nz, ny, nx, P) (a tensor or numpy
     array of the whole problem), as a contiguous tensor on ``device`` (the
-    tensor's own device by default)."""
+    tensor's own device by default).  Raises ``ValueError`` where p does
+    not divide n."""
     amap = _axis_map(mesh, grid_axis)
     a = phi.detach().cpu().numpy() if torch.is_tensor(phi) else np.asarray(phi)
     cuts = _cuts(mesh, amap, a.shape[1:4])

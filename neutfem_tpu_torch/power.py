@@ -37,9 +37,11 @@ flux norms, ``finite``, the fixed-source and subcritical norms,
 ``biorthogonal_inner``; the Krylov dot products in ``krylov``; Anderson's
 Gram matrix in ``accel``; CMFD's "wielandt" sums in ``cmfd``), so every rank
 reads the same stop tests and takes the same branches; ``compute_current``
-runs the cut direction's partitioned solve (the elementwise one under
-"diag" / "lumped"); the Jacobi sweep's batched matvec runs the group-batched
-partitioned solve on the cut direction and K5 / K1's batch on the others;
+runs the cut direction's face solve (``ops/parttri.partitioned_face_solve``:
+the partitioned solve, the scan solve where the JAX package takes its
+associative scan, or the elementwise one under "diag" / "lumped"); the
+Jacobi sweep's batched matvec runs that solve group-batched on the cut
+direction and K5 / K1's batch on the others;
 CMFD exchanges its halos and seam faces (``cmfd``); the DIRECT_* solve
 gathers its right-hand side (``ops/direct.py``); a line preconditioner along
 a cut is left out.
@@ -451,10 +453,11 @@ def _external_source(ctx, g: int):
 def _current_cut(fes: FESpace, di, ctx: Dict, key: str, phi, tr):
     """``compute_current``'s direction along a cut (a sharding scope): the
     bubble-condensed left / right face contributions of the rank's cells,
-    the partitioned solve (``ops/parttri.py``: the previous rank's last
-    right contribution and the next rank's first face are sent; under
-    "diag" / "lumped" its elementwise counterpart), then the bubbles from the
-    rank's s+1 faces."""
+    the cut face solve (``ops/parttri.partitioned_face_solve``: the
+    partitioned or the scan solve, the elementwise one under "diag" /
+    "lumped"; the previous rank's last right contribution and the next
+    rank's first face are sent, round the ring on a PERIODIC direction),
+    then the bubbles from the rank's s+1 faces."""
     L, R = _pair(phi, di.BX[0]), _pair(phi, di.BX[1])
     rW = None
     if fes.et.nbub > 0:
@@ -471,8 +474,9 @@ def compute_current(fes: FESpace, ctx: Dict, phi, a_mode: str = "exact"):
     solve per direction (the cyclic one on a periodic direction, none under
     "diag" / "lumped"); with bubbles (k >= 1) also their DOFs ("bub").  A
     nonzero NEUMANN boundary's lift ``jcorr`` is added to the face current.
-    Under a sharding scope a direction along a cut runs the partitioned
-    solve; the rank's face array then holds the s+1 faces of its slab."""
+    Under a sharding scope a direction along a cut runs the cut face solve
+    (``ops/parttri.partitioned_face_solve``); the rank's face array then
+    holds the s+1 faces of its slab."""
     sh = current_sharding()
     J = {}
     for di in fes.dirs:

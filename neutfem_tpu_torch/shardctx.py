@@ -4,9 +4,9 @@ Port of ``neutfem_tpu/shardctx.py``.  The JAX package traces its power
 iteration once under ``jit`` with a sharding scope active, and GSPMD inserts
 every halo exchange and sum.  Here each process (rank) runs its own slab of
 the mesh eagerly: the scope is consulted at RUN time, by the operator layer
-(``ops/apply.py``: a cut direction takes the partitioned solve of
-``ops/parttri.py``, every other direction its kernel on the rank's complete
-local lines), by the CG (``krylov``: every dot product is summed over the
+(``ops/apply.py``: a cut direction takes the partitioned or the scan solve
+of ``ops/parttri.py``, every other direction its kernel on the rank's
+complete local lines), by the CG (``krylov``: every dot product is summed over the
 ranks) and by the power iteration (its global sums).  With no scope active
 none of them runs a collective.
 
@@ -113,21 +113,25 @@ def all_ranks(flag):
     return allsum((~flag).to(torch.float32)) == 0
 
 
-def halo(x, ax: int, tr: "Transport"):
+def halo(x, ax: int, tr: "Transport", cyclic: bool = False):
     """(lo, hi): the previous rank's last plane and the next rank's first
     plane of ``x`` along tensor axis ``ax`` (a cut axis, ``tr`` its
-    transport), zeros at the domain's ends; two point-to-point exchanges."""
+    transport), zeros at the domain's ends, or with ``cyclic`` (a PERIODIC
+    direction) the planes of the other end; two point-to-point exchanges."""
     n = x.shape[ax]
-    return tr.shift(x.narrow(ax, n - 1, 1), +1), tr.shift(x.narrow(ax, 0, 1), -1)
+    return (tr.shift(x.narrow(ax, n - 1, 1), +1, cyclic),
+            tr.shift(x.narrow(ax, 0, 1), -1, cyclic))
 
 
-def seam_faces(body, seam, ax: int, tr: "Transport"):
+def seam_faces(body, seam, ax: int, tr: "Transport", cyclic: bool = False):
     """The s+1 faces of a rank's slab of a face array split into body and
     seam (``parallel.shard_context``): its s body faces along tensor axis
     ``ax``, then the face that closes the slab — the next rank's first body
-    face (one plane sent), or on the last rank the seam face."""
-    nxt = tr.shift(body.narrow(ax, 0, 1), -1)
-    return torch.cat([body, seam if tr.rank == tr.size - 1 else nxt], dim=ax)
+    face (one plane sent), or on the last rank the seam face; with
+    ``cyclic`` (a PERIODIC direction, whose face n is face 0, no seam: pass
+    None) the last rank's is rank 0's first face."""
+    nxt = tr.shift(body.narrow(ax, 0, 1), -1, cyclic)
+    return torch.cat([body, seam if tr.rank == tr.size - 1 and not cyclic else nxt], dim=ax)
 
 
 def gather_slabs(x, mesh, amap: Dict[int, str], base: int, face_axis: Optional[int] = None):
@@ -223,13 +227,19 @@ class Transport:
         dist.all_gather(out, w, group=self.group)
         return self._back(torch.stack(out), t)
 
-    def shift(self, t, step: int):
+    def shift(self, t, step: int, cyclic: bool = False):
         """The ``t`` of group rank ``rank - step`` (step +1: from the previous
-        rank; -1: from the next), zeros where that rank does not exist.  One
-        point-to-point send and receive per rank."""
+        rank; -1: from the next), zeros where that rank does not exist; with
+        ``cyclic`` the ranks form a ring (rank 0's previous is the last
+        rank; a group of one receives its own ``t``).  One point-to-point
+        send and receive per rank."""
         import torch.distributed as dist
 
         src, dst = self.rank - step, self.rank + step
+        if cyclic:
+            if self.size == 1:
+                return t.clone()
+            src, dst = src % self.size, dst % self.size
         have_src, have_dst = 0 <= src < self.size, 0 <= dst < self.size
         if not (have_src or have_dst):
             return torch.zeros_like(t)

@@ -7,8 +7,9 @@ of the same function, on the card, at a small shape; the last tests hold the CG'
 captured blocks (``krylov.CGGraph``) against the eager block loop on the card, then
 the facade's paths on the card: the Anderson solve against the CPU, a zero
 right-hand side through a captured CG, and the plans of a context that ``set_bc``
-replaced freed with it; last the NCCL world of one: the sharded solve, and the
-sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops.  They need a CUDA device and skip without one (the decision is made
+replaced freed with it; last the NCCL world of one: the sharded solve, the
+sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops,
+and the scan cut-axis solve against the CPU's and in a captured graph.  They need a CUDA device and skip without one (the decision is made
 inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
 so it also runs on a machine without them:
 
@@ -1054,6 +1055,35 @@ def test_cg_graph_is_reused_and_counts_launches(cuda):
     assert krylov.STATS["captures"] == 1 and first.iterations > 3
 
 
+def test_cg_graph_capture_survives_a_collection(cuda):
+    """A dead graph held in a reference cycle (a dropped plan's) becomes
+    garbage while a CG is captured, and enough objects are made to start
+    the cyclic collector: the capture holds it off (collecting there would
+    destroy the dead graph inside the capture and invalidate it), and the
+    solve gives the eager block loop's bits."""
+    import gc
+
+    from neutfem_tpu_torch import krylov
+
+    A, b, x0, _ = _spd(48, cuda)
+    holder = [krylov.CGGraph()]
+    krylov.pcg(lambda x: A @ x, b, x0, tol=1e-10, graph=holder[0])  # a graph to drop
+
+    def matvec(x):
+        if holder and torch.cuda.is_current_stream_capturing():
+            cycle = {"graph": holder.pop()}
+            cycle["self"] = cycle
+            del cycle  # only the collector frees it now
+            junk = [[] for _ in range(5 * gc.get_threshold()[0])]  # a collection's worth
+            del junk
+        return A @ x
+
+    got = krylov.pcg(matvec, b, x0, tol=1e-10, graph=krylov.CGGraph())
+    assert not holder
+    want = krylov.pcg_blocks(lambda x: A @ x, b, x0, tol=1e-10, block=krylov.BLOCK_ITERS)
+    assert got.iterations == want.iterations and torch.equal(got.x, want.x)
+
+
 @pytest.fixture(scope="module")
 def iaea_1x1_f32():
     if not torch.cuda.is_available():
@@ -1459,6 +1489,62 @@ def test_sharded_variant_graph_equals_eager_under_nccl(nccl_mesh, variant):
     graph_counts = (c1[0] - c0[0], c1[1] - c0[1])
     assert graph_counts == (c2[0] - c1[0], c2[1] - c1[1])
     assert graph_counts[0] > 0 and graph_counts[1] >= got.iterations
+
+
+@pytest.mark.parametrize("cyclic", [False, True])
+def test_scan_cut_solve_on_the_card_matches_the_cpu(nccl_mesh, cyclic):
+    """The scan cut-axis solve (``parttri.tridiag_solve_scan``) on the NCCL
+    world of one, float64: its two sweeps with the seam face (or, on a
+    PERIODIC direction, the folded system's Sherman-Morrison correction) on
+    CUDA tensors against the same system through the CPU's ``scan_solve``;
+    captured in a CUDA graph (its all-gathers inside, as the CG captures
+    them), the replay gives the eager bits."""
+    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch.native import tridiag_ldlt_batch
+    from neutfem_tpu_torch.ops import parttri
+    from neutfem_tpu_torch.ops.tridiag import scan_solve
+
+    rng = np.random.default_rng(15 + cyclic)
+    n = 37 if cyclic else 38  # faces: the folded system's n, or n = 37 body faces and the seam
+    dinv, l = tridiag_ldlt_batch(rng.uniform(2.5, 4.0, (4, 3, n)),
+                                 rng.uniform(-1.0, -0.2, (4, 3, n - 1)))
+    dinv, l = np.moveaxis(dinv, -1, 1), np.moveaxis(l, -1, 1)  # (4, faces, 3): face axis 1
+    rhs = rng.standard_normal((4, 2, n, 3))  # (batch, T, faces, 3): face axis 2
+    cpu = {k: torch.as_tensor(v).unsqueeze(1) for k, v in (("dinv", dinv), ("l", l))}
+    want = scan_solve(torch.as_tensor(rhs), cpu["dinv"], cpu["l"], 2)
+    cyc = None
+    if cyclic:
+        cyc = tuple(torch.as_tensor(rng.uniform(-0.5, 0.5, sh)).unsqueeze(1)
+                    for sh in ((4, n, 3), (4, 1, 3), (4, 1, 3)))
+        wt, a0, a1 = cyc
+        want = want - wt * (a0 * want[:, :, :1] + a1 * want[:, :, n - 1:])
+    body = n if cyclic else n - 1
+    lpad = np.concatenate([l, np.zeros_like(l[:, :1])], axis=1) if cyclic else l
+
+    def card(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device="cuda").unsqueeze(1)
+
+    r = torch.as_tensor(rhs, device="cuda")
+    args = (r[:, :, :body].contiguous(), None if cyclic else r[:, :, body:].contiguous(),
+            (card(dinv[:, :body]), None if cyclic else card(dinv[:, body:])),
+            (card(np.zeros_like(l[:, :1])), card(lpad[:, :body])), 2,
+            nccl_mesh.axes[parallel.SPATIAL_AXIS],
+            None if cyc is None else tuple(t.cuda() for t in cyc))
+    x, x_seam = parttri.tridiag_solve_scan(*args)
+    got = x if cyclic else torch.cat([x, x_seam], dim=2)
+    assert _rel(got.cpu(), want, torch.zeros_like(want)) <= 1e-13
+    # captured: the replay gives the eager bits
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        parttri.tridiag_solve_scan(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cx, _ = parttri.tridiag_solve_scan(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cx, x)
 
 
 def test_transport_refuses_what_was_not_asked(nccl_mesh):

@@ -58,7 +58,7 @@ def _spawn(world, tmp_path):
         cases.append({"name": "memory", "data": dc.het2d(12, 16), "grid_axis": 1,
                       "memory": True})
     elif world == "2b":
-        cases.append({"name": "declines", "declines": True})
+        cases.append({"name": "indivisible", "indivisible": True})
     return dc.spawn_world(WORLDS[world], "solve_cases", cases, tmp_path / str(world),
                           TIMEOUT)
 
@@ -126,8 +126,9 @@ def test_sharded_solve_matches_single_device(runs, name):
         np.testing.assert_allclose(got["J"][key], face, rtol=1e-7,
                                    atol=1e-8 * np.max(np.abs(face)))
     # the cut direction ran the partitioned solve: once per CG iteration and
-    # per compute_current at least
+    # per compute_current at least; the scan solve never
     assert got["parttri"] >= got["inners"]
+    assert got["scan"] == 0
     assert got["cg"] == "eager"  # CPU tensors: no graphs
 
 
@@ -160,9 +161,22 @@ def test_shard_context_memory_scales(runs):
         assert "tri_dinvm_d1" not in local and "tri_yT_dinvm_d1" not in local
 
 
-@pytest.mark.parametrize("name", dc.DECLINES)
-def test_not_ported_under_a_scope_raises(runs, name):
+def test_indivisible_axis_raises_as_jax(runs):
+    """An axis that p does not divide: the port refuses it as the JAX package
+    does (its ``shard_state``: ``jax.device_put`` needs even shards), with a
+    ``ValueError`` that names the even slab, on every rank before any
+    collective; the JAX package's on 2 devices of the virtual mesh."""
+    import jax.numpy as jnp
+
+    from neutfem_tpu import parallel as j_parallel
+
     ranks, _ = runs
     for r in ranks["2b"]:
-        assert r["declines"][name].startswith("NotImplementedError"), r["declines"][name]
-        assert "ROADMAP queue 4 item 2" in r["declines"][name]
+        for call in ("shard_context", "shard_state"):
+            got = r["indivisible"][call]
+            assert got.startswith("ValueError") and "even slab" in got, got
+            assert "ROADMAP" not in got
+    mesh = j_parallel.device_mesh(2)
+    phi = jnp.ones((2, 1, dc.INDIVISIBLE_CELLS, 8, 1))
+    with pytest.raises(ValueError, match="divisible by 2"):
+        j_parallel.shard_state(phi, mesh, 1)

@@ -76,6 +76,22 @@ def random2d(nx=6, ny=4, seed=4):
     return breaks, 0, 0, xs, 2
 
 
+def random3d(nz=2, ny=8, nx=6, seed=5):
+    """``random2d``'s recipe on a 3D grid: a random 2-group problem with
+    unit-ish cells, fission in every cell (an axis of 2 cells still holds a
+    core, where ``core3d``'s fuel needs 5)."""
+    rng = np.random.default_rng(seed)
+    shape = (nz, ny, nx)
+    breaks = tuple(np.concatenate([[0.0], np.cumsum(rng.uniform(0.8, 1.4, n))])
+                   for n in (nx, ny, nz))
+    xs = {"D": rng.uniform(0.3, 2.0, (2, *shape)), "SigR": rng.uniform(0.01, 0.2, (2, *shape)),
+          "NSF": rng.uniform(0.0, 0.2, (2, *shape)), "Chi": np.zeros((2, *shape)),
+          "SigS": np.zeros((2, 2, *shape)), "SRC": np.zeros((2, *shape))}
+    xs["Chi"][0] = 1.0
+    xs["SigS"][1, 0] = rng.uniform(0.01, 0.03, shape)
+    return breaks, 0, 0, xs, 3
+
+
 def bc_kinds(dim, periodic=(), faces=None):
     """{(axis (0 = x), upper end): (kind name, value)}: DIRICHLET, PERIODIC
     on the axes in ``periodic``, then ``faces`` on top; the same spec builds
@@ -132,8 +148,9 @@ def solve_cases(rank, world, init, cases):
     """Each case {"name", "data", "grid_axis", "shape", "opts", "adjoint"}:
     the sharded power iteration from the flat flux; the rank's k, counts and
     history, the gathered flux and face current on every rank, and the
-    partitioned-solve applications.  A case with "memory" instead returns
-    the context bytes of the rank's slab and of the whole problem."""
+    partitioned- and scan-solve applications.  A case with "memory" instead
+    returns the context bytes of the rank's slab and of the whole problem,
+    one with "indivisible" ``_indivisible``'s refusals."""
     import torch
 
     from neutfem_tpu_torch import parallel
@@ -148,8 +165,8 @@ def solve_cases(rank, world, init, cases):
         if shape not in meshes:
             meshes[shape] = _mesh(rank, world, init, shape)
         mesh = meshes[shape]
-        if case.get("declines"):
-            out[case["name"]] = _declines(mesh)
+        if case.get("indivisible"):
+            out[case["name"]] = _indivisible(mesh)
             continue
         fes, ng, xs, bcs = port_problem(case["data"])
         ga = case["grid_axis"]
@@ -164,7 +181,7 @@ def solve_cases(rank, world, init, cases):
         phi0 = torch.ones((ng, *fes.mesh.shape, fes.P), dtype=torch.float64)
         run, _ = parallel.sharded_power_iteration(fes, ng, SolveOptions(**case["opts"]), mesh,
                                                   ga)
-        before = parttri.LAUNCHES["parttri"]
+        before = (parttri.LAUNCHES["parttri"], parttri.LAUNCHES["scan"])
         res = run(ctx, parallel.shard_state(phi0, mesh, ga), 1.0,
                   adjoint=case.get("adjoint", False))
         # collectives: every rank gathers, rank 0 reports
@@ -177,7 +194,8 @@ def solve_cases(rank, world, init, cases):
             "finite": bool(res["finite"]), "local_phi_shape": tuple(res["phi"].shape),
             "phi": phi.numpy() if rank == 0 else None,
             "J": {k: v.numpy() for k, v in J.items()} if rank == 0 else None,
-            "parttri": parttri.LAUNCHES["parttri"] - before, "cg": res["sharding"]["cg"]}
+            "parttri": parttri.LAUNCHES["parttri"] - before[0],
+            "scan": parttri.LAUNCHES["scan"] - before[1], "cg": res["sharding"]["cg"]}
     return out
 
 
@@ -201,42 +219,30 @@ def unsharded_cases(rank, world, init, cases):
     return out
 
 
-#: What the multi-device solve does not run yet (ROADMAP queue 4 item 2),
-#: each raising NotImplementedError on every rank before any collective.
-DECLINES = ("periodic_cut", "indivisible", "thin_segments", "parttri_off")
+#: the grid axis of ``_indivisible``'s cut: 9 cells over 2 ranks
+INDIVISIBLE_CELLS = 9
 
 
-def _declines(mesh):
-    """{decline: the exception each raised ("" if none)} on a 1D y-cut."""
+def _indivisible(mesh):
+    """{"shard_context", "shard_state": the exception each raised ("" if
+    none)} on a 1D y-cut of an axis of ``INDIVISIBLE_CELLS`` cells, which 2
+    ranks do not divide."""
     import torch
 
     from neutfem_tpu_torch import parallel
     from neutfem_tpu_torch.ops.context import build_host_context
 
-    p = mesh.sizes[parallel.SPATIAL_AXIS]
-
-    def shard(data, periodic=()):
-        f, g, x, b = port_problem(data, periodic)
-        return parallel.shard_context(build_host_context(f, g, x, b), mesh, f, 1, device="cpu",
-                                      dtype=torch.float64)
-
-    def parttri_off():
-        os.environ["NEUTFEM_PARTTRI"] = "0"
-        try:
-            shard(het2d(8, 8))
-        finally:
-            del os.environ["NEUTFEM_PARTTRI"]
-
+    f, g, x, b = port_problem(het2d(8, INDIVISIBLE_CELLS))
     calls = {
-        "periodic_cut": lambda: shard(het2d(8, 8), periodic=(1,)),
-        "indivisible": lambda: shard(het2d(8, 4 * p + 1)),
-        "thin_segments": lambda: shard(het2d(8, p)),
-        "parttri_off": parttri_off,
+        "shard_context": lambda: parallel.shard_context(build_host_context(f, g, x, b), mesh, f,
+                                                        1, device="cpu", dtype=torch.float64),
+        "shard_state": lambda: parallel.shard_state(
+            torch.ones((g, *f.mesh.shape, 1), dtype=torch.float64), mesh, 1),
     }
     out = {}
-    for name in DECLINES:
+    for name, call in calls.items():
         try:
-            calls[name]()
+            call()
             out[name] = ""
         except Exception as e:  # reported to the test, which names what it wants
             out[name] = f"{type(e).__name__}: {e}"
@@ -303,11 +309,13 @@ def _summary(res, phi, rank):
 
 
 def variant_cases(rank, world, init, cases):
-    """Each case (``run_variant``'s, with "grid_axis" and the mesh "shape"):
-    the rank's slab of the whole problem's context and flat flux, the
-    variant under a sharding scope, its observables (``_summary``) with the
-    gathered flux, the coarse flux for "coarse", the partitioned-solve
-    applications and the collectives of the run."""
+    """Each case (``run_variant``'s, with "grid_axis" and the mesh "shape";
+    "parttri_off": the context sliced under ``NEUTFEM_PARTTRI=0``): the
+    rank's slab of the whole problem's context and flat flux, the variant
+    under a sharding scope, its observables (``_summary``) with the gathered
+    flux (and with "currents" the gathered face currents), the coarse flux
+    for "coarse", the partitioned- and scan-solve applications and the
+    collectives of the run."""
     import torch
 
     from neutfem_tpu_torch import parallel, shardctx
@@ -320,19 +328,29 @@ def variant_cases(rank, world, init, cases):
             meshes[shape] = _mesh(rank, world, init, shape)
         mesh, ga = meshes[shape], case["grid_axis"]
         fes, ng, xs, bcs, host = _variant_problem(case, "cpu")
-        ctx = parallel.shard_context(host, mesh, fes, ga, device="cpu", dtype=torch.float64)
+        if case.get("parttri_off"):
+            os.environ["NEUTFEM_PARTTRI"] = "0"
+        try:
+            ctx = parallel.shard_context(host, mesh, fes, ga, device="cpu", dtype=torch.float64)
+        finally:
+            os.environ.pop("NEUTFEM_PARTTRI", None)
         phi0 = parallel.shard_state(torch.ones((ng, *fes.mesh.shape, fes.P),
                                                dtype=torch.float64), mesh, ga)
-        before = (parttri.LAUNCHES["parttri"], shardctx.COMM["collectives"])
+        before = (parttri.LAUNCHES["parttri"], parttri.LAUNCHES["scan"],
+                  shardctx.COMM["collectives"])
         with shardctx.sharding_scope(mesh, parallel._axis_map(mesh, ga)):
             res = run_variant(case, fes, ng, xs, bcs, ctx, phi0, "cpu")
-        counts = (parttri.LAUNCHES["parttri"] - before[0],
-                  shardctx.COMM["collectives"] - before[1])
+        counts = (parttri.LAUNCHES["parttri"] - before[0], parttri.LAUNCHES["scan"] - before[1],
+                  shardctx.COMM["collectives"] - before[2])
         got = _summary(res, parallel.gather_state(res["phi"], mesh, ga), rank)
         if "phi_coarse" in res:
             whole = parallel.gather_state(res["phi_coarse"], mesh, ga)
             got["phi_coarse"] = whole.numpy() if rank == 0 else None
-        got["parttri"], got["collectives"] = counts
+        if case.get("currents"):
+            J = {key: parallel.gather_state(e["face"], mesh, ga, face_axis=3 - int(key[1]) - 1)
+                 for key, e in res["J"].items()}
+            got["J"] = {k: v.numpy() for k, v in J.items()} if rank == 0 else None
+        got["parttri"], got["scan"], got["collectives"] = counts
         out[case["name"]] = got
     return out
 
@@ -352,6 +370,8 @@ def variant_unsharded(rank, world, init, cases):
         out[case["name"]] = _summary(res, res["phi"], rank)
         if "phi_coarse" in res:
             out[case["name"]]["phi_coarse"] = res["phi_coarse"].numpy()
+        if case.get("currents"):
+            out[case["name"]]["J"] = {k: e["face"].numpy() for k, e in res["J"].items()}
     return out
 
 
@@ -407,4 +427,41 @@ def parttri_cases(rank, world, init, cases):
         count = parttri.LAUNCHES["parttri"] - before
         whole = parallel.gather_state(got, mesh, 0, base=got.ndim - 3)
         out[case["name"]] = (whole.numpy(), count)
+    return out
+
+
+def scan_solve_cases(rank, world, init, cases):
+    """``parttri.tridiag_solve_scan`` on one rank of a 1D mesh.  Each case
+    {"name", "solve": (dinv, l, rhs, s, cyc)}: the global LDL^T factors
+    (face axis 1, no T axis), a rhs (face axis 2), s faces a rank and the
+    PERIODIC bundle (wt, a0, a1) or None (then the last face is the seam).
+    Returns the rank's body solution, its seam solution (None but on the
+    last rank of a system with a seam) and the scan applications."""
+    import torch
+
+    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch.ops import parttri
+
+    tr = _mesh(rank, world, init, None).axes[parallel.SPATIAL_AXIS]
+    out = {}
+    for case in cases:
+        dinv, l, rhs, s, cyc = case["solve"]
+        n = world * s
+        body = slice(rank * s, rank * s + s)
+        if cyc is not None:  # n-1 couplings of the n folded faces: pad the end
+            l = np.concatenate([l, np.zeros_like(l[:, :1])], axis=1)
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).unsqueeze(1)
+
+        prev = l[:, rank * s - 1:rank * s] if rank else np.zeros_like(l[:, :1])
+        seam_d = None if cyc is not None else t(dinv[:, n:])
+        bundle = None if cyc is None else (t(cyc[0][:, body]), t(cyc[1]), t(cyc[2]))
+        r = torch.as_tensor(rhs)
+        before = parttri.LAUNCHES["scan"]
+        x, x_seam = parttri.tridiag_solve_scan(
+            r[:, :, body].contiguous(), None if cyc is not None else r[:, :, n:].contiguous(),
+            (t(dinv[:, body]), seam_d), (t(prev), t(l[:, body])), 2, tr, bundle)
+        out[case["name"]] = {"x": x.numpy(), "seam": None if x_seam is None else x_seam.numpy(),
+                             "scan": parttri.LAUNCHES["scan"] - before}
     return out
