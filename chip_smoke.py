@@ -196,10 +196,31 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    1x1x2 z cut under ``NEUTFEM_PARTTRI=0`` (``V18C``).  The scan runs no
    kernel of its own (the JAX package's is XLA, no Pallas kernel): [18]
    adds no kernel row.
+19. the literature cores through the port's entry points, each path with
+   its own counts: (a) ``validate.validate()`` at float32 (IAEA-2D 8x8,
+   BIBLIS, KOEBERG 32x32, ZION 48x48, IAEA-3D 6x6x4), each core within its
+   JAX pcm bound of k_ref, within 1e-5 of the JAX package's TPU k and on
+   its float32 counts (``VALIDATE_ANCHORS``); K2 / K3 (K1-K3 on IAEA-3D)
+   every CG iteration, the replaced kernels not at all; the cores above
+   the two-grid threshold (BIBLIS, KOEBERG, ZION) on the two-grid level
+   with K4′ launched, IAEA-2D 8x8 on Jacobi (no coarse level); IAEA-2D's
+   assembly power factors within 3% of the published map; (b)
+   ``validate.run_ladder`` at ZION 64x64 and 68x68 (1216² and 1292² cells)
+   and IAEA-2D 32x32, within 2e-5 of ``PARITY_r05.json``'s k and +-3 of its
+   outers (``LADDER_ANCHORS``), K2 / K3 every CG iteration, K4′ launched
+   (the (4, 64) tile at ZION); (c) K2 / K3 on ZION 68x68's operands (1, 1,
+   1292, 1292) and K4′ at its ``compute_current`` y layout (2, 1, 1, 1293,
+   1292) and its line preconditioner's (1, 1, 1292, 1292), each against the
+   plain version at the tile the wrapper picks (rows of the JSON line, with
+   (b)'s launches; the line row with one line-preconditioned group solve's);
+   (d) float64, the card against the CPU through ``runner.run_benchmark``:
+   BIBLIS 2x2 and ZION 4x4 with the adjoint (|dk|, |dk_adj| <= 1e-9, the
+   same outers, ``Fass`` rel 1e-9).
 
 ``python3 chip_smoke.py --phase 15`` runs [1], [2] and [15] alone and prints
-the kernel rows of [15] but no result line; ``--phase 16`` and ``--phase 17``
-likewise for [16] and [17]; ``--phase 18`` runs [1], [2] and [18] alone.
+the kernel rows of [15] but no result line; ``--phase 16``, ``--phase 17``
+and ``--phase 19`` likewise for [16], [17] and [19]; ``--phase 18`` runs
+[1], [2] and [18] alone.
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
@@ -372,6 +393,29 @@ BICGSTAB_ANCHOR = (1.0287386, 49, 419)
 VARIANT_PAIR_TOL = 2e-5
 # the bottom face's current against the prescribed q = 1, relative (float32)
 NEUMANN_Q_REL = 1e-5
+# [19a] neutfem_tpu_torch.validate's five cores: (k, outers, inners).  k is the
+# JAX package's TPU float32 k of VALIDATE_r05.json (held within KEFF_TOL); the
+# counts are the JAX package's float32 counts at bench.FULL_TOL on a CPU
+# (outers +-3, inners +-15%): KOEBERG, ZION and IAEA-3D those of ANCHORS_2D
+# and [5], IAEA-2D 8x8 (k 1.0295719 there) and BIBLIS 32x32 (k 1.0251184)
+# from
+#   NEUTFEM_X64=0 JAX_PLATFORMS=cpu python -c "from benchmarks.runner import
+#   BenchmarkRun; from benchmarks.data import BENCHMARKS; r = BenchmarkRun(
+#   BENCHMARKS['biblis2d'], mesh_n=32); print(r.solve(), r.solver._last_outers,
+#   r.solver._last_inners)"
+# (and BENCHMARKS['iaea2d'], mesh_n=8)
+VALIDATE_ANCHORS = {"iaea2d": (1.0295748, 34, 1300), "biblis2d": (1.025118, 25, 1670),
+                    "koeberg2d": (1.0079671, 34, 3836), "zion2d": (1.274965, 30, 4391),
+                    "iaea3d": (1.0291045, 34, 1068)}
+# the largest |deviation| of IAEA-2D 8x8's assembly power factors from the
+# published map, percent (tests/test_benchmarks.py's bound at 8x8)
+POWER_DEV_PCT = 3.0
+# [19b] the fine 2D parity ladder's new rows (validate.run_ladder at
+# validate.LADDER_TOL): (core, mesh) -> (k, outers) of the JAX package on the
+# TPU at float32 (PARITY_r05.json); k within LADDER_KEFF_TOL, outers +-3
+LADDER_ANCHORS = {("zion2d", 64): (1.2749408, 38), ("zion2d", 68): (1.2749062, 38),
+                  ("iaea2d", 32): (1.0296507, 35)}
+LADDER_KEFF_TOL = 2e-5
 # the H100 SXM's published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -456,14 +500,14 @@ def _current_operands(fes, ctx, di, phi):
     return rFs, dinv, lf, di.axis - 3
 
 
-def _wide_case(label, r, d, l, card):
+def _wide_case(label, r, d, l, card, sweep=True):
     """K4′ at one wide layout (a solve along axis -2, ``thomas.wide_rows``):
     the wrapper, which launches the tiled kernel of csrc/thomas_wide_rows.cu
     at the tile ``thomas.wide_tile`` picks, and the first K4′ kernel it
     replaced (``thomas_wide_kernel``, called through the library: no launch
     counted), each against the plain version and timed in turns queued behind
-    a sleep; then the tiled kernel at the tiles of ``WIDE_SWEEP``.  Returns a
-    row with ``old_ms``."""
+    a sleep; then, with ``sweep``, the tiled kernel at the tiles of
+    ``WIDE_SWEEP``.  Returns a row with ``old_ms``."""
     import torch
 
     from neutfem_tpu_torch.ops import cuda_lib, thomas
@@ -496,13 +540,14 @@ def _wide_case(label, r, d, l, card):
     bound = _bound((r, d, l, got), THOMAS_FLOPS_PER_ELEMENT * r.numel())
     tile = thomas.wide_tile(n, lines // inner, inner,
                             torch.cuda.get_device_properties(0).multi_processor_count)
-    sweep = _tile_sweep(f"K4′ tiled {label}", WIDE_SWEEP,
+    sweep = _tile_sweep(f"K4′ tiled {label}", WIDE_SWEEP if sweep else (),
                         lambda _, tile: thomas.thomas_solve(r, d, l, -2, tile), want, zero, zero)
     print(f"  K4′ {label} {tuple(r.shape)}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
           f"({t[1]:.4f}, {t[2]:.4f}), thomas_wide_kernel {old_ms:.4f} ms ({t[0]:.4f}, "
           f"{t[3]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of "
           f"{n}; share of bound {bound[0] / ms:.3f}; {card})")
-    print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+    if sweep:
+        print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
     row = _row(f"K4′ Thomas solve for few, long lines (_solve_y), {label}",
                "neutfem_tpu_torch/csrc/thomas_wide_rows.cu",
                "neutfem_tpu/ops/pallas_tridiag.py:197", "thomas_wide_rows", err, ms, plain_ms,
@@ -593,14 +638,14 @@ def _tile_sweep(name, tiles, run, want, acc0, scratch, base=None):
     return out
 
 
-def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
+def _rows_case(kid, key, ctxg, di, v, acc0, card, label, sweep=True):
     """K1 (z), K2 (y) or K3 (x) on one group's flux: the wrapper, which
     launches the tiled kernel at the tile ``fused.z_tile`` (z) or
     ``fused.rows_tile`` picks, and the thread-per-line kernel it replaced,
     called through the library (no launch counted), each against the plain
     version on the NATURAL operands and timed in turns (old, new, new, old);
-    then the tiled kernel at the tiles of ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.
-    Returns a row with ``old_ms``."""
+    then, with ``sweep``, the tiled kernel at the tiles of ``Z_SWEEP`` (z) or
+    ``ROWS_SWEEP``.  Returns a row with ``old_ms``."""
     import torch
 
     from neutfem_tpu_torch.ops import cuda_lib, fused
@@ -655,13 +700,15 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label):
     plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
     bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
     tile = (fused.z_tile if key == "z" else fused.rows_tile)(lines, n, v.dtype)
-    sweep = _tile_sweep(f"{kid} tiled {key} {label}", Z_SWEEP if key == "z" else ROWS_SWEEP,
-                        tiled, want, acc0, scratch)
+    sweep = _tile_sweep(f"{kid} tiled {key} {label}",
+                        (Z_SWEEP if key == "z" else ROWS_SWEEP) if sweep else (), tiled, want,
+                        acc0, scratch)
     print(f"  {kid} {key} {label}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
           f"({t[1]:.4f}, {t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
           f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells; "
-          f"{card})")
-    print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
+          f"share of bound {bound[0] / ms:.3f}; {card})")
+    if sweep:
+        print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
     source = "fused_z_rows.cu" if key == "z" else "fused_rows.cu"
     row = _row(f"{kid} fused Schur direction {key}{label}", f"neutfem_tpu_torch/csrc/{source}",
                ROWS_REPLACES[key], f"{key}_rows", err, ms, plain_ms, bound)
@@ -989,10 +1036,11 @@ def _ho_kernels(bench, order, card, rng):
     staged ones and compute their own mode index.  Returns the rows and K8's."""
     import torch
 
+    from neutfem_tpu_torch.data import BENCHMARKS
     from neutfem_tpu_torch.ops import cuda_lib, fused_ho
     from neutfem_tpu_torch.power import ctx_group
 
-    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     run = bench.BenchmarkRun(spec, mesh_n=4, mesh_nz=2, device="cuda", dtype=torch.float32,
                              rt_order=order)
     fes = run.solver._fes
@@ -1111,7 +1159,9 @@ def _small_2d_solve(bench, device):
     is finite and of the expected shape."""
     import torch
 
-    r = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["koeberg2d"], mesh_n=4,
+    from neutfem_tpu_torch.data import BENCHMARKS
+
+    r = bench.BenchmarkRun(BENCHMARKS["koeberg2d"], mesh_n=4,
                            device=device, dtype=torch.float64)
     k = r.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
     s = r.solver
@@ -1231,10 +1281,10 @@ def _facade_paths(bench, spec, dev, card, reset_counts, counts, cg_line):
     import numpy as np
     import torch
 
+    from neutfem_tpu_torch import data
     from neutfem_tpu_torch.rounding_probe import perturbed_start
 
     f32, f64 = torch.float32, torch.float64
-    data = bench.load_benchmark_data()
 
     def k14(launches, what):
         """The K1-K4 launches of a path (all of them > 0, none of the replaced)."""
@@ -1492,11 +1542,11 @@ def _variant_paths(bench, dev, card, reset_counts, counts, rows):
     import numpy as np
     import torch
 
+    from neutfem_tpu_torch import data
     from neutfem_tpu_torch.compat import BCType
     from neutfem_tpu_torch.power import ctx_group
 
     f32, f64 = torch.float32, torch.float64
-    data = bench.load_benchmark_data()
     one_group = (*Z_KEYS, "thomas_rows", "thomas_wide_rows")
     old = (*Z_OLD, "thomas", "thomas_y", *HO_OLD, *K5_OLD)
 
@@ -1742,12 +1792,13 @@ def _sharded_solve(bench, mesh, ga, case, dev, check=None):
     import torch
 
     from neutfem_tpu_torch import krylov, parallel
+    from neutfem_tpu_torch.data import BENCHMARKS
     from neutfem_tpu_torch.ops import launch_counters
     from neutfem_tpu_torch.ops.context import build_host_context
 
     core, n, nz, order, tol, dt = case
     dtype = getattr(torch, dt)
-    run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS[core], mesh_n=n,
+    run = bench.BenchmarkRun(BENCHMARKS[core], mesh_n=n,
                              mesh_nz=nz, device="cpu", dtype=dtype, rt_order=order)
     s = run.solver
     s.set_tol(*tol)
@@ -1888,7 +1939,9 @@ def _cpu_reference(bench, mesh_n, mesh_nz, tol):
     """The unsharded IAEA-3D float64 solve on the CPU: (k, outers, flux)."""
     import torch
 
-    r = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea3d"], mesh_n=mesh_n,
+    from neutfem_tpu_torch.data import BENCHMARKS
+
+    r = bench.BenchmarkRun(BENCHMARKS["iaea3d"], mesh_n=mesh_n,
                            mesh_nz=mesh_nz, device="cpu", dtype=torch.float64)
     k = r.solve(tol=tol)
     return k, r.solver._last_outers, r.solver._phi.numpy()
@@ -1903,6 +1956,7 @@ def _sharded_paths(bench, dev, card, rows):
     import torch.distributed as dist
 
     from neutfem_tpu_torch import parallel, shardctx
+    from neutfem_tpu_torch.data import BENCHMARKS
 
     f32 = torch.float32
     small_tol = (1e-6, 1e-5, 1e-5, 300, 1000)
@@ -1913,7 +1967,7 @@ def _sharded_paths(bench, dev, card, rows):
                                 world_size=1)
     print(f"[16a] world of one over {mesh.backend} ({mesh}): IAEA-3D 6x6x4 RT0-P0, float32, "
           "sharded_power_iteration with a z cut and a y cut")
-    run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea3d"], mesh_n=6,
+    run = bench.BenchmarkRun(BENCHMARKS["iaea3d"], mesh_n=6,
                              mesh_nz=4, device=dev, dtype=f32)
     run.solve(tol=bench.FULL_TOL)
     run.solver.reset_flux()
@@ -2111,7 +2165,8 @@ def _v17_facade(bench, core, mesh, bc=None, subcritical=False, tol=None):
     every fuel cell."""
     import torch
 
-    data = bench.load_benchmark_data()
+    from neutfem_tpu_torch import data
+
     kw = {"bc": bc} if bc else {}
     s = bench.BenchmarkRun(data.BENCHMARKS[core], *mesh, device="cpu", dtype=torch.float64,
                            **kw).solver
@@ -2674,7 +2729,7 @@ def _scan_cuts(bench, dev, card):
     import torch
     import torch.distributed as dist
 
-    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch import data, parallel
     from neutfem_tpu_torch.compat import BCType
     from neutfem_tpu_torch.ops.context import build_host_context, context_to_device
 
@@ -2682,7 +2737,6 @@ def _scan_cuts(bench, dev, card):
     t_all = t0 = time.perf_counter()
     mesh = parallel.device_mesh("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
                                 world_size=1)
-    data = bench.load_benchmark_data()
     print(f"[18a] the scan cut under NEUTFEM_PARTTRI=0 beside the partitioned cut, world of one "
           f"over {mesh.backend}: IAEA-3D 6x6x4 RT0-P0 float32 (bench.FULL_TOL), on [5]'s anchors")
     run = bench.BenchmarkRun(data.BENCHMARKS["iaea3d"], 6, 4, device="cpu", dtype=f32)
@@ -2795,6 +2849,156 @@ def _scan_cuts(bench, dev, card):
     print(f"    [18c] {time.perf_counter() - t0:.1f} s; [18] {time.perf_counter() - t_all:.1f} s")
 
 
+def _literature_paths(dev, card, reset_counts, counts, cg_line, rows):
+    """Phase [19]: the literature cores on the card through the port's entry
+    points (``validate``, ``runner``), each path with its own counts (module
+    docstring).  Adds the rows of K2 / K3 and K4′ at ZION 68x68's widths to
+    ``rows``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch import runner, validate
+    from neutfem_tpu_torch.bench import BenchmarkRun
+    from neutfem_tpu_torch.data import BENCHMARKS
+    from neutfem_tpu_torch.ops import thomas
+    from neutfem_tpu_torch.power import ctx_group
+
+    f32, f64 = torch.float32, torch.float64
+    t_all = t0 = time.perf_counter()
+    print("[19a] the five literature cores: neutfem_tpu_torch.validate.validate(), float32 at "
+          "bench.FULL_TOL")
+    reset_counts()
+    vrows = validate.validate()  # raises SystemExit when a core is out of its pcm bound
+    for r in vrows:
+        name, L, inners = r["name"], r["launches"], r["inner_iterations"]
+        print(f"    {name} {r['mesh']}: k {r['keff']:.7f}, pcm {r['pcm']:+.2f} (bound "
+              f"{r['bound']}), {r['outer_iterations']} / {inners} (anchors "
+              f"{VALIDATE_ANCHORS[name]}), {1e3 * r['solve_s'] / r['outer_iterations']:.3f} "
+              f"ms/outer, build + solve {r['wall_s']:.2f} s, {r['preconditioner']}; launches "
+              f"{L} ({card})")
+        cg_line(r["cg"])
+        _check_anchor(f"[19a] {name} {r['mesh']}", r["keff"], r["outer_iterations"], inners,
+                      VALIDATE_ANCHORS[name])
+        every, old = ((Z_KEYS, (*Z_OLD, "thomas")) if name == "iaea3d"
+                      else (("y_rows", "x_rows"), ("y", "x", "thomas_y")))
+        if any(L.get(k, 0) < inners for k in every) or any(L.get(k, 0) for k in old):
+            raise RuntimeError(f"[19a] {name}: {every} not launched every CG iteration, or a "
+                               "replaced kernel launched")
+        if r["n_cells"] >= 65536 and name != "iaea3d":  # twogrid.AUTO_TG_MIN_CELLS
+            if r["preconditioner"] != "twogrid" or L.get("thomas_wide_rows", 0) <= 0:
+                raise RuntimeError(f"[19a] {name}: preconditioner {r['preconditioner']!r}, "
+                                   f"K4′ launches {L.get('thomas_wide_rows', 0)}")
+        elif name == "iaea2d" and r["preconditioner"] != "jacobi":
+            raise RuntimeError(f"[19a] iaea2d 8x8: preconditioner {r['preconditioner']!r}, a "
+                               "two-grid level attached below its threshold")
+        elif name == "iaea3d" and L.get("thomas_rows", 0) <= 0:
+            raise RuntimeError("[19a] iaea3d 6x6x4: K4 not launched in compute_current")
+    dev_pct = vrows[0]["power_max_dev_pct"]
+    print(f"    IAEA-2D 8x8 assembly power factors: largest |deviation| from the published map "
+          f"{dev_pct:.3f}% (bound {POWER_DEV_PCT}%)")
+    if not dev_pct < POWER_DEV_PCT:
+        raise RuntimeError(f"[19a] IAEA-2D 8x8 power map off by {dev_pct}%")
+    print(f"    [19a] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("[19b] the fine 2D parity ladder's new rows: neutfem_tpu_torch.validate.run_ladder(), "
+          "float32 at validate.LADDER_TOL")
+    reset_counts()
+    lrows = (validate.run_ladder(cores=("zion2d",), meshes=(64, 68))
+             + validate.run_ladder(cores=("iaea2d",), meshes=(32,)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ladder = {}
+    for r in lrows:
+        core, n = r["core"], int(r["mesh"].split("x")[0])
+        k_a, o_a = LADDER_ANCHORS[(core, n)]
+        L, inners, outers = r["launches"], r["inner_iterations"], r["outer_iterations"]
+        print(f"    {core} {r['mesh']} ({r['n_cells']} cells): k {r['keff']:.7f} (anchor {k_a}), "
+              f"pcm {r['pcm']:+.2f}, {outers} / {inners} (outers anchor {o_a}), "
+              f"{r['ms_per_outer']:.3f} ms/outer, first solve "
+              f"{r['compile_plus_first_solve_s']:.2f} s, {r['preconditioner']}; launches {L} "
+              f"({card})")
+        cg_line(r["cg"])
+        if not (abs(r["keff"] - k_a) <= LADDER_KEFF_TOL and abs(outers - o_a) <= OUTERS_TOL):
+            raise RuntimeError(f"[19b] {core} {r['mesh']}: k {r['keff']} / {outers} outers, "
+                               f"anchors {k_a} +- {LADDER_KEFF_TOL} / {o_a} +- {OUTERS_TOL}")
+        if (min(L.get("y_rows", 0), L.get("x_rows", 0)) < inners
+                or any(L.get(k, 0) for k in ("y", "x", "thomas_y"))
+                or r["preconditioner"] != "twogrid" or L.get("thomas_wide_rows", 0) <= 0):
+            raise RuntimeError(f"[19b] {core} {r['mesh']}: K2 / K3 not every CG iteration, a "
+                               "replaced kernel, no two-grid level or no K4′")
+        if core == "zion2d":
+            m = round(r["n_cells"] ** 0.5)  # compute_current's y: (2, 1, 1, m + 1, m)
+            tile = thomas.wide_tile(m + 1, 2, m, sms)
+            if tile != (4, 64):
+                raise RuntimeError(f"[19b] ZION {n}x{n}: K4′ tile {tile}, not (4, 64)")
+        ladder[(core, n)] = r
+    print(f"    [19b] {time.perf_counter() - t0:.1f} s")
+
+    # [19c] the kernels at ZION 68x68's widths, each against its plain version,
+    # on that core's own operands (a random flux / residual)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    zrun = BenchmarkRun(BENCHMARKS["zion2d"], mesh_n=68, device=dev, dtype=f32)
+    s = zrun.solver
+    zfes, zctx = s._fes, s._ctx
+    zctxg = ctx_group(zctx, 0)
+    zshape = (1, *zfes.mesh.shape)
+    zdirs = {di.d: di for di in zfes.dirs}
+    print(f"[19c] kernels vs plain, ZION 68x68 {zfes.mesh.shape} group 0, float32 (build "
+          f"{time.perf_counter() - t0:.1f} s; {card})")
+    zv, zacc0, r1 = (torch.as_tensor(rng.standard_normal(zshape), dtype=f32, device=dev)
+                     for _ in range(3))
+    z68 = ladder[("zion2d", 68)]["launches"]
+    for kid, key, d in (("K2", "y", 1), ("K3", "x", 0)):
+        row = _rows_case(kid, key, zctxg, zdirs[d], zv, zacc0, card, " (2D, ZION 68x68)",
+                         sweep=False)
+        row["launches"] = z68[row.pop("key")]
+        rows[f"{kid} ZION 68"] = row
+    zphi = torch.as_tensor(rng.standard_normal((2, *zshape)), dtype=f32, device=dev)
+    row = _wide_case("compute_current y (ZION 68x68)",
+                     *_current_operands(zfes, zctx, zdirs[1], zphi)[:3], card, sweep=False)
+    row["launches"] = z68[row.pop("key")]
+    rows["K4′ ZION 68"] = row
+    row = _wide_case("2D line preconditioner (ZION 68x68)", r1,
+                     zctxg["precond_line_dinv"].unsqueeze(-4).expand(r1.shape).contiguous(),
+                     zctxg["precond_line_l"].unsqueeze(-4).contiguous(), card, sweep=False)
+    s.set_tol(*validate.LADDER_TOL)
+    line_opts = dataclasses.replace(s._opts(), inner_precond="line")
+    graph_l = _graph_case("ZION 68x68 group 0 (line preconditioner: K4′)", s, line_opts, 0, card)
+    row["launches"] = graph_l.get(row.pop("key"), 0)
+    if row["launches"] <= 0 or graph_l.get("thomas_y", 0):
+        raise RuntimeError("[19c] ZION 68x68 line preconditioner: the tiled K4′ did not run")
+    rows["K4′ line ZION 68"] = row
+    del zrun, s, zctx, zctxg, zv, zacc0, zphi, r1
+    print(f"    [19c] {time.perf_counter() - t0:.1f} s")
+
+    # [19d] float64, the card against the CPU, through runner.run_benchmark
+    t0 = time.perf_counter()
+    for core, n in (("biblis2d", 2), ("zion2d", 4)):
+        got = {}
+        for device in ("cpu", "cuda"):
+            reset_counts()
+            got[device] = runner.run_benchmark(core, mesh_n=n, adjoint=True, device=device,
+                                               dtype=f64)
+        L = counts()
+        c, g = got["cpu"], got["cuda"]
+        dk, dka = abs(g.keff - c.keff), abs(g.keff_adj - c.keff_adj)
+        fass = float(np.max(np.abs(g.Fass - c.Fass)) / np.max(np.abs(c.Fass)))
+        print(f"[19d] {core} {n}x{n} float64 adjoint: cuda k {g.keff!r} / k_adj {g.keff_adj!r} "
+              f"({g.outer_iterations} outers), cpu {c.keff!r} / {c.keff_adj!r} "
+              f"({c.outer_iterations}); |dk| {dk:.2e}, |dk_adj| {dka:.2e}, Fass rel {fass:.2e}; "
+              f"K2 / K3 {L['y_rows']} / {L['x_rows']}")
+        if (dk > 1e-9 or dka > 1e-9 or g.outer_iterations != c.outer_iterations or fass > 1e-9
+                or min(L["y_rows"], L["x_rows"]) <= 0 or L["y"] or L["x"]):
+            raise RuntimeError(f"[19d] {core} {n}x{n}: the card disagrees with the CPU, or the "
+                               "tiled K2 / K3 did not serve it")
+        del got, c, g
+    print(f"    [19d] {time.perf_counter() - t0:.1f} s")
+    print(f"    [19] {time.perf_counter() - t_all:.1f} s")
+
+
 def main():
     import torch
 
@@ -2811,6 +3015,7 @@ def main():
     import numpy as np
 
     from neutfem_tpu_torch import bench, krylov
+    from neutfem_tpu_torch.data import BENCHMARKS
     from neutfem_tpu_torch.ops import (blockjac, cuda_lib, fused, fused_eq, fused_ho,
                                        launch_counters, thomas)
     from neutfem_tpu_torch.power import ctx_group
@@ -2869,7 +3074,13 @@ def main():
         _scan_cuts(bench, dev, card)
         print(f"    total {time.perf_counter() - t_all:.1f} s")
         return
-    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    if sys.argv[1:] == ["--phase", "19"]:  # phase [19] alone: no result
+        rows = {}
+        _literature_paths(dev, card, reset_counts, counts, cg_line, rows)
+        print(f"    total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"kernels": list(rows.values())}))
+        return
+    spec = BENCHMARKS["iaea3d"]
     run = bench.BenchmarkRun(spec, mesh_n=6, mesh_nz=4, device=dev, dtype=f32)
     fes, ctx = run.solver._fes, run.solver._ctx
     ctxg = ctx_group(ctx, 0)
@@ -2971,7 +3182,7 @@ def main():
     # the 2D slice: K2 / K3 on one group's ZION 48x48 flux (1, 1, 912, 912), and
     # K4′ at compute_current's 2D y layout (2, 1, 1, 913, 912)
     t2 = time.perf_counter()
-    zrun = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["zion2d"], mesh_n=48,
+    zrun = bench.BenchmarkRun(BENCHMARKS["zion2d"], mesh_n=48,
                               device=dev, dtype=f32)
     print(f"    ZION 48x48 build: {time.perf_counter() - t2:.1f} s "
           f"({zrun.solver.build_seconds})")
@@ -3003,7 +3214,7 @@ def main():
           f"{coarse_ms:.4f} ms ({card})")
     del zrun, zctx, zctxg, minv
     # K2 / K3 at KOEBERG 32x32: one group's flux (1, 1, 544, 544)
-    krun = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["koeberg2d"], mesh_n=32,
+    krun = bench.BenchmarkRun(BENCHMARKS["koeberg2d"], mesh_n=32,
                               device=dev, dtype=f32)
     kfes = krun.solver._fes
     kctxg = ctx_group(krun.solver._ctx, 0)
@@ -3311,7 +3522,7 @@ def main():
             or any(launches[k] for k in (*Z_OLD, "thomas"))):
         raise RuntimeError("CMFD / coarse init: the tiled K1-K3 did not serve them")
     del run, s
-    d2 = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["iaea2d"], mesh_n=3,
+    d2 = bench.BenchmarkRun(BENCHMARKS["iaea2d"], mesh_n=3,
                             device=dev, dtype=f32)
     s = d2.solver
     s.set_tol(*bench.SWEEP_TOL)
@@ -3435,7 +3646,7 @@ def main():
     if graph_l.get("blockjac_dev", 0) <= 0:
         raise RuntimeError("RT2-P2 group solve: K8 on the E-form did not run in the graph")
     del run, s
-    run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["zion2d"], mesh_n=48,
+    run = bench.BenchmarkRun(BENCHMARKS["zion2d"], mesh_n=48,
                              device=dev, dtype=f32)
     s = run.solver
     s.set_tol(*bench.FULL_TOL)
@@ -3469,6 +3680,9 @@ def main():
 
     # [18] the scan cut-axis solve: each path with its own counts
     _scan_cuts(bench, dev, card)
+
+    # [19] the literature cores: each path with its own counts
+    _literature_paths(dev, card, reset_counts, counts, cg_line, rows)
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

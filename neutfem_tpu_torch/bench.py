@@ -1,7 +1,8 @@
 """k-eff benchmarks on the PyTorch port (one JSON line each, as ``bench.py``).
 
 Port of ``benchmarks/runner.BenchmarkRun`` (the full core and the quarter and
-half domains with their mirror cut planes), of ``bench.main``, of rows of
+half domains with their mirror cut planes; ``solve`` with the JAX runner's
+options, the adjoint and the assembly power factors), of ``bench.main``, of rows of
 ``bench.main_full`` and of ``benchmarks/accel_compare.run_matrix``:
 
 * ``main``: IAEA-3D at NxN per assembly and M axial subdivisions per plane,
@@ -37,8 +38,7 @@ half domains with their mirror cut planes), of ``bench.main``, of rows of
 
 ``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
 one solve, ``reset_flux``, then one timed solve from a cold flux.  The
-benchmark data come from ``benchmarks/data.py``, loaded by file path (it
-imports only numpy), so nothing of the JAX package is loaded.
+benchmark data come from the port's own copy, ``neutfem_tpu_torch/data.py``.
 
 Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
 --core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi} |
@@ -50,7 +50,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import importlib.util
 import json
 import os
 import subprocess
@@ -63,11 +62,12 @@ import torch
 
 from . import krylov
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
+from .data import BENCHMARKS, sigr_of
 from .mesh import boundary_attribute
 from .ops import launch_counters
 from .power import power_iteration
 
-__all__ = ["BenchmarkRun", "load_benchmark_data", "main", "main_ho", "main_2d", "main_scale",
+__all__ = ["BenchmarkRun", "main", "main_ho", "main_2d", "main_scale",
            "main_adjoint", "main_sweep", "main_optin", "main_accel", "main_variants", "env"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
@@ -77,24 +77,6 @@ CPU_SECONDS_PER_CELL_PER_OUTER = 8.84e-6
 #: ``bench.py``'s RT0 tolerances (k, flux, L2, outers, inners), its
 #: ``--full`` rows' too.
 FULL_TOL = (1e-5, 1e-4, 1e-4, 200, 1000)
-
-_DATA_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "benchmarks", "data.py")
-_data_module = None
-
-
-def load_benchmark_data():
-    """The ``benchmarks/data.py`` module, loaded by path (not as ``benchmarks.data``,
-    whose package imports the JAX runner)."""
-    global _data_module
-    if _data_module is None:
-        spec = importlib.util.spec_from_file_location("neutfem_tpu_torch._benchmark_data",
-                                                      _DATA_PATH)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _data_module = mod
-    return _data_module
-
 
 def _expand_layout(rows, n):
     """Subdivide each layout cell into n x n mesh cells."""
@@ -159,7 +141,10 @@ class BenchmarkRun:
         # (axis, upper) -> (BCType, value) set in place of the domain's rule
         self.bc = dict(bc or {})
         self.keff: Optional[float] = None
+        self.keff_adj: Optional[float] = None
+        self.Fass: Optional[np.ndarray] = None
         self.solve_seconds: Optional[float] = None
+        self.outer_iterations: Optional[int] = None
         self._build(device, dtype)
 
     def _build(self, device, dtype):
@@ -222,7 +207,6 @@ class BenchmarkRun:
         spec = self.spec
         ng = spec.ng
         grid = self.grid
-        sigr_of = load_benchmark_data().sigr_of
 
         D = np.zeros((ng, *grid.shape))
         SigR = np.zeros_like(D)
@@ -257,18 +241,49 @@ class BenchmarkRun:
         s.get_SigS()[:] = sq(SigS)
         s.get_KSF()[:] = sq(NSF)  # power proxy
 
-    def solve(self, tol=FULL_TOL):
+    def solve(self, tol=FULL_TOL, use_coarse_init: bool = False, coarse_factors=(),
+              adjoint: bool = False, use_cmfd: bool = False,
+              use_diagonal_solver: bool = False):
+        """``SolveKeff`` at ``tol`` with the JAX runner's options, then the
+        adjoint at the direct k (``adjoint``) and the assembly power factors;
+        returns k.  ``solve_seconds`` times the direct solve alone."""
         s = self.solver
         s.set_tol(*tol)
         t0 = time.time()
-        self.keff = s.SolveKeff()
+        self.keff = s.SolveKeff(use_coarse_init=use_coarse_init,
+                                coarse_factors=list(coarse_factors),
+                                use_diagonal_solver=use_diagonal_solver, use_cmfd=use_cmfd)
         self.solve_seconds = time.time() - t0
+        self.outer_iterations = s._last_outers
+        if adjoint:
+            self.keff_adj = s.SolveAdjoint()
+        self._power_factors()
         return self.keff
 
     @property
     def pcm(self) -> float:
         """Reactivity deviation vs k_ref: 1e5 (1/k_ref - 1/k) (iaea2d.py:389)."""
         return 1e5 * (1.0 / self.spec.kref - 1.0 / self.keff)
+
+    def _power_factors(self):
+        """Assembly power factors ``Fass`` normalized to the number of fuel
+        assemblies (iaea2d.py:406-420); set on a 2D full core only."""
+        if self.spec.dim != 2 or self.domain != "entier":
+            return
+        s = self.solver
+        pvol = (s.get_NSF() * s.get_flux()).sum(axis=0)  # (ny, nx)
+        n = self.mesh_n
+        na = pvol.shape[0] // n
+        fass = pvol.reshape(na, n, na, n).sum(axis=(1, 3))
+        total = fass.sum()
+        if self.spec.n_fuel_assemblies and total > 0:
+            fass = self.spec.n_fuel_assemblies * fass / total
+        self.Fass = fass
+
+    def power_deviation(self, reference_map: np.ndarray) -> np.ndarray:
+        """% deviation of the assembly power factors from a reference table
+        (the reference scripts' check_Ffaisc)."""
+        return 100.0 * (reference_map - self.Fass) / reference_map
 
 
 def _cg_detail() -> dict:
@@ -288,7 +303,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
 
     The default device is the GPU: a measurement that finds no card fails.
     The default dtype is float32, the benchmark path of the JAX package too."""
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main: no CUDA device available")
@@ -351,7 +366,7 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
 
     As ``bench.py --full``: one solve, ``reset_flux``, then one timed solve from
     a cold flux.  A measurement that finds no card fails."""
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_ho: no CUDA device available")
@@ -409,7 +424,7 @@ def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
     """A fine 2D core's solve timing (``core`` in ``CORES_2D``); prints one JSON
     line with the JAX row's metric name and detail keys, plus the device, the
     dtype and the preconditioner the group solves ran, and returns it."""
-    spec = load_benchmark_data().BENCHMARKS[core]
+    spec = BENCHMARKS[core]
     run, keff, wall = _timed_run(spec, "main_2d", device, dtype, mesh_n=mesh_n)
     s = run.solver
     outers = s._last_outers
@@ -434,7 +449,7 @@ def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
 def main_scale(device="cuda", dtype=torch.float32) -> dict:
     """IAEA-3D 8x8x8 (3.5M cells) solve timing, the JAX package's
     ``iaea3d_3p5M`` row; prints one JSON line and returns it."""
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     run, keff, wall = _timed_run(spec, "main_scale", device, dtype, mesh_n=8, mesh_nz=8)
     s = run.solver
     outers = s._last_outers
@@ -462,7 +477,7 @@ def main_adjoint(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.f
     (free-running, so it also checks k-adjoint against k-direct); prints one
     JSON line with the JAX row's metric name and detail keys, plus the device
     and the dtype, and returns it."""
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_adjoint: no CUDA device available")
@@ -511,7 +526,7 @@ def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device=
     batched CG), from a flat flux, through ``power.power_iteration`` with the
     facade's other settings; prints one JSON line and returns it.  ``run``
     reuses a built benchmark."""
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_sweep: no CUDA device available")
@@ -578,10 +593,9 @@ def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_accel: no CUDA device available")
     card = card_line(device)
-    data = load_benchmark_data()
     rows = []
     for name, kwargs, tol in configs:
-        run = BenchmarkRun(data.BENCHMARKS[name], verbose=False, device=device, dtype=dtype,
+        run = BenchmarkRun(BENCHMARKS[name], verbose=False, device=device, dtype=dtype,
                            **kwargs)
         s = run.solver
         s.set_tol(*tol)
@@ -719,7 +733,7 @@ def main_variants(rows=VARIANTS, mesh=(6, 4), ho_mesh=(4, 2), device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_variants: no CUDA device available")
     card = card_line(device)
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     out = []
     for row in rows:
         run, s, solve = _variant_setup(row, spec, mesh, ho_mesh, device, dtype)
@@ -781,7 +795,7 @@ def main_optin(order: int = 0, rounds: int = 7, device="cuda", dtype=torch.float
     context under ``NEUTFEM_BLKFP8=0``
     (bfloat16 blocks) solved with the default apply (``torch.bmm`` on a
     float32 copy) and with ``NEUTFEM_BLOCKJAC=1`` (K8)."""
-    spec = load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_optin: no CUDA device available")

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import bench, power
+from .data import BENCHMARKS
 from .ops import cuda_lib, fused_ho
 
 
@@ -96,7 +97,7 @@ def _tail(s, tol_flux: float) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("rounding_probe: needs a CUDA device")
-    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     runs = {}
     for storage, fp8 in (("bf16", "0"), ("fp8", "1")):
         with bench.env(NEUTFEM_BLKFP8=fp8):
@@ -148,11 +149,10 @@ def accel_probe(device="cuda") -> None:
     perturbations (seeds 1-2); one JSON line a row and dtype with each
     solve's (k, outers, inners)."""
     device = torch.device(device)
-    data = bench.load_benchmark_data()
     for dtype, rel, seeds in ((torch.float32, 1e-7, (1, 2, 3, 4)),
                               (torch.float64, 1e-15, (1, 2))):
         for core, kw, tol in bench.ACCEL_CONFIGS:
-            s = bench.BenchmarkRun(data.BENCHMARKS[core], device=device, dtype=dtype,
+            s = bench.BenchmarkRun(BENCHMARKS[core], device=device, dtype=dtype,
                                    **kw).solver
             s.set_tol(*tol)
             for accel in bench.ACCELS:

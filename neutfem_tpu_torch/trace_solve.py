@@ -40,8 +40,9 @@ import time
 import torch
 
 from . import krylov
-from .bench import FULL_TOL, HO_TOL, LATERAL, SWEEP_TOL, BenchmarkRun, load_benchmark_data
+from .bench import FULL_TOL, HO_TOL, LATERAL, SWEEP_TOL, BenchmarkRun
 from .compat import BCType
+from .data import BENCHMARKS
 from .power import power_iteration
 
 # kernel-name fragment -> family (first match wins)
@@ -107,7 +108,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
          periodic: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("trace_solve: no CUDA device available")
-    spec = load_benchmark_data().BENCHMARKS[core]
+    spec = BENCHMARKS[core]
     bc = {f: (BCType.PERIODIC, 0.0) for f in LATERAL} if periodic else None
     run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, device="cuda", dtype=dtype,
                        rt_order=order, bc=bc)

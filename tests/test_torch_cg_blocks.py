@@ -166,10 +166,11 @@ def test_group_solve_bits_through_the_block_loop():
     """One group solve of IAEA-3D 1x1 RT0-P0 (float64): ``group_solve`` (one
     iteration a block on the CPU) and the plan's eager loop at eight a block
     give the same x and count."""
-    from neutfem_tpu_torch.bench import BenchmarkRun, load_benchmark_data
+    from neutfem_tpu_torch.bench import BenchmarkRun
+    from neutfem_tpu_torch.data import BENCHMARKS
     from neutfem_tpu_torch.power import SolveOptions, ctx_group, group_plan, group_solve
 
-    run = BenchmarkRun(load_benchmark_data().BENCHMARKS["iaea3d"], 1, 1, device="cpu",
+    run = BenchmarkRun(BENCHMARKS["iaea3d"], 1, 1, device="cpu",
                        dtype=F64)
     fes, ctx = run.solver._fes, run.solver._ctx
     ctxg = ctx_group(ctx, 0)

@@ -132,14 +132,23 @@ def test_ctx_from_numpy_roundtrip():
         assert np.array_equal(v.numpy(), jctx[k].astype(np.float32)), k
 
 
-@pytest.mark.parametrize("name,n", [("iaea3d", 1), ("zion2d", 2), ("koeberg2d", 1)])
-def test_benchmark_cross_sections_match_jax_runner(name, n):
+@pytest.mark.parametrize("name,n", [("iaea3d", 1), ("zion2d", 2), ("koeberg2d", 1),
+                                    ("biblis2d", 2), ("iaea2d", 2), ("zion2d", 16)])
+def test_benchmark_cross_sections_match_jax_runner(name, n, monkeypatch):
     """The port's vectorized per-material fill equals the JAX runner's per-cell
-    loop (ZION: baffle cells next to fuel; KOEBERG: 4 groups, upscatter)."""
+    loop (ZION: baffle cells next to fuel, a baffle radius of 1 cell at 2x2
+    and 3 at 16x16; KOEBERG: 4 groups, upscatter).  At 16x16 ``BuildMatrices``
+    is skipped on both sides: the fill comes before it, and there the two
+    builds would take ~40 s."""
+    import neutfem
     from benchmarks.data import BENCHMARKS
     from benchmarks.runner import BenchmarkRun as JRun
+    from neutfem_tpu_torch import compat
     from neutfem_tpu_torch.bench import BenchmarkRun
 
+    if n >= 16:
+        monkeypatch.setattr(neutfem.NeutFEM, "BuildMatrices", lambda self: None)
+        monkeypatch.setattr(compat.NeutFEM, "BuildMatrices", lambda self: None)
     spec = BENCHMARKS[name]
     t = BenchmarkRun(spec, mesh_n=n, mesh_nz=1, device="cpu", dtype=torch.float64).solver
     j = JRun(spec, mesh_n=n, mesh_nz=1).solver

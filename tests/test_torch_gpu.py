@@ -1089,8 +1089,9 @@ def iaea_1x1_f32():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from neutfem_tpu_torch import bench
+    from neutfem_tpu_torch.data import BENCHMARKS
 
-    spec = bench.load_benchmark_data().BENCHMARKS["iaea3d"]
+    spec = BENCHMARKS["iaea3d"]
     return bench, spec
 
 
@@ -1238,11 +1239,12 @@ def test_cg_plans_are_freed_with_their_context(iaea_1x1_f32, monkeypatch):
 def test_group_solve_graph_matches_eager_blocks_twogrid(cuda):
     """The same on KOEBERG 4x4 float32 with the two-grid level attached."""
     from neutfem_tpu_torch import bench
+    from neutfem_tpu_torch.data import BENCHMARKS
     from neutfem_tpu_torch.power import SolveOptions
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NEUTFEM_PRECOND", "twogrid")
-        run = bench.BenchmarkRun(bench.load_benchmark_data().BENCHMARKS["koeberg2d"], 4,
+        run = bench.BenchmarkRun(BENCHMARKS["koeberg2d"], 4,
                                  device="cuda", dtype=torch.float32)
     s = run.solver
     assert "tg" in s._ctx

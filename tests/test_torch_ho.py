@@ -332,9 +332,10 @@ def test_carried_jax_context_matches_port_context():
 def test_rt0_counts_unchanged():
     """The identity-preconditioner pcg keeps the RT0-P0 IAEA-3D 1x1 float64
     counts of the JAX package (49 outers, 275 inners) exactly."""
-    from neutfem_tpu_torch.bench import BenchmarkRun, load_benchmark_data
+    from neutfem_tpu_torch.bench import BenchmarkRun
+    from neutfem_tpu_torch.data import BENCHMARKS
 
-    run = BenchmarkRun(load_benchmark_data().BENCHMARKS["iaea3d"], 1, 1, device="cpu",
+    run = BenchmarkRun(BENCHMARKS["iaea3d"], 1, 1, device="cpu",
                        dtype=F64)
     run.solve(tol=(1e-6, 1e-5, 1e-5, 300, 1000))
     assert (run.solver._last_outers, run.solver._last_inners) == (49, 275)

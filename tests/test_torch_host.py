@@ -104,19 +104,26 @@ def test_tridiag_ldlt_batch_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (and loading the benchmark data) must
-    not load JAX or any module of the JAX packages."""
+    """Importing every module of the port (its core data included) must not
+    load JAX or any module of the JAX packages, by name or by file path: no
+    loaded module may come from ``benchmarks/``, ``neutfem_tpu/`` or
+    ``neutfem/``."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import neutfem_tpu_torch\n"
         "for m in pkgutil.walk_packages(neutfem_tpu_torch.__path__, 'neutfem_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import neutfem_tpu_torch.bench as b\n"
-        "b.load_benchmark_data()\n"
+        "import neutfem_tpu_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'neutfem_tpu', 'neutfem', 'benchmarks'))\n"
         "assert 'neutfem_tpu_torch.bench' in sys.modules\n"
         "assert not bad, bad\n"
+        f"repo = {str(REPO)!r}\n"
+        "banned = tuple(os.path.join(repo, d) + os.sep for d in ('benchmarks', 'neutfem_tpu',\n"
+        "                                                       'neutfem'))\n"
+        "by_path = sorted(name for name, m in list(sys.modules.items())\n"
+        "                 if os.path.abspath(getattr(m, '__file__', None) or '').startswith(banned))\n"
+        "assert not by_path, by_path\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -73,10 +73,10 @@ def _core_breaks(name, n, nz=1):
 
 
 @pytest.mark.parametrize("name,n,nz", [
-    ("iaea2d", 1, 1), ("iaea2d", 2, 1), ("iaea2d", 16, 1),
-    ("biblis2d", 2, 1), ("biblis2d", 8, 1),
+    ("iaea2d", 1, 1), ("iaea2d", 2, 1), ("iaea2d", 16, 1), ("iaea2d", 32, 1),
+    ("biblis2d", 2, 1), ("biblis2d", 8, 1), ("biblis2d", 32, 1),
     ("koeberg2d", 2, 1), ("koeberg2d", 16, 1), ("koeberg2d", 32, 1),
-    ("zion2d", 2, 1), ("zion2d", 8, 1), ("zion2d", 48, 1),
+    ("zion2d", 2, 1), ("zion2d", 8, 1), ("zion2d", 48, 1), ("zion2d", 64, 1), ("zion2d", 68, 1),
     ("iaea3d", 1, 1), ("iaea3d", 6, 4), ("iaea3d", 8, 8),
 ])
 def test_coarse_factors_and_auto_rule_match_jax(name, n, nz):
