@@ -216,16 +216,45 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    (d) float64, the card against the CPU through ``runner.run_benchmark``:
    BIBLIS 2x2 and ZION 4x4 with the adjoint (|dk|, |dk_adj| <= 1e-9, the
    same outers, ``Fass`` rel 1e-9).
+20. the last entry points of the JAX system, each path with its own counts:
+   (a) the scaling ladder ``scaling.main([])`` (IAEA-3D 2x2x2, 4x4x3,
+   6x6x4, 8x8x6, 8x8x8, float32 at ``bench.FULL_TOL``), each row on
+   ``LADDER_ANCHORS_F32`` (k within 1e-5, 2e-5 from 2.6M cells; outers +-3,
+   inners +-15%), K1-K4 launched on every row (K4 at least once a CG
+   iteration on 8x8x8's line path, Jacobi below it), the replaced kernels
+   not at all, with ``per_doubling``, pcm and peak memory printed; (b) the
+   ladder at float64 (``--x64``: 2x2x2, 4x4x3, 6x6x4): the first two on the
+   JAX package's CPU float64 (``LADDER_ANCHORS_F64``: |dk| <= 1e-9, the same
+   outers, inners within 2), 6x6x4 within 2e-5 of (a)'s k, +-3 of its
+   outers and inside 2 pcm of k_ref, K1-K4 launched at float64; (c) the
+   widest higher-order meshes the JAX package recorded, ``bench.main_ho(1,
+   8, 6)`` (RT1-P1, 21.1M flux DOFs a group) and ``main_ho(2, 6, 4)``
+   (RT2-P2, 26.7M), on ``WIDE_HO`` (k within 2e-5, outers +-3, from the
+   flat flux or one of four start fluxes perturbed by one float32 ulp), K6
+   in every direction, K8 on the E-form every CG iteration and K4 launched,
+   the thread-per-(mode, line) K6 and the inverse-form and thread-per-cell
+   K8 not at all, the inners, the build seconds and the peak memory
+   printed; (d) the kernels at these paths' new shapes, each against its
+   plain version with its time (queued behind a sleep), bound and plain
+   time and its path's launches (rows of the JSON line): K1-K3 at 4x4x3 and
+   8x8x6, K1-K4 at float64 on 6x6x4's operands, K6 z / y / x at RT2-P2
+   6x6x4 and RT1-P1 8x8x6 and K8 on RT2-P2 6x6x4's E-form blocks; (e) the
+   examples (``neutfem_tpu_torch.examples``: quickstart, convergence_study,
+   subcritical_source) at float64 on the card against the CPU (relative
+   1e-9; the subcritical example's k 5e-8, the band a 1e-15 start change
+   moves it by: ``EXAMPLE_REL_TOL_ROUNDING``), then at their default dtype
+   on the card.
 
 ``python3 chip_smoke.py --phase 15`` runs [1], [2] and [15] alone and prints
-the kernel rows of [15] but no result line; ``--phase 16``, ``--phase 17``
-and ``--phase 19`` likewise for [16], [17] and [19]; ``--phase 18`` runs
-[1], [2] and [18] alone.
+the kernel rows of [15] but no result line; ``--phase 16``, ``--phase 17``,
+``--phase 19`` and ``--phase 20`` likewise for [16], [17], [19] and [20];
+``--phase 18`` runs [1], [2] and [18] alone.
 
 Every kernel row's bound is the larger of its bytes (each input read once,
 each output written once, from the tensors of this run) over 3.35 TB/s and
 its floating-point operations over 67 TFLOP/s (the H100 SXM's float32 rate
-outside the tensor cores).  No single PyTorch call computes the functions of
+outside the tensor cores; 34 TFLOP/s, its float64 rate, for [20d]'s float64
+rows).  No single PyTorch call computes the functions of
 K1-K7, so their rows' ``library_ms`` is null; K8's is the port's former
 default block apply on the same stored blocks (``torch.bmm`` on their
 float32 copy, then the two dots as ``torch.sum``), timed here and used by
@@ -420,6 +449,8 @@ LADDER_KEFF_TOL = 2e-5
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# and float64 outside the tensor cores (the same data sheet)
+F64_FLOP_PER_S = 34e12
 # floating-point operations per cell of one fused RT0 direction: the face
 # rhs (3), the forward elimination (3), the backward sweep (3), the divergence
 # update (4)
@@ -447,12 +478,13 @@ def _timed(fn, reps, queued=False):
     return start.elapsed_time(stop) / reps
 
 
-def _bound(tensors, flops):
+def _bound(tensors, flops, flop_rate=F32_FLOP_PER_S):
     """(bound ms, "bytes" | "operations"): the least time for reading every
     input once and writing every output once (``tensors``, outputs listed as
-    often as they are written) or for ``flops`` float32 operations."""
+    often as they are written) or for ``flops`` operations at ``flop_rate``
+    (float32 by default)."""
     t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -462,7 +494,7 @@ def _row(name, source, replaces, key, err, ms, plain_ms, bound, library_ms=None)
             "bound_by": bound[1], "library_ms": library_ms}
 
 
-def _compare(name, got, want, base):
+def _compare(name, got, want, base, tol=KERNEL_REL_TOL):
     """max |got - want| and its size relative to the contribution want - base."""
     import torch
 
@@ -470,7 +502,7 @@ def _compare(name, got, want, base):
     scale = float(torch.max(torch.abs(want - base)))
     rel = err / scale if scale > 0 else err
     print(f"  {name}: max_abs_err {err:.3e}  rel {rel:.3e}")
-    if not rel <= KERNEL_REL_TOL:
+    if not rel <= tol:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version (rel {rel:.3e})")
     return err
 
@@ -2999,6 +3031,394 @@ def _literature_paths(dev, card, reset_counts, counts, cg_line, rows):
     print(f"    [19] {time.perf_counter() - t_all:.1f} s")
 
 
+# [20] the last entry points of the JAX system: the scaling ladder
+# (neutfem_tpu_torch.scaling) at float32 and float64, the widest
+# higher-order meshes the JAX package recorded, the kernels at the shapes
+# these paths give them, and the examples.  Anchors of the float32 ladder,
+# mesh -> (k, outers, inners): 6x6x4 from BENCH_r05.json (bench.py's row),
+# 8x8x6 and 8x8x8 from BENCH_extra.json (the JAX package's TPU float32
+# rows; the 8x8x6 one solved its axis-permuted problem, the port the mesh in
+# its own order), 2x2x2 and 4x4x3 (no record exists) from the JAX package on
+# a CPU at float32:
+#   JAX_PLATFORMS=cpu python -m benchmarks.scaling --cpu --meshes 2x2x2,4x4x3
+LADDER_ANCHORS_F32 = {"2x2x2": (1.028443, 34, 378), "4x4x3": (1.0289167, 34, 728),
+                      "6x6x4": (1.029104, 34, 1068), "8x8x6": (1.0291827, 34, 1461),
+                      "8x8x8": (1.0291848, 34, 1341)}
+# the float32 ladder's k tolerance: KEFF_TOL below 2.6M cells, SCALE_KEFF_TOL
+# (the float32 band of 8x8x8, above) at 2.6M and above
+LADDER_WIDE_CELLS = 2_600_000
+# the float64 ladder's rows against the JAX package on a CPU at float64
+# (|dk| <= 1e-9 against the row's unrounded k, the same outers, inners
+# within 2: PERF.md section 2's float64 standard), mesh -> (k, outers,
+# inners).  The counts from
+#   JAX_PLATFORMS=cpu python -m benchmarks.scaling --cpu --x64 --meshes 2x2x2,4x4x3
+# (its k rounded to 7 digits: 1.0284114 and 1.0289154), the unrounded k from
+# the same steps:
+#   JAX_PLATFORMS=cpu python -c "from benchmarks.runner import BenchmarkRun;
+#   from benchmarks.data import BENCHMARKS; r = BenchmarkRun(BENCHMARKS['iaea3d'],
+#   mesh_n=2, mesh_nz=2); r.solve(tol=(1e-5, 1e-4, 1e-4, 200, 1000));
+#   r.solver.reset_flux(); print(repr(r.solver.SolveKeff()), r.solver._last_outers,
+#   r.solver._last_inners)"
+# (and mesh_n=4, mesh_nz=3)
+LADDER_ANCHORS_F64 = {"2x2x2": (1.0284114215548106, 34, 369),
+                      "4x4x3": (1.0289153873482633, 34, 728)}
+# 6x6x4 at float64 (the first float64 solve of that size on an accelerator):
+# within F64_F32_KEFF_TOL of the float32 ladder's k, outers +-3 of it, and
+# |pcm| below the JAX package's IAEA-3D bound (VALIDATE's 2)
+F64_F32_KEFF_TOL = 2e-5
+IAEA3D_PCM_BOUND = 2.0
+# the widest higher-order meshes the JAX package recorded (TPU float32, the
+# JAX package's notes): order -> ((N, M), k, outers); k within WIDE_HO_KEFF_TOL,
+# outers +-3, from the flat flux or one of four start fluxes perturbed by
+# one float32 ulp (ACCEL_PERTURB_SEEDS), as [14a]
+WIDE_HO = {1: ((8, 6), 1.0292915, 51), 2: ((6, 4), 1.0292895, 50)}
+WIDE_HO_KEFF_TOL = 2e-5
+# [20d]'s RT0 shapes: (mesh, float64): K1-K3 at float32 on the ladder's
+# meshes new to the card, K1-K4 at float64 on 6x6x4
+NEW_SHAPE_MESHES = (("4x4x3", False), ("8x8x6", False), ("6x6x4", True))
+# the examples at float64, the card against the CPU: relative
+EXAMPLE_REL_TOL = 1e-9
+# but the subcritical example's k: its SolveKeff stops at tol_keff 1e-6 on a
+# uniform 20 x 20 box, which amplifies rounding (the trap of small uniform
+# boxes): on a CPU a 1e-15 change of the start flux alone moves that k by
+# 2.2e-10 to 9.9e-9 relative (four seeds, float64), and the card and two
+# CPUs read it up to 4.6e-9 apart; its M (the source iteration at
+# tol_flux 1e-7) agrees to 1e-16
+EXAMPLE_REL_TOL_ROUNDING = {("subcritical_source", "keff"): 5e-8}
+# a float64 kernel against its plain version: relative to the contribution
+# (FMA contraction in the kernel against the plain version's two roundings)
+KERNEL_REL_TOL_F64 = 1e-12
+
+
+def _new_shape_row(name, source, replaces, key, counter, call, plain, base, tensors, flops,
+                   card, launches, tol=KERNEL_REL_TOL, library=None):
+    """One kernel at a shape a path of [20] gives it: the wrapper (``call``,
+    which launches the kernel once: ``counter[key]`` moves by one) against
+    its plain version relative to the contribution over ``base``, timed as
+    [3] times it (CUDA events over 50 calls queued behind a sleep: device
+    time), the plain version over 3 calls, the bound from ``tensors`` (the
+    output appended) and ``flops``; ``launches``: the path's count.  Returns
+    the row of the JSON line."""
+    import torch
+
+    # the first call's result is the one held to the plain version (a K1-K3
+    # wrapper accumulates into its argument: later calls add to it again)
+    before = counter[key]
+    got = call()
+    torch.cuda.synchronize()
+    if counter[key] != before + 1:
+        raise RuntimeError(f"{name}: the wrapper did not launch its kernel")
+    out = got[0] if isinstance(got, tuple) else got
+    want = plain()
+    want_out = want[0] if isinstance(want, tuple) else want
+    err = _compare(name, out, want_out, base, tol)
+    if isinstance(got, tuple):  # K8: the two dots too
+        for what, g, w in (("<r,z>", got[1], want[1]), ("<r,r>", got[2], want[2])):
+            rel = abs(float(g) - float(w)) / abs(float(w))
+            if not rel <= tol:
+                raise RuntimeError(f"{name}: {what} disagrees with the plain version ({rel:.2e})")
+    ms = _timed(call, 50, queued=True)
+    plain_ms = _timed(plain, 3)
+    library_ms = _timed(library, 20) if library is not None else None
+    bound = _bound((*tensors, out), flops,
+                   F64_FLOP_PER_S if out.dtype == torch.float64 else F32_FLOP_PER_S)
+    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
+          + f", bound {bound[0]:.4f} ms (share of bound {bound[0] / ms:.3f}); launches on its "
+          f"path {launches} ({card})")
+    row = _row(name, source, replaces, key, err, ms, plain_ms, bound, library_ms)
+    row.pop("key")
+    row.update(launches=launches, share_of_bound=bound[0] / ms, dtype=str(out.dtype))
+    return row
+
+
+def _rt0_rows(label, run, launches, card, rng, keys=("z", "y", "x"), k4=False):
+    """K1-K3 (and with ``k4`` K4 at the three compute_current layouts) on
+    one group's operands of ``run``'s context at its dtype, each against its
+    plain version (``_new_shape_row``); ``launches``: the path's counts."""
+    import torch
+
+    from neutfem_tpu_torch.ops import fused, thomas
+    from neutfem_tpu_torch.power import ctx_group
+
+    fes, ctx = run.solver._fes, run.solver._ctx
+    ctxg = ctx_group(ctx, 0)
+    dt, dev = run.solver._dtype, ctxg["C"].device
+    tol = KERNEL_REL_TOL_F64 if dt == torch.float64 else KERNEL_REL_TOL
+    shape = (1, *fes.mesh.shape)
+    v, acc0 = (torch.as_tensor(rng.standard_normal(shape), dtype=dt, device=dev)
+               for _ in range(2))
+    dirs = {di.axis: di for di in fes.dirs}
+    out = {}
+    for key in keys:
+        kid, wrapper, tag, axis = {"z": ("K1", fused.fused_schur_z, "", 0),
+                                   "y": ("K2", fused.fused_schur_y_pre, "yT_", 1),
+                                   "x": ("K3", fused.fused_schur_x_pre, "xT_", 2)}[key]
+        di = dirs[axis]
+        d = f"d{di.d}"
+        dm, ll = ctxg[f"tri_{tag}dinvm_{d}"], ctxg[f"tri_{tag}l_{d}"]
+        nat = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"])
+        c = (float(di.BX[0, 0, 0]), float(di.BX[1, 0, 0]), 1.0 / float(di.m_t[0]))
+        scratch = acc0.clone()
+        out[kid] = _new_shape_row(
+            f"{kid} fused Schur direction {key} ({label} {tuple(fes.mesh.shape)}, {dt})",
+            f"neutfem_tpu_torch/csrc/{'fused_z_rows.cu' if key == 'z' else 'fused_rows.cu'}",
+            ROWS_REPLACES[key], f"{key}_rows", fused.LAUNCHES,
+            lambda: wrapper(scratch, v, dm, ll, *c),
+            lambda: fused.fused_dir_plain(acc0, v, *nat, axis - 3, *c), acc0,
+            (v, acc0, dm, ll), FUSED_FLOPS_PER_CELL * v.numel(), card,
+            launches.get(f"{key}_rows", 0), tol)
+    if k4:
+        phi = torch.as_tensor(rng.standard_normal((run.spec.ng, *shape)), dtype=dt, device=dev)
+        for di in sorted(fes.dirs, key=lambda di: -di.d):
+            key = "zyx"[di.axis]
+            r, dinv, lf, axis = _current_operands(fes, ctx, di, phi)
+            out[f"K4 {key}"] = _new_shape_row(
+                f"K4 batched Thomas solve, compute_current {key} ({label} {tuple(r.shape)}, {dt})",
+                "neutfem_tpu_torch/csrc/thomas_rows.cu", K4_REPLACES[key], "thomas_rows",
+                thomas.LAUNCHES, lambda: thomas.thomas_solve(r, dinv, lf, axis),
+                lambda: thomas.thomas_solve_plain(r, dinv, lf, axis), torch.zeros_like(r),
+                (r, dinv, lf), THOMAS_FLOPS_PER_ELEMENT * r.numel(), card,
+                launches.get("thomas_rows", 0), tol)
+    return out
+
+
+def _ho_rows(label, run, launches, card, rng):
+    """K6 z / y / x and K8 on the fp8 E-form at one group's operands of
+    ``run``'s RT_k-P_k context (float32), each against its plain version
+    (``_new_shape_row``; K8's library time: the port's former default apply,
+    ``power._block_precond`` on the float32 copy, plus the two dots, as in
+    [3])."""
+    import torch
+
+    from neutfem_tpu_torch.ops import blockjac, fused_ho
+    from neutfem_tpu_torch.power import _block_precond, ctx_group
+
+    fes = run.solver._fes
+    ctxg = ctx_group(run.solver._ctx, 0)
+    dev, f32 = ctxg["C"].device, torch.float32
+    k1 = run.rt_order + 1
+    shape = (1, fes.P, *fes.mesh.shape)
+    v, acc0 = (torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
+               for _ in range(2))
+    out = {}
+    for key, wrapper, axis, tag in (("z", fused_ho.fused_ho_z, 0, None),
+                                    ("y", fused_ho.fused_ho_y, 1, "hoyT"),
+                                    ("x", fused_ho.fused_ho_x, 2, "hoxT")):
+        di = [d for d in fes.dirs if d.axis == axis][0]
+        d = f"d{di.d}"
+        tabs = fused_ho.ho_tables(fes, di)
+        natural = (ctxg[f"tri_dinvm_{d}"], ctxg[f"tri_l_{d}"], ctxg[f"alpha_{d}"])
+        ops = natural if tag is None else tuple(ctxg[f"tri_{tag}_{n}_{d}"]
+                                                for n in ("dinvm", "l", "alpha"))
+        scratch = acc0.clone()
+        # [3]'s operation count of K6 per (transverse mode, cell)
+        flops = (v.numel() // k1) * (4 * k1 + 6 + k1 * (5 + 2 * k1))
+        out[f"K6 {key}"] = _new_shape_row(
+            f"K6 condensed Schur direction {key} ({label} {tuple(fes.mesh.shape)} P={fes.P})",
+            "neutfem_tpu_torch/csrc/fused_ho_rows.cu", HO_REPLACES[key], f"ho_{key}_rows",
+            fused_ho.LAUNCHES, lambda: wrapper(scratch, v, *ops, tabs),
+            lambda: fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs), acc0,
+            (v, acc0, *ops), flops, card, launches.get(f"ho_{key}_rows", 0))
+    if run.rt_order == 2:  # K8 at the widest RT2-P2 blocks
+        P = fes.P
+        eform = ctxg["precond_blk_dev"]
+        r = torch.as_tensor(rng.standard_normal((P, *fes.mesh.shape)), dtype=f32, device=dev)
+        cells = r.numel() // P
+        apply = _block_precond({"precond_blk_dev": eform}, f32)
+
+        def library():
+            zl = apply(r)
+            return torch.sum(r * zl), torch.sum(r * r)
+
+        out["K8"] = _new_shape_row(
+            f"K8 block-Jacobi apply + dots ({label} {tuple(fes.mesh.shape)} P={P}, E-form blocks)",
+            "neutfem_tpu_torch/csrc/blockjac_tiled.cu", "neutfem_tpu/ops/pallas_blockjac.py:114",
+            "blockjac_dev", blockjac.LAUNCHES, lambda: blockjac.blockjac_dev_dots(eform, r),
+            lambda: blockjac.blockjac_dots_plain(eform, r, True), r, (eform, r),
+            cells * (2 * P * P + P + 4 * P), card, launches.get("blockjac_dev", 0),
+            library=library)
+        del apply
+    return out
+
+
+def _last_entry_points(dev, card, reset_counts, counts, cg_line, rows):
+    """Phase [20]: the scaling ladder at float32 and float64, the widest
+    higher-order rows, the kernels at their shapes and the examples, each
+    path with its own counts (module docstring).  Adds the kernel rows of
+    (d) to ``rows``."""
+    import numpy as np
+    import torch
+
+    from neutfem_tpu_torch import bench, scaling
+    from neutfem_tpu_torch.data import BENCHMARKS
+    from neutfem_tpu_torch.examples import convergence_study, quickstart, subcritical_source
+    from neutfem_tpu_torch.rounding_probe import perturbed_start
+
+    f32, f64 = torch.float32, torch.float64
+    spec = BENCHMARKS["iaea3d"]
+    rng = np.random.default_rng(20)
+    t_all = t0 = time.perf_counter()
+
+    def launched(row, keys, what):
+        got = {k: row["launches"].get(k, 0) for k in keys}
+        if min(got.values()) <= 0:
+            raise RuntimeError(f"{what}: launches {got}")
+        return got
+
+    def replaced_idle(L, what):
+        idle = {k: L[k] for k in (*Z_OLD, "thomas", *HO_OLD, "blockjac") if L.get(k, 0)}
+        if idle:
+            raise RuntimeError(f"{what}: a replaced kernel launched {idle}")
+
+    # (a) the float32 ladder
+    print("[20a] the scaling ladder: neutfem_tpu_torch.scaling.main([]), float32 at "
+          "bench.FULL_TOL")
+    reset_counts()
+    ladder = scaling.main([])
+    by_mesh = {r["mesh"]: r for r in ladder}
+    for r in ladder:
+        k_a = LADDER_ANCHORS_F32[r["mesh"]]
+        tol = SCALE_KEFF_TOL if r["n_cells"] >= LADDER_WIDE_CELLS else KEFF_TOL
+        keys = (*Z_KEYS, "thomas_rows")
+        print(f"    {r['mesh']} ({r['n_cells']} cells): k {r['keff']} (anchor {k_a[0]}, tol {tol}), "
+              f"pcm {r['pcm']:+.2f}, {r['outers']} / {r['inners']} (anchors {k_a[1:]}), "
+              f"{1e3 * r['s_per_outer']:.3f} ms/outer, per doubling {r.get('per_doubling')}, "
+              f"{r['preconditioner']}, peak {r['peak_mem_gb']} GB; launches "
+              f"{launched(r, keys, '[20a] ' + r['mesh'])} ({card})")
+        cg_line(r["cg"])
+        _check_anchor(f"[20a] IAEA-3D {r['mesh']}", r["keff"], r["outers"], r["inners"], k_a, tol)
+        replaced_idle(r["launches"], f"[20a] {r['mesh']}")
+        want_pc = "line" if r["n_cells"] >= 3_000_000 else "jacobi"  # power.LINE_MIN_CELLS
+        if r["preconditioner"] != want_pc:
+            raise RuntimeError(f"[20a] {r['mesh']}: preconditioner {r['preconditioner']!r}")
+        if want_pc == "line" and r["launches"].get("thomas_rows", 0) < r["inners"]:
+            raise RuntimeError(f"[20a] {r['mesh']}: K4 not launched every CG iteration")
+    print(f"    [20a] {time.perf_counter() - t0:.1f} s")
+
+    # (b) the float64 ladder
+    t0 = time.perf_counter()
+    print("[20b] the scaling ladder at float64: neutfem_tpu_torch.scaling.main(['--x64', "
+          "'--meshes', '2x2x2,4x4x3,6x6x4'])")
+    reset_counts()
+    ladder64 = scaling.main(["--x64", "--meshes", "2x2x2,4x4x3,6x6x4"])
+    for r in ladder64:
+        keys = (*Z_KEYS, "thomas_rows")
+        print(f"    {r['mesh']} float64: k {r['keff_unrounded']!r}, pcm {r['pcm']:+.2f}, {r['outers']} / "
+              f"{r['inners']}, {1e3 * r['s_per_outer']:.3f} ms/outer, peak {r['peak_mem_gb']} GB; "
+              f"launches {launched(r, keys, '[20b] ' + r['mesh'])} ({card})")
+        cg_line(r["cg"])
+        replaced_idle(r["launches"], f"[20b] {r['mesh']}")
+        if r["dtype"] != str(f64):
+            raise RuntimeError(f"[20b] {r['mesh']}: dtype {r['dtype']}")
+        if r["mesh"] in LADDER_ANCHORS_F64:
+            k_a, o_a, i_a = LADDER_ANCHORS_F64[r["mesh"]]
+            dk = abs(r["keff_unrounded"] - k_a)
+            print(f"      against the JAX package's CPU float64 {k_a!r} / {o_a} / {i_a}: |dk| "
+                  f"{dk:.2e}")
+            if dk > 1e-9 or r["outers"] != o_a or abs(r["inners"] - i_a) > 2:
+                raise RuntimeError(f"[20b] {r['mesh']}: off the JAX package's float64 solve")
+        else:
+            r32 = by_mesh[r["mesh"]]
+            print(f"      against [20a]'s float32 {r32['keff']} / {r32['outers']}: dk "
+                  f"{r['keff'] - r32['keff']:+.2e}; pcm {r['pcm']:+.2f} (bound "
+                  f"{IAEA3D_PCM_BOUND})")
+            if (abs(r["keff_unrounded"] - r32["keff_unrounded"]) > F64_F32_KEFF_TOL
+                    or abs(r["pcm"]) >= IAEA3D_PCM_BOUND
+                    or abs(r["outers"] - r32["outers"]) > OUTERS_TOL):
+                raise RuntimeError(f"[20b] {r['mesh']} float64: off the float32 solve or k_ref")
+    print(f"    [20b] {time.perf_counter() - t0:.1f} s")
+
+    # (d), the RT0 part: K1-K3 at 4x4x3 and 8x8x6 on float32 operands, K1-K4
+    # at float64 on 6x6x4's, each with its ladder row's launches
+    t0 = time.perf_counter()
+    print(f"[20d] kernels vs plain at the ladder's new shapes ({card})")
+    by_mesh64 = {r["mesh"]: r for r in ladder64}
+    for mesh, x64 in NEW_SHAPE_MESHES:
+        n, _, nz = map(int, mesh.split("x"))
+        dtype, src = (f64, by_mesh64) if x64 else (f32, by_mesh)
+        run = bench.BenchmarkRun(spec, mesh_n=n, mesh_nz=nz, device=dev, dtype=dtype)
+        for kid, row in _rt0_rows(f"IAEA-3D {mesh}", run, src[mesh]["launches"], card, rng,
+                                  k4=x64).items():
+            rows[f"{kid} {mesh} {str(dtype)[6:]}"] = row
+        del run
+    print(f"    [20d] RT0 {time.perf_counter() - t0:.1f} s")
+
+    # (c) the widest higher-order rows, then (d)'s K6 / K8 rows on their operands
+    for order, ((n, nz), k_a, o_a) in WIDE_HO.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run = bench.BenchmarkRun(spec, mesh_n=n, mesh_nz=nz, device=dev, dtype=f32,
+                                 rt_order=order)
+        build = time.perf_counter() - t0
+        s = run.solver
+        print(f"[20c] RT{order}-P{order} {n}x{n}x{nz}: neutfem_tpu_torch.bench.main_ho({order}, "
+              f"{n}, {nz}), float32 at bench.HO_TOL; {s._fes.n_phi} flux DOFs a group, "
+              f"{s.GetNumElements()} cells; build {build:.1f} s (context {s.build_seconds})")
+        reset_counts()
+        res = bench.main_ho(order, n, nz, run=run)
+        L = counts()
+        det = res["detail"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
+        print(f"    k {keff} (anchor {k_a}), {outers} outers (anchor {o_a}), {inners} inners; "
+              f"{res['value'] * 1e3:.3f} ms/outer; block storage {det['block_precond']}; peak "
+              f"{peak:.2f} GB ({card})")
+        print(f"    launches {L}")
+        cg_line(det["cg"])
+        solves = [(keff, outers, inners)]
+        if not abs(outers - o_a) <= OUTERS_TOL:
+            for seed in ACCEL_PERTURB_SEEDS:
+                s.reset_flux()
+                perturbed_start(s, 1e-7, seed)
+                solves.append((s.SolveKeff(), s._last_outers, s._last_inners))
+            print(f"    off the anchor's outers; from perturbed start fluxes (k, outers, inners): "
+                  f"{solves[1:]}")
+        if any(abs(k - k_a) > WIDE_HO_KEFF_TOL for k, _, _ in solves):
+            raise RuntimeError(f"[20c] RT{order}-P{order} {n}x{n}x{nz}: k {solves} not within "
+                               f"{WIDE_HO_KEFF_TOL} of {k_a}")
+        if not any(abs(o - o_a) <= OUTERS_TOL for _, o, _ in solves):
+            raise RuntimeError(f"[20c] RT{order}-P{order} {n}x{n}x{nz}: no solve within "
+                               f"{OUTERS_TOL} outers of {o_a}")
+        if (any(L[k] <= 0 for k in HO_KEYS) or L["blockjac_dev"] < inners or L["thomas_rows"] <= 0
+                or any(L[k] for k in (*HO_OLD, "blockjac", "blockjac_tiled", "thomas"))):
+            raise RuntimeError(f"[20c] RT{order}-P{order} {n}x{n}x{nz}: K6 / K8 / K4 launches "
+                               "off, or a replaced kernel launched")
+        for kid, row in _ho_rows(f"IAEA-3D {n}x{n}x{nz} RT{order}-P{order}", run, L, card,
+                                 rng).items():
+            rows[f"{kid} RT{order} {n}x{n}x{nz}"] = row
+        del run, s
+        torch.cuda.empty_cache()
+        print(f"    [20c] RT{order} {time.perf_counter() - t0:.1f} s")
+
+    # (e) the examples: float64, the card against the CPU; then the card's default once
+    t0 = time.perf_counter()
+    for name, mod in (("quickstart", quickstart), ("convergence_study", convergence_study),
+                      ("subcritical_source", subcritical_source)):
+        print(f"[20e] neutfem_tpu_torch.examples.{name}.main(), float64, cpu then cuda")
+        cpu = mod.main(device="cpu", dtype=f64)
+        reset_counts()
+        gpu = mod.main(device="cuda", dtype=f64)
+        L = {k: v for k, v in counts().items() if v}
+        pairs = ([(f"{r['label']} k", g["keff"], r["keff"]) for g, r in zip(gpu, cpu)]
+                 + [(f"{r['label']} outers", g["outers"], r["outers"]) for g, r in zip(gpu, cpu)]
+                 if isinstance(cpu, list) else
+                 [(k, gpu[k], cpu[k]) for k in cpu if k != "flux_shape"])
+        rel = {what: abs(g - c) / abs(c) for what, g, c in pairs}
+        off = {what: r for what, r in rel.items()
+               if r > EXAMPLE_REL_TOL_ROUNDING.get((name, what), EXAMPLE_REL_TOL)}
+        print(f"    cuda - cpu: largest relative difference {max(rel.values()):.2e} over "
+              f"{len(pairs)} numbers ({rel}); launches {L}")
+        if off or (isinstance(cpu, dict) and gpu.get("flux_shape") != cpu.get("flux_shape")):
+            raise RuntimeError(f"[20e] {name}: the card disagrees with the CPU ({pairs})")
+        if not any(k in L for k in (*Z_KEYS, "thomas_rows", "thomas_wide_rows")):
+            raise RuntimeError(f"[20e] {name}: no kernel launched on the card")
+        print(f"[20e] {name} at its default dtype on the card:")
+        mod.main(device="cuda")
+    print(f"    [20e] {time.perf_counter() - t0:.1f} s")
+    print(f"    [20] {time.perf_counter() - t_all:.1f} s")
+
+
 def main():
     import torch
 
@@ -3077,6 +3497,12 @@ def main():
     if sys.argv[1:] == ["--phase", "19"]:  # phase [19] alone: no result
         rows = {}
         _literature_paths(dev, card, reset_counts, counts, cg_line, rows)
+        print(f"    total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"kernels": list(rows.values())}))
+        return
+    if sys.argv[1:] == ["--phase", "20"]:  # phase [20] alone: no result
+        rows = {}
+        _last_entry_points(dev, card, reset_counts, counts, cg_line, rows)
         print(f"    total {time.perf_counter() - t_all:.1f} s")
         print(json.dumps({"kernels": list(rows.values())}))
         return
@@ -3683,6 +4109,10 @@ def main():
 
     # [19] the literature cores: each path with its own counts
     _literature_paths(dev, card, reset_counts, counts, cg_line, rows)
+
+    # [20] the scaling ladder, the widest higher-order rows, the examples:
+    # each path with its own counts
+    _last_entry_points(dev, card, reset_counts, counts, cg_line, rows)
     print(f"    total {time.perf_counter() - t_all:.1f} s")
 
     print(smi)

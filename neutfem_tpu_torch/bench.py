@@ -15,6 +15,8 @@ options, the adjoint and the assembly power factors), of ``bench.main``, of rows
   facade attaches by default there;
 * ``main_scale``: IAEA-3D 8x8x8 (3,511,808 cells), where "auto" picks the line
   preconditioner;
+* ``main_2p6m``: IAEA-3D 8x8x6 (2,633,856 cells), below the line
+  preconditioner's threshold: Jacobi;
 * ``main_adjoint``: ``bench.py --full``'s IAEA-3D 6x6x4 free-running adjoint
   row: one direct solve, one adjoint solve, then one timed adjoint solve from
   a cold adjoint flux;
@@ -34,15 +36,22 @@ options, the adjoint and the assembly power factors), of ``bench.main``, of rows
   bug-compat solve, the lateral faces PERIODIC (RT0 at 6x6x4, RT1-P1 at
   4x4x2) beside the mirrored quadrant, a subcritical solve driven by a
   NEUMANN inward current on the bottom face, BiCGSTAB beside the CG, and CMFD
-  "wielandt"; one JSON row each.
+  "wielandt"; one JSON row each;
+* ``main_full``: ``bench.py --full``'s measured rows in its order (``main``,
+  ``main_ho`` at both orders, ``main_2p6m``, ``main_scale``, ``main_2d`` at
+  KOEBERG 32x32 and ZION 48x48, ``main_adjoint``), written to a JSON file
+  only when given its path.  The JAX function's two rows of typed-in TPU
+  constants are not measurements and are left out.
 
-``main_ho``, ``main_2d`` and ``main_scale`` run as ``bench.py --full`` does:
-one solve, ``reset_flux``, then one timed solve from a cold flux.  The
-benchmark data come from the port's own copy, ``neutfem_tpu_torch/data.py``.
+``main_ho``, ``main_2d``, ``main_2p6m`` and ``main_scale`` run as ``bench.py
+--full`` does: one solve, ``reset_flux``, then one timed solve from a cold
+flux.  The benchmark data come from the port's own copy,
+``neutfem_tpu_torch/data.py``.
 
 Run on a GPU with ``python -m neutfem_tpu_torch.bench [N [M]] [--order K |
 --core {koeberg2d,zion2d} | --scale | --adjoint | --sweep {gs,jacobi} |
---accel | --variants]``, or ``python -m neutfem_tpu_torch.bench --optin [--order K]``.
+--accel [--json PATH] | --variants | --full [--json PATH]]``, or ``python -m
+neutfem_tpu_torch.bench --optin [--order K]``.
 """
 
 from __future__ import annotations
@@ -67,8 +76,9 @@ from .mesh import boundary_attribute
 from .ops import launch_counters
 from .power import power_iteration
 
-__all__ = ["BenchmarkRun", "main", "main_ho", "main_2d", "main_scale",
-           "main_adjoint", "main_sweep", "main_optin", "main_accel", "main_variants", "env"]
+__all__ = ["BenchmarkRun", "main", "main_ho", "main_2d", "main_scale", "main_2p6m",
+           "main_adjoint", "main_sweep", "main_optin", "main_accel", "main_variants",
+           "main_full", "cli", "env"]
 
 #: Measured CPU cost of the reference algorithm (the scipy transcription in
 #: tests/ref_replica.py), the same constant as bench.py's vs_baseline.
@@ -360,18 +370,25 @@ HO_TOL = (1e-7, 1e-5, 1e-5, 120, 1000)
 
 
 def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
-            dtype=torch.float32) -> dict:
+            dtype=torch.float32, run: Optional[BenchmarkRun] = None) -> dict:
     """IAEA-3D RT_k-P_k solve timing (k = ``order``); prints one JSON line with
     the JAX package's metric name and detail keys and returns it as a dict.
 
     As ``bench.py --full``: one solve, ``reset_flux``, then one timed solve from
-    a cold flux.  A measurement that finds no card fails."""
+    a cold flux.  ``run`` reuses a built benchmark of this order and mesh (its
+    start flux as it stands: flat after a build or ``reset_flux``).  A
+    measurement that finds no card fails."""
     spec = BENCHMARKS["iaea3d"]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_ho: no CUDA device available")
-    run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, verbose=False,
-                       device=device, dtype=dtype, rt_order=order)
+    if run is None:
+        run = BenchmarkRun(spec, mesh_n=mesh_n, mesh_nz=mesh_nz, verbose=False,
+                           device=device, dtype=dtype, rt_order=order)
+    elif (run.rt_order, run.mesh_n, run.mesh_nz) != (order, mesh_n, mesh_nz):
+        raise ValueError(f"bench.main_ho: the run is RT{run.rt_order} at {run.mesh_n}x"
+                         f"{run.mesh_n}x{run.mesh_nz}, not RT{order} at {mesh_n}x{mesh_n}x"
+                         f"{mesh_nz}")
     run.solve(tol=HO_TOL)
     run.solver.reset_flux()
     krylov.reset_stats()
@@ -405,9 +422,20 @@ CORES_2D = {"koeberg2d": "koeberg2d_4group_seconds_per_outer_iteration",
             "zion2d": "zion2d_seconds_per_outer_iteration"}
 
 
+def _launch_counts() -> dict:
+    """Every kernel's launch count so far."""
+    return {k: v for c in launch_counters() for k, v in c.items()}
+
+
+def _launches_since(before: dict) -> dict:
+    """The kernels launched since the counts ``before``, with their launches."""
+    return {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+
+
 def _timed_run(spec, what: str, device, dtype, **kwargs):
     """Build, solve once, ``reset_flux``, then one timed solve from a cold flux
-    (``bench.py --full``).  Returns (run, keff, wall seconds)."""
+    (``bench.py --full``).  Returns (run, keff, wall seconds, the kernel
+    launches of the timed solve)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"bench.{what}: no CUDA device available")
@@ -415,9 +443,11 @@ def _timed_run(spec, what: str, device, dtype, **kwargs):
     run.solve(tol=FULL_TOL)
     run.solver.reset_flux()
     krylov.reset_stats()
+    before = _launch_counts()
     t0 = time.time()
     keff = run.solver.SolveKeff()  # ends in a device -> host read of k
-    return run, keff, time.time() - t0
+    wall = time.time() - t0
+    return run, keff, wall, _launches_since(before)
 
 
 def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
@@ -425,7 +455,7 @@ def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
     line with the JAX row's metric name and detail keys, plus the device, the
     dtype and the preconditioner the group solves ran, and returns it."""
     spec = BENCHMARKS[core]
-    run, keff, wall = _timed_run(spec, "main_2d", device, dtype, mesh_n=mesh_n)
+    run, keff, wall, _ = _timed_run(spec, "main_2d", device, dtype, mesh_n=mesh_n)
     s = run.solver
     outers = s._last_outers
     out = {
@@ -446,15 +476,17 @@ def main_2d(core: str, mesh_n: int, device="cuda", dtype=torch.float32) -> dict:
     return out
 
 
-def main_scale(device="cuda", dtype=torch.float32) -> dict:
-    """IAEA-3D 8x8x8 (3.5M cells) solve timing, the JAX package's
-    ``iaea3d_3p5M`` row; prints one JSON line and returns it."""
+def _scale_row(metric: str, what: str, mesh_n: int, mesh_nz: int, device, dtype) -> dict:
+    """One IAEA-3D RT0-P0 row of ``bench.py --full``'s scale rows at NxNxM:
+    ``_timed_run``, then the JAX row's detail keys (less the TPU's
+    ``axis_perm``) plus the CG counts, the device, the dtype and the
+    preconditioner "auto" resolved to; prints one JSON line and returns it."""
     spec = BENCHMARKS["iaea3d"]
-    run, keff, wall = _timed_run(spec, "main_scale", device, dtype, mesh_n=8, mesh_nz=8)
+    run, keff, wall, _ = _timed_run(spec, what, device, dtype, mesh_n=mesh_n, mesh_nz=mesh_nz)
     s = run.solver
     outers = s._last_outers
     out = {
-        "metric": "iaea3d_3p5M_seconds_per_outer_iteration",
+        "metric": metric,
         "value": round(wall / max(outers, 1), 6), "unit": "s/outer",
         "detail": {
             "keff": round(keff, 7),
@@ -462,13 +494,30 @@ def main_scale(device="cuda", dtype=torch.float32) -> dict:
             "n_cells": s.GetNumElements(),
             "outer_iterations": outers,
             "inner_iterations": s._last_inners,
-            "solve_wall_s": round(wall, 3), "cg": _cg_detail(), "mesh": "8x8x8",
+            "solve_wall_s": round(wall, 3), "cg": _cg_detail(),
+            "mesh": f"{mesh_n}x{mesh_n}x{mesh_nz}",
             "device": _device_name(s._device), "dtype": str(s._dtype),
             "preconditioner": s.preconditioner(),
         },
     }
     print(json.dumps(out))
     return out
+
+
+def main_scale(device="cuda", dtype=torch.float32) -> dict:
+    """IAEA-3D 8x8x8 (3.5M cells) solve timing, the JAX package's
+    ``iaea3d_3p5M`` row; prints one JSON line and returns it."""
+    return _scale_row("iaea3d_3p5M_seconds_per_outer_iteration", "main_scale", 8, 8, device,
+                      dtype)
+
+
+def main_2p6m(mesh_n: int = 8, mesh_nz: int = 6, device="cuda", dtype=torch.float32) -> dict:
+    """IAEA-3D 8x8x6 (2.6M cells) solve timing, the JAX package's
+    ``iaea3d_2p6M`` row (``bench.py:119``); prints one JSON line and returns
+    it.  The mesh is kept in its own axis order: the TPU's axis relabelling
+    (``mesh.best_axis_order``, the row's ``axis_perm``) is not ported."""
+    return _scale_row("iaea3d_2p6M_seconds_per_outer_iteration", "main_2p6m", mesh_n, mesh_nz,
+                      device, dtype)
 
 
 def main_adjoint(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) -> dict:
@@ -582,13 +631,15 @@ def card_line(device) -> str:
 
 
 def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
-               dtype=torch.float32) -> list:
+               dtype=torch.float32, json_path: Optional[str] = None) -> list:
     """The accelerator matrix (``benchmarks/accel_compare.run_matrix``): for
     each configuration and accelerator one solve, then one timed solve from a
     cold flux; prints one JSON row each (k, outers, inners, wall, ms/outer,
     the CG counts, the kernel launches of the timed solve and the card's name
     and power limit) and returns the rows.  Asserts the accelerators reach
-    the same fixed point: their k spread below 3 tol_keff."""
+    the same fixed point: their k spread below 3 tol_keff.  ``json_path``:
+    the rows are also written there as one JSON list (``accel_compare.py
+    --json``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench.main_accel: no CUDA device available")
@@ -606,14 +657,13 @@ def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
             s.SolveKeff()
             s.reset_flux()
             krylov.reset_stats()
-            before = {k: v for c in launch_counters() for k, v in c.items()}
+            before = _launch_counts()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.time()
             keff = s.SolveKeff()  # ends in a device -> host read of k
             wall = time.time() - t0
-            launches = {k: v - before[k] for c in launch_counters() for k, v in c.items()
-                        if v != before[k]}
+            launches = _launches_since(before)
             keffs[accel] = keff
             rows.append({
                 "core": name, "mesh": "x".join(str(v) for v in kwargs.values()),
@@ -631,7 +681,14 @@ def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
         if not spread < 3.0 * tol[0]:
             raise RuntimeError(f"{name}: accelerators disagree by {spread} (tol_keff {tol[0]})")
         del run, s
+    if json_path:
+        _write_json(json_path, rows)
     return rows
+
+
+def _write_json(path: str, rows) -> None:
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1)
 
 
 #: ``main_variants``' rows: the diagonal A-solve (``SolveKeff(
@@ -740,14 +797,13 @@ def main_variants(rows=VARIANTS, mesh=(6, 4), ho_mesh=(4, 2), device="cuda",
         if warmup:
             solve()
         krylov.reset_stats()
-        before = {k: v for c in launch_counters() for k, v in c.items()}
+        before = _launch_counts()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.time()
         value, outers, inners, extra = solve()  # each ends in a device -> host read
         wall = time.time() - t0
-        launches = {k: v - before[k] for c in launch_counters() for k, v in c.items()
-                    if v != before[k]}
+        launches = _launches_since(before)
         detail = {"amplification" if row == "neumann" else "keff": value,
                   "outer_iterations": outers, "inner_iterations": inners,
                   "n_cells": s.GetNumElements(), "solve_wall_s": round(wall, 4),
@@ -847,7 +903,27 @@ def main_optin(order: int = 0, rounds: int = 7, device="cuda", dtype=torch.float
     return result
 
 
-if __name__ == "__main__":
+def main_full(json_path: Optional[str] = None, device="cuda") -> list:
+    """``bench.py --full``'s measured rows, float32, in its order: IAEA-3D
+    6x6x4 (``main``), RT1-P1 and RT2-P2 4x4x2 (``main_ho``), 8x8x6
+    (``main_2p6m``), 8x8x8 (``main_scale``), KOEBERG 32x32 and ZION 48x48
+    (``main_2d``) and the 6x6x4 free-running adjoint (``main_adjoint``); each
+    prints its JSON line.  Returns the rows and, given ``json_path``, writes
+    them there as one JSON list; no file otherwise.  The JAX function's rows
+    ``twogrid_precond_adjudication`` and ``sharded_1device_mesh_real_tpu``
+    are constants typed in from TPU runs, not measurements: not here."""
+    rows = [main(6, 4, device=device), main_ho(1, device=device), main_ho(2, device=device),
+            main_2p6m(device=device), main_scale(device=device),
+            main_2d("koeberg2d", 32, device=device), main_2d("zion2d", 48, device=device),
+            main_adjoint(device=device)]
+    if json_path:
+        _write_json(json_path, rows)
+    return rows
+
+
+def cli(argv=None):
+    """The command line (``python -m neutfem_tpu_torch.bench --help``); returns
+    what the row function it runs returns."""
     ap = argparse.ArgumentParser(description="k-eff benchmarks on the GPU (float32)")
     ap.add_argument("mesh_n", nargs="?", type=int, default=None,
                     help="cells per assembly and axis (default 6, 4 with --order, "
@@ -869,24 +945,35 @@ if __name__ == "__main__":
                       help="the accelerator matrix (main_accel)")
     mode.add_argument("--variants", action="store_true",
                       help="the solver features outside the main path (main_variants)")
+    mode.add_argument("--full", action="store_true",
+                      help="bench.py --full's measured rows (main_full)")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="with --full or --accel: also write the rows to PATH as one JSON list")
     ap.add_argument("--optin", action="store_true",
                     help="the opt-in switches against the default path at --order (main_optin)")
-    a = ap.parse_args()
+    a = ap.parse_args(argv)
+    if a.json is not None and not (a.full or a.accel):
+        ap.error("--json goes with --full or --accel")
     if a.optin:
-        main_optin(a.order)
-    elif a.accel:
-        main_accel()
-    elif a.variants:
-        main_variants()
-    elif a.scale:
-        main_scale()
-    elif a.adjoint:
-        main_adjoint(a.mesh_n or 6, a.mesh_nz or 4)
-    elif a.sweep is not None:
-        main_sweep(a.sweep, a.mesh_n or 6, a.mesh_nz or 4)
-    elif a.core is not None:
-        main_2d(a.core, a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core])
-    elif a.order == 0:
-        main(a.mesh_n or 6, a.mesh_nz or 4)
-    else:
-        main_ho(a.order, a.mesh_n or 4, a.mesh_nz or 2)
+        return main_optin(a.order)
+    if a.full:
+        return main_full(a.json)
+    if a.accel:
+        return main_accel(json_path=a.json)
+    if a.variants:
+        return main_variants()
+    if a.scale:
+        return main_scale()
+    if a.adjoint:
+        return main_adjoint(a.mesh_n or 6, a.mesh_nz or 4)
+    if a.sweep is not None:
+        return main_sweep(a.sweep, a.mesh_n or 6, a.mesh_nz or 4)
+    if a.core is not None:
+        return main_2d(a.core, a.mesh_n or {"koeberg2d": 32, "zion2d": 48}[a.core])
+    if a.order == 0:
+        return main(a.mesh_n or 6, a.mesh_nz or 4)
+    return main_ho(a.order, a.mesh_n or 4, a.mesh_nz or 2)
+
+
+if __name__ == "__main__":
+    cli()

@@ -92,18 +92,26 @@ def fused_dir_plain(acc, v, dm, l, axis: int, bx0: float, bx1: float, si: float)
     vv = v.movedim(axis, 0)
     fshape = v.shape[:axis] + (n + 1,) + v.shape[axis + 1:]
     dd = dm.expand(fshape).movedim(axis, 0)
-    ll = l.expand(v.shape).movedim(axis, 0)
+    ll = l.expand(v.shape).movedim(axis, 0).unbind(0)
+    # every face's scaled rhs at once (rF_0 = bx0 v_0, rF_f = bx1 v_{f-1} +
+    # bx0 v_f, rF_n = bx1 v_{n-1}; times si), then only the carries run as a
+    # loop: each entry takes the same floating-point operations, in the same
+    # order, as a face-by-face loop (no operation is fused across another)
     z = torch.empty((n + 1,) + vv.shape[1:], dtype=v.dtype, device=v.device)
     z[0] = (bx0 * vv[0]) * si
+    rf = bx1 * vv
+    rf[:n - 1] += bx0 * vv[1:]
+    torch.mul(rf, si, out=z[1:])
+    zs = z.unbind(0)
+    tmp = torch.empty_like(zs[0])
     for f in range(1, n + 1):
-        rf = bx1 * vv[f - 1]
-        if f < n:
-            rf = rf + bx0 * vv[f]
-        z[f] = rf * si - ll[f - 1] * z[f - 1]
-    F = torch.empty_like(z)
-    F[n] = z[n] * dd[n]
+        torch.mul(ll[f - 1], zs[f - 1], out=tmp)
+        zs[f].sub_(tmp)
+    F = z * dd
+    Fs = F.unbind(0)
     for e in range(n - 1, -1, -1):
-        F[e] = z[e] * dd[e] - ll[e] * F[e + 1]
+        torch.mul(ll[e], Fs[e + 1], out=tmp)
+        Fs[e].sub_(tmp)
     contrib = bx0 * F[:n] + bx1 * F[1:]
     return acc + contrib.movedim(0, axis)
 

@@ -197,17 +197,22 @@ def fused_ho_plain(acc, v, dm, l, alpha, axis: int, tables: HoTables):
     bxo0, bxo1 = t_(tables.bxo[:, 0]).reshape(bshape), t_(tables.bxo[:, 1]).reshape(bshape)
     qt = t_(tables.qt)  # (T, K1, K1)
 
+    # every face's rhs at once, then only the carries run as a loop (each
+    # entry takes the same operations, in the same order, as face by face)
     z = torch.empty((n + 1,) + vt.shape[1:2] + vt.shape[3:], dtype=dt, device=dev)
     z[0] = torch.sum(bxs0 * vt[0], dim=1)
+    z[1:] = torch.sum(bxs1 * vt, dim=2)
+    z[1:n] += torch.sum(bxs0 * vt[1:], dim=2)
+    lls, zs = ll.unbind(0), z.unbind(0)
+    tmp = torch.empty_like(zs[0])
     for f in range(1, n + 1):
-        rf = torch.sum(bxs1 * vt[f - 1], dim=1)
-        if f < n:
-            rf = rf + torch.sum(bxs0 * vt[f], dim=1)
-        z[f] = rf - ll[f - 1] * z[f - 1]
-    F = torch.empty_like(z)
-    F[n] = z[n] * dd[n]
+        torch.mul(lls[f - 1], zs[f - 1], out=tmp)
+        zs[f].sub_(tmp)
+    F = z * dd
+    Fe = F.unbind(0)
     for e in range(n - 1, -1, -1):
-        F[e] = z[e] * dd[e] - ll[e] * F[e + 1]
+        torch.mul(lls[e], Fe[e + 1], out=tmp)
+        Fe[e].sub_(tmp)
     Fs = F.unsqueeze(2)  # (n+1, T, 1, rest...)
     qv = torch.einsum("tlm,etm...->etl...", qt, vt)
     contrib = bxo0 * Fs[:n] + bxo1 * Fs[1:] + qv / aa  # (n, T, K1, rest...)

@@ -141,17 +141,21 @@ def thomas_solve_plain(rhs, dinv, l, axis: int):
     """Plain PyTorch version: the recurrence along ``axis``, vectorized over
     every other axis.  ``dinv`` has rhs's shape; ``l`` one entry fewer along
     ``axis``."""
-    r = rhs.movedim(axis, 0)
-    d = dinv.movedim(axis, 0)
-    ll = l.movedim(axis, 0)
-    n = r.shape[0]
-    out = torch.empty_like(r)
-    out[0] = r[0]
+    # the carries run as a loop over rows of the solve axis, in place; the
+    # diagonal scaling of every row at once: each entry takes the same
+    # floating-point operations, in the same order, as a row-by-row loop
+    out = rhs.movedim(axis, 0).clone(memory_format=torch.contiguous_format)
+    ll = l.movedim(axis, 0).unbind(0)
+    n = out.shape[0]
+    rows = out.unbind(0)
+    tmp = torch.empty_like(rows[0])
     for i in range(1, n):
-        out[i] = r[i] - ll[i - 1] * out[i - 1]
-    out[n - 1] = out[n - 1] * d[n - 1]
+        torch.mul(ll[i - 1], rows[i - 1], out=tmp)
+        rows[i].sub_(tmp)
+    out *= dinv.movedim(axis, 0)
     for j in range(n - 2, -1, -1):
-        out[j] = out[j] * d[j] - ll[j] * out[j + 1]
+        torch.mul(ll[j], rows[j + 1], out=tmp)
+        rows[j].sub_(tmp)
     return out.movedim(0, axis).contiguous()
 
 

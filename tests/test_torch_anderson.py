@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import accel as j_accel
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
@@ -26,7 +27,6 @@ from neutfem_tpu.bc import BCKind as JBCKind
 from neutfem_tpu.bc import BCSpec as JBCSpec
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch import accel
 from neutfem_tpu_torch import fespace as t_fespace
 from neutfem_tpu_torch import mesh as t_mesh
@@ -128,7 +128,8 @@ def test_power_iteration_anderson_matches_jax(problem, mode):
     shape = (2, *tfes.mesh.shape, tfes.P)
     keff0 = k_direct if mode == "fixed_keff" else 1.0
     call = dict(adjoint=mode == "adjoint", fixed_keff=keff0 if mode == "fixed_keff" else None)
-    jres = j_power_iteration(jfes, 2, JSolveOptions(**kw), jctx, jnp.ones(shape), keff0, **call)
+    jres = jax_jitted.power_iteration(jfes, 2, JSolveOptions(**kw), jctx, jnp.ones(shape),
+                                      keff0, **call)
     tres = power_iteration(tfes, 2, SolveOptions(**kw), tctx, torch.ones(shape, dtype=F64),
                            keff0, **call)
     outers = int(jres["outer_iterations"])

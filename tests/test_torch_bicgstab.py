@@ -16,13 +16,13 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
 from neutfem_tpu.bc import BCKind, BCSpec
 from neutfem_tpu.krylov import bicgstab as j_bicgstab
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch import krylov
 from neutfem_tpu_torch.ops.context import ctx_from_numpy
 from neutfem_tpu_torch.power import SolveOptions, power_iteration
@@ -100,8 +100,8 @@ def test_bicgstab_inner_solver_matches_jax():
     fes, jctx, tctx = _problem((1, 3, 4), periodic=False)
     kw = dict(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10, max_outer=100,
               inner_solver="bicgstab")
-    want = j_power_iteration(fes, 2, JSolveOptions(**kw), jctx,
-                             jnp.ones((2, *fes.mesh.shape, 1)), 1.0)
+    want = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), jctx,
+                                      jnp.ones((2, *fes.mesh.shape, 1)), 1.0)
     got = power_iteration(fes, 2, SolveOptions(**kw), tctx,
                           torch.ones((2, *fes.mesh.shape, 1), dtype=F64), 1.0)
     assert abs(float(got["keff"]) - float(want["keff"])) <= 1e-9
@@ -141,8 +141,8 @@ def test_cmfd_wielandt_matches_jax():
     fes, jctx, tctx = _problem((1, 4, 5), periodic=True)
     kw = dict(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10, max_outer=60, accel="none",
               use_cmfd=True, cmfd_mode="wielandt", cmfd_lo_outers=20)
-    want = j_power_iteration(fes, 2, JSolveOptions(**kw), jctx,
-                             jnp.ones((2, *fes.mesh.shape, 1)), 1.0)
+    want = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), jctx,
+                                      jnp.ones((2, *fes.mesh.shape, 1)), 1.0)
     got = power_iteration(fes, 2, SolveOptions(**kw), tctx,
                           torch.ones((2, *fes.mesh.shape, 1), dtype=F64), 1.0)
     assert int(want["outer_iterations"]) < 60  # the lo eigensolve converged here

@@ -20,8 +20,8 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu.ops.context import build_context as j_build_context
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.ops.context import build_context
 from neutfem_tpu_torch.power import SolveOptions, power_iteration
 
@@ -60,7 +60,7 @@ def test_power_iteration_matches_jax(a_mode):
     j = JRun(BENCHMARKS["iaea3d"], mesh_n=1, mesh_nz=1).solver
     kw = dict(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10, max_outer=200, a_mode=a_mode)
     jctx = j._ctx(a_mode)
-    want = j_power_iteration(j._fes, 2, JSolveOptions(**kw), jctx, j._flat_phi(), 1.0)
+    want = jax_jitted.power_iteration(j._fes, 2, JSolveOptions(**kw), jctx, j._flat_phi(), 1.0)
     tctx = {k: torch.tensor(np.asarray(v)) for k, v in jctx.items()}
     got = power_iteration(j._fes, 2, SolveOptions(**kw), tctx,
                           torch.ones((2, 19, 19, 19, 1), dtype=F64), 1.0)

@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
 from neutfem_tpu.bc import BCKind as JBCKind
@@ -27,8 +28,6 @@ from neutfem_tpu.ops import pallas_tridiag as j_pallas_tridiag
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
 from neutfem_tpu.power import ctx_group as j_ctx_group
-from neutfem_tpu.power import group_solve as j_group_solve
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch import fespace as t_fespace
 from neutfem_tpu_torch import mesh as t_mesh
 from neutfem_tpu_torch.bc import BCKind, BCSpec
@@ -105,8 +104,8 @@ def test_group_solve_line_matches_jax(shape, mode):
     rng = np.random.default_rng(2)
     rhs, x0 = rng.standard_normal((2, 1, *tfes.mesh.shape))
     kw = dict(inner_precond=mode, inner_tol=1e-10, max_inner=500)
-    jres = j_group_solve(jfes, j_ctx_group(jctx, 0), JSolveOptions(**kw), jnp.asarray(rhs),
-                         jnp.asarray(x0))
+    jres = jax_jitted.group_solve(jfes, j_ctx_group(jctx, 0), JSolveOptions(**kw),
+                                  jnp.asarray(rhs), jnp.asarray(x0))
     tres = group_solve(tfes, ctx_group(tctx, 0), SolveOptions(**kw), torch.tensor(rhs),
                        torch.tensor(x0))
     assert tres.iterations == int(jres.iterations) > 3
@@ -120,7 +119,7 @@ def test_power_iteration_line_matches_jax(shape, mode):
     kw = dict(tol_keff=1e-8, tol_flux=1e-7, inner_tol=1e-7, inner_eta=0.03, max_outer=150,
               inner_precond=mode)
     phi0 = np.ones((2, *tfes.mesh.shape, 1))
-    jres = j_power_iteration(jfes, 2, JSolveOptions(**kw), jctx, jnp.asarray(phi0), 1.0)
+    jres = jax_jitted.power_iteration(jfes, 2, JSolveOptions(**kw), jctx, jnp.asarray(phi0), 1.0)
     tres = power_iteration(tfes, 2, SolveOptions(**kw), tctx, torch.tensor(phi0), 1.0)
     assert abs(float(tres["keff"]) - float(jres["keff"])) <= 1e-9
     assert tres["outer_iterations"] == int(jres["outer_iterations"]) < 150

@@ -10,12 +10,12 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
 from neutfem_tpu.bc import BCKind, BCSpec
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.ops.context import ctx_from_numpy
 from neutfem_tpu_torch.power import SolveOptions, power_iteration
 
@@ -60,8 +60,8 @@ def _problem(shape, k, m, seed=0):
 def test_power_iteration_matches_jax(shape, k, m, adjoint):
     fes, jctx, tctx = _problem(shape, k, m)
     kw = dict(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10, max_outer=200)
-    want = j_power_iteration(fes, 2, JSolveOptions(**kw), jctx,
-                             jnp.ones((2, *fes.mesh.shape, fes.P)), 1.0, adjoint=adjoint)
+    want = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), jctx,
+                                      jnp.ones((2, *fes.mesh.shape, fes.P)), 1.0, adjoint=adjoint)
     got = power_iteration(fes, 2, SolveOptions(**kw), tctx,
                           torch.ones((2, *fes.mesh.shape, fes.P), dtype=F64), 1.0,
                           adjoint=adjoint)

@@ -21,6 +21,7 @@ import concurrent.futures
 import numpy as np
 import pytest
 
+import jax_jitted
 import torch_dist_cases as dc
 
 OPTS = dict(tol_keff=1e-7, tol_flux=1e-6, inner_tol=1e-9, max_outer=80)
@@ -70,7 +71,7 @@ def _jax_solve(data, opts, adjoint):
     from neutfem_tpu.fespace import make_fespace
     from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
     from neutfem_tpu.ops.context import build_context
-    from neutfem_tpu.power import SolveOptions, power_iteration
+    from neutfem_tpu.power import SolveOptions
 
     breaks, k, m, xs, dim = data
     fes = make_fespace(CartesianMesh.from_breaks(*breaks), k, m)
@@ -80,7 +81,8 @@ def _jax_solve(data, opts, adjoint):
             bcs.set(boundary_attribute(dim, ax, up), BCKind.DIRICHLET)
     ctx = build_context(fes, 2, xs, bcs, a_mode="exact", dtype=jnp.float64)
     phi0 = jnp.ones((2, *fes.mesh.shape, fes.P), dtype=jnp.float64)
-    res = power_iteration(fes, 2, SolveOptions(**opts), ctx, phi0, 1.0, adjoint=adjoint)
+    res = jax_jitted.power_iteration(fes, 2, SolveOptions(**opts), ctx, phi0, 1.0,
+                                     adjoint=adjoint)
     return float(res["keff"]), int(res["outer_iterations"]), np.asarray(res["phi"])
 
 

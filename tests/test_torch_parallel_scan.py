@@ -36,6 +36,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 import torch_dist_cases as dc
 from neutfem_tpu.ops import tridiag as j_tridiag
 from neutfem_tpu_torch.ops import tridiag
@@ -91,7 +92,7 @@ def _jax_run(case):
         bcs.set(boundary_attribute(dim, ax, up), BCKind[kind], value)
     ctx = build_context(fes, 2, xs, bcs, a_mode="exact", dtype=jnp.float64)
     phi0 = jnp.ones((2, *fes.mesh.shape, fes.P), dtype=jnp.float64)
-    res = power.power_iteration(fes, 2, power.SolveOptions(**case["opts"]), ctx, phi0, 1.0)
+    res = jax_jitted.power_iteration(fes, 2, power.SolveOptions(**case["opts"]), ctx, phi0, 1.0)
     return {"keff": float(res["keff"]), "outers": int(res["outer_iterations"]),
             "inners": int(res["inner_iterations"]), "phi": np.asarray(res["phi"])}
 

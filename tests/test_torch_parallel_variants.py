@@ -40,6 +40,7 @@ import concurrent.futures
 import numpy as np
 import pytest
 
+import jax_jitted
 import torch_dist_cases as dc
 
 O = dict(tol_keff=1e-7, tol_flux=1e-6, inner_tol=1e-9, max_outer=80)
@@ -141,16 +142,16 @@ def _jax_run(case):
     phi0 = jnp.ones((2, *fes.mesh.shape, fes.P), dtype=jnp.float64)
     run = case.get("run", "power")
     if run == "fixed_source":
-        res = power.fixed_source_solve(fes, 2, opts, ctx, phi0,
-                                       with_fission=case.get("with_fission", True),
-                                       keff=case.get("keff", 1.0))
+        res = jax_jitted.fixed_source_solve(fes, 2, opts, ctx, phi0,
+                                            with_fission=case.get("with_fission", True),
+                                            keff=case.get("keff", 1.0))
     elif run == "subcritical":
-        res = power.solve_subcritical(fes, 2, opts, ctx, phi0, keff=case.get("keff", 1.0))
+        res = jax_jitted.solve_subcritical(fes, 2, opts, ctx, phi0, keff=case.get("keff", 1.0))
     elif run == "coarse":
         k_c, phi_c = coarse.coarse_init(fes, 2, xs, bcs, case["factors"], opts, jnp.float64)
-        res = power.power_iteration(fes, 2, opts, ctx, phi_c, k_c)
+        res = jax_jitted.power_iteration(fes, 2, opts, ctx, phi_c, k_c)
     else:
-        res = power.power_iteration(fes, 2, opts, ctx, phi0, 1.0)
+        res = jax_jitted.power_iteration(fes, 2, opts, ctx, phi0, 1.0)
     return {"keff": float(res["keff"]) if "keff" in res else None,
             "outers": int(res["outer_iterations"]), "inners": int(res["inner_iterations"]),
             "phi": np.asarray(res["phi"]),

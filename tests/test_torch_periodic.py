@@ -23,17 +23,16 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
 from neutfem_tpu.bc import BCKind, BCSpec
 from neutfem_tpu.ops.apply import apply_BT_dir as j_apply_BT_dir
 from neutfem_tpu.ops.apply import cyc_args as j_cyc_args
-from neutfem_tpu.ops.apply import schur_matvec as j_schur_matvec
 from neutfem_tpu.ops.apply import solve_A_dir as j_solve_A_dir
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
 from neutfem_tpu.power import ctx_group as j_ctx_group
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.ops.apply import cyc_args, schur_matvec, solve_A_dir
 from neutfem_tpu_torch.ops.context import build_context, ctx_from_numpy
 from neutfem_tpu_torch.power import SolveOptions, ctx_group, power_iteration
@@ -142,7 +141,7 @@ def test_periodic_schur_matvec_matches_jax(k):
     jctx, tctx = _contexts(fes, xs, bcs)
     tctx = build_context(fes, 2, xs, bcs, "cpu", F64)  # with the T-broadcast factors
     v = np.random.default_rng(2).standard_normal((fes.P, *fes.mesh.shape))
-    want = j_schur_matvec(fes, j_ctx_group(jctx, 1), jnp.asarray(v), "exact")
+    want = jax_jitted.schur_matvec(fes, j_ctx_group(jctx, 1), jnp.asarray(v), "exact")
     for fused in (True, False):
         got = schur_matvec(fes, ctx_group(tctx, 1), torch.tensor(v), "exact", fused=fused)
         assert _rel(got.numpy(), want) <= 1e-12
@@ -187,8 +186,8 @@ def test_periodic_rt1_power_iteration_matches_jax(shape, periodic):
     fes, xs, bcs = _problem(shape, 1, periodic=periodic, seed=5)
     jctx, tctx = _contexts(fes, xs, bcs)
     kw = dict(tol_keff=1e-9, tol_flux=1e-7, inner_tol=1e-9, max_outer=100)
-    want = j_power_iteration(fes, 2, JSolveOptions(**kw), jctx,
-                             jnp.ones((2, *fes.mesh.shape, fes.P)), 1.0)
+    want = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), jctx,
+                                      jnp.ones((2, *fes.mesh.shape, fes.P)), 1.0)
     got = power_iteration(fes, 2, SolveOptions(**kw), tctx,
                           torch.ones((2, *fes.mesh.shape, fes.P), dtype=F64), 1.0)
     assert abs(float(got["keff"]) - float(want["keff"])) <= 1e-9
@@ -204,8 +203,8 @@ def test_periodic_cmfd_matches_jax():
     fes, xs, bcs = _problem((1, 4, 5), 0, periodic=(1,), seed=6)
     jctx, tctx = _contexts(fes, xs, bcs)
     kw = dict(tol_keff=1e-9, tol_flux=1e-8, inner_tol=1e-10, max_outer=100, use_cmfd=True)
-    want = j_power_iteration(fes, 2, JSolveOptions(**kw), jctx, jnp.ones((2, *fes.mesh.shape, 1)),
-                             1.0)
+    want = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), jctx,
+                                      jnp.ones((2, *fes.mesh.shape, 1)), 1.0)
     got = power_iteration(fes, 2, SolveOptions(**kw), tctx,
                           torch.ones((2, *fes.mesh.shape, 1), dtype=F64), 1.0)
     assert abs(float(got["keff"]) - float(want["keff"])) <= 1e-9

@@ -17,6 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
 from neutfem_tpu.bc import BCKind, BCSpec
@@ -25,7 +26,6 @@ from neutfem_tpu.ops.apply import schur_matvec as j_schur_matvec
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
 from neutfem_tpu.power import ctx_group as j_ctx_group
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.krylov import pcg
 from neutfem_tpu_torch.ops.apply import phi_to_internal, schur_matvec
 from neutfem_tpu_torch.ops.context import ctx_from_numpy
@@ -81,8 +81,8 @@ def test_schur_matvec_matches_jax(kernel_problem, small_problem, monkeypatch, po
     v = rng.standard_normal((1, *fes.mesh.shape))
     if jax_mode == "interpret":
         monkeypatch.setenv("NEUTFEM_PALLAS_INTERPRET", "1")
-    want = j_schur_matvec(fes, j_ctx_group(jctx, 1), jnp.asarray(v), "exact",
-                          fused=jax_mode == "interpret")
+    want = jax_jitted.schur_matvec(fes, j_ctx_group(jctx, 1), jnp.asarray(v), "exact",
+                                   fused=jax_mode == "interpret")
     got = schur_matvec(fes, ctx_group(tctx, 1), torch.tensor(v), "exact",
                        fused=port == "fused")
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-12
@@ -91,7 +91,7 @@ def test_schur_matvec_matches_jax(kernel_problem, small_problem, monkeypatch, po
 def test_schur_matvec_all_groups_unfused_matches_jax(small_problem):
     fes, jctx, tctx, rng = small_problem
     v = rng.standard_normal((2, 1, *fes.mesh.shape))
-    want = j_schur_matvec(fes, jctx, jnp.asarray(v), "exact", fused=False)
+    want = jax_jitted.schur_matvec(fes, jctx, jnp.asarray(v), "exact", fused=False)
     got = schur_matvec(fes, tctx, torch.tensor(v), "exact", fused=False)
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-12
 
@@ -136,7 +136,7 @@ def test_power_iteration_matches_jax(inner_eta, accel):
     kw = dict(tol_keff=1e-8, tol_flux=1e-7, inner_tol=1e-7, inner_eta=inner_eta,
               accel=accel, max_outer=150)
     phi0 = np.ones((2, *fes.mesh.shape, 1))
-    jres = j_power_iteration(fes, 2, JSolveOptions(**kw), jctx, jnp.asarray(phi0), 1.0)
+    jres = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), jctx, jnp.asarray(phi0), 1.0)
     tres = power_iteration(fes, 2, SolveOptions(**kw), tctx, torch.tensor(phi0), 1.0)
     assert abs(float(tres["keff"]) - float(jres["keff"])) <= 1e-9
     assert tres["outer_iterations"] == int(jres["outer_iterations"]) < 150

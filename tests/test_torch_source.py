@@ -27,6 +27,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 import neutfem
 from benchmarks.data import BENCHMARKS
 from benchmarks.runner import BenchmarkRun as JRun
@@ -36,7 +37,6 @@ from neutfem_tpu.bc import BCKind as JBCKind
 from neutfem_tpu.bc import BCSpec as JBCSpec
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.power import SolveOptions as JSolveOptions
-from neutfem_tpu.power import fixed_source_solve as j_fixed_source_solve
 from neutfem_tpu_torch import compat
 from neutfem_tpu_torch import fespace as t_fespace
 from neutfem_tpu_torch import mesh as t_mesh
@@ -85,8 +85,8 @@ def test_fixed_source_solve_matches_jax(with_fission):
     tctx = build_context(tfes, ng, xs, tb, device="cpu", dtype=F64)
     kw = dict(tol_flux=1e-8, inner_tol=1e-10, inner_eta=0.03, max_outer=100)
     phi0 = np.zeros((ng, *shape, 1))
-    jres = j_fixed_source_solve(jfes, ng, JSolveOptions(**kw), jctx, jnp.asarray(phi0),
-                                with_fission=with_fission, keff=1.1)
+    jres = jax_jitted.fixed_source_solve(jfes, ng, JSolveOptions(**kw), jctx, jnp.asarray(phi0),
+                                         with_fission=with_fission, keff=1.1)
     tres = fixed_source_solve(tfes, ng, SolveOptions(**kw), tctx, torch.tensor(phi0),
                               with_fission=with_fission, keff=1.1)
     assert tres["outer_iterations"] == int(jres["outer_iterations"]) > 1

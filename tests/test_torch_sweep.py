@@ -25,14 +25,13 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
 from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.ops.apply import schur_matvec as j_schur_matvec
 from neutfem_tpu.ops.context import build_context as j_build_context
 from neutfem_tpu.ops.pallas_fused import fused_fits, fused_schur_dir
 from neutfem_tpu.power import SolveOptions as JSolveOptions
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.ops import fused
 from neutfem_tpu_torch.ops.apply import schur_matvec
 from neutfem_tpu_torch.ops.context import ctx_from_numpy
@@ -115,7 +114,7 @@ def test_batched_schur_matvec_matches_jax(k):
     wrappers, RT1-P1 through the unfused condensed chain."""
     fes, jctx, tctx, rng = _problem((5, 6, 7), seed=5, k=k)
     v = rng.standard_normal((2, fes.P, *fes.mesh.shape))
-    want = j_schur_matvec(fes, jctx, jnp.asarray(v), "exact")
+    want = jax_jitted.schur_matvec(fes, jctx, jnp.asarray(v), "exact")
     before = dict(fused.LAUNCHES)
     got = schur_matvec(fes, tctx, torch.tensor(v), "exact")
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-12
@@ -135,8 +134,8 @@ def _jacobi_pair(core, n, nz, order=0):
 
 def _compare_sweeps(fes, ng, jctx, tctx, **kw):
     shape = (ng, *fes.mesh.shape, fes.P)
-    jres = j_power_iteration(fes, ng, JSolveOptions(sweep="jacobi", **kw), jctx,
-                             jnp.ones(shape), 1.0)
+    jres = jax_jitted.power_iteration(fes, ng, JSolveOptions(sweep="jacobi", **kw), jctx,
+                                      jnp.ones(shape), 1.0)
     tres = power_iteration(fes, ng, SolveOptions(sweep="jacobi", **kw), tctx,
                            torch.ones(shape, dtype=F64), 1.0)
     assert abs(float(tres["keff"]) - float(jres["keff"])) <= 1e-9

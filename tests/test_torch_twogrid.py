@@ -24,6 +24,7 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from neutfem_tpu import coarse as j_coarse
 from neutfem_tpu import fespace as j_fespace
 from neutfem_tpu import mesh as j_mesh
@@ -31,11 +32,8 @@ from neutfem_tpu import twogrid as j_twogrid
 from neutfem_tpu.bc import BCKind as JBCKind
 from neutfem_tpu.bc import BCSpec as JBCSpec
 from neutfem_tpu.ops.context import build_context as j_build_context
-from neutfem_tpu.ops.direct import dense_schur_group as j_dense_schur_group
 from neutfem_tpu.power import SolveOptions as JSolveOptions
 from neutfem_tpu.power import ctx_group as j_ctx_group
-from neutfem_tpu.power import group_solve as j_group_solve
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch import coarse, twogrid
 from neutfem_tpu_torch import fespace as t_fespace
 from neutfem_tpu_torch import mesh as t_mesh
@@ -193,7 +191,7 @@ def test_dense_schur_group_matches_jax(monkeypatch, dim):
         jctx = j_build_context(jfes, 2, xs, jb, a_mode="exact", dtype=jnp.float64)
         tctx = build_context(tfes, 2, xs, tb, device="cpu", dtype=F64)
     for g in range(2):
-        want = j_dense_schur_group(jfes, j_ctx_group(jctx, g), "exact")
+        want = jax_jitted.dense_schur_group(jfes, j_ctx_group(jctx, g), "exact")
         got = dense_schur_group(tfes, ctx_group(tctx, g), "exact")
         assert got.shape == (tfes.n_phi, tfes.n_phi)
         assert torch.equal(got, got.T)
@@ -246,8 +244,8 @@ def test_twogrid_correction_matches_jax(dense_pair, cheby_pair, form):
     r = np.random.default_rng(7).standard_normal((1, *tfes.mesh.shape))
     kw = dict(tg_degree=5, tg_kappa=20.0)
     for g in range(2):
-        want = j_twogrid.twogrid_correction(jfes, j_ctx_group(jctx, g), JSolveOptions(**kw),
-                                            jnp.asarray(r))
+        want = jax_jitted.twogrid_correction(jfes, j_ctx_group(jctx, g), JSolveOptions(**kw),
+                                             jnp.asarray(r))
         got = twogrid.twogrid_correction(tfes, ctx_group(tctx, g), SolveOptions(**kw),
                                          torch.tensor(r))
         assert _rel(got.numpy(), np.asarray(want)) <= 1e-12
@@ -259,23 +257,31 @@ def test_group_solve_twogrid_matches_jax(dense_pair, cheby_pair, form):
     rng = np.random.default_rng(8)
     rhs, x0 = rng.standard_normal((2, 1, *tfes.mesh.shape))
     kw = dict(inner_precond="twogrid", inner_tol=1e-10, max_inner=500)
-    jres = j_group_solve(jfes, j_ctx_group(jctx, 1), JSolveOptions(**kw), jnp.asarray(rhs),
-                         jnp.asarray(x0))
+    jres = jax_jitted.group_solve(jfes, j_ctx_group(jctx, 1), JSolveOptions(**kw),
+                                  jnp.asarray(rhs), jnp.asarray(x0))
     tres = group_solve(tfes, ctx_group(tctx, 1), SolveOptions(**kw), torch.tensor(rhs),
                        torch.tensor(x0))
     assert tres.iterations == int(jres.iterations) > 3
     assert _rel(tres.x.numpy(), np.asarray(jres.x)) <= 1e-10
 
 
-@pytest.mark.parametrize("precond", ["twogrid", "auto"])
-def test_power_iteration_with_coarse_level_matches_jax(precond):
+@pytest.fixture(scope="module")
+def three_group_pair():
+    """A 3-group problem with upscatter and its dense coarse level attached in
+    both packages, shared by the preconditioner modes below (the solves do
+    not change the contexts)."""
     prob = _problem_2d(ny=16, nx=20, seed=9, ng=3, upscatter=True)
+    return prob, _attach(prob, "dense")
+
+
+@pytest.mark.parametrize("precond", ["twogrid", "auto"])
+def test_power_iteration_with_coarse_level_matches_jax(three_group_pair, precond):
+    prob, (jctx, tctx) = three_group_pair
     jfes, tfes = prob[:2]
-    jctx, tctx = _attach(prob, "dense")
     kw = dict(tol_keff=1e-8, tol_flux=1e-7, inner_tol=1e-7, inner_eta=0.03, max_outer=150,
               inner_precond=precond)
     phi0 = np.ones((3, *tfes.mesh.shape, 1))
-    jres = j_power_iteration(jfes, 3, JSolveOptions(**kw), jctx, jnp.asarray(phi0), 1.0)
+    jres = jax_jitted.power_iteration(jfes, 3, JSolveOptions(**kw), jctx, jnp.asarray(phi0), 1.0)
     tres = power_iteration(tfes, 3, SolveOptions(**kw), tctx, torch.tensor(phi0), 1.0)
     assert abs(float(tres["keff"]) - float(jres["keff"])) <= 1e-9
     assert tres["outer_iterations"] == int(jres["outer_iterations"]) < 150
@@ -299,8 +305,8 @@ def test_ctx_from_numpy_carries_the_coarse_level(dtype):
         assert minv.dtype == F64 and np.array_equal(minv.numpy(), jminv)
         rhs = np.random.default_rng(11).standard_normal((1, *tfes.mesh.shape))
         kw = dict(inner_precond="twogrid", inner_tol=1e-10)
-        jres = j_group_solve(jfes, j_ctx_group(jctx, 0), JSolveOptions(**kw),
-                             jnp.asarray(rhs), jnp.asarray(rhs))
+        jres = jax_jitted.group_solve(jfes, j_ctx_group(jctx, 0), JSolveOptions(**kw),
+                                      jnp.asarray(rhs), jnp.asarray(rhs))
         tres = group_solve(tfes, ctx_group(carried, 0), SolveOptions(**kw),
                            torch.tensor(rhs), torch.tensor(rhs))
         assert tres.iterations == int(jres.iterations)

@@ -27,11 +27,11 @@ import torch
 
 import jax.numpy as jnp
 
+import jax_jitted
 from benchmarks.data import BENCHMARKS
 from benchmarks.runner import BenchmarkRun as JRun
 from neutfem import LinearSolverType as JLinearSolverType
 from neutfem_tpu.power import SolveOptions as JSolveOptions
-from neutfem_tpu.power import power_iteration as j_power_iteration
 from neutfem_tpu_torch.bench import BenchmarkRun
 from neutfem_tpu_torch.compat import LinearSolverType
 from neutfem_tpu_torch.ops.context import ctx_from_numpy
@@ -182,7 +182,8 @@ def test_cmfd_correction_step_matches_jax():
     shape = (2, *fes.mesh.shape, 1)
     kw = dict(tol_keff=1e-6, tol_flux=1e-5, inner_tol=1e-5, inner_eta=0.03, use_cmfd=True,
               max_outer=3)
-    jres = j_power_iteration(fes, 2, JSolveOptions(**kw), j._ctx("exact"), jnp.ones(shape), 1.0)
+    jres = jax_jitted.power_iteration(fes, 2, JSolveOptions(**kw), j._ctx("exact"),
+                                      jnp.ones(shape), 1.0)
     tres = power_iteration(t._fes, 2, SolveOptions(**kw), t._ctx,
                            torch.ones(shape, dtype=F64), 1.0)
     nocmfd = power_iteration(t._fes, 2, SolveOptions(**{**kw, "use_cmfd": False}), t._ctx,
