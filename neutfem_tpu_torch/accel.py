@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .shardctx import allsum, current_sharding
 
 __all__ = ["ChebyshevState", "chebyshev_coeffs", "chebyshev_init", "chebyshev_apply_blend",
@@ -76,7 +77,8 @@ def chebyshev_apply_blend(state: ChebyshevState, phi, apply: bool, nmax: int = 1
     idx = min(it, nmax - 1)
 
     def scalar(x):
-        return torch.tensor(x, dtype=phi.dtype, device=phi.device)
+        with tracing.sync("upload"):
+            return torch.tensor(x, dtype=phi.dtype, device=phi.device)
 
     an, bn = scalar(a_np[idx]), scalar(b_np[idx])
     if case == 0:

@@ -43,6 +43,7 @@ from typing import Dict
 
 import torch
 
+from . import tracing
 from .fespace import FESpace
 from .krylov import CG_PLANS, CGGraph, bicgstab, pcg
 from .shardctx import all_ranks, allsum, cut_transport, halo, seam_faces
@@ -225,7 +226,9 @@ def _wielandt(fes: FESpace, ctx: Dict, phi_bar, deff, diag_lo, keff, tol, maxite
         inv_k_new = torch.where(ok, inv_k_new, inv_k)
         dk = torch.where(ok, torch.abs(1.0 / inv_k_new - 1.0 / inv_k), 0.0)
         p, inv_k = p_new, inv_k_new
-        if not bool(dk >= lo_tol):  # the one host read of a low-order outer
+        with tracing.sync("stop_test"):
+            go = bool(dk >= lo_tol)  # the one host read of a low-order outer
+        if not go:
             break
     # trust region: the lo eigenvalue is exact at the fixed point but can be
     # junk in the first corrected iterations (Dhat built from an unconverged J)

@@ -42,15 +42,29 @@ The three recurrences:
 The kernels' launch counters (``ops/*.LAUNCHES``) count device launches: a
 replay adds what its capture launched, frozen iterations included (a block
 launches its kernels BLOCK_ITERS times whether or not ``go`` still holds).
+
+Tracing (``tracing.py``): the spans ``neutfem.cg.prologue`` (the eager
+prologue, a capture where one is due, the copy into the graph's static
+state), ``neutfem.cg.capture`` and ``neutfem.cg.replay`` (each
+``graph.replay()``), the synchronisation sites ``cg_read`` (the host read of
+a block) and ``capture`` (entering a capture, which synchronizes the
+device), and the counters ``cg.solves``, ``cg.iterations`` (the solves'
+live iterations), ``cg.iterations_run`` (what the blocks launched:
+BLOCK_ITERS a replay, the eager block size a read), ``cg.host_reads``,
+``cg.replays``, ``cg.captures`` and ``cg.eager_solves``.  ``STATS`` reads
+their process totals under its old keys.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+from collections.abc import Mapping
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .ops import launch_counters
 from .shardctx import allsum, current_sharding
 
@@ -65,17 +79,38 @@ __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
 #: host-bound RT0 7% slower, ZION within its spread; 16 and 32 lose on all.
 BLOCK_ITERS = 4
 
+_STAT_KEYS = ("solves", "iterations", "host_reads", "replays", "captures", "eager_solves")
+
+#: The blocks' span names (``tracing``).
+PROLOGUE, REPLAY, CAPTURE = "neutfem.cg.prologue", "neutfem.cg.replay", "neutfem.cg.capture"
+
+
+class _Stats(Mapping):
+    """The ``cg.<key>`` counters' process totals (``tracing.total``) under
+    their old keys, read-only."""
+
+    def __getitem__(self, key):
+        if key not in _STAT_KEYS:
+            raise KeyError(key)
+        return tracing.total("cg." + key)
+
+    def __iter__(self):
+        return iter(_STAT_KEYS)
+
+    def __len__(self):
+        return len(_STAT_KEYS)
+
+
 #: Counts since ``reset_stats``: CG solves, their iterations, host reads of
 #: the stop test, graph replays, graph captures, and the solves on the card
 #: that ran the eager block loop because their sharding scope's transport
 #: cannot be captured (``shardctx.Transport.capturable``).
-STATS = {"solves": 0, "iterations": 0, "host_reads": 0, "replays": 0, "captures": 0,
-         "eager_solves": 0}
+STATS = _Stats()
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
+    """Zero every ``cg.*`` total (``cg.iterations_run`` too)."""
+    tracing.reset_totals(["cg." + k for k in _STAT_KEYS] + ["cg.iterations_run"])
 
 
 def _dot(a, b):
@@ -96,8 +131,9 @@ def _status(st) -> torch.Tensor:
 
 def _read(status):
     """The one host read of a block: (iterations, go)."""
-    it, go = status.tolist()
-    STATS["host_reads"] += 1
+    with tracing.sync("cg_read"):
+        it, go = status.tolist()
+    tracing.count("cg.host_reads")
     return it, bool(go)
 
 
@@ -167,19 +203,27 @@ class CGGraph:
         self.status = None
         self.launches = []
 
-    def run(self, step, st0, k: int, maxiter: int):
-        """Copy the prologue's state ``st0`` into the static state and replay
-        blocks of ``k`` iterations of ``step`` (which stops at ``maxiter``)
-        until the stop test fails.  Returns (the static state, iterations)."""
+    def load(self, step, st0, k: int, maxiter: int):
+        """Capture blocks of ``k`` iterations of ``step`` (which stops at
+        ``maxiter``) where no capture of this signature is held, then copy
+        the prologue's state ``st0`` into the static state."""
         sig = (k, maxiter, *((n, tuple(t.shape), t.dtype) for n, t in st0.items()))
         if self.graph is None or sig != self.sig:
-            self._capture(step, st0, k)
+            with tracing.span(CAPTURE):
+                self._capture(step, st0, k)
             self.sig = sig
         for n, t in st0.items():
             self.state[n].copy_(t)
+
+    def replay(self):
+        """Replay the loaded blocks until the stop test fails.  Returns (the
+        static state, iterations)."""
+        k = self.sig[0]
         while True:
-            self.graph.replay()
-            STATS["replays"] += 1
+            with tracing.span(REPLAY):
+                self.graph.replay()
+            tracing.count("cg.replays")
+            tracing.count("cg.iterations_run", k)
             for counts, key, inc in self.launches:
                 counts[key] += inc
             it, go = _read(self.status)
@@ -205,7 +249,10 @@ class CGGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with contextlib.ExitStack() as capture:
+                # entering the capture synchronizes the device first
+                with tracing.sync("capture"):
+                    capture.enter_context(torch.cuda.graph(graph))
                 st = dict(self.state)
                 for _ in range(k):
                     st = step(st)
@@ -224,36 +271,42 @@ class CGGraph:
                     self.launches.append((c, key, c[key] - b.get(key, 0)))
                     c[key] = b.get(key, 0)
         self.graph = graph
-        STATS["captures"] += 1
+        tracing.count("cg.captures")
 
 
-def _run(step, st0, graph: Optional[CGGraph], block: Optional[int], maxiter: int):
-    """The block loop: ``block`` iterations (eager) or one replay of ``graph``
-    per host read.  Returns (final state, iterations)."""
-    STATS["solves"] += 1
+def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int):
+    """The block loop of the solve whose prologue ``parts()`` makes (state,
+    step, <b, b>, zero rhs): ``block`` iterations (eager) or one replay of
+    ``graph`` per host read.  Returns (final state, iterations, <b, b>,
+    zero rhs)."""
+    tracing.count("cg.solves")
+    with tracing.span(PROLOGUE):
+        st0, step, b_norm_sq, zero_rhs = parts()
+        if block is None:
+            sh = current_sharding()
+            if st0["x"].device.type == "cuda" and sh is not None and not sh[0].world.capturable:
+                # a host-staged transport (gloo on the card) cannot be captured:
+                # the same blocks, run eagerly
+                tracing.count("cg.eager_solves")
+                block = BLOCK_ITERS
+            elif st0["x"].device.type == "cuda":
+                graph = graph if graph is not None else CGGraph()
+                graph.load(step, st0, BLOCK_ITERS, maxiter)
+            else:
+                block = 1
     if block is None:
-        sh = current_sharding()
-        if st0["x"].device.type == "cuda" and sh is not None and not sh[0].world.capturable:
-            # a host-staged transport (gloo on the card) cannot be captured:
-            # the same blocks, run eagerly
-            STATS["eager_solves"] += 1
-            block = BLOCK_ITERS
-        elif st0["x"].device.type == "cuda":
-            graph = graph if graph is not None else CGGraph()
-            st, it = graph.run(step, st0, BLOCK_ITERS, maxiter)
-            STATS["iterations"] += it
-            return st, it
-        else:
-            block = 1
-    st = st0
-    while True:
-        for _ in range(block):
-            st = step(st)
-        it, go = _read(_status(st))
-        if not go:
-            break
-    STATS["iterations"] += it
-    return st, it
+        st, it = graph.replay()
+    else:
+        st = st0
+        while True:
+            for _ in range(block):
+                st = step(st)
+            tracing.count("cg.iterations_run", block)
+            it, go = _read(_status(st))
+            if not go:
+                break
+    tracing.count("cg.iterations", it)
+    return st, it, b_norm_sq, zero_rhs
 
 
 def _finish(st, b_norm_sq, zero_rhs, it: int, rr) -> KrylovResult:
@@ -306,9 +359,9 @@ def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
 
 
 def _pcg(matvec, rhs, x0, precond, tol, maxiter, precond_dots, graph, block) -> KrylovResult:
-    st0, step, b_norm_sq, zero_rhs = _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol,
-                                                maxiter)
-    st, it = _run(step, st0, graph, block, maxiter)
+    st, it, b_norm_sq, zero_rhs = _run(
+        lambda: _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter), graph, block,
+        maxiter)
     return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
 
 
@@ -393,8 +446,8 @@ def _fused_parts(matvec, precond, rhs, x0, tol, maxiter):
 
 
 def _pcg_fused(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
-    st0, step, b_norm_sq, zero_rhs = _fused_parts(matvec, precond, rhs, x0, tol, maxiter)
-    st, it = _run(step, st0, graph, block, maxiter)
+    st, it, b_norm_sq, zero_rhs = _run(
+        lambda: _fused_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter)
     return _finish(st, b_norm_sq, zero_rhs, it, torch.abs(st["rr"]))
 
 
@@ -465,8 +518,8 @@ def _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter):
 
 
 def _bicgstab(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
-    st0, step, b_norm_sq, zero_rhs = _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter)
-    st, it = _run(step, st0, graph, block, maxiter)
+    st, it, b_norm_sq, zero_rhs = _run(
+        lambda: _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter)
     return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
 
 

@@ -57,6 +57,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fespace import DirectionInfo, FESpace
 from ..shardctx import current_sharding
 from .fused import (
@@ -138,7 +139,8 @@ def _const(a, like):
     key = (a.shape, a.dtype.str, a.tobytes(), like.dtype, str(like.device))
     hit = _CONSTS.get(key)
     if hit is None:
-        hit = _CONSTS[key] = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+        with tracing.sync("upload"):
+            hit = _CONSTS[key] = torch.as_tensor(a, dtype=like.dtype, device=like.device)
     return hit
 
 

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import cuda_lib, launch_counter
 from .fused import SMEM_PER_BLOCK, row_stride
 
@@ -277,7 +278,8 @@ def _device_table(tables: HoTables, dtype, device):
     key = (id(tables), dtype, str(device))
     hit = _DEVICE_TABLES.get(key)
     if hit is None or hit[0] is not tables:
-        hit = (tables, torch.tensor(tables.packed(), dtype=dtype, device=device))
+        with tracing.sync("upload"):
+            hit = (tables, torch.tensor(tables.packed(), dtype=dtype, device=device))
         _DEVICE_TABLES[key] = hit
     return hit[1]
 

@@ -20,9 +20,12 @@ flux its float32 dots overflow on IAEA-3D, as in the JAX package).  Prints the c
 seconds, runs one warm-up solve, one untimed-by-the-profiler solve (the
 end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall, the
-tracing overhead (traced minus untraced wall) and the traced solve's CG
-host reads per iteration and graph replays per CG solve (``krylov.STATS``); with ``--out DIR`` it also
-writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
+tracing overhead (traced minus untraced wall), the traced solve's CG
+host reads per iteration and graph replays per CG solve (``krylov.STATS``) and
+its record of the port's spans and counters (``tracing.collect``: the host's
+waits on the device by synchronisation site, their share of the traced wall,
+and the CG iterations the blocks ran against the live ones); with
+``--out DIR`` it also writes the Chrome trace to ``DIR/solve_trace.json``.  The last line is a JSON
 summary.  Needs a CUDA device.  The opt-in switches apply as in a solve:
 ``NEUTFEM_EQFOLD=2 python -m neutfem_tpu_torch.trace_solve`` traces K7,
 ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1 ... --order 2`` traces K8 on the bf16
@@ -39,7 +42,7 @@ import time
 
 import torch
 
-from . import krylov
+from . import krylov, tracing
 from .bench import FULL_TOL, HO_TOL, LATERAL, SWEEP_TOL, BenchmarkRun
 from .compat import BCType
 from .data import BENCHMARKS
@@ -121,13 +124,22 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     krylov.reset_stats()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, tracing.collect() as rec:
         wall_traced = _solver_run(s, mode)[0]
     cg = dict(krylov.STATS)
+    syncs = {name[len(tracing.SYNC):]: n for name, (n, _) in rec.record["spans"].items()
+             if name.startswith(tracing.SYNC)}
+    wait_s = sum(sec for name, (_, sec) in rec.record["spans"].items()
+                 if name.startswith(tracing.SYNC))
+    ran = rec.record["counters"].get("cg.iterations_run", 0)
+    live = rec.record["counters"].get("cg.iterations", 0)
 
     fam_us, fam_n, kernels = {}, {}, {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the profiler mirrors each span (``tracing``) onto the device's
+        # timeline as a user annotation: not device work
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False) or e.key.startswith("neutfem.")):
             continue
         us = e.self_device_time_total
         f = _family(e.key)
@@ -147,6 +159,10 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
           f"{cg['solves']} solves, {cg['iterations']} iterations, {cg['host_reads']} host reads "
           f"({reads_per_it:.3f} per iteration), {cg['replays']} graph replays "
           f"({replays_per_solve:.2f} per solve), {cg['captures']} captures")
+    print(f"host waits on the device: {sum(syncs.values())} ({syncs}), "
+          f"{wait_s * 1e3:.3f} ms = {100 * wait_s / wall_traced:.1f}% of the traced wall; "
+          f"CG iterations run {ran}, live {live}, frozen tail "
+          f"{100 * (ran - live) / max(ran, 1):.2f}%")
     print(f"{'family':40s} {'launches':>9s} {'device ms':>10s} {'% busy':>7s} {'us/launch':>10s}")
     for f, us in sorted(fam_us.items(), key=lambda kv: -kv[1]):
         print(f"{f:40s} {fam_n[f]:9d} {us / 1e3:10.3f} {100 * us / 1e6 / busy_s:7.2f} "
@@ -167,6 +183,8 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
         "ms_per_inner": wall * 1e3 / max(inners, 1),
         "cg": cg, "host_reads_per_iteration": reads_per_it,
         "graph_replays_per_solve": replays_per_solve,
+        "syncs": syncs, "host_wait_ms": wait_s * 1e3,
+        "cg_iterations_run": ran, "cg_iterations_live": live,
         "families_ms": {f: us / 1e3 for f, us in fam_us.items()},
         "families_launches": fam_n,
     }

@@ -9,9 +9,12 @@ the facade's paths on the card: the Anderson solve against the CPU, a zero
 right-hand side through a captured CG, and the plans of a context that ``set_bc``
 replaced freed with it; last the NCCL world of one: the sharded solve, the
 sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops,
-and the scan cut-axis solve against the CPU's and in a captured graph.  They need a CUDA device and skip without one (the decision is made
-inside a fixture, at run time).  This file imports neither JAX nor the JAX package,
-so it also runs on a machine without them:
+and the scan cut-axis solve against the CPU's and in a captured graph; then
+the program's synchronisation sites (``tracing.sync``) against the
+synchronising runtime calls of a profiled solve.  They need a CUDA device and
+skip without one (the decision is made inside a fixture, at run time).  This
+file imports neither JAX nor the JAX package, so it also runs on a machine
+without them:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
@@ -1560,6 +1563,54 @@ def test_transport_refuses_what_was_not_asked(nccl_mesh):
     with pytest.raises(RuntimeError, match="gloo"):
         parallel.device_mesh("gloo")
     assert nccl_mesh.world.capturable and nccl_mesh.backend == "nccl"
+
+
+# --- the program's synchronisation sites (tracing) against the profiler -------
+
+#: The runtime calls that block the host until the device has finished.
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+               "cudaMemcpy")
+
+
+@pytest.mark.parametrize("order,mesh_n,mesh_nz", [(0, 2, 2), (2, 1, 1)], ids=["rt0", "rt2"])
+def test_sync_sites_are_the_profiled_synchronising_calls(cuda, order, mesh_n, mesh_nz):
+    """The first solve of a facade (it captures the CG graphs and puts the
+    constants on the card) and a cold solve after it, as the benchmark times
+    it: the program's ``neutfem.sync.*`` spans are as many as the
+    synchronising runtime calls the profiler saw inside its ``neutfem.solve``
+    span, and whatever the profiler mirrors of the spans onto the device
+    timeline is a user annotation, not device work."""
+    from neutfem_tpu_torch import tracing
+    from neutfem_tpu_torch.bench import FULL_TOL, HO_TOL, BenchmarkRun
+    from neutfem_tpu_torch.data import BENCHMARKS
+
+    run = BenchmarkRun(BENCHMARKS["iaea3d"], mesh_n, mesh_nz, device="cuda",
+                       dtype=torch.float32, rt_order=order)
+    s = run.solver
+    s.set_tol(*(HO_TOL if order else FULL_TOL))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for first in (True, False):  # the warm-up captures a graph a group; the cold solve none
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            s.reset_flux()
+            s.SolveKeff()
+            torch.cuda.synchronize()
+        rec = tracing.recent(1)[0]
+        spans = rec["spans"]
+        sites = sum(n for name, (n, _) in spans.items() if name.startswith(tracing.SYNC))
+        events = prof.events()
+        host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        solve = [e for e in host if e.name == tracing.SOLVE]
+        assert len(solve) == 1
+        lo, hi = solve[0].time_range.start, solve[0].time_range.end
+        calls = [e for e in host if e.name in _SYNC_CALLS and lo <= e.time_range.start <= hi]
+        assert rec["outers"] == s.GetLastOuterIterations() and spans[tracing.SOLVE][0] == 1
+        assert spans.get("neutfem.sync.capture", (0, 0))[0] == (2 if first else 0)
+        assert sites == len(calls), sorted({e.name for e in calls})
+        # what the profiler mirrors of the spans onto the device is no device work
+        mirrored = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name.startswith("neutfem.")]
+        assert mirrored and all(getattr(e, "is_user_annotation", False) for e in mirrored)
 
 
 # last in the file: a failed capture must leave nothing behind for later tests
