@@ -2216,7 +2216,7 @@ def _v17_host(s, a_mode="exact", extra=None):
     ctx = s._context(a_mode)
     host = {k: v.numpy() for k, v in ctx.items() if hasattr(v, "numpy")}
     host.update(extra or {})
-    return host, None, False
+    return host, None
 
 
 def _v17_dense(s, dev):

@@ -3,7 +3,8 @@
 Port of ``neutfem_tpu/ops/context.py``: ``a_mode`` "exact" at any order
 RT_k-P_m, "diag" and "lumped" at RT0; PERIODIC directions and nonzero NEUMANN
 boundaries.  The "matrices" are a handful of dense grids, built host-side in
-numpy (float64) and transferred once:
+numpy (float64) and transferred once (but the block-Jacobi inverse, which the
+device builds from host ingredients):
 
 * ``C``              (ng, P, nz, ny, nx): removal term Sigma_r * detJ * w_mode
 * ``alpha_d{d}``     (ng, nz, ny, nx): RT mass coefficient factor_d / D_g
@@ -40,10 +41,12 @@ numpy (float64) and transferred once:
   the next one (``precond_line2_*``), (ng, nz, ny, nx) with one entry fewer
   along the line in ``_l``
 * for P > 1 the P x P block-Jacobi inverse of the equilibrated Schur diagonal
-  block, (ng, P, P, nz, ny, nx): ``precond_blk_inv`` at float64; at float32
-  the deviation ``precond_blk_dev = Binv - I`` in ``float8_e4m3fn`` when
-  max|E| < 440, else ``precond_blk_inv`` in ``bfloat16`` (the JAX package's
-  storage rule); with ``NEUTFEM_BLKFP8=0`` float32 stores the ``bfloat16`` inverse
+  block, (ng, P, P, nz, ny, nx), the one part built on the device (in
+  float64, from the host's cell-plane ingredients): ``precond_blk_inv`` at
+  float64; at float32 the deviation ``precond_blk_dev = Binv - I`` in
+  ``float8_e4m3fn`` when max|E| < 440, else ``precond_blk_inv`` in
+  ``bfloat16`` (the JAX package's storage rule); with ``NEUTFEM_BLKFP8=0``
+  float32 stores the ``bfloat16`` inverse
 * under ``NEUTFEM_EQFOLD`` "1" or "2" at RT0-P0, the operands of the
   equilibration-folded matvec (``ops/fused_eq.py``): ``precond_eq_sdi`` =
   1/sqrt(diag S) and ``precond_eq_csdi`` = C * precond_eq_sdi, (ng, 1, nz,
@@ -170,35 +173,76 @@ def ctx_from_numpy(ctx_np: Dict, device, dtype) -> Dict:
     return out
 
 
-def _store_block_precond(blk_inv: np.ndarray, P: int, fp8: bool, device,
-                         dtype) -> Dict[str, torch.Tensor]:
-    """The JAX package's storage rule for the equilibrated block inverse
-    (``neutfem_tpu/ops/context.py:580-600``): at float32, under the default
-    ``NEUTFEM_BLKFP8=1``, the deviation E = Binv - I in float8 e4m3 (the
-    identity part is applied exactly) when ``fp8`` (``_block_fp8``: max|E|
-    stays clear of e4m3's 448 saturation); with ``NEUTFEM_BLKFP8=0``, or near
-    saturation, the inverse in bfloat16; any other dtype keeps the inverse
-    as it is."""
-    bi = torch.from_numpy(np.ascontiguousarray(blk_inv)).to(device=device, dtype=dtype)
-    if dtype != torch.float32:
-        return {"precond_blk_inv": bi}
-    if fp8 and os.environ.get("NEUTFEM_BLKFP8", "1") != "0":
-        eye = torch.eye(P, dtype=dtype, device=device).reshape(1, P, P, 1, 1, 1)
-        return {"precond_blk_dev": (bi - eye).to(torch.float8_e4m3fn)}
-    return {"precond_blk_inv": bi.to(torch.bfloat16)}
+#: Cells a chunk of the block build: bounds its float64 temporaries (blocks,
+#: their equilibrated copy, the inverse and its workspace) to ~190 MB each at
+#: P = 27, whatever the mesh.
+BLOCK_CHUNK = 1 << 15
 
 
-def _block_fp8(blk_inv: np.ndarray) -> bool:
-    """The float8 storage test on the whole block inverse (ng, P, P, cells...):
-    max|Binv - I| < 440 in float32 arithmetic, as the card would compute it
-    from the float32 inverse (one row of blocks at a time)."""
-    emax = 0.0
-    for g in range(blk_inv.shape[0]):
-        for i in range(blk_inv.shape[1]):
-            row = blk_inv[g, i].astype(np.float32)
-            row[i] -= np.float32(1.0)
-            emax = max(emax, float(np.max(np.abs(row))))
-    return emax < 440.0
+def _block_precond(blk: Dict[str, np.ndarray], P: int, device, dtype,
+                   world=None) -> Dict[str, torch.Tensor]:
+    """The equilibrated P x P block-Jacobi inverse, built on ``device`` from
+    ``build_host_context``'s ingredients ``blk``, and stored by the JAX
+    package's rule (``neutfem_tpu/ops/context.py:580-600``).
+
+    One group at a time, a chunk of cells at a time, in float64: the blocks
+    are the (P*P, J) coefficients times the J cell fields plus C on the
+    diagonal, equilibrated by the exact Schur diagonal (unit diagonal:
+    float32-safe) and inverted batched (LU with partial pivoting,
+    ``torch.linalg.inv_ex``).  At float32 the inverse is rounded to float32
+    and E = Binv - I taken in float32; under the default ``NEUTFEM_BLKFP8=1``
+    the context stores E in float8 e4m3 (the identity part is applied
+    exactly) when max|E| is below 440 (clear of e4m3's 448 saturation); with
+    ``NEUTFEM_BLKFP8=0``, or near saturation, the float32 inverse in
+    bfloat16.  Both are written chunk by chunk and one is kept.  Any other
+    dtype keeps the inverse as it is.  ``world`` (a ``shardctx.Transport``):
+    the ranks whose slabs make up the whole context, over which max|E| is
+    reduced, so the storage decision is the whole context's.  The host read
+    of that decision (with a count of singular blocks, which raise) waits for
+    the device, inside the span ``neutfem.context.blockjac``;
+    ``context.blockjac_blocks`` counts the blocks inverted."""
+    f64, f32 = torch.float64, torch.float32
+    with tracing.span("neutfem.context.blockjac"):
+        fields = blk["fields"]  # (ng, J, nz, ny, nx)
+        ng, J, shape = fields.shape[0], fields.shape[1], fields.shape[2:]
+        n = int(np.prod(shape))
+        low = dtype == f32
+        store = {"precond_blk_inv": torch.empty((ng, P, P, n), device=device,
+                                                dtype=torch.bfloat16 if low else dtype)}
+        if low and os.environ.get("NEUTFEM_BLKFP8", "1") != "0":
+            store["precond_blk_dev"] = torch.empty((ng, P, P, n), dtype=torch.float8_e4m3fn,
+                                                   device=device)
+        coefs = torch.as_tensor(blk["coefs"], dtype=f64, device=device)  # (P*P, J)
+        emax = torch.zeros((), dtype=f32, device=device)
+        singular = torch.zeros((), dtype=torch.int64, device=device)
+        for g in range(ng):
+            fg = torch.as_tensor(fields[g].reshape(J, n), dtype=f64, device=device)
+            cg = torch.as_tensor(blk["C"][g].reshape(P, n), dtype=f64, device=device)
+            sdi = 1.0 / torch.sqrt(torch.as_tensor(blk["pre"][g].reshape(P, n), dtype=f64,
+                                                   device=device))  # (P, cells)
+            for lo in range(0, n, BLOCK_CHUNK):
+                hi = min(lo + BLOCK_CHUNK, n)
+                b = (coefs @ fg[:, lo:hi]).reshape(P, P, hi - lo)
+                b.diagonal(dim1=0, dim2=1).add_(cg[:, lo:hi].T)
+                s = sdi[:, lo:hi]
+                bh = (b * s[:, None] * s[None, :]).permute(2, 0, 1)  # (cells, P, P)
+                inv, info = torch.linalg.inv_ex(bh)
+                singular += torch.count_nonzero(info)
+                e = inv.to(f32)
+                store["precond_blk_inv"][g, :, :, lo:hi] = (e if low else inv).permute(1, 2, 0)
+                e.diagonal(dim1=1, dim2=2).sub_(1.0)
+                if "precond_blk_dev" in store:
+                    store["precond_blk_dev"][g, :, :, lo:hi] = e.permute(1, 2, 0)
+                emax = torch.maximum(emax, e.abs_().amax())
+            tracing.count("context.blockjac_blocks", n)
+        if world is not None:
+            emax = world.all_max(emax)
+        emax, singular = float(emax), int(singular)  # waits for the device
+        if singular:
+            raise torch.linalg.LinAlgError(f"block-Jacobi: {singular} singular P x P blocks")
+        fp8 = "precond_blk_dev" in store and emax < 440.0
+        keep = "precond_blk_dev" if fp8 else "precond_blk_inv"
+        return {keep: store[keep].reshape((ng, P, P) + tuple(shape))}
 
 
 def _dtilde_wrap(D, h_d, fax, ax):
@@ -284,16 +328,18 @@ def build_context(
     return context_to_device(*host, fes.P, device, dtype)
 
 
-def context_to_device(ctx_np: Dict, blk_inv, blk_fp8: bool, P: int, device,
-                      dtype) -> Dict[str, torch.Tensor]:
-    """A host context (``build_host_context``'s three parts) as tensors on
-    ``device``: every array through ``ctx_from_numpy``, and the block inverse
-    ``blk_inv`` (None for P == 1) stored by ``_store_block_precond`` as
-    ``blk_fp8`` decides."""
+def context_to_device(ctx_np: Dict, blk, P: int, device, dtype,
+                      world=None) -> Dict[str, torch.Tensor]:
+    """A host context (``build_host_context``'s two parts) as tensors on
+    ``device``: every array through ``ctx_from_numpy`` (the span
+    ``neutfem.context.to_device``), then, where ``blk`` holds the block-Jacobi
+    ingredients (None for P == 1), the block inverse built and stored on
+    ``device`` by ``_block_precond`` (``neutfem.context.blockjac``), its
+    storage decision reduced over ``world`` where given (a sharded slab)."""
     with tracing.span("neutfem.context.to_device"):
         out = ctx_from_numpy(ctx_np, device, dtype)
-        if blk_inv is not None:
-            out.update(_store_block_precond(blk_inv, P, blk_fp8, device, dtype))
+    if blk is not None:
+        out.update(_block_precond(blk, P, device, dtype, world))
     return out
 
 
@@ -301,16 +347,17 @@ def build_host_context(fes: FESpace, ng: int, xs: Dict[str, np.ndarray], bcs: BC
                        a_mode: str = "exact", marshak_d_factor: bool = False,
                        periodic_natural: bool = False):
     """``build_context``'s arrays on the host, float64: (the context as a
-    dict of numpy arrays, the equilibrated P x P block inverse (ng, P, P, nz,
-    ny, nx) or None for P == 1, and whether float32 stores that inverse's
-    deviation in float8 (``_block_fp8``; False for P == 1)).
-    ``parallel.shard_context`` slices it into each rank's slab, which keeps
-    the whole context's storage decision.  Its phases are the spans
-    ``neutfem.context.directions`` (the per-direction operators),
-    ``.schur_diag`` (the exact Schur diagonal), ``.line`` (the line factors,
-    where built) and ``.blockjac`` (the block inverse and its float8 storage
-    test, P > 1);
-    ``context_to_device`` is ``neutfem.context.to_device``."""
+    dict of numpy arrays, and for P > 1 the ingredients of the P x P
+    block-Jacobi blocks, None for P == 1).  The ingredients are
+    ``"coefs"`` (P*P, J), the per-direction coefficient matrices stacked,
+    ``"fields"`` (ng, J, nz, ny, nx), the cell fields they multiply, and
+    ``"C"`` / ``"pre"`` (ng, P, nz, ny, nx), the removal term and the exact
+    Schur diagonal: cell planes, which ``parallel.shard_context`` slices into
+    each rank's slab as it slices every other cell field (the inverse is
+    per cell).  ``context_to_device`` builds and inverts the blocks on the
+    device.  Its phases are the spans ``neutfem.context.directions`` (the
+    per-direction operators), ``.schur_diag`` (the exact Schur diagonal and
+    the block ingredients) and ``.line`` (the line factors, where built)."""
     mesh = fes.mesh
     et = fes.et
     if a_mode not in ("exact", "diag", "lumped"):
@@ -560,6 +607,15 @@ def build_host_context(fes: FESpace, ng: int, xs: Dict[str, np.ndarray], bcs: BC
             pre = est
 
         ctx_np["precond_inv"] = 1.0 / pre
+        blk = None
+        if fes.P > 1:
+            # the P x P per-cell block-Jacobi blocks of the higher orders: the
+            # sum of the per-direction terms (P x P coefficient times a cell
+            # field) plus C on the diagonal, equilibrated by the exact diagonal;
+            # built and inverted on the device (``_block_precond``)
+            P = fes.P
+            blk = {"coefs": np.stack([c.reshape(P * P) for c, _ in blk_terms], axis=1),
+                   "fields": np.stack([f for _, f in blk_terms], axis=1), "C": C, "pre": pre}
         if et.k == 0 and fes.m == 0 and os.environ.get("NEUTFEM_EQFOLD", "0") in ("1", "2"):
             # the equilibration-folded RT0 matvec's operands, in float64 then cast
             # (neutfem_tpu/ops/context.py:527-537); built only under the switch, so
@@ -575,27 +631,6 @@ def build_host_context(fes: FESpace, ng: int, xs: Dict[str, np.ndarray], bcs: BC
                 if d in line_offd:
                     ctx_np[f"precond_{name}_dinv"], ctx_np[f"precond_{name}_l"] = _line_factors(
                         pre[:, 0], *line_offd[d])
-    blk_inv, blk_fp8 = None, False
-    if fes.P > 1:
-        with tracing.span("neutfem.context.blockjac"):
-            # P x P per-cell block-Jacobi for higher orders, equilibrated by the exact
-            # diagonal (unit diagonal: f32-safe) and inverted once; mode-first
-            # (ng, P, P, nz, ny, nx).  Built one group at a time: at RT2-P2 4x4x2 the
-            # float64 block tensor of both groups is 2.56 GB before inversion.
-            # The sum of the per-direction terms (P x P coefficient times a cell
-            # field) is one (P*P, J) x (J, cells) matrix product.
-            P = fes.P
-            idx = np.arange(P)
-            coefs = np.stack([c.reshape(P * P) for c, _ in blk_terms], axis=1)  # (P*P, J)
-            blk_inv = np.empty((ng, P, P) + mesh.shape)
-            for g in range(ng):
-                blk = (coefs @ np.stack([f[g].reshape(-1) for _, f in blk_terms])).reshape(P, P, -1)
-                blk[idx, idx] += C[g].reshape(P, -1)
-                sdi = 1.0 / np.sqrt(pre[g].reshape(P, -1))  # (P, cells)
-                bh = np.moveaxis(blk * sdi[:, None] * sdi[None, :], -1, 0)  # (cells, P, P)
-                blk_inv[g] = np.moveaxis(np.linalg.inv(bh), 0, -1).reshape((P, P) + mesh.shape)
-                del blk, bh
-            blk_fp8 = _block_fp8(blk_inv)
     if np.any(src_bc != 0.0):
         ctx_np["src_bc"] = src_bc
     ctx_np["detJ"] = detJ
@@ -607,4 +642,4 @@ def build_host_context(fes: FESpace, ng: int, xs: Dict[str, np.ndarray], bcs: BC
     ctx_np["src"] = np.asarray(xs["SRC"], dtype=np.float64)
     ctx_np["sigr"] = SigR
     ctx_np["vol"] = mesh.volumes()
-    return ctx_np, blk_inv, blk_fp8
+    return ctx_np, blk

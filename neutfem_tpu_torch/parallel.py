@@ -202,8 +202,7 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
                   dtype) -> Dict[str, torch.Tensor]:
     """This rank's operator context on ``device``, sliced from the host
     context ``host`` = ``ops.context.build_host_context(...)`` (the whole
-    problem's arrays, numpy float64, its block inverse and that inverse's
-    storage decision, which every rank's slab keeps):
+    problem's arrays, numpy float64, and its block-Jacobi ingredients):
 
     * every spatial array keeps the rank's slab; the cut direction's face
       arrays of ``_SPLIT_PREFIXES`` are split into the rank's body faces and
@@ -226,7 +225,11 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
       runs the unstaged kernels per shard (``neutfem_tpu/ops/apply.py:363``);
       both give the same numbers to rounding;
     * the two-grid level, the cut direction's fused operands and the line
-      preconditioner's factors along a cut are dropped (none runs there).
+      preconditioner's factors along a cut are dropped (none runs there);
+    * the block-Jacobi ingredients' cell planes keep the rank's slab; its
+      blocks are built and inverted on ``device``, and their storage decision
+      (max|E| against e4m3's saturation) is reduced over every rank
+      (``mesh.world``), so it stays the whole context's.
 
     The cut direction's solve is chosen here, by the JAX rule: an exact A
     gets the partitioned bundle unless the direction is PERIODIC, a segment
@@ -238,7 +241,7 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
     face), ``cyc_wt`` slab and ``cyc_a0`` / ``cyc_a1`` per line, and drops
     its T-staged ``tri_cycT_*`` factors.  Raises ``ValueError`` where p does
     not divide n (``_cuts``)."""
-    ctx_np, blk_inv, blk_fp8 = host
+    ctx_np, blk = host
     amap = _axis_map(mesh, grid_axis)
     cuts = _cuts(mesh, amap, fes.mesh.shape)
     cut_keys = {f"d{di.d}": di.axis for di in fes.dirs if di.axis in amap}
@@ -300,8 +303,9 @@ def shard_context(host, mesh: Mesh, fes: FESpace, grid_axis: GridAxes = 1, *, de
         key = f"d{di.d}"
         if f"tri_dinvm_{key}" in local and di.axis in (1, 2):
             stage_operands(local, key, di.axis, fes.et.k > 0)
-    blk = None if blk_inv is None else _slab(blk_inv, cuts, blk_inv.ndim - 3)[0]
-    return context_to_device(local, blk, blk_fp8, fes.P, device, dtype)
+    if blk is not None:
+        blk = {k: v if v.ndim < 3 else _slab(v, cuts, v.ndim - 3)[0] for k, v in blk.items()}
+    return context_to_device(local, blk, fes.P, device, dtype, world=mesh.world)
 
 
 def _minv_slab(minv: np.ndarray, cuts, own: int) -> np.ndarray:

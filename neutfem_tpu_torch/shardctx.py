@@ -209,14 +209,21 @@ class Transport:
             return h.to(like.device)
         return h
 
-    def all_sum(self, t):
-        """The sum of ``t`` over the group (a new tensor)."""
+    def _all_reduce(self, t, op):
         import torch.distributed as dist
 
         w = self._wire(t)
         w = w.clone() if w is t else w
-        dist.all_reduce(w, group=self.group)
+        dist.all_reduce(w, op=getattr(dist.ReduceOp, op), group=self.group)
         return self._back(w, t)
+
+    def all_sum(self, t):
+        """The sum of ``t`` over the group (a new tensor)."""
+        return self._all_reduce(t, "SUM")
+
+    def all_max(self, t):
+        """The elementwise largest ``t`` over the group (a new tensor)."""
+        return self._all_reduce(t, "MAX")
 
     def all_gather(self, t):
         """(size, *t.shape): every rank's ``t`` in group-rank order."""

@@ -11,7 +11,8 @@ replaced freed with it; last the NCCL world of one: the sharded solve, the
 sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops,
 and the scan cut-axis solve against the CPU's and in a captured graph; then
 the program's synchronisation sites (``tracing.sync``) against the
-synchronising runtime calls of a profiled solve.  They need a CUDA device and
+synchronising runtime calls of a profiled solve, and the block-Jacobi
+preconditioner built on the card against the CPU's build.  They need a CUDA device and
 skip without one (the decision is made inside a fixture, at run time).  This
 file imports neither JAX nor the JAX package, so it also runs on a machine
 without them:
@@ -1611,6 +1612,49 @@ def test_sync_sites_are_the_profiled_synchronising_calls(cuda, order, mesh_n, me
         mirrored = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                     and e.name.startswith("neutfem.")]
         assert mirrored and all(getattr(e, "is_user_annotation", False) for e in mirrored)
+
+
+def test_block_build_on_the_card_matches_the_cpu_and_its_span_covers_it(cuda):
+    """The block-Jacobi preconditioner built on the card (``ops/context.
+    _block_precond``) at IAEA-3D 2x2x2 RT2-P2 (54,872 cells) from the host's
+    ingredients: its float32 fp8 E-form holds the CPU build's bytes, but
+    where both are rounding noise of an exact zero
+    (``blockjac_reference.assert_same_storage``), and its float64 inverse is
+    the CPU's within 1e-12 of the largest entry.  The span
+    ``neutfem.context.blockjac`` lasts at least the device time of the build
+    (CUDA events just before and after the call; 1 ms for the host's steps
+    between them and the span): it closes after the device work."""
+    from blockjac_reference import assert_same_storage
+
+    from neutfem_tpu_torch import tracing
+    from neutfem_tpu_torch.bench import BenchmarkRun
+    from neutfem_tpu_torch.data import BENCHMARKS
+    from neutfem_tpu_torch.ops import context as ctx_mod
+
+    run = BenchmarkRun(BENCHMARKS["iaea3d"], 2, 2, device="cpu", dtype=torch.float32,
+                       rt_order=2)
+    s = run.solver
+    P = s._fes.P
+    _, blk = ctx_mod.build_host_context(s._fes, s._ng, s._xs, s._bcs, marshak_d_factor=True)
+    assert blk["fields"].shape[2:] == (38, 38, 38)
+    cpu = ctx_mod._block_precond(blk, P, "cpu", torch.float32)
+    ctx_mod._block_precond(blk, P, cuda, torch.float32)  # the libraries' first call
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with tracing.collect() as c:
+        e0.record()
+        card = ctx_mod._block_precond(blk, P, cuda, torch.float32)
+        e1.record()
+    torch.cuda.synchronize()
+    assert list(card) == list(cpu) == ["precond_blk_dev"]
+    assert_same_storage(card["precond_blk_dev"], cpu["precond_blk_dev"])
+    span_s = c.record["spans"]["neutfem.context.blockjac"][1]
+    device_s = e0.elapsed_time(e1) / 1e3
+    assert span_s >= device_s - 1e-3, (span_s, device_s)
+    assert c.record["counters"]["context.blockjac_blocks"] == 2 * 38 ** 3
+    want = ctx_mod._block_precond(blk, P, "cpu", torch.float64)["precond_blk_inv"]
+    got = ctx_mod._block_precond(blk, P, cuda, torch.float64)["precond_blk_inv"].cpu()
+    assert float(torch.max(torch.abs(got - want))) <= 1e-12 * float(torch.max(torch.abs(want)))
 
 
 # last in the file: a failed capture must leave nothing behind for later tests

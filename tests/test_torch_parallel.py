@@ -11,6 +11,11 @@ looser than ``test_parallel.py``'s, so the ranks' collectives (a few hundred
 µs each on gloo) keep the file within its time: the comparison is of two
 implementations of one iteration; the 3D ones at ``test_parallel.py``'s.
 
+A block planted in one rank's slab (``torch_dist_cases.plant_block``) holds
+the float32 storage decision of the block preconditioner to the whole
+context's: both ranks store the bfloat16 inverse, though the other rank's
+slab alone would take the fp8 E-form.
+
 All cases of one world run in one spawn (``torch_dist_cases.spawn_world``),
 the world of 4 ranks and two of 2 at the same time, while this process computes
 the references; each spawn has a deadline that kills its ranks.
@@ -50,6 +55,10 @@ WORLDS = {4: 4, "2a": 2, "2b": 2}
 #: resolves to Jacobi at this size)
 SAME_REF = {"line_along_cut": "z3d"}
 TIMEOUT = 300.0
+#: a 3D RT1-P1 problem cut along y over "2a"'s two ranks, and the block
+#: planted in it (flat cell (z, y, x) = (1, 6, 2): rank 1's slab) with its
+#: max|Binv - I| over e4m3's 440
+PLANT_DATA, PLANT = dc.core3d(4, 8, 6, k=1), (1 * 48 + 6 * 6 + 2, 441.0)
 
 
 def _spawn(world, tmp_path):
@@ -60,6 +69,9 @@ def _spawn(world, tmp_path):
                       "memory": True})
     elif world == "2b":
         cases.append({"name": "indivisible", "indivisible": True})
+    else:
+        cases.append({"name": "fp8_whole", "data": PLANT_DATA, "grid_axis": 1,
+                       "plant": PLANT})
     return dc.spawn_world(WORLDS[world], "solve_cases", cases, tmp_path / str(world),
                           TIMEOUT)
 
@@ -161,6 +173,25 @@ def test_shard_context_memory_scales(runs):
         assert per_rank <= total / p + 1024 * len(big), (per_rank, total)
         # nothing the whole problem needs only unsharded is kept
         assert "tri_dinvm_d1" not in local and "tri_yT_dinvm_d1" not in local
+
+
+def test_fp8_decision_is_the_whole_contexts(runs):
+    """Only rank 1's slab holds the planted block: rank 0's slab alone would
+    store the fp8 E-form, but the ranks reduce max|E| and both store the
+    bfloat16 inverse, as the whole context does."""
+    from blockjac_reference import reference_emax, reference_inverse
+    from neutfem_tpu_torch.ops.context import build_host_context
+
+    ranks, _ = runs
+    fes, ng, xs, bcs = dc.port_problem(PLANT_DATA)
+    blk = dc.plant_block(build_host_context(fes, ng, xs, bcs)[1], *PLANT)
+    ny = fes.mesh.shape[1]
+    alone = []
+    for lo, hi in ((0, ny // 2), (ny // 2, ny)):
+        slab = {k: v if v.ndim < 3 else v[..., lo:hi, :] for k, v in blk.items()}
+        alone.append(reference_emax(reference_inverse(slab, fes.P, (4, hi - lo, 6))[0]))
+    assert alone[0] < 440.0 < alone[1]
+    assert [r["fp8_whole"] for r in ranks["2a"]] == [{"precond_blk_inv": "torch.bfloat16"}] * 2
 
 
 def test_indivisible_axis_raises_as_jax(runs):

@@ -92,6 +92,26 @@ def random3d(nz=2, ny=8, nx=6, seed=5):
     return breaks, 0, 0, xs, 3
 
 
+def plant_block(blk, cell, emax):
+    """A copy of the block-Jacobi ingredients ``blk`` (``build_host_context``)
+    in which the block of flat cell index ``cell``, in every group, is I + a
+    (e0 e1^T + e1 e0^T) after equilibration: its inverse's largest deviation
+    from I is the off-diagonal pair, |-a / (1 - a^2)| = ``emax``."""
+    a = (np.sqrt(1.0 + 4.0 * emax * emax) - 1.0) / (2.0 * emax)
+    P = int(round(np.sqrt(blk["coefs"].shape[0])))
+    m = np.zeros((P, P))
+    m[0, 1] = m[1, 0] = a
+    ng, J, *shape = blk["fields"].shape
+    at = (slice(None), slice(None)) + np.unravel_index(cell, shape)
+    fields = np.concatenate([blk["fields"], np.zeros((ng, 1, *shape))], axis=1)
+    fields[at] = 0.0
+    fields[(slice(None), J) + at[2:]] = 1.0
+    C, pre = blk["C"].copy(), blk["pre"].copy()
+    C[at] = pre[at] = 1.0
+    return {"coefs": np.concatenate([blk["coefs"], m.reshape(-1, 1)], axis=1), "fields": fields,
+            "C": C, "pre": pre}
+
+
 def bc_kinds(dim, periodic=(), faces=None):
     """{(axis (0 = x), upper end): (kind name, value)}: DIRICHLET, PERIODIC
     on the axes in ``periodic``, then ``faces`` on top; the same spec builds
@@ -167,6 +187,9 @@ def solve_cases(rank, world, init, cases):
         mesh = meshes[shape]
         if case.get("indivisible"):
             out[case["name"]] = _indivisible(mesh)
+            continue
+        if case.get("plant"):
+            out[case["name"]] = _planted_storage(mesh, case)
             continue
         fes, ng, xs, bcs = port_problem(case["data"])
         ga = case["grid_axis"]
@@ -247,6 +270,24 @@ def _indivisible(mesh):
         except Exception as e:  # reported to the test, which names what it wants
             out[name] = f"{type(e).__name__}: {e}"
     return out
+
+
+def _planted_storage(mesh, case):
+    """The storage of the rank's float32 block preconditioner (key and dtype)
+    when ``plant_block`` plants a block of max|Binv - I| = ``case["plant"][1]``
+    at flat cell ``case["plant"][0]`` of the whole problem, cut along
+    ``case["grid_axis"]``."""
+    import torch
+
+    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch.ops.context import build_host_context
+
+    fes, ng, xs, bcs = port_problem(case["data"])
+    ctx_np, blk = build_host_context(fes, ng, xs, bcs)
+    host = (ctx_np, plant_block(blk, *case["plant"]))
+    ctx = parallel.shard_context(host, mesh, fes, case["grid_axis"], device="cpu",
+                                 dtype=torch.float32)
+    return {k: str(v.dtype) for k, v in ctx.items() if k.startswith("precond_blk")}
 
 
 def _variant_problem(case, device):
