@@ -52,15 +52,20 @@ device), and the counters ``cg.solves``, ``cg.iterations`` (the solves'
 live iterations), ``cg.iterations_run`` (what the blocks launched:
 BLOCK_ITERS a replay, the eager block size a read), ``cg.host_reads``,
 ``cg.replays``, ``cg.captures`` and ``cg.eager_solves``.  ``STATS`` reads
-their process totals under its old keys.
+their process totals under its old keys.  A preconditioner passed as a
+``Tallied`` has its applies counted on the host under its own counter: the
+prologue's and each eager block's where they run, a capture's warm-up step,
+and each replay's as its iterations times the applies of one step, so the
+captured step holds no counting.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 from collections.abc import Mapping
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,7 +74,7 @@ from .ops import launch_counters
 from .shardctx import allsum, current_sharding
 
 __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
-           "bicgstab_blocks", "CGGraph", "CGPlans",
+           "bicgstab_blocks", "CGGraph", "CGPlans", "Tallied",
            "CG_PLANS", "drop_plans", "KrylovResult", "BLOCK_ITERS", "STATS", "reset_stats"]
 
 #: Iterations per block (per host read) of a CG on a CUDA tensor: the
@@ -117,6 +122,32 @@ def _dot(a, b):
     """<a, b>: summed over the ranks under a sharding scope (``shardctx``),
     so every rank reads the same stop test."""
     return allsum(torch.sum(a * b))
+
+
+@dataclasses.dataclass(frozen=True)
+class Tallied:
+    """A preconditioner whose applies the solvers count on the host: each
+    call adds ``weight`` to the ``tracing`` counter ``counter``."""
+
+    apply: Callable
+    counter: str
+    weight: int = 1
+
+    def __call__(self, r):
+        return self.apply(r)
+
+
+#: (counter, applies in the prologue, applies an iteration) of a solve's
+#: ``Tallied`` preconditioner.
+Tally = Optional[Tuple[str, int, int]]
+
+
+def _tally(precond, prologue: int, step: int) -> Tally:
+    """The tally of ``precond`` called ``prologue`` times before the loop and
+    ``step`` times an iteration; None unless it is ``Tallied``."""
+    if not isinstance(precond, Tallied):
+        return None
+    return precond.counter, prologue * precond.weight, step * precond.weight
 
 
 class KrylovResult(NamedTuple):
@@ -194,7 +225,9 @@ class CGGraph:
     ``maxiter`` change.
 
     The launch counters: the capture launches nothing, so what the wrappers
-    counted while it ran is taken back and added again at every replay."""
+    counted while it ran is taken back and added again at every replay.  A
+    ``tally`` (``_tally``) is counted on the host alike: once for the
+    capture's warm-up step, k steps' worth a replay."""
 
     def __init__(self):
         self.graph = None
@@ -202,11 +235,13 @@ class CGGraph:
         self.state: Dict[str, torch.Tensor] = {}
         self.status = None
         self.launches = []
+        self.tally: Tally = None
 
-    def load(self, step, st0, k: int, maxiter: int):
+    def load(self, step, st0, k: int, maxiter: int, tally: Tally = None):
         """Capture blocks of ``k`` iterations of ``step`` (which stops at
         ``maxiter``) where no capture of this signature is held, then copy
         the prologue's state ``st0`` into the static state."""
+        self.tally = tally
         sig = (k, maxiter, *((n, tuple(t.shape), t.dtype) for n, t in st0.items()))
         if self.graph is None or sig != self.sig:
             with tracing.span(CAPTURE):
@@ -224,6 +259,8 @@ class CGGraph:
                 self.graph.replay()
             tracing.count("cg.replays")
             tracing.count("cg.iterations_run", k)
+            if self.tally is not None:
+                tracing.count(self.tally[0], k * self.tally[2])
             for counts, key, inc in self.launches:
                 counts[key] += inc
             it, go = _read(self.status)
@@ -241,6 +278,8 @@ class CGGraph:
         with torch.cuda.stream(side):
             step(dict(self.state))
         torch.cuda.current_stream().wait_stream(side)
+        if self.tally is not None:
+            tracing.count(self.tally[0], self.tally[2])
         before = {id(c): dict(c) for c in launch_counters()}
         graph = torch.cuda.CUDAGraph()
         # no garbage collection while capturing: a graph it frees (a dropped
@@ -274,14 +313,17 @@ class CGGraph:
         tracing.count("cg.captures")
 
 
-def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int):
+def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int,
+         tally: Tally = None):
     """The block loop of the solve whose prologue ``parts()`` makes (state,
     step, <b, b>, zero rhs): ``block`` iterations (eager) or one replay of
-    ``graph`` per host read.  Returns (final state, iterations, <b, b>,
-    zero rhs)."""
+    ``graph`` per host read, its preconditioner's applies counted by
+    ``tally``.  Returns (final state, iterations, <b, b>, zero rhs)."""
     tracing.count("cg.solves")
     with tracing.span(PROLOGUE):
         st0, step, b_norm_sq, zero_rhs = parts()
+        if tally is not None:
+            tracing.count(tally[0], tally[1])
         if block is None:
             sh = current_sharding()
             if st0["x"].device.type == "cuda" and sh is not None and not sh[0].world.capturable:
@@ -291,7 +333,7 @@ def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int):
                 block = BLOCK_ITERS
             elif st0["x"].device.type == "cuda":
                 graph = graph if graph is not None else CGGraph()
-                graph.load(step, st0, BLOCK_ITERS, maxiter)
+                graph.load(step, st0, BLOCK_ITERS, maxiter, tally)
             else:
                 block = 1
     if block is None:
@@ -302,6 +344,8 @@ def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int):
             for _ in range(block):
                 st = step(st)
             tracing.count("cg.iterations_run", block)
+            if tally is not None:
+                tracing.count(tally[0], block * tally[2])
             it, go = _read(_status(st))
             if not go:
                 break
@@ -361,7 +405,7 @@ def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
 def _pcg(matvec, rhs, x0, precond, tol, maxiter, precond_dots, graph, block) -> KrylovResult:
     st, it, b_norm_sq, zero_rhs = _run(
         lambda: _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter), graph, block,
-        maxiter)
+        maxiter, None if precond_dots is not None else _tally(precond, 1, 1))
     return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
 
 
@@ -447,7 +491,8 @@ def _fused_parts(matvec, precond, rhs, x0, tol, maxiter):
 
 def _pcg_fused(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
     st, it, b_norm_sq, zero_rhs = _run(
-        lambda: _fused_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter)
+        lambda: _fused_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter,
+        _tally(precond, 1, 1))
     return _finish(st, b_norm_sq, zero_rhs, it, torch.abs(st["rr"]))
 
 
@@ -519,7 +564,8 @@ def _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter):
 
 def _bicgstab(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
     st, it, b_norm_sq, zero_rhs = _run(
-        lambda: _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter)
+        lambda: _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter,
+        _tally(precond, 0, 2))
     return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
 
 

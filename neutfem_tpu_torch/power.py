@@ -76,8 +76,8 @@ from . import tracing
 from .accel import anderson_apply, anderson_init, chebyshev_apply_blend, chebyshev_init
 from .cmfd import cmfd_correction
 from .fespace import GRID_AXIS, FESpace
-from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, bicgstab, bicgstab_blocks, pcg,
-                     pcg_blocks, pcg_fused, pcg_fused_blocks)
+from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, Tallied, bicgstab, bicgstab_blocks,
+                     pcg, pcg_blocks, pcg_fused, pcg_fused_blocks)
 from .ops.apply import (
     J_to_public,
     _const,
@@ -217,6 +217,10 @@ def _block_precond(ctxg: Dict, dtype, blks: Optional[torch.Tensor] = None):
     return apply
 
 
+#: The counter of the line solves the line preconditioner's applies launched
+#: (``tracing``; "line2" counts both of an apply's solves).
+LINE_APPLIES = "precond.line_applies"
+
 #: Cell count from which "auto" picks the line preconditioner (the JAX
 #: package's crossover, measured on IAEA-3D: ``neutfem_tpu/power.py:244-256``).
 LINE_MIN_CELLS = 3_000_000
@@ -244,7 +248,8 @@ def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
     sharding scope a line orthogonal to every cut is solved on the rank's
     complete local lines; a line along a cut is left out (the JAX
     ``_usable`` rule: with no line left, the CG runs Jacobi — the same fixed
-    point, other iteration counts)."""
+    point, other iteration counts).  The apply is ``Tallied`` under
+    ``LINE_APPLIES``, weighted by its line solves."""
     if "precond_line_dinv" not in ctxg:
         return None
     sh = current_sharding()
@@ -259,9 +264,10 @@ def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
         l = ctxg[f"precond_{name}_l"].unsqueeze(-4)
         ax = GRID_AXIS[d] - 3
         applies.append(lambda r, dinv=dinv, l=l, ax=ax: tridiag_solve(r, dinv, l, ax % r.ndim))
-    if len(applies) < 2:
-        return applies[0] if applies else None
-    return lambda r: applies[0](r) + applies[1](r)
+    if not applies:
+        return None
+    apply = applies[0] if len(applies) < 2 else (lambda r: applies[0](r) + applies[1](r))
+    return Tallied(apply, LINE_APPLIES, len(applies))
 
 
 @dataclasses.dataclass

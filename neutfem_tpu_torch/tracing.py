@@ -31,7 +31,7 @@ The names the program emits (who reads each: PERF.md section 3):
     neutfem.build, neutfem.context.{directions, schur_diag, line, blockjac,
     to_device}, neutfem.twogrid.attach;
     cg.{solves, iterations, iterations_run, host_reads, replays, captures,
-    eager_solves}, context.blockjac_blocks
+    eager_solves}, context.blockjac_blocks, precond.line_applies
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ replaced freed with it; last the NCCL world of one: the sharded solve, the
 sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops,
 and the scan cut-axis solve against the CPU's and in a captured graph; then
 the program's synchronisation sites (``tracing.sync``) against the
-synchronising runtime calls of a profiled solve, and the block-Jacobi
-preconditioner built on the card against the CPU's build.  They need a CUDA device and
+synchronising runtime calls of a profiled solve, the block-Jacobi
+preconditioner built on the card against the CPU's build, and the line
+preconditioner's counter against K4's launches at IAEA-3D 8x8x8.  They need a CUDA device and
 skip without one (the decision is made inside a fixture, at run time).  This
 file imports neither JAX nor the JAX package, so it also runs on a machine
 without them:
@@ -1655,6 +1656,35 @@ def test_block_build_on_the_card_matches_the_cpu_and_its_span_covers_it(cuda):
     want = ctx_mod._block_precond(blk, P, "cpu", torch.float64)["precond_blk_inv"]
     got = ctx_mod._block_precond(blk, P, cuda, torch.float64)["precond_blk_inv"].cpu()
     assert float(torch.max(torch.abs(got - want))) <= 1e-12 * float(torch.max(torch.abs(want)))
+
+
+
+def test_line_applies_are_the_line_launches_at_8x8x8(cuda):
+    """IAEA-3D 8x8x8 (3,511,808 cells, the benchmark cell
+    ``iaea3d-rt0p0-8x8x8.cold``): "auto" resolves to the line preconditioner,
+    and over a solve (the first, which captures the CG graphs, then a cold
+    one) the solve record's ``precond.line_applies`` is K4's launches less
+    ``compute_current``'s three."""
+    from neutfem_tpu_torch import power, tracing
+    from neutfem_tpu_torch.bench import FULL_TOL, BenchmarkRun
+    from neutfem_tpu_torch.data import BENCHMARKS
+
+    s = BenchmarkRun(BENCHMARKS["iaea3d"], 8, 8, device="cuda", dtype=torch.float32).solver
+    s.set_tol(*FULL_TOL)
+    assert s._mesh.shape == (152, 152, 152) and s.preconditioner() == "line"
+    for first in (True, False):
+        before = thomas.LAUNCHES["thomas_rows"]
+        s.reset_flux()
+        s.SolveKeff()
+        torch.cuda.synchronize()
+        rec = tracing.recent(1)[0]
+        currents = rec["spans"]["neutfem.current"][0]
+        applies = rec["counters"][power.LINE_APPLIES]
+        assert currents == 1 and (rec["counters"].get("cg.captures", 0) > 0) == first
+        assert applies == thomas.LAUNCHES["thomas_rows"] - before - 3 * currents
+        # a prologue's apply a CG, one an iteration the replays ran
+        assert applies >= rec["counters"]["cg.solves"] + rec["counters"]["cg.iterations_run"]
+        assert s.GetLastOuterIterations() < 200
 
 
 # last in the file: a failed capture must leave nothing behind for later tests
