@@ -22,8 +22,10 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    preconditioner (1, 1, 912, 912); the five equilibration-folded directions (K7) on
    the 6x6x4 operands; the fused block-Jacobi apply + dots (K8) on the 4x4x2
    RT2-P2 and RT1-P1 blocks in the fp8 E-form the context holds and in
-   bfloat16, and the kernels' e4m3 widening of all 254 finite bytes against
-   torch's; float32.  K2 and K3 are the tiled kernel of csrc/fused_rows.cu,
+   bfloat16, the kernels' e4m3 widening of all 254 finite bytes against
+   torch's, and the CG step's two kernels (csrc/cg_step.cu) at the
+   benchmark cells' vector lengths, bit for bit, timed beside the ATen step
+   they replaced; float32.  K2 and K3 are the tiled kernel of csrc/fused_rows.cu,
    K5 its group-batched form; K1 and its batch the face-major tiled kernels
    of csrc/fused_z_rows.cu; K4 the tiled kernel of csrc/thomas_rows.cu; K6
    the tiled kernel of csrc/fused_ho_rows.cu, K7 that of
@@ -47,7 +49,8 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    batched tiled K5 in y and x, each compute_current the tiled K4;
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
-   34 outers, 1068 inners), with every kernel's launch count > 0;
+   34 outers, 1068 inners), with every kernel's launch count > 0 and the
+   CG step's two kernels (``ops/cgstep.LAUNCHES``) printed and launched;
 6. higher-order paths: ``bench.main_ho(1)`` and ``bench.main_ho(2)`` (IAEA-3D
    4x4x2, float32) against the JAX package's RT1-P1 / RT2-P2 anchors, with
    the tiled K6 (every direction) and the tiled K4 launched in each, K8 on
@@ -1055,6 +1058,47 @@ def _e4m3_decode_check(dev):
         raise RuntimeError(f"K8's e4m3 widening differs from torch's on "
                            f"{int((got != want).sum())} of 254 bytes")
     print("  K8 e4m3 widening: all 254 finite bytes equal torch's float8_e4m3fn -> float32")
+
+
+#: The CG step's vector lengths (one group's flux, numel) at the benchmark's
+#: four cells, and whether the step writes r * r there (not under K8's dots).
+CG_STEP_SHAPES = (("IAEA-3D 6x6x4", 987_696, True), ("ZION 48x48", 831_744, True),
+                  ("IAEA-3D 8x8x8", 3_511_808, True), ("RT2-P2 4x4x2", 27 * 219_488, False))
+
+
+def _cg_step_case(label, n, rr, card, rng):
+    """The CG step's two kernels (``ops/cgstep``: cg_xr then cg_p) against
+    their plain versions at one vector length, float32: bit for bit, then
+    both timed queued; the plain pair is the ATen step they replaced less
+    its dots."""
+    import torch
+
+    from neutfem_tpu_torch.ops import cgstep
+
+    dev = torch.device("cuda")
+    x, r, p, q, z = (torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+                     for _ in range(5))
+    s = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt, device=dev)
+    pq, rz, rz1, rr1, rr0 = (s(v) for v in rng.uniform(0.5, 2.0, 5))
+    it, go, tol_sq = s(3, torch.int32), s(True, torch.bool), s(1e-12)
+
+    def pair(xr, pp):
+        out = xr(x, r, p, q, pq, rz, go, rr=rr)
+        return (*out, *pp(z, p, pq, rz, rz1, rr1, rr0, it, go, tol_sq, 1000))
+
+    got, want = pair(cgstep.cg_xr, cgstep.cg_p), pair(cgstep.cg_xr_plain, cgstep.cg_p_plain)
+    torch.cuda.synchronize()
+    if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError(f"CG step {label}: the kernels differ from the plain versions")
+    ms = _timed(lambda: pair(cgstep.cg_xr, cgstep.cg_p), 50, queued=True)
+    plain_ms = _timed(lambda: pair(cgstep.cg_xr_plain, cgstep.cg_p_plain), 50, queued=True)
+    # cg_xr reads x, r, p, q, writes x, r (and r * r); cg_p reads z, p, writes p
+    bound = _bound([x, r, p, q, x, r, *([r] if rr else []), z, p, p], 0)
+    row = _row(f"CG step {label} (n {n})", "neutfem_tpu_torch/csrc/cg_step.cu",
+               "none (the JAX step is one XLA fusion)", "cg_xr", 0.0, ms, plain_ms, bound)
+    print(f"    {row['name']}: bit for bit; kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({card})")
+    return row
 
 
 def _ho_kernels(bench, order, card, rng):
@@ -2383,9 +2427,10 @@ def _v17_rows(s, host, card, rows, launches):
     rng = np.random.default_rng(17)
     for ga, cut in ((0, "z"), (1, "y")):
         # rank 0 of two along the cut: its slab, sliced as a world of two would
+        # (no transport: RT0 has no block preconditioner to reduce over it)
         half = types.SimpleNamespace(axis_names=(parallel.SPATIAL_AXIS,),
                                      sizes={parallel.SPATIAL_AXIS: 2},
-                                     coords={parallel.SPATIAL_AXIS: 0})
+                                     coords={parallel.SPATIAL_AXIS: 0}, world=None)
         ctx = parallel.shard_context(host, half, fes, ga, device="cuda", dtype=torch.float32)
         shape = (2, 1, *ctx["C"].shape[-3:])
         v, acc0 = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
@@ -3436,7 +3481,7 @@ def main():
 
     from neutfem_tpu_torch import bench, krylov
     from neutfem_tpu_torch.data import BENCHMARKS
-    from neutfem_tpu_torch.ops import (blockjac, cuda_lib, fused, fused_eq, fused_ho,
+    from neutfem_tpu_torch.ops import (blockjac, cgstep, cuda_lib, fused, fused_eq, fused_ho,
                                        launch_counters, thomas)
     from neutfem_tpu_torch.power import ctx_group
 
@@ -3551,6 +3596,9 @@ def main():
                                          "operands)", r8, d8, l8, -3, K4_REPLACES["z"], card)
     del r8, d8, l8
     _e4m3_decode_check(dev)
+    cg_rng = np.random.default_rng(80)  # leaves the phase's own operands as they were
+    for label, n, rr in CG_STEP_SHAPES:
+        rows[f"CG step {label}"] = _cg_step_case(label, n, rr, card, cg_rng)
 
     # K5 and K1's group batch: both groups' flux (2, 1, 76, 114, 114) at once,
     # as the Jacobi sweep's CG hands it to schur_matvec
@@ -3724,6 +3772,11 @@ def main():
     launches = counts()
     print(f"    launches {launches}")
     cg_line(res["detail"]["cg"])
+    print(f"    CG step kernels (cgstep.LAUNCHES): {dict(cgstep.LAUNCHES)}")
+    if min(cgstep.LAUNCHES.values()) <= 0:
+        raise RuntimeError("main path: the CG step kernels (cg_xr, cg_p) did not launch")
+    row = rows["CG step IAEA-3D 6x6x4"]
+    row["launches"] = launches[row.pop("key")]
     det = res["detail"]
     keff, outers, inners = det["keff"], det["outer_iterations"], det["inner_iterations"]
     print(f"    keff {keff} (anchor {KEFF_ANCHOR}), outers {outers} ({OUTERS_ANCHOR}), "

@@ -30,6 +30,9 @@ The three recurrences:
 
 * ``pcg``: the textbook loop; ``precond_dots`` takes a fused preconditioner
   ``r -> (z, <r, z>, <r, r>)`` (the K8 block-Jacobi kernel, ``ops/blockjac.py``).
+  Its step's elementwise and 0-d work (the masked alpha and beta, the x, r
+  and p updates, the next state) is ``ops/cgstep``'s two kernels on the
+  card, bit for bit the PyTorch expressions they run on the CPU.
 * ``pcg_fused``: the Chronopoulos-Gear single-reduction recurrence, selected by
   ``power.group_solve`` under ``NEUTFEM_CGCG=1`` (opt-in, as in the JAX
   package).  Its dot products are separate ``torch.sum`` reductions here: the
@@ -70,7 +73,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from . import tracing
-from .ops import launch_counters
+from .ops import cgstep, launch_counters
 from .shardctx import allsum, current_sharding
 
 __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
@@ -362,11 +365,11 @@ def _finish(st, b_norm_sq, zero_rhs, it: int, rr) -> KrylovResult:
 
 def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
     """pcg's prologue state and its masked step."""
-    def apply(r):  # (z, <r, z>, <r, r>)
+    def apply(r, r2=None):  # (z, <r, z>, <r, r>); r2: the product r * r, made by the step
         if precond_dots is not None:
             z, rz, rr = precond_dots(r)  # the rank's local dots
             return (z, *allsum(rz, rr)) if current_sharding() is not None else (z, rz, rr)
-        rr = _dot(r, r)
+        rr = _dot(r, r) if r2 is None else allsum(torch.sum(r2))
         if precond is None:
             return r, rr, rr
         z = precond(r)
@@ -377,7 +380,6 @@ def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
     zero_rhs = b_norm_sq == 0.0
     r = rhs - matvec(x0)
     z, rz, rr = apply(r)
-    tiny = torch.finfo(rr.dtype).tiny
     go = ~zero_rhs & (rr > tol_sq) & (maxiter > 0)
     st0 = {"x": x0, "r": r, "p": z, "rr": rr, "rz": rz, "tol_sq": torch.as_tensor(tol_sq),
            "it": torch.zeros((), dtype=torch.int32, device=rhs.device), "go": go}
@@ -386,18 +388,17 @@ def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
         go, p, rz = st["go"], st["p"], st["rz"]
         q = matvec(p)
         pq = _dot(p, q)
-        breakdown = torch.abs(pq) <= tiny
-        ok = ~breakdown
-        alpha = torch.where(go & ok, rz / torch.where(breakdown, 1.0, pq), 0.0)
-        x = st["x"] + alpha * p
-        r = st["r"] - alpha * q
-        z, rz_new, rr_new = apply(r)
-        beta = torch.where(go, rz_new / torch.where(rz == 0.0, 1.0, rz), 0.0)
-        it = st["it"] + go
-        rr = torch.where(go, rr_new, st["rr"])
-        return {"x": x, "r": r, "p": z + beta * p, "rr": rr, "rz": torch.where(go, rz_new, rz),
-                "tol_sq": st["tol_sq"], "it": it,
-                "go": go & ok & (rr > st["tol_sq"]) & (it < maxiter)}
+        # the elementwise and 0-d work in two launches on the card (ops/cgstep.py),
+        # which take contiguous vectors: the caller's x0, a matvec's or a
+        # preconditioner's output may be strided (the dots keep their layout)
+        p = p.contiguous()
+        x, r, r2 = cgstep.cg_xr(st["x"].contiguous(), st["r"].contiguous(), p, q.contiguous(),
+                                pq, rz, go, rr=precond_dots is None)
+        z, rz_new, rr_new = apply(r, r2)
+        p, rz, rr, it, go = cgstep.cg_p(z.contiguous(), p, pq, rz, rz_new, rr_new, st["rr"],
+                                        st["it"], go, st["tol_sq"], maxiter)
+        return {"x": x, "r": r, "p": p, "rr": rr, "rz": rz, "tol_sq": st["tol_sq"], "it": it,
+                "go": go}
 
     return st0, step, b_norm_sq, zero_rhs
 

@@ -25,7 +25,7 @@ _BUILD = os.path.join(_PKG, "_build")
 
 SOURCES = ("fused_dir.cu", "fused_rows.cu", "fused_z_rows.cu", "thomas.cu", "thomas_rows.cu",
            "thomas_wide_rows.cu", "fused_ho.cu", "fused_ho_rows.cu", "fused_eq.cu",
-           "fused_eq_rows.cu", "blockjac.cu", "blockjac_tiled.cu")
+           "fused_eq_rows.cu", "blockjac.cu", "blockjac_tiled.cu", "cg_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,6 +104,13 @@ _SIGNATURES = {
     # form, blk, r, z, part, P, cells, wide, warps, stream
     "neutfem_blockjac_tiled": [ctypes.c_int] + [_P] * 4 + [ctypes.c_int, _I64] + [ctypes.c_int] * 2
     + [_P],
+    # x, r, p, q, xo, ro, rr, n, pq, rz, go, stream
+    "neutfem_cg_xr_f32": [_P] * 7 + [_I64] + [_P] * 4,
+    "neutfem_cg_xr_f64": [_P] * 7 + [_I64] + [_P] * 4,
+    # z, p, po, n, pq, rz, rz_new, rr_new, rr, it, go, tol_sq, tol_f64, maxiter,
+    # rz_out, rr_out, it_out, go_out, stream
+    "neutfem_cg_p_f32": [_P] * 3 + [_I64] + [_P] * 8 + [ctypes.c_int, _I64] + [_P] * 5,
+    "neutfem_cg_p_f64": [_P] * 3 + [_I64] + [_P] * 8 + [ctypes.c_int, _I64] + [_P] * 5,
 }
 
 

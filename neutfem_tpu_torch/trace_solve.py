@@ -67,6 +67,7 @@ FAMILIES = (
     ("blockjac_dev_kernel", "tiled block-Jacobi apply + dots, fp8 E-form (K8, default)"),
     ("blockjac_tiled_kernel", "tiled block-Jacobi apply + dots, inverse (K8, BLOCKJAC=1)"),
     ("blockjac", "block-Jacobi apply + dots, thread per cell (replaced K8)"),
+    ("cg_step_", "masked CG step: x, r and p updates, 0-d state (cg_xr, cg_p)"),
     ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
     ("nvjet", "gemv (block-Jacobi apply; two-grid coarse apply)"),  # cuBLAS's Hopper kernels
     ("reduce_kernel", "reductions (dot products, norms)"),

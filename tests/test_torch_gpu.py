@@ -4,8 +4,9 @@ Each test compares one hand-written kernel (the tiled K1 / K2 / K3 kernel and it
 group-batched form, K1's batch and K5; the tiled K4, the tiled K4′, the tiled K6,
 the tiled K7, the tiled K8 on its three storage forms) with the plain PyTorch version
 of the same function, on the card, at a small shape; the last tests hold the CG's
-captured blocks (``krylov.CGGraph``) against the eager block loop on the card, then
-the facade's paths on the card: the Anderson solve against the CPU, a zero
+captured blocks (``krylov.CGGraph``) against the eager block loop on the card, and
+the CG step's two kernels (``ops/cgstep``) against their plain versions bit for bit,
+alone and inside a group solve, then the facade's paths on the card: the Anderson solve against the CPU, a zero
 right-hand side through a captured CG, and the plans of a context that ``set_bc``
 replaced freed with it; last the NCCL world of one: the sharded solve, the
 sharded CG, BiCGSTAB and Jacobi-sweep graphs against their eager block loops,
@@ -1089,6 +1090,131 @@ def test_cg_graph_capture_survives_a_collection(cuda):
     assert got.iterations == want.iterations and torch.equal(got.x, want.x)
 
 
+# --- the CG step's kernels (ops/cgstep.py) -----------------------------------
+
+CG_MAXITER = 9
+
+
+def _cg_operands(n, dtype, device, case, seed, shift=0):
+    """A CG state's vectors (x, r, p, q, z, the preconditioner's m) and 0-d
+    operands for ``case``; ``shift``: every vector starts that many values
+    into its buffer (no 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+
+    def vec():
+        buf = torch.empty(n + shift, dtype=dtype, device=device)
+        out = buf[shift:]
+        out.copy_(torch.as_tensor(rng.standard_normal(n), dtype=dtype))
+        return out
+
+    s = lambda v, dt=dtype: torch.tensor(v, dtype=dt, device=device)
+    vecs = [vec() for _ in range(6)]
+    pq = s(torch.finfo(dtype).tiny / 2 if case == "breakdown" else rng.uniform(0.5, 2.0))
+    rz = s(-0.0 if case == "rz_zero" else rng.uniform(0.5, 2.0))
+    rr = s(rng.uniform(0.5, 2.0))
+    it = s(CG_MAXITER - 1 if case == "maxiter" else 3, torch.int32)
+    go = s(case != "frozen", torch.bool)
+    tol_sq = s(0.25, torch.float64 if case == "tol_f64" else dtype)
+    return vecs, (pq, rz, rr, it, go, tol_sq)
+
+
+def _cg_step_pair(form, xr, p_fn, vecs, scalars):
+    """One step's two halves through (xr, p_fn), the dots between them as
+    the CG takes them for ``form``."""
+    x, r, p, q, _, m = vecs
+    pq, rz, rr, it, go, tol_sq = scalars
+    x1, r1, r2 = xr(x, r, p, q, pq, rz, go, rr=form != "precond_dots")
+    z = r1 if form == "none" else m * r1
+    rr_new = torch.sum(r1 * r1) if r2 is None else torch.sum(r2)
+    rz_new = rr_new if form == "none" else torch.sum(r1 * z)
+    return (x1, r1, r2, *p_fn(z, p, pq, rz, rz_new, rr_new, rr, it, go, tol_sq, CG_MAXITER))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", ["none", "precond", "precond_dots"])
+@pytest.mark.parametrize("case", ["live", "frozen", "breakdown", "rz_zero", "maxiter", "tol_f64"])
+@pytest.mark.parametrize("n,shift", [(4096, 0), (1027, 0), (1027, 1), (3_000_017, 0)],
+                         ids=["aligned", "ragged", "unaligned", "large"])
+def test_cg_step_kernels_match_plain(cuda, dtype, form, case, n, shift):
+    """cg_xr / cg_p against their plain versions on the card, bit for bit:
+    x, r, r * r, p, rz, rr, it and go, from a live state, a frozen one, a
+    breakdown (|pq| <= tiny), rz = -0 (read as 1), it reaching maxiter and a
+    float64 tol_sq; 16-byte vectors, a ragged tail, unaligned pointers (one
+    value at a time) and a length of several grid strides."""
+    from neutfem_tpu_torch.ops import cgstep
+
+    vecs, scalars = _cg_operands(n, dtype, cuda, case, 70, shift)
+    before = dict(cgstep.LAUNCHES)
+    got = _cg_step_pair(form, cgstep.cg_xr, cgstep.cg_p, vecs, scalars)
+    want = _cg_step_pair(form, cgstep.cg_xr_plain, cgstep.cg_p_plain, vecs, scalars)
+    torch.cuda.synchronize()
+    assert cgstep.LAUNCHES == {k: before[k] + 1 for k in before}
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, i
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), i
+    go = bool(got[-1])
+    assert go == (case in ("live", "rz_zero", "tol_f64")), case
+
+
+def test_cg_step_kernels_are_deterministic(cuda):
+    from neutfem_tpu_torch.ops import cgstep
+
+    vecs, scalars = _cg_operands(3_000_017, torch.float32, cuda, "live", 71)
+    one = _cg_step_pair("precond", cgstep.cg_xr, cgstep.cg_p, vecs, scalars)
+    two = _cg_step_pair("precond", cgstep.cg_xr, cgstep.cg_p, vecs, scalars)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_cg_step_kernels_reject_what_they_do_not_take(cuda):
+    """A strided vector, float16, a 0-d operand of another dtype or on the
+    host, a float go, an int64 it or a host tol_sq raise before a launch."""
+    from neutfem_tpu_torch.ops import cgstep
+
+    vecs, (pq, rz, rr, it, go, tol_sq) = _cg_operands(64, torch.float32, cuda, "live", 72)
+    x, r, p, q, z, _ = vecs
+    before = dict(cgstep.LAUNCHES)
+    big = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError):
+        cgstep.cg_xr(big[::2], r, p, q, pq, rz, go)
+    with pytest.raises(TypeError):
+        cgstep.cg_xr(x.half(), r.half(), p.half(), q.half(), pq.half(), rz.half(), go)
+    with pytest.raises(ValueError):
+        cgstep.cg_xr(x, r, p, q[:32], pq, rz, go)
+    with pytest.raises(ValueError):
+        cgstep.cg_xr(x, r, p, q, pq.double(), rz, go)
+    with pytest.raises(ValueError):
+        cgstep.cg_xr(x, r, p, q, pq.cpu(), rz, go)
+    with pytest.raises(ValueError):
+        cgstep.cg_xr(x, r, p, q, pq, rz, go.float())
+    with pytest.raises(ValueError):
+        cgstep.cg_p(z, p, pq, rz, rz, rr, rr, it.long(), go, tol_sq, CG_MAXITER)
+    with pytest.raises(ValueError):
+        cgstep.cg_p(z, p, pq, rz, rz, rr, rr, it, go, tol_sq.cpu(), CG_MAXITER)
+    assert cgstep.LAUNCHES == before
+
+
+def test_cg_step_launches_count_under_graph_replay(cuda):
+    """A replay adds its captured block's cg_xr / cg_p launches (one each an
+    iteration, frozen ones included); the capture adds its eager warm-up
+    step's, nothing of the captured block."""
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.ops import cgstep
+
+    A, b, x0, minv = _spd(48, cuda)
+    graph = krylov.CGGraph()
+    for first in (True, False):
+        krylov.reset_stats()
+        before = dict(cgstep.LAUNCHES)
+        res = krylov.pcg(lambda x: A @ x, b, x0, precond=lambda r: minv * r, tol=1e-10,
+                         graph=graph)
+        replays = krylov.STATS["replays"]
+        assert replays == -(-res.iterations // krylov.BLOCK_ITERS) and replays > 2
+        for k in ("cg_xr", "cg_p"):
+            assert cgstep.LAUNCHES[k] - before[k] == first + replays * krylov.BLOCK_ITERS
+
+
 @pytest.fixture(scope="module")
 def iaea_1x1_f32():
     if not torch.cuda.is_available():
@@ -1146,6 +1272,43 @@ def test_group_solve_graph_matches_eager_blocks(iaea_1x1_f32, case, monkeypatch)
                                 None if case == "jacobi" else 0)
     assert got.iterations == want.iterations > 2
     assert torch.equal(got.x, want.x)
+
+
+@pytest.mark.parametrize("case", ["rt0", "rt1", "jacobi"])
+def test_group_solve_kernel_step_matches_plain_step(iaea_1x1_f32, case, monkeypatch):
+    """group_solve through the CG step's kernels against the same solve with
+    the step's plain versions put in their place (each captured afresh),
+    IAEA-3D 1x1 float32: the same x, iterations and residual, bit for bit,
+    on the Jacobi-equilibrated RT0 path (no preconditioner), RT1-P1 (K8's
+    apply + dots) and the Jacobi sweep's batched solve."""
+    from neutfem_tpu_torch import krylov
+    from neutfem_tpu_torch.ops import cgstep
+    from neutfem_tpu_torch.power import SolveOptions, ctx_group, group_solve
+
+    bench, spec = iaea_1x1_f32
+    run = bench.BenchmarkRun(spec, 1, 1, device="cuda", dtype=torch.float32,
+                             rt_order=1 if case == "rt1" else 0)
+    fes, ctx = run.solver._fes, run.solver._ctx
+    opts = SolveOptions(inner_tol=1e-5)
+    shape = ctx["C"].shape if case == "jacobi" else ctx["C"].shape[1:]
+    rhs = torch.as_tensor(np.random.default_rng(46).standard_normal(shape), dtype=torch.float32,
+                          device="cuda")
+
+    def solve():
+        ctx[krylov.CG_PLANS] = krylov.CGPlans()  # a new plan: captured with today's step
+        ctxg = ctx if case == "jacobi" else ctx_group(ctx, 0)
+        return group_solve(fes, ctxg, opts, rhs, torch.zeros_like(rhs))
+
+    before = dict(cgstep.LAUNCHES)
+    got = solve()
+    assert min(cgstep.LAUNCHES[k] - before[k] for k in before) > got.iterations
+    monkeypatch.setattr(cgstep, "cg_xr", cgstep.cg_xr_plain)
+    monkeypatch.setattr(cgstep, "cg_p", cgstep.cg_p_plain)
+    before = dict(cgstep.LAUNCHES)
+    want = solve()
+    assert cgstep.LAUNCHES == before
+    assert got.iterations == want.iterations > 2
+    assert torch.equal(got.x, want.x) and torch.equal(got.residual, want.residual)
 
 
 @pytest.mark.parametrize("case", ["bicgstab", "bicgstab_rt1", "periodic", "periodic_rt1",
