@@ -30,14 +30,10 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    of csrc/fused_z_rows.cu; K4 the tiled kernel of csrc/thomas_rows.cu; K6
    the tiled kernel of csrc/fused_ho_rows.cu, K7 that of
    csrc/fused_eq_rows.cu; K8 that of csrc/blockjac_tiled.cu; K4′ that of
-   csrc/thomas_wide_rows.cu; at each of their shapes the kernel they
-   replaced (csrc/fused_dir.cu, csrc/thomas.cu's thread-per-line and
-   thomas_wide_kernel, csrc/fused_ho.cu, csrc/fused_eq.cu, csrc/blockjac.cu
-   on the bf16 inverse) runs beside it on the same
-   operands, both held to the plain version and timed in turns (its time is
-   the row's ``old_ms``), and the tiled kernel is swept over the tiles of
-   ``Z_SWEEP`` (z lines: K1, its batch, K7's z variants, and every K4
-   layout; for K1 also K2's kernel at the z strides), ``ROWS_SWEEP`` (K2,
+   csrc/thomas_wide_rows.cu; at each of their shapes the kernel is held to
+   the plain version and timed queued behind a sleep, and swept over the
+   tiles of ``Z_SWEEP`` (z lines: K1, its batch, K7's z variants, and every
+   K4 layout; for K1 also K2's kernel at the z strides), ``ROWS_SWEEP`` (K2,
    K3, K5, K7's x and y variants), ``HO_SWEEP`` (K6), ``_k8_tiles`` (K8) or
    ``WIDE_SWEEP`` (K4′);
 4. reference: the IAEA-3D 1x1 solves at float64 — RT0-P0 and RT1-P1, the
@@ -50,26 +46,24 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 5. RT0 main path: ``neutfem_tpu_torch.bench.main(6, 4)`` (float32), checked
    against the parity anchors of the JAX package's benchmark (k 1.029104,
    34 outers, 1068 inners), with every kernel's launch count > 0 and the
-   CG step's two kernels (``ops/cgstep.LAUNCHES``) printed and launched;
+   CG step's two kernels (``cgstep.cg_xr``, ``cgstep.cg_p``) printed and
+   launched;
 6. higher-order paths: ``bench.main_ho(1)`` and ``bench.main_ho(2)`` (IAEA-3D
    4x4x2, float32) against the JAX package's RT1-P1 / RT2-P2 anchors, with
    the tiled K6 (every direction) and the tiled K4 launched in each, K8 on
-   the fp8 E-form at least once per CG iteration, and the
-   thread-per-(mode, line) K6, the inverse-form and thread-per-cell K8 and
-   the thread-per-line K4 not at all;
+   the fp8 E-form at least once per CG iteration, and the inverse-form K8
+   not at all;
 7. 2D paths: ``bench.main_2d("koeberg2d", 32)`` and ``main_2d("zion2d", 48)``
    (float32) against the JAX package's anchors, with the two-grid coarse
    level attached (the group solves resolve "auto" to "twogrid"), the tiled
-   y and x kernels and the tiled K4′ launched in each and the thread-per-line
-   y and x kernel and the first K4′ kernel not at all;
+   y and x kernels and the tiled K4′ launched in each;
 8. line path: ``bench.main_scale()`` (IAEA-3D 8x8x8, 3.5M cells, float32)
    against its anchor (k within 2e-5, ``SCALE_KEFF_TOL``), with the line
    preconditioner: at least one tiled z Thomas launch (K4) per CG
-   iteration, and none of the thread-per-line K4;
+   iteration;
 9. Jacobi path: ``bench.main_sweep("jacobi")`` (IAEA-3D 6x6x4, float32, every
    group in one batched CG): the batched kernels (the tiled K5, K1's batch)
-   launched, the thread-per-line batched y / x and the one-group K1-K3
-   (either kernel) not, converged below 600 outers, k within 2e-5
+   launched, the one-group K1-K3 not, converged below 600 outers, k within 2e-5
    (``SWEEP_KEFF_TOL``) of the Gauss-Seidel solve at the same tolerances and
    of phase [5]'s k;
 10. adjoint path: ``bench.main_adjoint()`` (``bench.py --full``'s IAEA-3D
@@ -82,12 +76,12 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
 12. opt-in paths, each under its switches (set and restored around the run):
    ``bench.main(6, 4)`` under ``NEUTFEM_EQFOLD=1`` and ``=2`` at phase [5]'s
    anchors, with the tiled eq kernels (K7) launched at least once per CG
-   iteration and the one-group x and z kernels (and y in mode 2; either
-   kernel) and the thread-per-line K7 not at all;
+   iteration and the one-group x and z kernels (and y in mode 2) not at
+   all;
    ``bench.main_ho(1)`` under ``NEUTFEM_BLKFP8=0 NEUTFEM_BLOCKJAC=1`` with
    bfloat16 block storage, the tiled K8 on the inverse launched at least
-   once per CG iteration (the thread-per-cell one and the E-form not), the
-   tiled K6 in every direction and the old K6 not at all, at the
+   once per CG iteration (the E-form not), the tiled K6 in every
+   direction, at the
    RT1-P1 anchors (inners against the JAX package's float32
    ``NEUTFEM_BLKFP8=0`` count); ``bench.main(6, 4)`` under ``NEUTFEM_CGCG=1``
    at phase [5]'s anchors;
@@ -204,7 +198,7 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    BIBLIS, KOEBERG 32x32, ZION 48x48, IAEA-3D 6x6x4), each core within its
    JAX pcm bound of k_ref, within 1e-5 of the JAX package's TPU k and on
    its float32 counts (``VALIDATE_ANCHORS``); K2 / K3 (K1-K3 on IAEA-3D)
-   every CG iteration, the replaced kernels not at all; the cores above
+   every CG iteration; the cores above
    the two-grid threshold (BIBLIS, KOEBERG, ZION) on the two-grid level
    with K4′ launched, IAEA-2D 8x8 on Jacobi (no coarse level); IAEA-2D's
    assembly power factors within 3% of the published map; (b)
@@ -224,8 +218,7 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    6x6x4, 8x8x6, 8x8x8, float32 at ``bench.FULL_TOL``), each row on
    ``LADDER_ANCHORS_F32`` (k within 1e-5, 2e-5 from 2.6M cells; outers +-3,
    inners +-15%), K1-K4 launched on every row (K4 at least once a CG
-   iteration on 8x8x8's line path, Jacobi below it), the replaced kernels
-   not at all, with ``per_doubling``, pcm and peak memory printed; (b) the
+   iteration on 8x8x8's line path, Jacobi below it), with ``per_doubling``, pcm and peak memory printed; (b) the
    ladder at float64 (``--x64``: 2x2x2, 4x4x3, 6x6x4): the first two on the
    JAX package's CPU float64 (``LADDER_ANCHORS_F64``: |dk| <= 1e-9, the same
    outers, inners within 2), 6x6x4 within 2e-5 of (a)'s k, +-3 of its
@@ -235,8 +228,7 @@ Phases (any failure raises, so the exit code is nonzero and no result prints):
    (RT2-P2, 26.7M), on ``WIDE_HO`` (k within 2e-5, outers +-3, from the
    flat flux or one of four start fluxes perturbed by one float32 ulp), K6
    in every direction, K8 on the E-form every CG iteration and K4 launched,
-   the thread-per-(mode, line) K6 and the inverse-form and thread-per-cell
-   K8 not at all, the inners, the build seconds and the peak memory
+   the inverse-form K8 not at all, the inners, the build seconds and the peak memory
    printed; (d) the kernels at these paths' new shapes, each against its
    plain version with its time (queued behind a sleep), bound and plain
    time and its path's launches (rows of the JSON line): K1-K3 at 4x4x3 and
@@ -261,10 +253,10 @@ rows).  No single PyTorch call computes the functions of
 K1-K7, so their rows' ``library_ms`` is null; K8's is the port's former
 default block apply on the same stored blocks (``torch.bmm`` on their
 float32 copy, then the two dots as ``torch.sum``), timed here and used by
-no K8 path.  The old / new comparisons (K1-K8) time each kernel behind a queued
-sleep, so that the host enqueues every launch before the card starts them:
-their rows measure device time, not the wrapper's host cost (the tiled
-kernel takes ~10 µs); they carry ``old_ms``, ``tile`` and ``share_of_bound``.
+no K8 path.  [3] times each kernel (K1-K8) behind a queued sleep, so that
+the host enqueues every launch before the card starts them: its rows
+measure device time, not the wrapper's host cost (the tiled kernel takes
+~10 µs); they carry ``tile`` and ``share_of_bound``.
 
 Launch counts are set to 0 just before each path and read just after it.
 The last two lines are a JSON object of per-kernel results and the contract
@@ -300,12 +292,9 @@ EQ_REPLACES = {"x_eq": (0, "neutfem_tpu/ops/pallas_fused.py:574"),
                "y_eq2": (1, "neutfem_tpu/ops/pallas_fused.py:652"),
                "z_eq2": (2, "neutfem_tpu/ops/pallas_fused.py:681")}
 # the tiled K7 launches each fold mode's path must show, and the kernels it
-# must not launch: the one-group x and z directions (and y in mode 2; either
-# kernel) and the thread-per-line K7 (every key)
-EQ_OLD = tuple(EQ_REPLACES)
-EQ_MODES = {"1": (("x_eq_rows", "z_eq_rows"), ("x", "x_rows", "z", "z_rows", *EQ_OLD)),
-            "2": (("x_eq2_rows", "y_eq2_rows", "z_eq2_rows"),
-                  ("x", "x_rows", "y", "y_rows", "z", "z_rows", *EQ_OLD))}
+# must not launch: the one-group x and z directions (and y in mode 2)
+EQ_MODES = {"1": (("x_eq_rows", "z_eq_rows"), ("x_rows", "z_rows")),
+            "2": (("x_eq2_rows", "y_eq2_rows", "z_eq2_rows"), ("x_rows", "y_rows", "z_rows"))}
 # the tiles (lines per block, chunks per line) [3] sweeps the tiled K2 / K3
 # kernel over, beside the one fused.rows_tile picks
 ROWS_SWEEP = ((2, 32), (4, 32), (8, 32), (16, 32), (8, 16), (16, 16))
@@ -330,12 +319,10 @@ STRIDES = {"z": lambda nz, ny, nx: (ny * nx, 0, ny * nx),
 # the tiled K6 kernel over, each with one transverse mode per block and with
 # K1 of them
 HO_SWEEP = ((8, 8), (16, 4), (16, 8), (32, 4), (32, 8))
-# launch keys of the tiled K6 and K5 kernels, and of the kernels they
-# replaced (held at 0 on every path)
-HO_KEYS, HO_OLD = ("ho_z_rows", "ho_y_rows", "ho_x_rows"), ("ho_z", "ho_y", "ho_x")
-K5_KEYS, K5_OLD = ("y_batched_rows", "x_batched_rows"), ("y_batched", "x_batched")
-# the one-group tiled K1-K3 and the thread-per-line kernels they replaced
-Z_KEYS, Z_OLD = ("z_rows", "y_rows", "x_rows"), ("z", "y", "x")
+# launch keys of the tiled K6 and K5 kernels and of the one-group tiled K1-K3
+HO_KEYS = ("ho_z_rows", "ho_y_rows", "ho_x_rows")
+K5_KEYS = ("y_batched_rows", "x_batched_rows")
+Z_KEYS = ("z_rows", "y_rows", "x_rows")
 K4_REPLACES = {"z": "neutfem_tpu/ops/pallas_tridiag.py:181",
                "y": "neutfem_tpu/ops/pallas_tridiag.py:213",
                "x": "neutfem_tpu/ops/pallas_tridiag.py:229"}
@@ -462,6 +449,27 @@ FUSED_FLOPS_PER_CELL = 13
 THOMAS_FLOPS_PER_ELEMENT = 5
 
 
+def _reset_counts():
+    """Zero the launch counters and the CG counters (``tracing``'s totals
+    under ``bench.LAUNCH_PREFIXES``, and ``cg.*``)."""
+    from neutfem_tpu_torch import tracing
+    from neutfem_tpu_torch.bench import LAUNCH_PREFIXES, reset_cg_counts
+
+    tracing.reset_totals([k for k in tracing.totals() if k.partition(".")[0] in LAUNCH_PREFIXES])
+    reset_cg_counts()
+
+
+def _counts():
+    """Every launch counter's total under its bare key (``bench.launch_counts``),
+    as a ``Counter``: 0 for a kernel never launched, and it pickles from a
+    spawned rank."""
+    import collections
+
+    from neutfem_tpu_torch.bench import launch_counts
+
+    return collections.Counter(launch_counts())
+
+
 def _timed(fn, reps, queued=False):
     """Mean milliseconds per call over ``reps`` calls (CUDA events, after a
     warm-up).  ``queued``: the card first sleeps ~11 ms while the host
@@ -538,39 +546,27 @@ def _current_operands(fes, ctx, di, phi):
 def _wide_case(label, r, d, l, card, sweep=True):
     """K4′ at one wide layout (a solve along axis -2, ``thomas.wide_rows``):
     the wrapper, which launches the tiled kernel of csrc/thomas_wide_rows.cu
-    at the tile ``thomas.wide_tile`` picks, and the first K4′ kernel it
-    replaced (``thomas_wide_kernel``, called through the library: no launch
-    counted), each against the plain version and timed in turns queued behind
-    a sleep; then, with ``sweep``, the tiled kernel at the tiles of
-    ``WIDE_SWEEP``.  Returns a row with ``old_ms``."""
+    at the tile ``thomas.wide_tile`` picks, against the plain version and
+    timed queued behind a sleep; then, with ``sweep``, the tiled kernel at
+    the tiles of ``WIDE_SWEEP``.  Returns a row."""
     import torch
 
-    from neutfem_tpu_torch.ops import cuda_lib, thomas
+    from neutfem_tpu_torch import tracing
+    from neutfem_tpu_torch.ops import thomas
 
     n, inner = r.shape[-2], r.shape[-1]
     lines = r.numel() // n
-    lib = cuda_lib.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (r.data_ptr(), d.data_ptr(), l.data_ptr())
-    out = torch.empty_like(r)
-
-    def old():
-        cuda_lib.check(lib.neutfem_thomas_wide_f32(*ptrs, out.data_ptr(), n, lines, inner,
-                                                   stream), "thomas_wide_kernel")
-        return out
-
     if not thomas.wide_rows(r.shape, -2):
         raise RuntimeError(f"K4′ {label}: {tuple(r.shape)} is not the wide layout")
     want = thomas.thomas_solve_plain(r, d, l, -2)
-    before = thomas.LAUNCHES["thomas_wide_rows"]
+    before = tracing.total("thomas.thomas_wide_rows")
     got = thomas.thomas_solve(r, d, l, -2)
     torch.cuda.synchronize()
-    if thomas.LAUNCHES["thomas_wide_rows"] != before + 1:
+    if tracing.total("thomas.thomas_wide_rows") != before + 1:
         raise RuntimeError(f"K4′ {label}: the wrapper did not launch the tiled kernel")
     zero = torch.zeros_like(want)
     err = _compare(f"K4′ tiled {label}", got, want, zero)
-    _compare(f"K4′ thomas_wide_kernel {label}", old().clone(), want, zero)
-    ms, old_ms, t = _old_new(old, lambda: thomas.thomas_solve(r, d, l, -2))
+    ms, t = _kernel_ms(lambda: thomas.thomas_solve(r, d, l, -2))
     plain_ms = _timed(lambda: thomas.thomas_solve_plain(r, d, l, -2), 3)
     bound = _bound((r, d, l, got), THOMAS_FLOPS_PER_ELEMENT * r.numel())
     tile = thomas.wide_tile(n, lines // inner, inner,
@@ -578,79 +574,63 @@ def _wide_case(label, r, d, l, card, sweep=True):
     sweep = _tile_sweep(f"K4′ tiled {label}", WIDE_SWEEP if sweep else (),
                         lambda _, tile: thomas.thomas_solve(r, d, l, -2, tile), want, zero, zero)
     print(f"  K4′ {label} {tuple(r.shape)}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
-          f"({t[1]:.4f}, {t[2]:.4f}), thomas_wide_kernel {old_ms:.4f} ms ({t[0]:.4f}, "
-          f"{t[3]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of "
-          f"{n}; share of bound {bound[0] / ms:.3f}; {card})")
+          f"({t[0]:.4f}, {t[1]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} "
+          f"lines of {n}; share of bound {bound[0] / ms:.3f}; {card})")
     if sweep:
         print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
     row = _row(f"K4′ Thomas solve for few, long lines (_solve_y), {label}",
                "neutfem_tpu_torch/csrc/thomas_wide_rows.cu",
                "neutfem_tpu/ops/pallas_tridiag.py:197", "thomas_wide_rows", err, ms, plain_ms,
                bound)
-    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/thomas.cu (thomas_wide_kernel)",
-               tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
+    row.update(tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
     return row
 
 
 def _thomas_rows_case(label, r, d, l, axis, replaces, card):
     """K4 at one layout: the wrapper, which launches the tiled kernel at the
-    tile ``thomas.thomas_tile`` picks, and the thread-per-line kernel it
-    replaced (``thomas_kernel``, called through the library: no launch
-    counted), each against the plain version and timed in turns queued
-    behind a sleep; then the tiled kernel at the tiles of ``Z_SWEEP``.
-    Returns a row with ``old_ms``."""
+    tile ``thomas.thomas_tile`` picks, against the plain version and timed
+    queued behind a sleep; then the tiled kernel at the tiles of
+    ``Z_SWEEP``.  Returns a row."""
     import math
 
     import torch
 
-    from neutfem_tpu_torch.ops import cuda_lib, thomas
+    from neutfem_tpu_torch import tracing
+    from neutfem_tpu_torch.ops import thomas
 
     axis %= r.ndim
     n = r.shape[axis]
     inner = math.prod(r.shape[axis + 1:])
     lines = r.numel() // n
-    lib = cuda_lib.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (r.data_ptr(), d.data_ptr(), l.data_ptr())
-    out = torch.empty_like(r)
-
-    def old():
-        cuda_lib.check(lib.neutfem_thomas_f32(*ptrs, out.data_ptr(), n, lines, inner, stream),
-                       "thomas (thread per line)")
-        return out
-
     want = thomas.thomas_solve_plain(r, d, l, axis)
-    before = thomas.LAUNCHES["thomas_rows"]
+    before = tracing.total("thomas.thomas_rows")
     got = thomas.thomas_solve(r, d, l, axis)
     torch.cuda.synchronize()
-    if thomas.LAUNCHES["thomas_rows"] != before + 1:
+    if tracing.total("thomas.thomas_rows") != before + 1:
         raise RuntimeError(f"K4 {label}: the wrapper did not launch the tiled kernel")
     zero = torch.zeros_like(want)
     err = _compare(f"K4 tiled {label}", got, want, zero)
-    _compare(f"K4 thread-per-line {label}", old().clone(), want, zero)
-    ms, old_ms, t = _old_new(old, lambda: thomas.thomas_solve(r, d, l, axis))
+    ms, t = _kernel_ms(lambda: thomas.thomas_solve(r, d, l, axis))
     plain_ms = _timed(lambda: thomas.thomas_solve_plain(r, d, l, axis), 3)
     bound = _bound((r, d, l, got), THOMAS_FLOPS_PER_ELEMENT * r.numel())
     tile = thomas.thomas_tile(n, r.dtype, inner == 1)
     sweep = _tile_sweep(f"K4 tiled {label}", Z_SWEEP,
                         lambda _, tile: thomas.thomas_solve(r, d, l, axis, tile), want, zero, zero)
     print(f"  K4 {label} {tuple(r.shape)} axis {axis - r.ndim}: tiled kernel (tile "
-          f"{tile[0]}x{tile[1]}) {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), thread-per-line "
-          f"{old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), plain {plain_ms:.4f} ms, bound "
-          f"{bound[0]:.4f} ms ({lines} lines of {n}; {card})")
+          f"{tile[0]}x{tile[1]}) {ms:.4f} ms ({t[0]:.4f}, {t[1]:.4f}), plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({lines} lines of {n}; {card})")
     print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
     row = _row(f"K4 batched Thomas solve, {label}", "neutfem_tpu_torch/csrc/thomas_rows.cu",
                replaces, "thomas_rows", err, ms, plain_ms, bound)
-    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/thomas.cu (thomas_kernel)",
-               tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
+    row.update(tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
     return row
 
 
-def _old_new(old, new, reps=50):
-    """Device ms of ``new`` and of ``old`` on the same operands, timed in turns
-    (old, new, new, old), each queued behind a sleep: (ms, old_ms, readings)."""
-    t = [_timed(fn, reps, queued=True) for fn in (old, new, new, old)]
-    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+def _kernel_ms(fn, reps=50):
+    """Device ms of ``fn``, timed twice, each queued behind a sleep: (the
+    mean, the two readings)."""
+    t = [_timed(fn, reps, queued=True) for _ in range(2)]
+    return sum(t) / 2, t
 
 
 def _tile_sweep(name, tiles, run, want, acc0, scratch, base=None):
@@ -676,13 +656,13 @@ def _tile_sweep(name, tiles, run, want, acc0, scratch, base=None):
 def _rows_case(kid, key, ctxg, di, v, acc0, card, label, sweep=True):
     """K1 (z), K2 (y) or K3 (x) on one group's flux: the wrapper, which
     launches the tiled kernel at the tile ``fused.z_tile`` (z) or
-    ``fused.rows_tile`` picks, and the thread-per-line kernel it replaced,
-    called through the library (no launch counted), each against the plain
-    version on the NATURAL operands and timed in turns (old, new, new, old);
-    then, with ``sweep``, the tiled kernel at the tiles of ``Z_SWEEP`` (z) or
-    ``ROWS_SWEEP``.  Returns a row with ``old_ms``."""
+    ``fused.rows_tile`` picks, against the plain version on the NATURAL
+    operands and timed queued behind a sleep; then, with ``sweep``, the
+    tiled kernel at the tiles of ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.  Returns
+    a row."""
     import torch
 
+    from neutfem_tpu_torch import tracing
     from neutfem_tpu_torch.ops import cuda_lib, fused
 
     wrapper, tag, axis = {"z": (fused.fused_schur_z, "", -3),
@@ -698,13 +678,6 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label, sweep=True):
     strides = STRIDES[key](nz, ny, nx)
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream().cuda_stream
-    zs = torch.empty((n, lines), dtype=v.dtype, device=v.device)
-
-    def old(acc):
-        cuda_lib.check(lib.neutfem_fused_dir_f32(
-            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), zs.data_ptr(), n, lines,
-            *strides, *c, stream), "fused_dir")
-        return acc
 
     def tiled(acc, tile):
         ptrs = (acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr())
@@ -723,15 +696,14 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label, sweep=True):
         return acc
 
     want = fused.fused_dir_plain(acc0, v, *nat, axis, *c)
-    before = dict(fused.LAUNCHES)
+    before = tracing.total(f"fused.{key}_rows")
     got = wrapper(acc0.clone(), v, dm, ll, *c)
     torch.cuda.synchronize()
-    if fused.LAUNCHES[f"{key}_rows"] != before[f"{key}_rows"] + 1:
+    if tracing.total(f"fused.{key}_rows") != before + 1:
         raise RuntimeError(f"{kid} {label}: the wrapper did not launch the tiled kernel")
     err = _compare(f"{kid} tiled {key} {label}", got, want, acc0)
-    _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
     scratch = acc0.clone()
-    ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
+    ms, t = _kernel_ms(lambda: wrapper(scratch, v, dm, ll, *c))
     plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
     bound = _bound((v, acc0, got, dm, ll), FUSED_FLOPS_PER_CELL * v.numel())
     tile = (fused.z_tile if key == "z" else fused.rows_tile)(lines, n, v.dtype)
@@ -739,16 +711,14 @@ def _rows_case(kid, key, ctxg, di, v, acc0, card, label, sweep=True):
                         (Z_SWEEP if key == "z" else ROWS_SWEEP) if sweep else (), tiled, want,
                         acc0, scratch)
     print(f"  {kid} {key} {label}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms "
-          f"({t[1]:.4f}, {t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
-          f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells; "
-          f"share of bound {bound[0] / ms:.3f}; {card})")
+          f"({t[0]:.4f}, {t[1]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} "
+          f"lines of {n} cells; share of bound {bound[0] / ms:.3f}; {card})")
     if sweep:
         print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
     source = "fused_z_rows.cu" if key == "z" else "fused_rows.cu"
     row = _row(f"{kid} fused Schur direction {key}{label}", f"neutfem_tpu_torch/csrc/{source}",
                ROWS_REPLACES[key], f"{key}_rows", err, ms, plain_ms, bound)
-    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_dir.cu",
-               tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
+    row.update(tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
     if key == "z":
         row["rows_form_sweep"] = _rows_form_sweep(f"{kid} {key} {label}", rows_form, want, acc0,
                                                   scratch)
@@ -767,10 +737,8 @@ def _rows_form_sweep(name, rows_form, want, acc0, scratch):
 def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True):
     """One group-batched fused RT0 direction (K5 for y and x, K1's batch for
     z: the batched tiled kernels) on the per-group staged operands of the
-    whole context, against the plain version on the natural ones.  The
-    thread-per-line batched kernel it replaced (csrc/fused_dir.cu, called
-    through the library: no launch counted) is held to the plain version
-    too; ``timed``: both timed in turns, and the tiled kernel swept over
+    whole context, against the plain version on the natural ones;
+    ``timed``: timed queued behind a sleep, and the tiled kernel swept over
     ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.  Returns a row."""
     import math
 
@@ -801,13 +769,6 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True)
     stream = torch.cuda.current_stream().cuda_stream
     strides = STRIDES[key](nz, ny, nx)
     gs = math.prod(v.shape[-3:])
-    zs = torch.empty((ng, n, lines), dtype=v.dtype, device=v.device)
-
-    def old(acc):
-        cuda_lib.check(lib.neutfem_fused_dir_batched_f32(
-            acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr(), zs.data_ptr(), n,
-            lines, ng, *strides, gs, *c, stream), "fused_dir_batched")
-        return acc
 
     def tiled(acc, tile, rows=key != "z"):
         ptrs = (acc.data_ptr(), v.data_ptr(), dm.data_ptr(), ll.data_ptr())
@@ -819,23 +780,20 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True)
         cuda_lib.check(err, "fused_rows_batched")
         return acc
 
-    _compare(f"{kid} thread-per-line {key} {label}", old(acc0.clone()), want, acc0)
     tile = (fused.z_tile if key == "z" else fused.rows_tile)(lines, n, v.dtype)
-    extra = {"tile": list(tile), "old_source": "neutfem_tpu_torch/csrc/fused_dir.cu"}
+    extra = {"tile": list(tile)}
     if timed:
-        ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, dm, ll, *c))
+        ms, _ = _kernel_ms(lambda: wrapper(scratch, v, dm, ll, *c))
         sweep = _tile_sweep(f"{kid} {key} {label}", Z_SWEEP if key == "z" else ROWS_SWEEP,
                             tiled, want, acc0, scratch)
-        extra.update(old_ms=old_ms, share_of_bound=bound[0] / ms, sweep=sweep)
+        extra.update(share_of_bound=bound[0] / ms, sweep=sweep)
         if key == "z":
             extra["rows_form_sweep"] = _rows_form_sweep(
                 f"{kid} {key} {label}", lambda a, tile: tiled(a, tile, True), want, acc0, scratch)
     else:
         ms = _timed(lambda: wrapper(scratch, v, dm, ll, *c), 3)
     plain_ms = _timed(lambda: fused.fused_dir_plain(acc0, v, *nat, axis, *c), 3)
-    old_txt = (f", thread-per-line {extra['old_ms']:.4f} ms ({t[0]:.4f}, {t[3]:.4f})"
-               if "old_ms" in extra else "")
-    print(f"  {kid} {key} {label} {tuple(v.shape)}: kernel {ms:.4f} ms{old_txt}  plain "
+    print(f"  {kid} {key} {label} {tuple(v.shape)}: kernel {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  bound {bound[0]:.4f} ms ({lines} lines of {n} cells per group; "
           f"{card})")
     if sweep:
@@ -850,13 +808,12 @@ def _batched_case(kid, key, ctx, di, v, acc0, card, label, replaces, timed=True)
 def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
     """One K7 wrapper on the 6x6x4 direction operands (group 0): the wrapper,
     which launches the tiled kernel at the tile ``fused_eq.eq_tile`` picks,
-    and the thread-per-line kernel it replaced (csrc/fused_eq.cu, called
-    through the library: no launch counted), each on the staged operands
-    against ``fused_eq_plain`` on the natural ones and timed in turns; then
-    the tiled kernel at the tiles of ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.
-    Returns a row with ``old_ms``."""
+    on the staged operands against ``fused_eq_plain`` on the natural ones
+    and timed queued behind a sleep; then the tiled kernel at the tiles of
+    ``Z_SWEEP`` (z) or ``ROWS_SWEEP``.  Returns a row."""
     import torch
 
+    from neutfem_tpu_torch import tracing
     from neutfem_tpu_torch.ops import cuda_lib, fused_eq
 
     d, replaces = EQ_REPLACES[key]
@@ -872,7 +829,6 @@ def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
     strides = STRIDES[dkey](*y.shape[-3:])
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream().cuda_stream
-    zs = torch.empty((n, lines), dtype=y.dtype, device=y.device)
     u_buf = torch.empty_like(y)
     ce_ptr = ce.data_ptr() if key.startswith("x") else None
 
@@ -883,26 +839,19 @@ def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
             return wrapper(acc, y, dm, ll, sdi, *c)
         return wrapper(acc, y, sdi, dm, ll, *c)
 
-    def raw(fn, acc, *tile):
-        """the old (no tile) or the tiled kernel through the library: the
-        output (a new tensor for the x variants, as the wrapper)"""
+    def tiled(acc, tile):
+        """the tiled kernel at ``tile`` through the library: the output (a
+        new tensor for the x variants, as the wrapper)"""
         out = torch.empty_like(y) if key.startswith("x") else acc
-        pre = (zs.data_ptr(),) if not tile else ()
-        cuda_lib.check(fn(flags, out.data_ptr(), y.data_ptr(), sdi.data_ptr(), ce_ptr,
-                          dm.data_ptr(), ll.data_ptr(), *pre, u_buf.data_ptr(), n, lines,
-                          *strides, *tile, *c, stream), key)
+        cuda_lib.check(lib.neutfem_fused_eq_rows_f32(
+            flags, out.data_ptr(), y.data_ptr(), sdi.data_ptr(), ce_ptr, dm.data_ptr(),
+            ll.data_ptr(), u_buf.data_ptr(), n, lines, *strides, *tile, *c, stream), key)
         return out
 
-    def old(acc):
-        return raw(lib.neutfem_fused_eq_f32, acc)
-
-    def tiled(acc, tile):
-        return raw(lib.neutfem_fused_eq_rows_f32, acc, *tile)
-
-    before = dict(fused_eq.LAUNCHES)
+    before = tracing.total(f"fused_eq.{key}_rows")
     got = call(acc0.clone())
     got, got_u = got if key == "x_eq" else (got, None)
-    if fused_eq.LAUNCHES[f"{key}_rows"] != before[f"{key}_rows"] + 1:
+    if tracing.total(f"fused_eq.{key}_rows") != before + 1:
         raise RuntimeError(f"K7 {key}: the wrapper did not launch the tiled kernel")
     want, want_u = fused_eq.fused_eq_plain(key, acc0, y, sdi, ce, *nat, axis, *c)
     torch.cuda.synchronize()
@@ -910,11 +859,8 @@ def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
     err = _compare(f"K7 tiled {key}", got, want, base)
     if got_u is not None and not torch.equal(got_u, want_u):
         raise RuntimeError("K7 x_eq: u differs from sdi*y")
-    _compare(f"K7 thread-per-line {key}", old(acc0.clone()), want, base)
-    if key == "x_eq" and not torch.equal(u_buf, want_u):
-        raise RuntimeError("K7 x_eq (thread-per-line): u differs from sdi*y")
     scratch = acc0.clone()
-    ms, old_ms, t = _old_new(lambda: old(scratch), lambda: call(scratch))
+    ms, t = _kernel_ms(lambda: call(scratch))
     plain_ms = _timed(lambda: fused_eq.fused_eq_plain(key, acc0, y, sdi, ce, *nat, axis, *c), 3)
     reads = [y, sdi, dm, ll] + ([ce] if key.startswith("x") else [acc0])
     writes = [got] + ([got_u] if got_u is not None else [])
@@ -924,16 +870,14 @@ def _eq_case(key, ctxg, di, y, acc0, sdi, ce, card):
     tile = fused_eq.eq_tile(axis, lines, n, y.dtype)
     sweep = _tile_sweep(f"K7 tiled {key}", Z_SWEEP if dkey == "z" else ROWS_SWEEP, tiled, want,
                         acc0, scratch, base)
-    print(f"  K7 {key}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms ({t[1]:.4f}, "
-          f"{t[2]:.4f}), thread-per-line {old_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} cells per launch; "
-          f"{card})")
+    print(f"  K7 {key}: tiled kernel (tile {tile[0]}x{tile[1]}) {ms:.4f} ms ({t[0]:.4f}, "
+          f"{t[1]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of {n} "
+          f"cells per launch; {card})")
     print(f"    tiles (lines x chunks: ms): {'; '.join(sweep)}")
     row = _row(f"K7 equilibration-folded Schur direction {key} (6x6x4)",
                "neutfem_tpu_torch/csrc/fused_eq_rows.cu", replaces, f"{key}_rows", err, ms,
                plain_ms, bound)
-    row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_eq.cu", tile=list(tile),
-               share_of_bound=bound[0] / ms, sweep=sweep)
+    row.update(tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
     return row
 
 
@@ -948,16 +892,15 @@ def _blockjac_case(fes, ctxg, order, card, rng):
     """K8 on one group's blocks of this order in both storage forms the paths
     use: the fp8 E-form the context holds (the default) and its bfloat16
     inverse (the layout of NEUTFEM_BLKFP8=0).  For each, the wrapper (the
-    tiled kernel) and the thread-per-cell kernel it replaced, on the bf16
-    inverse of the same blocks (called through the library: no launch
-    counted), both held to the plain version and timed in turns queued
-    behind a sleep; then the tiled kernel at the tiles of ``_k8_tiles``.
+    tiled kernel) held to the plain version and timed queued behind a sleep;
+    then the tiled kernel at the tiles of ``_k8_tiles``.
     library_ms is the port's previous default apply on the same stored
     blocks (``power._block_precond``: torch.bmm on their float32 copy) plus
     the two dots.  Returns the rows, E-form first."""
     import torch
 
-    from neutfem_tpu_torch.ops import blockjac, cuda_lib
+    from neutfem_tpu_torch import tracing
+    from neutfem_tpu_torch.ops import blockjac
     from neutfem_tpu_torch.power import _block_precond
 
     P = fes.P
@@ -968,17 +911,6 @@ def _blockjac_case(fes, ctxg, order, card, rng):
     r = torch.as_tensor(rng.standard_normal((P, *fes.mesh.shape)), dtype=torch.float32,
                         device=dev)
     cells = r.numel() // P
-    lib = cuda_lib.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    part = torch.empty((lib.neutfem_blockjac_blocks(cells), 2), dtype=torch.float32, device=dev)
-    z_old = torch.empty_like(r)
-
-    def old():  # the thread-per-cell kernel on the bf16 inverse
-        cuda_lib.check(lib.neutfem_blockjac_bf16(bi.data_ptr(), r.data_ptr(), z_old.data_ptr(),
-                                                 part.data_ptr(), P, cells, stream),
-                       "blockjac (thread per cell)")
-        rz, rr = torch.sum(part, dim=0)
-        return z_old, rz, rr
 
     def dots_agree(name, got, want):
         for what, g, w in (("<r,z>", got[1], want[1]), ("<r,r>", got[2], want[2])):
@@ -987,27 +919,21 @@ def _blockjac_case(fes, ctxg, order, card, rng):
             if not rel <= KERNEL_REL_TOL:
                 raise RuntimeError(f"{name}: {what} disagrees with the plain version")
 
-    want_bf16 = blockjac.blockjac_dots_plain(bi, r)
-    got_old = old()
-    torch.cuda.synchronize()
-    _compare(f"K8 RT{order}-P{order} thread-per-cell (bf16) z", got_old[0], want_bf16[0],
-             torch.zeros_like(r))
-    dots_agree(f"K8 RT{order}-P{order} thread-per-cell (bf16)", got_old, want_bf16)
     rows = []
     for form, blk, wrapper, key, deviation in (
             ("E-form", eform, blockjac.blockjac_dev_dots, "blockjac_dev", True),
             ("bf16", bi, blockjac.blockjac_dots, "blockjac_tiled", False)):
         name = f"K8 RT{order}-P{order} {form}"
-        before = blockjac.LAUNCHES[key]
+        before = tracing.total(f"blockjac.{key}")
         got = wrapper(blk, r)
         plain = blockjac.blockjac_dots_plain(blk, r, deviation)
         torch.cuda.synchronize()
-        if blockjac.LAUNCHES[key] != before + 1:
+        if tracing.total(f"blockjac.{key}") != before + 1:
             raise RuntimeError(f"{name}: the wrapper did not launch the tiled kernel")
         base = r if deviation else torch.zeros_like(r)  # z - base: the blocks' contribution
         err = _compare(f"{name} z", got[0], plain[0], base)
         dots_agree(name, got, plain)
-        ms, old_ms, t = _old_new(old, lambda: wrapper(blk, r))
+        ms, t = _kernel_ms(lambda: wrapper(blk, r))
         sweep = _tile_sweep(name, _k8_tiles(P), lambda _, tile: wrapper(blk, r, tile)[0],
                             plain[0], r, r, base)
         plain_ms = _timed(lambda: blockjac.blockjac_dots_plain(blk, r, deviation), 3)
@@ -1023,18 +949,15 @@ def _blockjac_case(fes, ctxg, order, card, rng):
         bound = _bound((blk, r, got[0]), cells * (2 * P * P + (P if deviation else 0) + 4 * P))
         tile = blockjac.blockjac_tile(P)
         print(f"  {name} (P={P}, {cells} cells): tiled kernel (tile {tile}) {ms:.4f} ms "
-              f"({t[1]:.4f}, {t[2]:.4f}), thread-per-cell on bf16 {old_ms:.4f} ms ({t[0]:.4f}, "
-              f"{t[3]:.4f}), plain {plain_ms:.4f} ms, library (bmm on the float32 copy + 2 dots) "
-              f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms ({card})")
+              f"({t[0]:.4f}, {t[1]:.4f}), plain {plain_ms:.4f} ms, library (bmm on the float32 "
+              f"copy + 2 dots) {library_ms:.4f} ms, bound {bound[0]:.4f} ms ({card})")
         print(f"    tiles (wide x warps: ms): {'; '.join(sweep)}")
         path = "phase [6]'s RT path" if deviation else "phase [12]'s RT1-P1 BLOCKJAC path"
         row = _row(f"K8 block-Jacobi apply + dots (RT{order}-P{order} 4x4x2, {form} blocks; "
                    f"launches: {path})", "neutfem_tpu_torch/csrc/blockjac_tiled.cu",
                    "neutfem_tpu/ops/pallas_blockjac.py:114", key, err, ms, plain_ms, bound,
                    library_ms)
-        row.update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/blockjac.cu (thread per "
-                   "cell, on the bf16 inverse of the same blocks)", tile=list(tile),
-                   share_of_bound=bound[0] / ms, sweep=sweep)
+        row.update(tile=list(tile), share_of_bound=bound[0] / ms, sweep=sweep)
         rows.append(row)
     return rows
 
@@ -1104,14 +1027,14 @@ def _cg_step_case(label, n, rr, card, rng):
 def _ho_kernels(bench, order, card, rng):
     """K6 z / y / x against fused_ho_plain on the IAEA-3D 4x4x2 RT_k-P_k operands
     (group 0, float32): the wrapper, which launches the tiled kernel at the
-    tile ``fused_ho.ho_tile`` picks, and the thread-per-(mode, line) kernel it
-    replaced, called through the library (no launch counted), both held to
-    the plain version and timed in turns; then the tiled kernel at the tiles
-    of ``HO_SWEEP``.  The plain version reads the NATURAL operands and takes
+    tile ``fused_ho.ho_tile`` picks, held to the plain version and timed
+    queued behind a sleep; then the tiled kernel at the tiles of
+    ``HO_SWEEP``.  The plain version reads the NATURAL operands and takes
     its mode grouping from the FE space's p -> t map; the kernels read the
     staged ones and compute their own mode index.  Returns the rows and K8's."""
     import torch
 
+    from neutfem_tpu_torch import tracing
     from neutfem_tpu_torch.data import BENCHMARKS
     from neutfem_tpu_torch.ops import cuda_lib, fused_ho
     from neutfem_tpu_torch.power import ctx_group
@@ -1148,14 +1071,7 @@ def _ho_kernels(bench, order, card, rng):
         # inner, outer, cell strides of the wrappers (fused_ho.py)
         strides = {0: (ny * nx, 0, ny * nx), 1: (nx, ny * nx, nx), 2: (1, nx, 1)}[axis]
         tab = torch.as_tensor(tabs.packed(), dtype=torch.float32, device=dev)
-        zs = torch.empty((k1 * k1, n, lines), dtype=torch.float32, device=dev)
         ptrs = tuple(o.data_ptr() for o in ops)
-
-        def old(acc):
-            cuda_lib.check(lib.neutfem_fused_ho_f32(
-                acc.data_ptr(), v.data_ptr(), *ptrs, tab.data_ptr(), zs.data_ptr(), k1,
-                2 - axis, n, lines, *strides, nz * ny * nx, stream), "fused_ho")
-            return acc
 
         def tiled(acc, tile):
             cuda_lib.check(lib.neutfem_fused_ho_rows_f32(
@@ -1163,16 +1079,15 @@ def _ho_kernels(bench, order, card, rng):
                 *strides, nz * ny * nx, *tile, stream), "fused_ho_rows")
             return acc
 
-        before = dict(fused_ho.LAUNCHES)
+        before = tracing.total(f"fused_ho.ho_{key}_rows")
         got = wrapper(acc0.clone(), v, *ops, tabs)
         want = fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs)
         torch.cuda.synchronize()
-        if fused_ho.LAUNCHES[f"ho_{key}_rows"] != before[f"ho_{key}_rows"] + 1:
+        if tracing.total(f"fused_ho.ho_{key}_rows") != before + 1:
             raise RuntimeError(f"K6 RT{order} {key}: the wrapper did not launch the tiled kernel")
         err = _compare(f"K6 RT{order} tiled {key}", got, want, acc0)
-        _compare(f"K6 RT{order} thread-per-(mode, line) {key}", old(acc0.clone()), want, acc0)
         scratch = acc0.clone()
-        ms, old_ms, t = _old_new(lambda: old(scratch), lambda: wrapper(scratch, v, *ops, tabs))
+        ms, t = _kernel_ms(lambda: wrapper(scratch, v, *ops, tabs))
         plain_ms = _timed(lambda: fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs), 3)
         # per (transverse mode, cell): the face rhs over K1 longitudinal modes
         # (4 K1), the two sweeps (6), and per longitudinal mode the divergence
@@ -1183,16 +1098,13 @@ def _ho_kernels(bench, order, card, rng):
         tiles = [(tl, ch, tg) for tg in (1, k1) for tl, ch in HO_SWEEP]
         sweep = _tile_sweep(f"K6 RT{order} {key}", tiles, tiled, want, acc0, scratch)
         print(f"  K6 RT{order}-P{order} {key}: tiled kernel (tile {'x'.join(map(str, tile))}) "
-              f"{ms:.4f} ms "
-              f"({t[1]:.4f}, {t[2]:.4f}), thread-per-(mode, line) {old_ms:.4f} ms ({t[0]:.4f}, "
-              f"{t[3]:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({lines} lines of "
-              f"{n} cells; {card})")
+              f"{ms:.4f} ms ({t[0]:.4f}, {t[1]:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({lines} lines of {n} cells; {card})")
         print(f"    tiles (lines x chunks x modes: ms): {'; '.join(sweep)}")
         rows[key] = _row(f"K6 condensed Schur direction {key} (RT{order}-P{order})",
                          "neutfem_tpu_torch/csrc/fused_ho_rows.cu", HO_REPLACES[key],
                          f"ho_{key}_rows", err, ms, plain_ms, bound)
-        rows[key].update(old_ms=old_ms, old_source="neutfem_tpu_torch/csrc/fused_ho.cu",
-                         tile=list(tile), share_of_bound=bound[0] / ms)
+        rows[key].update(tile=list(tile), share_of_bound=bound[0] / ms)
     rows["K8"] = _blockjac_case(fes, ctxg, order, card, rng)
     return rows
 
@@ -1273,11 +1185,7 @@ def _graph_case(label, s, opts, g, card, switches=None):
     import torch
 
     from neutfem_tpu_torch import bench, krylov
-    from neutfem_tpu_torch.ops import launch_counters
     from neutfem_tpu_torch.power import ctx_group, group_plan, group_solve
-
-    def snap():
-        return {k: v for c in launch_counters() for k, v in c.items()}
 
     fes, ctx = s._fes, s._ctx
     ctx.setdefault(krylov.CG_PLANS, krylov.CGPlans())
@@ -1287,15 +1195,13 @@ def _graph_case(label, s, opts, g, card, switches=None):
     with bench.env(**(switches or {})):
         group_solve(fes, ctxg, opts, rhs, x0)  # the plan and its capture
         torch.cuda.synchronize()
-        krylov.reset_stats()
-        for c in launch_counters():
-            c.update(dict.fromkeys(c, 0))
+        _reset_counts()
         t0 = time.perf_counter()
         got = group_solve(fes, ctxg, opts, rhs, x0)
         torch.cuda.synchronize()
         graph_ms = (time.perf_counter() - t0) * 1e3
-        cg = dict(krylov.STATS)
-        c1 = snap()
+        cg = bench.cg_counts()
+        c1 = _counts()
         plan = group_plan(fes, ctxg, opts, rhs)
         if plan.refill is not None:
             plan.refill()
@@ -1306,9 +1212,9 @@ def _graph_case(label, s, opts, g, card, switches=None):
         x_eager = want.x * plan.sdi
         torch.cuda.synchronize()
         eager_ms = (time.perf_counter() - t0) * 1e3
-        c2 = snap()
+        c2 = _counts()
     graph_l = {k: v for k, v in c1.items() if v}
-    eager_l = {k: c2[k] - c1[k] for k in c1 if c2[k] != c1[k]}
+    eager_l = {k: c2[k] - c1[k] for k in c1 | c2 if c2[k] != c1[k]}
     n, k = got.iterations, krylov.BLOCK_ITERS
     same = n == want.iterations and torch.equal(got.x, x_eager)
     print(f"  {label}: {n} iterations (eager {want.iterations}), bits "
@@ -1363,10 +1269,10 @@ def _facade_paths(bench, spec, dev, card, reset_counts, counts, cg_line):
     f32, f64 = torch.float32, torch.float64
 
     def k14(launches, what):
-        """The K1-K4 launches of a path (all of them > 0, none of the replaced)."""
+        """The K1-K4 launches of a path (all of them > 0)."""
         got = {k: launches.get(k, 0) for k in (*Z_KEYS, "thomas_rows")}
-        if min(got.values()) <= 0 or any(launches.get(k, 0) for k in (*Z_OLD, "thomas")):
-            raise RuntimeError(f"{what}: K1-K4 launches {got}, or a replaced kernel launched")
+        if min(got.values()) <= 0:
+            raise RuntimeError(f"{what}: K1-K4 launches {got}")
         return got
 
     def on_counts(outers, inners, anchor):
@@ -1624,7 +1530,6 @@ def _variant_paths(bench, dev, card, reset_counts, counts, rows):
 
     f32, f64 = torch.float32, torch.float64
     one_group = (*Z_KEYS, "thomas_rows", "thomas_wide_rows")
-    old = (*Z_OLD, "thomas", "thomas_y", *HO_OLD, *K5_OLD)
 
     def variants(names, **kw):
         reset_counts()
@@ -1637,8 +1542,6 @@ def _variant_paths(bench, dev, card, reset_counts, counts, rows):
                   f"{d['inner_iterations']}, {d['ms_per_outer']:.3f} ms/outer, host reads "
                   f"{d['cg']['host_reads_per_iteration']} per CG iteration ({card})")
             print(f"      launches {d['launches']}")
-            if any(d["launches"].get(k, 0) for k in old):
-                raise RuntimeError(f"{r['row']}: a replaced kernel launched")
         return out
 
     def held(what, got, anchor, keff_tol=KEFF_TOL):
@@ -1847,15 +1750,6 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _zero_counts():
-    from neutfem_tpu_torch import krylov
-    from neutfem_tpu_torch.ops import launch_counters
-
-    for c in launch_counters():
-        c.update(dict.fromkeys(c, 0))
-    krylov.reset_stats()
-
-
 def _sharded_solve(bench, mesh, ga, case, dev, check=None):
     """One rank's sharded power iteration of ``case`` = (core, mesh_n,
     mesh_nz, rt_order, tol, dtype name) on ``dev``: the facade's problem and
@@ -1867,9 +1761,8 @@ def _sharded_solve(bench, mesh, ga, case, dev, check=None):
     when given, runs after that and its kernel rows come back as "rows"."""
     import torch
 
-    from neutfem_tpu_torch import krylov, parallel
+    from neutfem_tpu_torch import parallel
     from neutfem_tpu_torch.data import BENCHMARKS
-    from neutfem_tpu_torch.ops import launch_counters
     from neutfem_tpu_torch.ops.context import build_host_context
 
     core, n, nz, order, tol, dt = case
@@ -1889,13 +1782,13 @@ def _sharded_solve(bench, mesh, ga, case, dev, check=None):
     solve, _ = parallel.sharded_power_iteration(fes, ng, s._opts(), mesh, ga)
     solve(ctx, phi0, 1.0)
     torch.cuda.synchronize()
-    _zero_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     res = solve(ctx, phi0, 1.0)
     keff = float(res["keff"])  # a device -> host read ends the solve
     wall = time.perf_counter() - t0
-    launches = {k: v for c in launch_counters() for k, v in c.items()}
-    cg = dict(krylov.STATS)
+    launches = _counts()
+    cg = bench.cg_counts()
     phi = parallel.gather_state(res["phi"], mesh, ga)
     if not bool(res["finite"]) or not bool(torch.isfinite(phi).all()):
         raise RuntimeError(f"sharded {case}: the flux is not finite")
@@ -2031,7 +1924,7 @@ def _sharded_paths(bench, dev, card, rows):
     import torch
     import torch.distributed as dist
 
-    from neutfem_tpu_torch import parallel, shardctx
+    from neutfem_tpu_torch import parallel
     from neutfem_tpu_torch.data import BENCHMARKS
 
     f32 = torch.float32
@@ -2065,7 +1958,7 @@ def _sharded_paths(bench, dev, card, rows):
         print(f"    {cut} cut: keff {got['keff']}, {got['outers']} / {got['inners']}, "
               f"{got['ms_per_outer']:.3f} ms/outer against the unsharded {unsharded_ms:.3f} "
               f"(same call; {card}); context slab built in {got['build_s']:.1f} s")
-        comm = {k: L[k] for k in shardctx.COMM}
+        comm = {k: L[k] for k in ("collectives", "comm_bytes", "staged_bytes")}
         print(f"      CG: {got['cg']} ({got['loop']}); transport {comm}")
         print(f"      launches {{{', '.join(f'{k}: {v}' for k, v in L.items() if v)}}}; flux rel "
               f"{_flux_rel(got['phi'], phi_unsharded):.2e} of the unsharded")
@@ -2077,9 +1970,9 @@ def _sharded_paths(bench, dev, card, rows):
             raise RuntimeError(f"{cut} cut: K4 launched {L['thomas_rows']} times for "
                                f"{got['inners']} CG iterations (the segment solve)")
         uncut = {"z": ("y_rows", "x_rows"), "y": ("z_rows", "x_rows")}[cut]
-        if any(L[k] < got["inners"] for k in uncut) or any(L[k] for k in (*Z_OLD, "thomas")):
+        if any(L[k] < got["inners"] for k in uncut):
             raise RuntimeError(f"{cut} cut: the uncut directions' kernels did not run every CG "
-                               "iteration, or a replaced kernel ran")
+                               "iteration")
         rows[f"K4 segment {cut}"] = dict(got["rows"], launches=L["thomas_rows"])
         k1 += L["z_rows"]
     if not k1:
@@ -2103,8 +1996,8 @@ def _sharded_paths(bench, dev, card, rows):
         if L[key] < got["inners"]:
             raise RuntimeError(f"[16b]: {key} launched {L[key]} times for {got['inners']} CG "
                                "iterations")
-    if L["ho_z_rows"] or any(L[k] for k in HO_OLD):
-        raise RuntimeError("[16b]: K6 ran along the cut z, or a replaced K6 ran")
+    if L["ho_z_rows"]:
+        raise RuntimeError("[16b]: K6 ran along the cut z")
     rows["K4 segment RT1-P1 z"] = dict(got["rows"], launches=L["thomas_rows"])
     print(f"    [16b] {time.perf_counter() - t0:.1f} s")
 
@@ -2213,15 +2106,14 @@ def _v17_timed(kind, s, opts, ctx, phi0, dev, dtype, scope=None, factors=None, w
 
     import torch
 
-    from neutfem_tpu_torch import krylov
-    from neutfem_tpu_torch.ops import launch_counters
+    from neutfem_tpu_torch.bench import cg_counts
 
     if warm:
         _v17_run(kind, s, dataclasses.replace(opts, max_outer=3), ctx, phi0, dev, dtype, scope,
                  factors)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    _zero_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     res = _v17_run(kind, s, opts, ctx, phi0, dev, dtype, scope, factors)
     wall = time.perf_counter() - t0  # the value's host read ended the run
@@ -2230,8 +2122,8 @@ def _v17_timed(kind, s, opts, ctx, phi0, dev, dtype, scope=None, factors=None, w
         raise RuntimeError(f"[17] {kind}: the flux is not finite")
     return {"value": res["value"], "outers": outers, "inners": res["inner_iterations"],
             "history": res["history"].cpu().numpy() if "history" in res else None,
-            "launches": {k: v for c in launch_counters() for k, v in c.items()},
-            "cg": dict(krylov.STATS), "ms": 1e3 * wall / max(outers, 1), "res": res}
+            "launches": _counts(), "cg": cg_counts(), "ms": 1e3 * wall / max(outers, 1),
+            "res": res}
 
 
 def _v17_facade(bench, core, mesh, bc=None, subcritical=False, tol=None):
@@ -2525,9 +2417,9 @@ def _sharded_variants(bench, dev, card, rows):
         need = (("y_batched_rows", "x_batched_rows", "thomas_rows") if cut == "z"
                 else ("z_batched_rows", "x_batched_rows"))
         if dev.type == "cuda" and (any(L[k] < got["inners"] for k in need)
-                                   or any(L[k] for k in (*Z_KEYS, *Z_OLD, *K5_OLD))):
+                                   or any(L[k] for k in Z_KEYS)):
             raise RuntimeError(f"[17a] Jacobi sweep {cut} cut: {need} not launched every CG "
-                               "iteration, or a one-group or replaced kernel ran")
+                               "iteration, or a one-group kernel ran")
     # CMFD "fixed" and coarse init against the Chebyshev k
     for what, kind, o, factors in (("CMFD \"fixed\"", "power",
                                     dataclasses.replace(opts, use_cmfd=True), None),
@@ -2839,9 +2731,9 @@ def _scan_cuts(bench, dev, card):
             if cg["replays"] < cg["solves"] or cg["eager_solves"]:
                 raise RuntimeError(f"[18a] {path} {cut} cut: the CG did not replay its graphs")
             uncut = {"z": ("y_rows", "x_rows"), "y": ("z_rows", "x_rows")}[cut]
-            if any(L[k] < r["inners"] for k in uncut) or any(L[k] for k in (*Z_OLD, "thomas")):
+            if any(L[k] < r["inners"] for k in uncut):
                 raise RuntimeError(f"[18a] {path} {cut} cut: the uncut directions' kernels did "
-                                   "not run every CG iteration, or a replaced kernel ran")
+                                   "not run every CG iteration")
         sc, pt = got["scan"]["launches"], got["partitioned"]["launches"]
         if not (sc["scan"] >= got["scan"]["inners"] and sc["parttri"] == 0 and pt["scan"] == 0
                 and pt["parttri"] >= got["partitioned"]["inners"]):
@@ -2958,11 +2850,9 @@ def _literature_paths(dev, card, reset_counts, counts, cg_line, rows):
         cg_line(r["cg"])
         _check_anchor(f"[19a] {name} {r['mesh']}", r["keff"], r["outer_iterations"], inners,
                       VALIDATE_ANCHORS[name])
-        every, old = ((Z_KEYS, (*Z_OLD, "thomas")) if name == "iaea3d"
-                      else (("y_rows", "x_rows"), ("y", "x", "thomas_y")))
-        if any(L.get(k, 0) < inners for k in every) or any(L.get(k, 0) for k in old):
-            raise RuntimeError(f"[19a] {name}: {every} not launched every CG iteration, or a "
-                               "replaced kernel launched")
+        every = Z_KEYS if name == "iaea3d" else ("y_rows", "x_rows")
+        if any(L.get(k, 0) < inners for k in every):
+            raise RuntimeError(f"[19a] {name}: {every} not launched every CG iteration")
         if r["n_cells"] >= 65536 and name != "iaea3d":  # twogrid.AUTO_TG_MIN_CELLS
             if r["preconditioner"] != "twogrid" or L.get("thomas_wide_rows", 0) <= 0:
                 raise RuntimeError(f"[19a] {name}: preconditioner {r['preconditioner']!r}, "
@@ -3001,10 +2891,9 @@ def _literature_paths(dev, card, reset_counts, counts, cg_line, rows):
             raise RuntimeError(f"[19b] {core} {r['mesh']}: k {r['keff']} / {outers} outers, "
                                f"anchors {k_a} +- {LADDER_KEFF_TOL} / {o_a} +- {OUTERS_TOL}")
         if (min(L.get("y_rows", 0), L.get("x_rows", 0)) < inners
-                or any(L.get(k, 0) for k in ("y", "x", "thomas_y"))
                 or r["preconditioner"] != "twogrid" or L.get("thomas_wide_rows", 0) <= 0):
-            raise RuntimeError(f"[19b] {core} {r['mesh']}: K2 / K3 not every CG iteration, a "
-                               "replaced kernel, no two-grid level or no K4′")
+            raise RuntimeError(f"[19b] {core} {r['mesh']}: K2 / K3 not every CG iteration, no "
+                               "two-grid level or no K4′")
         if core == "zion2d":
             m = round(r["n_cells"] ** 0.5)  # compute_current's y: (2, 1, 1, m + 1, m)
             tile = thomas.wide_tile(m + 1, 2, m, sms)
@@ -3045,7 +2934,7 @@ def _literature_paths(dev, card, reset_counts, counts, cg_line, rows):
     line_opts = dataclasses.replace(s._opts(), inner_precond="line")
     graph_l = _graph_case("ZION 68x68 group 0 (line preconditioner: K4′)", s, line_opts, 0, card)
     row["launches"] = graph_l.get(row.pop("key"), 0)
-    if row["launches"] <= 0 or graph_l.get("thomas_y", 0):
+    if row["launches"] <= 0:
         raise RuntimeError("[19c] ZION 68x68 line preconditioner: the tiled K4′ did not run")
     rows["K4′ line ZION 68"] = row
     del zrun, s, zctx, zctxg, zv, zacc0, zphi, r1
@@ -3068,7 +2957,7 @@ def _literature_paths(dev, card, reset_counts, counts, cg_line, rows):
               f"({c.outer_iterations}); |dk| {dk:.2e}, |dk_adj| {dka:.2e}, Fass rel {fass:.2e}; "
               f"K2 / K3 {L['y_rows']} / {L['x_rows']}")
         if (dk > 1e-9 or dka > 1e-9 or g.outer_iterations != c.outer_iterations or fass > 1e-9
-                or min(L["y_rows"], L["x_rows"]) <= 0 or L["y"] or L["x"]):
+                or min(L["y_rows"], L["x_rows"]) <= 0):
             raise RuntimeError(f"[19d] {core} {n}x{n}: the card disagrees with the CPU, or the "
                                "tiled K2 / K3 did not serve it")
         del got, c, g
@@ -3135,10 +3024,11 @@ EXAMPLE_REL_TOL_ROUNDING = {("subcritical_source", "keff"): 5e-8}
 KERNEL_REL_TOL_F64 = 1e-12
 
 
-def _new_shape_row(name, source, replaces, key, counter, call, plain, base, tensors, flops,
+def _new_shape_row(name, source, replaces, key, prefix, call, plain, base, tensors, flops,
                    card, launches, tol=KERNEL_REL_TOL, library=None):
     """One kernel at a shape a path of [20] gives it: the wrapper (``call``,
-    which launches the kernel once: ``counter[key]`` moves by one) against
+    which launches the kernel once: ``tracing``'s ``<prefix>.<key>`` moves by
+    one) against
     its plain version relative to the contribution over ``base``, timed as
     [3] times it (CUDA events over 50 calls queued behind a sleep: device
     time), the plain version over 3 calls, the bound from ``tensors`` (the
@@ -3146,12 +3036,14 @@ def _new_shape_row(name, source, replaces, key, counter, call, plain, base, tens
     the row of the JSON line."""
     import torch
 
+    from neutfem_tpu_torch import tracing
+
     # the first call's result is the one held to the plain version (a K1-K3
     # wrapper accumulates into its argument: later calls add to it again)
-    before = counter[key]
+    before = tracing.total(f"{prefix}.{key}")
     got = call()
     torch.cuda.synchronize()
-    if counter[key] != before + 1:
+    if tracing.total(f"{prefix}.{key}") != before + 1:
         raise RuntimeError(f"{name}: the wrapper did not launch its kernel")
     out = got[0] if isinstance(got, tuple) else got
     want = plain()
@@ -3208,7 +3100,7 @@ def _rt0_rows(label, run, launches, card, rng, keys=("z", "y", "x"), k4=False):
         out[kid] = _new_shape_row(
             f"{kid} fused Schur direction {key} ({label} {tuple(fes.mesh.shape)}, {dt})",
             f"neutfem_tpu_torch/csrc/{'fused_z_rows.cu' if key == 'z' else 'fused_rows.cu'}",
-            ROWS_REPLACES[key], f"{key}_rows", fused.LAUNCHES,
+            ROWS_REPLACES[key], f"{key}_rows", "fused",
             lambda: wrapper(scratch, v, dm, ll, *c),
             lambda: fused.fused_dir_plain(acc0, v, *nat, axis - 3, *c), acc0,
             (v, acc0, dm, ll), FUSED_FLOPS_PER_CELL * v.numel(), card,
@@ -3221,7 +3113,7 @@ def _rt0_rows(label, run, launches, card, rng, keys=("z", "y", "x"), k4=False):
             out[f"K4 {key}"] = _new_shape_row(
                 f"K4 batched Thomas solve, compute_current {key} ({label} {tuple(r.shape)}, {dt})",
                 "neutfem_tpu_torch/csrc/thomas_rows.cu", K4_REPLACES[key], "thomas_rows",
-                thomas.LAUNCHES, lambda: thomas.thomas_solve(r, dinv, lf, axis),
+                "thomas", lambda: thomas.thomas_solve(r, dinv, lf, axis),
                 lambda: thomas.thomas_solve_plain(r, dinv, lf, axis), torch.zeros_like(r),
                 (r, dinv, lf), THOMAS_FLOPS_PER_ELEMENT * r.numel(), card,
                 launches.get("thomas_rows", 0), tol)
@@ -3262,7 +3154,7 @@ def _ho_rows(label, run, launches, card, rng):
         out[f"K6 {key}"] = _new_shape_row(
             f"K6 condensed Schur direction {key} ({label} {tuple(fes.mesh.shape)} P={fes.P})",
             "neutfem_tpu_torch/csrc/fused_ho_rows.cu", HO_REPLACES[key], f"ho_{key}_rows",
-            fused_ho.LAUNCHES, lambda: wrapper(scratch, v, *ops, tabs),
+            "fused_ho", lambda: wrapper(scratch, v, *ops, tabs),
             lambda: fused_ho.fused_ho_plain(acc0, v, *natural, axis - 3, tabs), acc0,
             (v, acc0, *ops), flops, card, launches.get(f"ho_{key}_rows", 0))
     if run.rt_order == 2:  # K8 at the widest RT2-P2 blocks
@@ -3279,7 +3171,7 @@ def _ho_rows(label, run, launches, card, rng):
         out["K8"] = _new_shape_row(
             f"K8 block-Jacobi apply + dots ({label} {tuple(fes.mesh.shape)} P={P}, E-form blocks)",
             "neutfem_tpu_torch/csrc/blockjac_tiled.cu", "neutfem_tpu/ops/pallas_blockjac.py:114",
-            "blockjac_dev", blockjac.LAUNCHES, lambda: blockjac.blockjac_dev_dots(eform, r),
+            "blockjac_dev", "blockjac", lambda: blockjac.blockjac_dev_dots(eform, r),
             lambda: blockjac.blockjac_dots_plain(eform, r, True), r, (eform, r),
             cells * (2 * P * P + P + 4 * P), card, launches.get("blockjac_dev", 0),
             library=library)
@@ -3311,11 +3203,6 @@ def _last_entry_points(dev, card, reset_counts, counts, cg_line, rows):
             raise RuntimeError(f"{what}: launches {got}")
         return got
 
-    def replaced_idle(L, what):
-        idle = {k: L[k] for k in (*Z_OLD, "thomas", *HO_OLD, "blockjac") if L.get(k, 0)}
-        if idle:
-            raise RuntimeError(f"{what}: a replaced kernel launched {idle}")
-
     # (a) the float32 ladder
     print("[20a] the scaling ladder: neutfem_tpu_torch.scaling.main([]), float32 at "
           "bench.FULL_TOL")
@@ -3333,7 +3220,6 @@ def _last_entry_points(dev, card, reset_counts, counts, cg_line, rows):
               f"{launched(r, keys, '[20a] ' + r['mesh'])} ({card})")
         cg_line(r["cg"])
         _check_anchor(f"[20a] IAEA-3D {r['mesh']}", r["keff"], r["outers"], r["inners"], k_a, tol)
-        replaced_idle(r["launches"], f"[20a] {r['mesh']}")
         want_pc = "line" if r["n_cells"] >= 3_000_000 else "jacobi"  # power.LINE_MIN_CELLS
         if r["preconditioner"] != want_pc:
             raise RuntimeError(f"[20a] {r['mesh']}: preconditioner {r['preconditioner']!r}")
@@ -3353,7 +3239,6 @@ def _last_entry_points(dev, card, reset_counts, counts, cg_line, rows):
               f"{r['inners']}, {1e3 * r['s_per_outer']:.3f} ms/outer, peak {r['peak_mem_gb']} GB; "
               f"launches {launched(r, keys, '[20b] ' + r['mesh'])} ({card})")
         cg_line(r["cg"])
-        replaced_idle(r["launches"], f"[20b] {r['mesh']}")
         if r["dtype"] != str(f64):
             raise RuntimeError(f"[20b] {r['mesh']}: dtype {r['dtype']}")
         if r["mesh"] in LADDER_ANCHORS_F64:
@@ -3426,9 +3311,9 @@ def _last_entry_points(dev, card, reset_counts, counts, cg_line, rows):
             raise RuntimeError(f"[20c] RT{order}-P{order} {n}x{n}x{nz}: no solve within "
                                f"{OUTERS_TOL} outers of {o_a}")
         if (any(L[k] <= 0 for k in HO_KEYS) or L["blockjac_dev"] < inners or L["thomas_rows"] <= 0
-                or any(L[k] for k in (*HO_OLD, "blockjac", "blockjac_tiled", "thomas"))):
+                or L["blockjac_tiled"]):
             raise RuntimeError(f"[20c] RT{order}-P{order} {n}x{n}x{nz}: K6 / K8 / K4 launches "
-                               "off, or a replaced kernel launched")
+                               "off, or K8 ran on the inverse")
         for kid, row in _ho_rows(f"IAEA-3D {n}x{n}x{nz} RT{order}-P{order}", run, L, card,
                                  rng).items():
             rows[f"{kid} RT{order} {n}x{n}x{nz}"] = row
@@ -3481,24 +3366,17 @@ def main():
 
     from neutfem_tpu_torch import bench, krylov
     from neutfem_tpu_torch.data import BENCHMARKS
-    from neutfem_tpu_torch.ops import (blockjac, cgstep, cuda_lib, fused, fused_eq, fused_ho,
-                                       launch_counters, thomas)
+    from neutfem_tpu_torch.ops import cuda_lib
     from neutfem_tpu_torch.power import ctx_group
 
-    def reset_counts():
-        for c in launch_counters():
-            c.update(dict.fromkeys(c, 0))
-        krylov.reset_stats()
-
-    def counts():
-        return {k: v for c in launch_counters() for k, v in c.items()}
+    reset_counts, counts = _reset_counts, _counts
 
     def cg_line(cg=None):
         """Print the CG counts of a path (``cg``: a bench row's timed solves,
         default every solve since ``reset_counts``) with its host reads per
         iteration, and check that every CG ran as graph replays, one host read
         a replay, at least one a solve and at most ceil(n / BLOCK_ITERS)."""
-        cg = dict(krylov.STATS) if cg is None else cg
+        cg = bench.cg_counts() if cg is None else cg
         k = krylov.BLOCK_ITERS
         print(f"    CG: {cg['solves']} solves, {cg['iterations']} iterations, "
               f"{cg['host_reads']} host reads ({cg['host_reads'] / max(cg['iterations'], 1):.4f} "
@@ -3639,10 +3517,8 @@ def main():
     # K7: the five equilibration-folded directions on the same direction
     # operands.  sdi and ce are drawn from [0.5, 2]: the context's ce = C*sdi
     # reaches 2.8e9 in IAEA-3D's absorber cells (IAEA-3D 1x1), where one ulp
-    # of ce*y exceeds the contribution's tolerance, and the thread-per-line
-    # kernel held beside the tiled one contracts ce*y + contribution into an
-    # FMA (two roundings in the plain version and the tiled kernel); phases
-    # [4] and [12] run the real ones.
+    # of ce*y exceeds the contribution's tolerance; phases [4] and [12] run
+    # the real ones.
     sdi, ce = (torch.as_tensor(rng.uniform(0.5, 2.0, shape), dtype=f32, device=dev)
                for _ in range(2))
     for key in EQ_REPLACES:
@@ -3709,26 +3585,22 @@ def main():
 
     # [4] small input: the GPU (kernels) against the CPU (plain versions), float64
     t0 = time.perf_counter()
-    # the tiled kernels a case launches on the GPU, and the old ones it must not
-    # (compute_current's K4 in each: the tiled kernel, not the thread-per-line one)
-    tiled = {"RT0-P0": ((*Z_KEYS, "thomas_rows"), (*Z_OLD, "thomas")),
-             "RT1-P1": ((*HO_KEYS, "thomas_rows"), (*HO_OLD, "thomas")),
-             "Jacobi sweep": (("z_batched_rows", *K5_KEYS, "thomas_rows"),
-                              ("z_batched", *K5_OLD, "thomas")),
-             "adjoint": ((*Z_KEYS, "thomas_rows"), (*Z_OLD, "thomas"))}
+    # the tiled kernels a case launches on the GPU (compute_current's K4 in each)
+    tiled = {"RT0-P0": (*Z_KEYS, "thomas_rows"), "RT1-P1": (*HO_KEYS, "thomas_rows"),
+             "Jacobi sweep": ("z_batched_rows", *K5_KEYS, "thomas_rows"),
+             "adjoint": (*Z_KEYS, "thomas_rows")}
     for case in ("RT0-P0", "RT1-P1", "Jacobi sweep", "adjoint"):
         small = {}
         for device in ("cpu", "cuda"):
             reset_counts()
             small[device] = _small_solve(bench, spec, device, case)
-        new, old = tiled.get(case, ((), ()))
-        launched = {k: counts()[k] for k in (*new, *old)}
+        launched = {k: counts()[k] for k in tiled[case]}
         print(f"[4] IAEA-3D 1x1 {case} float64: cuda {small['cuda']}  cpu {small['cpu']}"
               + (f"; launches {launched}" if launched else ""))
         if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
                 or small["cuda"][1] != small["cpu"][1]
                 or abs(small["cuda"][2] - small["cpu"][2]) > 2
-                or any(launched[k] <= 0 for k in new) or any(launched[k] for k in old)):
+                or any(launched[k] <= 0 for k in tiled[case])):
             raise RuntimeError(f"IAEA-3D 1x1 {case}: the GPU solve disagrees with the "
                                "CPU reference, or the tiled kernels did not serve it")
     for mode in EQ_MODES:  # the equilibration-folded matvec (K7) on the GPU
@@ -3750,16 +3622,15 @@ def main():
                                f"iteration, or an idle kernel launched ({idle})")
     small = {}
     for device in ("cpu", "cuda"):  # the 2D directions: the tiled K2 / K3 kernel
-        fused.reset_launches()
+        reset_counts()
         small[device] = _small_2d_solve(bench, device)
-    launched = {k: fused.LAUNCHES[k] for k in ("y_rows", "x_rows", "y", "x")}
+    launched = {k: counts()[k] for k in ("y_rows", "x_rows")}
     print(f"[4] KOEBERG 4x4 float64: cuda {small['cuda']}  cpu {small['cpu']}; K2 / K3 launches "
           f"{launched}")
     if (abs(small["cuda"][0] - small["cpu"][0]) > 1e-9
             or small["cuda"][1] != small["cpu"][1]
             or abs(small["cuda"][2] - small["cpu"][2]) > 2
-            or min(launched["y_rows"], launched["x_rows"]) < small["cuda"][2]
-            or launched["y"] or launched["x"]):
+            or min(launched["y_rows"], launched["x_rows"]) < small["cuda"][2]):
         raise RuntimeError("KOEBERG 4x4: the GPU solve disagrees with the CPU reference, or the "
                            "tiled K2 / K3 kernel did not run every CG iteration")
     print(f"    [4] {time.perf_counter() - t0:.1f} s")
@@ -3772,8 +3643,9 @@ def main():
     launches = counts()
     print(f"    launches {launches}")
     cg_line(res["detail"]["cg"])
-    print(f"    CG step kernels (cgstep.LAUNCHES): {dict(cgstep.LAUNCHES)}")
-    if min(cgstep.LAUNCHES.values()) <= 0:
+    step = {k: launches[k] for k in ("cg_xr", "cg_p")}
+    print(f"    CG step kernels (cgstep.cg_xr, cgstep.cg_p): {step}")
+    if min(step.values()) <= 0:
         raise RuntimeError("main path: the CG step kernels (cg_xr, cg_p) did not launch")
     row = rows["CG step IAEA-3D 6x6x4"]
     row["launches"] = launches[row.pop("key")]
@@ -3784,12 +3656,9 @@ def main():
     _check_anchor("RT0-P0 6x6x4", keff, outers, inners,
                   (KEFF_ANCHOR, OUTERS_ANCHOR, INNERS_ANCHOR))
     keff_main = keff
-    if any(launches[k] for k in (*fused_eq.LAUNCHES, *blockjac.LAUNCHES)):
+    opt_in = (*(f"{k}_rows" for k in EQ_REPLACES), "blockjac_tiled", "blockjac_dev")
+    if any(launches[k] for k in opt_in):
         raise RuntimeError("main path: an opt-in kernel (K7, K8) launched without its switch")
-    if any(launches[k] for k in Z_OLD):
-        raise RuntimeError("main path: a thread-per-line kernel served z, y or x")
-    if launches["thomas"]:
-        raise RuntimeError("main path: the thread-per-line K4 launched")
     for rid in ("K1", "K2", "K3", "K4 z", "K4 y", "K4 x"):
         row = rows[rid]
         row["launches"] = launches[row.pop("key")]
@@ -3819,18 +3688,13 @@ def main():
         if launches["blockjac_dev"] < inners:
             raise RuntimeError(f"RT{order}-P{order}: the E-form K8 launched "
                                f"{launches['blockjac_dev']} times for {inners} CG iterations")
-        for key in HO_OLD:
-            if launches[key] != 0:
-                raise RuntimeError(f"RT{order}-P{order}: the thread-per-(mode, line) K6 {key} "
-                                   f"launched {launches[key]} times")
         for key in ("z", "y", "x"):
             row = ho_rows[order][key]
             row["launches"] = launches[row.pop("key")]
             rows[f"K6 {key}" + ("" if order == 2 else f" RT{order}")] = row
-        for key in ("blockjac", "blockjac_tiled", "thomas"):
-            if launches[key] != 0:
-                raise RuntimeError(f"RT{order}-P{order}: {key} launched {launches[key]} times on "
-                                   "the default path")
+        if launches["blockjac_tiled"] != 0:
+            raise RuntimeError(f"RT{order}-P{order}: blockjac_tiled launched "
+                               f"{launches['blockjac_tiled']} times on the default path")
         row = ho_rows[order]["K8"][0]
         row["launches"] = launches[row.pop("key")]
         rows[f"K8 E-form RT{order}"] = row
@@ -3862,10 +3726,6 @@ def main():
         for key in ("y_rows", "x_rows", "thomas_wide_rows"):
             if launches[key] <= 0:
                 raise RuntimeError(f"{core}: {key} not launched on the 2D path")
-        for key in ("y", "x", "thomas_y"):
-            if launches[key] != 0:
-                raise RuntimeError(f"{core}: the replaced kernel {key} launched "
-                                   f"{launches[key]} times")
         launches_2d[core] = launches
         print(f"    [7] {core} {time.perf_counter() - t0:.1f} s")
     for rid, core in (("K2 2D", "zion2d"), ("K3 2D", "zion2d"), ("K2 KOEBERG", "koeberg2d"),
@@ -3889,11 +3749,11 @@ def main():
     _check_anchor("IAEA-3D 8x8x8", keff, outers, inners, SCALE_ANCHOR, SCALE_KEFF_TOL)
     if det["preconditioner"] != "line":
         raise RuntimeError(f"IAEA-3D 8x8x8: preconditioner {det['preconditioner']!r}, not line")
-    if launches["thomas_rows"] < inners or launches["thomas"]:
+    if launches["thomas_rows"] < inners:
         raise RuntimeError(f"IAEA-3D 8x8x8: {launches['thomas_rows']} tiled z Thomas launches "
-                           f"for {inners} CG iterations, {launches['thomas']} thread-per-line")
+                           f"for {inners} CG iterations")
     rows["K4 8x8x8"]["launches"] = launches[rows["K4 8x8x8"].pop("key")]
-    if any(launches[k] < inners for k in Z_KEYS) or any(launches[k] for k in Z_OLD):
+    if any(launches[k] < inners for k in Z_KEYS):
         raise RuntimeError("IAEA-3D 8x8x8: the tiled K1-K3 did not serve every CG iteration")
     rows["K1 8x8x8"]["launches"] = launches[rows["K1 8x8x8"].pop("key")]
     print(f"    [8] {time.perf_counter() - t0:.1f} s")
@@ -3926,10 +3786,10 @@ def main():
     for key in ("z_batched_rows", *K5_KEYS):
         if launches[key] <= 0:
             raise RuntimeError(f"Jacobi sweep: {key} not launched on the path")
-    for key in (*Z_OLD, *Z_KEYS, "z_batched", *K5_OLD):
+    for key in Z_KEYS:
         if launches[key] != 0:
-            raise RuntimeError(f"Jacobi sweep: the one-group or thread-per-line batched kernel "
-                               f"{key} launched {launches[key]} times")
+            raise RuntimeError(f"Jacobi sweep: the one-group kernel {key} launched "
+                               f"{launches[key]} times")
     for rid in ("K1 batched z", "K5 y", "K5 x"):
         rows[rid]["launches"] = launches[rows[rid].pop("key")]
     print(f"    [9] {time.perf_counter() - t0:.1f} s")
@@ -3957,8 +3817,6 @@ def main():
     for key in (*Z_KEYS, "thomas_rows"):
         if launches[key] <= 0:
             raise RuntimeError(f"adjoint: {key} not launched on the path")
-    if any(launches[k] for k in (*Z_OLD, "thomas")):
-        raise RuntimeError("adjoint: a thread-per-line kernel served z, y, x or K4")
     print(f"    [10] {time.perf_counter() - t0:.1f} s")
 
     # [11] the facade's variants: one timed solve each from a cold flux, at
@@ -3997,8 +3855,7 @@ def main():
     launches = counts()
     print(f"    CMFD and coarse init: launches {launches}")
     cg_line()
-    if (any(launches[k] <= 0 for k in (*Z_KEYS, "thomas_rows"))
-            or any(launches[k] for k in (*Z_OLD, "thomas"))):
+    if any(launches[k] <= 0 for k in (*Z_KEYS, "thomas_rows")):
         raise RuntimeError("CMFD / coarse init: the tiled K1-K3 did not serve them")
     del run, s
     d2 = bench.BenchmarkRun(BENCHMARKS["iaea2d"], mesh_n=3,
@@ -4063,12 +3920,10 @@ def main():
         raise RuntimeError(f"NEUTFEM_BLKFP8=0: block storage {det['block_precond']}")
     _check_anchor("RT1-P1 4x4x2 NEUTFEM_BLOCKJAC=1", keff, outers, inners,
                   (HO_ANCHORS[1][0], HO_ANCHORS[1][1], BLOCKJAC_INNERS))
-    if launches["blockjac_tiled"] < inners or launches["blockjac"] or launches["blockjac_dev"]:
+    if launches["blockjac_tiled"] < inners or launches["blockjac_dev"]:
         raise RuntimeError(f"NEUTFEM_BLOCKJAC=1: K8 launched {launches['blockjac_tiled']} times "
-                           f"(thread per cell {launches['blockjac']}, E-form "
-                           f"{launches['blockjac_dev']}) for "
-                           f"{inners} CG iterations")
-    if any(launches[k] <= 0 for k in HO_KEYS) or any(launches[k] for k in HO_OLD):
+                           f"(E-form {launches['blockjac_dev']}) for {inners} CG iterations")
+    if any(launches[k] <= 0 for k in HO_KEYS):
         raise RuntimeError("NEUTFEM_BLOCKJAC=1: the tiled K6 did not serve every direction")
     for order in (2, 1):
         row = ho_rows[order]["K8"][1]
@@ -4093,8 +3948,6 @@ def main():
     for key in (*Z_KEYS, "thomas_rows"):
         if launches[key] <= 0:
             raise RuntimeError(f"NEUTFEM_CGCG=1: {key} not launched on the path")
-    if any(launches[k] for k in (*Z_OLD, "thomas")):
-        raise RuntimeError("NEUTFEM_CGCG=1: a thread-per-line kernel served z, y, x or K4")
     print(f"    [12] CGCG {time.perf_counter() - t0:.1f} s")
 
     # [13] the CG's captured blocks against the eager block loop on the card
@@ -4136,7 +3989,7 @@ def main():
     graph_l = _graph_case("ZION 48x48 group 0 (line preconditioner: K4′)", s, line_opts, 0, card)
     # the launches of the one timed line-preconditioned group solve
     rows["K4′ line"]["launches"] = graph_l.get(rows["K4′ line"].pop("key"), 0)
-    if graph_l.get("thomas_wide_rows", 0) <= 0 or graph_l.get("thomas_y", 0):
+    if graph_l.get("thomas_wide_rows", 0) <= 0:
         raise RuntimeError("ZION line preconditioner: the tiled K4′ did not run in the graph")
     del run, s
     print(f"    [13] {time.perf_counter() - t0:.1f} s")

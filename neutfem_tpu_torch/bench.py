@@ -69,11 +69,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import krylov
+from . import tracing
 from .compat import BCType, LinearSolverType, NeutFEM, VerbosityLevel
 from .data import BENCHMARKS, sigr_of
 from .mesh import boundary_attribute
-from .ops import launch_counters
 from .power import power_iteration
 
 __all__ = ["BenchmarkRun", "main", "main_ho", "main_2d", "main_scale", "main_2p6m",
@@ -296,10 +295,36 @@ class BenchmarkRun:
         return 100.0 * (reference_map - self.Fass) / reference_map
 
 
+#: The CG counters a row reports under ``detail["cg"]``: ``tracing``'s
+#: ``cg.<key>``.
+CG_KEYS = ("solves", "iterations", "host_reads", "replays", "captures", "eager_solves")
+#: The prefixes of ``tracing``'s launch counters (the kernel modules, the cut
+#: direction's face solves, the collectives), which a row reports under their
+#: bare keys ("z_rows", "thomas_rows", "collectives", ...).
+LAUNCH_PREFIXES = ("fused", "thomas", "fused_ho", "fused_eq", "blockjac", "cgstep", "parttri",
+                   "comm")
+
+
+def reset_cg_counts() -> None:
+    """Zero the ``cg.*`` counters (``cg.iterations_run`` too)."""
+    tracing.reset_totals([f"cg.{k}" for k in CG_KEYS] + ["cg.iterations_run"])
+
+
+def cg_counts() -> dict:
+    """The ``cg.*`` counters' totals under ``CG_KEYS``."""
+    return {k: tracing.total(f"cg.{k}") for k in CG_KEYS}
+
+
+def launch_counts() -> dict:
+    """Every launch counter's total so far, under its bare key."""
+    return {name.partition(".")[2]: n for name, n in tracing.totals().items()
+            if name.partition(".")[0] in LAUNCH_PREFIXES}
+
+
 def _cg_detail() -> dict:
-    """The CG counts of the timed solve(s) (``krylov.STATS``, reset just
+    """The CG counts of the timed solve(s) (``cg_counts``, reset just
     before them) and host reads per CG iteration."""
-    st = dict(krylov.STATS)
+    st = cg_counts()
     st["host_reads_per_iteration"] = round(st["host_reads"] / max(st["iterations"], 1), 4)
     return st
 
@@ -324,7 +349,7 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.float32) 
     # solve 1 is a warm-up; then three timed solves from a cold flux, median
     run.solve(tol=FULL_TOL)
     walls = []
-    krylov.reset_stats()
+    reset_cg_counts()
     for _ in range(3):
         run.solver.reset_flux()
         t0 = time.time()
@@ -391,7 +416,7 @@ def main_ho(order: int, mesh_n: int = 4, mesh_nz: int = 2, device="cuda",
                          f"{mesh_nz}")
     run.solve(tol=HO_TOL)
     run.solver.reset_flux()
-    krylov.reset_stats()
+    reset_cg_counts()
     t0 = time.time()
     keff = run.solver.SolveKeff()  # ends in a device -> host read of k
     wall = time.time() - t0
@@ -422,14 +447,10 @@ CORES_2D = {"koeberg2d": "koeberg2d_4group_seconds_per_outer_iteration",
             "zion2d": "zion2d_seconds_per_outer_iteration"}
 
 
-def _launch_counts() -> dict:
-    """Every kernel's launch count so far."""
-    return {k: v for c in launch_counters() for k, v in c.items()}
-
-
 def _launches_since(before: dict) -> dict:
     """The kernels launched since the counts ``before``, with their launches."""
-    return {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()
+            if v != before.get(k, 0)}
 
 
 def _timed_run(spec, what: str, device, dtype, **kwargs):
@@ -442,8 +463,8 @@ def _timed_run(spec, what: str, device, dtype, **kwargs):
     run = BenchmarkRun(spec, verbose=False, device=device, dtype=dtype, **kwargs)
     run.solve(tol=FULL_TOL)
     run.solver.reset_flux()
-    krylov.reset_stats()
-    before = _launch_counts()
+    reset_cg_counts()
+    before = launch_counts()
     t0 = time.time()
     keff = run.solver.SolveKeff()  # ends in a device -> host read of k
     wall = time.time() - t0
@@ -536,7 +557,7 @@ def main_adjoint(mesh_n: int = 6, mesh_nz: int = 4, device="cuda", dtype=torch.f
     s = run.solver
     s.SolveAdjoint(use_direct_keff=False)
     s._phi_adj = None  # cold adjoint flux
-    krylov.reset_stats()
+    reset_cg_counts()
     t0 = time.time()
     k_adj = s.SolveAdjoint(use_direct_keff=False)  # ends in device -> host reads
     wall = time.time() - t0
@@ -587,7 +608,7 @@ def main_sweep(sweep: str = "jacobi", mesh_n: int = 6, mesh_nz: int = 4, device=
     opts = dataclasses.replace(s._opts(), sweep=sweep)
     if s._device.type == "cuda":
         torch.cuda.synchronize(s._device)
-    krylov.reset_stats()
+    reset_cg_counts()
     t0 = time.time()
     res = power_iteration(s._fes, s._ng, opts, s._ctx, s._flat_phi(), 1.0)
     keff = float(res["keff"])  # a device -> host read
@@ -656,8 +677,8 @@ def main_accel(configs=ACCEL_CONFIGS, accels=ACCELS, device="cuda",
             s.reset_flux()
             s.SolveKeff()
             s.reset_flux()
-            krylov.reset_stats()
-            before = _launch_counts()
+            reset_cg_counts()
+            before = launch_counts()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.time()
@@ -796,8 +817,8 @@ def main_variants(rows=VARIANTS, mesh=(6, 4), ho_mesh=(4, 2), device="cuda",
         run, s, solve = _variant_setup(row, spec, mesh, ho_mesh, device, dtype)
         if warmup:
             solve()
-        krylov.reset_stats()
-        before = _launch_counts()
+        reset_cg_counts()
+        before = launch_counts()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.time()

@@ -22,7 +22,7 @@
 // each): 207 MB for the E-form at IAEA-3D 4x4x2 RT2-P2 (P = 27, 219,488
 // cells), 62 us at 3.35 TB/s. About one float operation per byte.
 //
-// Design. The thread-per-cell kernel (blockjac.cu) moved 2 bytes of a plane
+// Design. The thread-per-cell kernel it replaced moved 2 bytes of a plane
 // per lane and load, and kept r in registers, so few warps and few bytes
 // stayed in flight. Here a block owns T = 32*V consecutive cells and runs W
 // warps; lane L owns the V cells [L*V, L*V + V) of the tile, so one (p, q)

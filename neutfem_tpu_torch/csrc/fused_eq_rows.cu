@@ -10,13 +10,13 @@
 //   _fused_yT_eq2 / _body_yT_eq2  (:652 / :337, y, mode 2): acc + Y(sdi*y)
 //   _fused_z_eq2  / _body_z_eq2   (:681 / :367, z, mode 2): sdi*(acc + Z(sdi*y))
 // with X, Y, Z the direction operators B_d A_d^-1 B_d^T. One template,
-// fused_eq_rows_kernel, serves all five through compile-time flags (those of
-// fused_eq_kernel, csrc/fused_eq.cu, the thread-per-line kernel it replaces):
+// fused_eq_rows_kernel, serves all five through compile-time flags
+// (ops/fused_eq._FLAGS):
 //   PRE     the recurrence runs on v = sdi*y, formed in shared memory;
 //   EMIT_U  u = sdi*y is written out (mode 1's x kernel);
 //   CE      out = ce*y + contribution, acc is not read (both x variants);
 //   POST    out = sdi*(acc + contribution) (both z variants).
-// Layouts, as fused_dir_kernel's: line b is (outer, inner) = (b / inner,
+// Layouts, as fused_rows.cu's: line b is (outer, inner) = (b / inner,
 // b % inner), its cells at outer*outer_stride + inner + e*cell_stride, its
 // staged face operands (dm = dinv*mask, l) at b + f*lines. The x variants
 // (CE) stage y, sdi and ce cell-fastest along each line (cell_stride 1, as
@@ -31,9 +31,10 @@
 // Bound on this card: bytes. One launch reads y, sdi, dm, l and acc or ce
 // once and writes the output (and u) once -- 19.8-27.7 MB at IAEA-3D 6x6x4
 // (987,696 cells, float32), 7.1-8.3 us at 3.35 TB/s; 14-16 float operations
-// per cell are far below the float32 rate. The thread-per-line kernel
-// reached 10-18% of that: 8,664-12,996 lines, one thread each, walking 2n
-// dependent steps on global loads with a global (n, lines) z scratch.
+// per cell are far below the float32 rate. The thread-per-line kernel it
+// replaced reached 10-18% of that: 8,664-12,996 lines, one thread each,
+// walking 2n dependent steps on global loads with a global (n, lines) z
+// scratch.
 //
 // Design: the tile of fused_rows.cu (rows_tile) with the flags folded in.
 // A block owns TL neighbouring lines and runs TL*CH threads, thread (t, c)

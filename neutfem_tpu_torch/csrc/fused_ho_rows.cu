@@ -8,7 +8,7 @@
 //   _fused_y_ho / _body_y_ho  (:389 / :175, y direction, solve-axis-major staging)
 //   _fused_x_ho / _body_x_ho  (:425 / :231, x direction; here the unpadded
 //                              (nx+1 / nx, nz*ny) layout)
-// on the operands fused_ho_kernel (fused_ho.cu) takes: a line b has its cells
+// on the operands ops/fused_ho.py stages: a line b has its cells
 // at cb + e*cell_stride inside each mode plane, cb = (b / inner)*outer_stride +
 // b % inner, and its staged face operands (dm = dinv*mask, l, alpha) at
 // b + f*lines, solve-axis-major.
@@ -30,7 +30,7 @@
 // Bound on this card: the function reads v, acc and the three face operands
 // once and writes acc once -- 73.7 MB at RT2-P2 4x4x2 (76x76x38 cells, P = 27,
 // float32), 22 us at 3.35 TB/s; ~20 flops per value are far below the
-// float32 rate. The thread-per-(t, line) kernel (fused_ho.cu) reaches 12-20%
+// float32 rate. The thread-per-(t, line) kernel it replaced reached 12-20%
 // of that: 26k-52k threads each walk ~2n dependent steps on global loads, z
 // round-trips through a global (T, n, lines) scratch, every face operand is
 // read by all K1^2 threads of a line, and the x lines' v and acc reads are

@@ -4,12 +4,12 @@
 // Replaces the TPU kernels of neutfem_tpu/ops/pallas_fused.py:
 //   _fused_yT / _body_yT  (:518 / :398, y direction, solve-axis-major staging) -- K2
 //   _fused_xT / _body_xT  (:547 / :202, x direction, pre-transposed staging)   -- K3
-// on the operands fused_dir_kernel (fused_dir.cu) takes for them: a line b
+// on the operands ops/fused.py stages for them: a line b
 // has its cells at cb + e*cell_stride, cb = (b / inner)*outer_stride +
 // b % inner, and its staged face operands dm (n+1 faces) and l (n) at
 // b + f*lines, solve-axis-major. fused_rows_batched_kernel runs the same tile
 // for every group of a group-batched flux (ng, 1, nz, ny, nx), group g =
-// blockIdx.y, on the per-group layouts fused_dir_batched_kernel takes:
+// blockIdx.y, on ops/fused.py's per-group layouts:
 //   _fused_y / _body_y    (:489 / :166, y, per-group factors)                -- K5
 //   _fused_x / _body_x    (:704 / :430, x, per-group factors)                -- K5
 //
@@ -22,7 +22,7 @@
 // Bound on this card: the function reads v, acc, dm and l once and writes
 // acc once -- 16.6 MB at ZION 48x48 (912 lines of 912 cells, float32), 5.0 us
 // at 3.35 TB/s; 13 flops per cell are far below the float32 rate. The
-// thread-per-line kernel (fused_dir.cu) reaches ~1.5% of that at the 2D rows:
+// thread-per-line kernel it replaced reached ~1.5% of that at the 2D rows:
 // 912 lines fill 8 blocks on 8 of 132 SMs, each thread walks ~2n dependent
 // steps on global loads, the x lines' v and acc reads are strided by nx, and
 // z round-trips through a global (n, lines) scratch.
@@ -244,7 +244,7 @@ __global__ void fused_rows_kernel(T* __restrict__ acc, const T* __restrict__ v,
 
 // The group-batched directions (K5): group g = blockIdx.y has its cells at
 // g*group_stride and its staged face operands in its own blocks, dm at
-// g*(n+1)*lines and l at g*n*lines (the layout of fused_dir_batched_kernel);
+// g*(n+1)*lines and l at g*n*lines (ops/fused.py's batched layout);
 // lines counts one group's lines.
 template <typename T, bool kLineMajor>
 __global__ void fused_rows_batched_kernel(T* __restrict__ acc, const T* __restrict__ v,

@@ -20,7 +20,7 @@
 // Bound on this card: the function reads v, acc, dm and l once and writes
 // acc once -- 19.8 MB at IAEA-3D 6x6x4 (12,996 lines of 76 cells, float32),
 // 5.9 us at 3.35 TB/s; 70.4 MB at 8x8x8, 21.0 us. 13 flops per cell are far
-// below the float32 rate. The thread-per-line kernel (fused_dir.cu) walked
+// below the float32 rate. The thread-per-line kernel it replaced walked
 // each line's 2n dependent steps on global memory with a global z scratch.
 //
 // Design. rows_tile (fused_rows.cu) stages a tile line-major, a row of faces

@@ -4,7 +4,7 @@
 // Replaces the TPU kernels of neutfem_tpu/ops/pallas_tridiag.py dispatched by
 // thomas_solve (:253): _solve_z / _z_kernel (:181, axis -3), _solve_rows /
 // _rows_kernel (:213, axis -2) and _solve_transpose / _transpose_kernel
-// (:229, axis -1), in place of thomas_kernel (thomas.cu: a thread per line).
+// (:229, axis -1), in place of a thread-per-line kernel (since deleted).
 // The operands are contiguous with shape (outer, n, inner): line b = (o, i)
 // has element k at o*n*inner + i + k*inner and its multipliers l (n-1 per
 // line) at o*(n-1)*inner + i + k*inner.
@@ -278,4 +278,10 @@ extern "C" int neutfem_thomas_rows_f64(const void* r, const void* d, const void*
                                        int n, long long outer, long long inner, int tl, int ch,
                                        void* stream) {
   return launch<double>(r, d, l, out, n, outer, inner, tl, ch, stream);
+}
+
+// Message for an error code returned by any launcher of the library
+// (ops/cuda_lib.check).
+extern "C" const char* neutfem_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }

@@ -7,8 +7,8 @@
 // whose rows are too wide for _solve_rows -- the 2D y solves: compute_current's
 // (B, 1, 1, ny+1, nx) (ZION 48x48: 1,824 lines of 913 faces; KOEBERG 32x32:
 // 2,176 lines of 545) and the 2D line preconditioner's (1, 1, ny, nx). In
-// place of thomas_wide_kernel (thomas.cu: 32 lines x 16 chunks per block, 57
-// blocks at ZION, every element read twice from device memory). The operands
+// place of a thread-per-chunk kernel (since deleted: 32 lines x 16 chunks per
+// block, 57 blocks at ZION, every element read twice from device memory). The operands
 // are contiguous with shape (outer, n, inner): line (o, i) has element k at
 // o*n*inner + i + k*inner and its multipliers l (n-1 per line) at
 // o*(n-1)*inner + i + k*inner.

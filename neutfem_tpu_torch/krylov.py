@@ -42,10 +42,6 @@ The three recurrences:
   its order; taken by ``power.group_solve`` under ``inner_solver="bicgstab"``
   and by CMFD's "wielandt" low-order eigensolve (``cmfd.py``).
 
-The kernels' launch counters (``ops/*.LAUNCHES``) count device launches: a
-replay adds what its capture launched, frozen iterations included (a block
-launches its kernels BLOCK_ITERS times whether or not ``go`` still holds).
-
 Tracing (``tracing.py``): the spans ``neutfem.cg.prologue`` (the eager
 prologue, a capture where one is due, the copy into the graph's static
 state), ``neutfem.cg.capture`` and ``neutfem.cg.replay`` (each
@@ -54,31 +50,30 @@ a block) and ``capture`` (entering a capture, which synchronizes the
 device), and the counters ``cg.solves``, ``cg.iterations`` (the solves'
 live iterations), ``cg.iterations_run`` (what the blocks launched:
 BLOCK_ITERS a replay, the eager block size a read), ``cg.host_reads``,
-``cg.replays``, ``cg.captures`` and ``cg.eager_solves``.  ``STATS`` reads
-their process totals under its old keys.  A preconditioner passed as a
-``Tallied`` has its applies counted on the host under its own counter: the
-prologue's and each eager block's where they run, a capture's warm-up step,
-and each replay's as its iterations times the applies of one step, so the
-captured step holds no counting.
+``cg.replays``, ``cg.captures`` and ``cg.eager_solves``.  Whatever the
+captured step counts (``tracing.count`` in a kernel wrapper, a collective,
+a preconditioner: ``fused.z_rows``, ``comm.collectives``,
+``precond.line_applies``, ...) a replay counts again: ``CGGraph`` takes back
+what its capture counted and adds it at each replay, frozen iterations
+included (a block runs its step BLOCK_ITERS times whether or not ``go``
+still holds).
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import gc
-from collections.abc import Mapping
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from . import tracing
-from .ops import cgstep, launch_counters
+from .ops import cgstep
 from .shardctx import allsum, current_sharding
 
 __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
-           "bicgstab_blocks", "CGGraph", "CGPlans", "Tallied",
-           "CG_PLANS", "drop_plans", "KrylovResult", "BLOCK_ITERS", "STATS", "reset_stats"]
+           "bicgstab_blocks", "CGGraph", "CGPlans", "CG_PLANS", "drop_plans", "KrylovResult",
+           "BLOCK_ITERS"]
 
 #: Iterations per block (per host read) of a CG on a CUDA tensor: the
 #: captured graph holds this many iterations.  Swept on an H100 over 4, 8, 16
@@ -87,70 +82,14 @@ __all__ = ["pcg", "pcg_fused", "pcg_blocks", "pcg_fused_blocks", "bicgstab",
 #: host-bound RT0 7% slower, ZION within its spread; 16 and 32 lose on all.
 BLOCK_ITERS = 4
 
-_STAT_KEYS = ("solves", "iterations", "host_reads", "replays", "captures", "eager_solves")
-
 #: The blocks' span names (``tracing``).
 PROLOGUE, REPLAY, CAPTURE = "neutfem.cg.prologue", "neutfem.cg.replay", "neutfem.cg.capture"
-
-
-class _Stats(Mapping):
-    """The ``cg.<key>`` counters' process totals (``tracing.total``) under
-    their old keys, read-only."""
-
-    def __getitem__(self, key):
-        if key not in _STAT_KEYS:
-            raise KeyError(key)
-        return tracing.total("cg." + key)
-
-    def __iter__(self):
-        return iter(_STAT_KEYS)
-
-    def __len__(self):
-        return len(_STAT_KEYS)
-
-
-#: Counts since ``reset_stats``: CG solves, their iterations, host reads of
-#: the stop test, graph replays, graph captures, and the solves on the card
-#: that ran the eager block loop because their sharding scope's transport
-#: cannot be captured (``shardctx.Transport.capturable``).
-STATS = _Stats()
-
-
-def reset_stats() -> None:
-    """Zero every ``cg.*`` total (``cg.iterations_run`` too)."""
-    tracing.reset_totals(["cg." + k for k in _STAT_KEYS] + ["cg.iterations_run"])
 
 
 def _dot(a, b):
     """<a, b>: summed over the ranks under a sharding scope (``shardctx``),
     so every rank reads the same stop test."""
     return allsum(torch.sum(a * b))
-
-
-@dataclasses.dataclass(frozen=True)
-class Tallied:
-    """A preconditioner whose applies the solvers count on the host: each
-    call adds ``weight`` to the ``tracing`` counter ``counter``."""
-
-    apply: Callable
-    counter: str
-    weight: int = 1
-
-    def __call__(self, r):
-        return self.apply(r)
-
-
-#: (counter, applies in the prologue, applies an iteration) of a solve's
-#: ``Tallied`` preconditioner.
-Tally = Optional[Tuple[str, int, int]]
-
-
-def _tally(precond, prologue: int, step: int) -> Tally:
-    """The tally of ``precond`` called ``prologue`` times before the loop and
-    ``step`` times an iteration; None unless it is ``Tallied``."""
-    if not isinstance(precond, Tallied):
-        return None
-    return precond.counter, prologue * precond.weight, step * precond.weight
 
 
 class KrylovResult(NamedTuple):
@@ -227,24 +166,21 @@ class CGGraph:
     capture is made again where the state's shapes, dtypes, the block size or
     ``maxiter`` change.
 
-    The launch counters: the capture launches nothing, so what the wrappers
-    counted while it ran is taken back and added again at every replay.  A
-    ``tally`` (``_tally``) is counted on the host alike: once for the
-    capture's warm-up step, k steps' worth a replay."""
+    The counters (``tracing``): the capture runs nothing, so what its step
+    counted while it was captured is taken back and added again at every
+    replay; the warm-up step before it ran, and counts once."""
 
     def __init__(self):
         self.graph = None
         self.sig = None
         self.state: Dict[str, torch.Tensor] = {}
         self.status = None
-        self.launches = []
-        self.tally: Tally = None
+        self.counted: Dict[str, int] = {}
 
-    def load(self, step, st0, k: int, maxiter: int, tally: Tally = None):
+    def load(self, step, st0, k: int, maxiter: int):
         """Capture blocks of ``k`` iterations of ``step`` (which stops at
         ``maxiter``) where no capture of this signature is held, then copy
         the prologue's state ``st0`` into the static state."""
-        self.tally = tally
         sig = (k, maxiter, *((n, tuple(t.shape), t.dtype) for n, t in st0.items()))
         if self.graph is None or sig != self.sig:
             with tracing.span(CAPTURE):
@@ -262,10 +198,8 @@ class CGGraph:
                 self.graph.replay()
             tracing.count("cg.replays")
             tracing.count("cg.iterations_run", k)
-            if self.tally is not None:
-                tracing.count(self.tally[0], k * self.tally[2])
-            for counts, key, inc in self.launches:
-                counts[key] += inc
+            for name, n in self.counted.items():
+                tracing.count(name, n)
             it, go = _read(self.status)
             if not go:
                 break
@@ -281,9 +215,7 @@ class CGGraph:
         with torch.cuda.stream(side):
             step(dict(self.state))
         torch.cuda.current_stream().wait_stream(side)
-        if self.tally is not None:
-            tracing.count(self.tally[0], self.tally[2])
-        before = {id(c): dict(c) for c in launch_counters()}
+        before = tracing.totals()
         graph = torch.cuda.CUDAGraph()
         # no garbage collection while capturing: a graph it frees (a dropped
         # plan's, held in a reference cycle) is destroyed inside the capture,
@@ -305,28 +237,21 @@ class CGGraph:
         finally:
             if collecting:
                 gc.enable()
-        self.launches = []
-        for c in launch_counters():
-            b = before.get(id(c), {})
-            for key in c:
-                if c[key] != b.get(key, 0):
-                    self.launches.append((c, key, c[key] - b.get(key, 0)))
-                    c[key] = b.get(key, 0)
+        self.counted = {name: n - before.get(name, 0) for name, n in tracing.totals().items()
+                        if n != before.get(name, 0)}
+        for name, n in self.counted.items():
+            tracing.count(name, -n)
         self.graph = graph
         tracing.count("cg.captures")
 
 
-def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int,
-         tally: Tally = None):
+def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int):
     """The block loop of the solve whose prologue ``parts()`` makes (state,
     step, <b, b>, zero rhs): ``block`` iterations (eager) or one replay of
-    ``graph`` per host read, its preconditioner's applies counted by
-    ``tally``.  Returns (final state, iterations, <b, b>, zero rhs)."""
+    ``graph`` per host read.  Returns (final state, iterations, <b, b>, zero rhs)."""
     tracing.count("cg.solves")
     with tracing.span(PROLOGUE):
         st0, step, b_norm_sq, zero_rhs = parts()
-        if tally is not None:
-            tracing.count(tally[0], tally[1])
         if block is None:
             sh = current_sharding()
             if st0["x"].device.type == "cuda" and sh is not None and not sh[0].world.capturable:
@@ -336,7 +261,7 @@ def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int,
                 block = BLOCK_ITERS
             elif st0["x"].device.type == "cuda":
                 graph = graph if graph is not None else CGGraph()
-                graph.load(step, st0, BLOCK_ITERS, maxiter, tally)
+                graph.load(step, st0, BLOCK_ITERS, maxiter)
             else:
                 block = 1
     if block is None:
@@ -347,8 +272,6 @@ def _run(parts, graph: Optional[CGGraph], block: Optional[int], maxiter: int,
             for _ in range(block):
                 st = step(st)
             tracing.count("cg.iterations_run", block)
-            if tally is not None:
-                tracing.count(tally[0], block * tally[2])
             it, go = _read(_status(st))
             if not go:
                 break
@@ -406,7 +329,7 @@ def _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter):
 def _pcg(matvec, rhs, x0, precond, tol, maxiter, precond_dots, graph, block) -> KrylovResult:
     st, it, b_norm_sq, zero_rhs = _run(
         lambda: _pcg_parts(matvec, precond, precond_dots, rhs, x0, tol, maxiter), graph, block,
-        maxiter, None if precond_dots is not None else _tally(precond, 1, 1))
+        maxiter)
     return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
 
 
@@ -492,8 +415,7 @@ def _fused_parts(matvec, precond, rhs, x0, tol, maxiter):
 
 def _pcg_fused(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
     st, it, b_norm_sq, zero_rhs = _run(
-        lambda: _fused_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter,
-        _tally(precond, 1, 1))
+        lambda: _fused_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter)
     return _finish(st, b_norm_sq, zero_rhs, it, torch.abs(st["rr"]))
 
 
@@ -565,8 +487,7 @@ def _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter):
 
 def _bicgstab(matvec, rhs, x0, precond, tol, maxiter, graph, block) -> KrylovResult:
     st, it, b_norm_sq, zero_rhs = _run(
-        lambda: _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter,
-        _tally(precond, 0, 2))
+        lambda: _bicgstab_parts(matvec, precond, rhs, x0, tol, maxiter), graph, block, maxiter)
     return _finish(st, b_norm_sq, zero_rhs, it, st["rr"])
 
 

@@ -19,9 +19,9 @@ plane loads widened in registers; the dots accumulated in float64, per-block par
 finished by one ``torch.sum`` and rounded to float32 once, so they do not
 depend on the tile; no atomics, so the result is the same bit for bit from
 launch to launch) at the tile ``blockjac_tile`` picks; on a CPU tensor it runs
-``blockjac_dots_plain``.  A CUDA tensor the kernel does not take raises.  The
-thread-per-cell kernel of ``csrc/blockjac.cu`` stays in the library, launched
-by no wrapper.
+``blockjac_dots_plain``.  A CUDA tensor the kernel does not take raises.  A
+launch counts under ``tracing``'s ``blockjac.blockjac_tiled`` (the inverse
+forms) or ``blockjac.blockjac_dev`` (the E-form).
 
 Operands: ``blk`` (P, P, nz, ny, nx); ``r`` (..., P, nz, ny, nx) float32 with
 every leading dim of size 1.  Returns z shaped like r and the two dots as 0-d
@@ -32,25 +32,13 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib, launch_counter
+from .. import tracing
+from . import cuda_lib
 
-__all__ = ["blockjac_dots", "blockjac_dev_dots", "blockjac_dots_plain", "blockjac_tile",
-           "LAUNCHES", "reset_launches"]
-
-#: Kernel launches (incremented where the kernel is launched): "blockjac_tiled"
-#: the tiled kernel on the inverse forms, "blockjac_dev" on the E-form.
-#: "blockjac" counts the thread-per-cell kernel of ``csrc/blockjac.cu``, which
-#: no wrapper launches since the tiled one measured faster (PERF.md); the
-#: paths' checks hold it at 0.
-LAUNCHES = launch_counter({"blockjac": 0, "blockjac_tiled": 0, "blockjac_dev": 0})
+__all__ = ["blockjac_dots", "blockjac_dev_dots", "blockjac_dots_plain", "blockjac_tile"]
 
 #: The kernel's storage forms (``csrc/blockjac_tiled.cu``).
 _FORMS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def blockjac_dots_plain(blk, r, deviation: bool = False):
@@ -102,7 +90,7 @@ def _launch(blk, r, key, what, tile=None):
         _FORMS[blk.dtype], blk.data_ptr(), r.data_ptr(), z.data_ptr(), part.data_ptr(), P,
         cells, wide, warps, torch.cuda.current_stream(r.device).cuda_stream)
     cuda_lib.check(err, f"{what} (tiled kernel, P {P}, tile {(wide, warps)})")
-    LAUNCHES[key] += 1
+    tracing.count(f"blockjac.{key}")
     rz, rr = torch.sum(part, dim=0).to(torch.float32)
     return z, rz, rr
 

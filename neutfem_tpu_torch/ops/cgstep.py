@@ -12,7 +12,8 @@ On a CUDA tensor each launches its kernel of ``csrc/cg_step.cu``
 (``cg_step_xr_kernel``, ``cg_step_p_kernel``: flat over numel, float32 or
 float64, every product and sum rounded on its own, so the results equal the
 plain versions' bit for bit); a CUDA operand the kernel does not take
-raises.  On a CPU tensor each runs its plain version, the step's own
+raises; a launch counts under ``tracing``'s ``cgstep.cg_xr`` /
+``cgstep.cg_p``.  On a CPU tensor each runs its plain version, the step's own
 PyTorch expressions.  The 0-d operands stay on the device: the kernels
 read them there, so the step needs no host read and is captured whole in
 ``krylov.CGGraph``.  The JAX package has no counterpart kernel: its step
@@ -23,12 +24,10 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib, launch_counter
+from .. import tracing
+from . import cuda_lib
 
-__all__ = ["cg_xr", "cg_p", "cg_xr_plain", "cg_p_plain", "LAUNCHES"]
-
-#: Kernel launches (incremented where each kernel is launched).
-LAUNCHES = launch_counter({"cg_xr": 0, "cg_p": 0})
+__all__ = ["cg_xr", "cg_p", "cg_xr_plain", "cg_p_plain"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -97,7 +96,7 @@ def cg_xr(x, r, p, q, pq, rz, go, rr: bool = True):
         rro.data_ptr() if rr else None, x.numel(), pq.data_ptr(), rz.data_ptr(), go.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(err, f"cg_xr ({x.numel()} values, {x.dtype})")
-    LAUNCHES["cg_xr"] += 1
+    tracing.count("cgstep.cg_xr")
     return xo, ro, rro
 
 
@@ -124,5 +123,5 @@ def cg_p(z, p, pq, rz, rz_new, rr_new, rr, it, go, tol_sq, maxiter: int):
         rr_o.data_ptr(), it_o.data_ptr(), go_o.data_ptr(),
         torch.cuda.current_stream(z.device).cuda_stream)
     cuda_lib.check(err, f"cg_p ({z.numel()} values, {z.dtype})")
-    LAUNCHES["cg_p"] += 1
+    tracing.count("cgstep.cg_p")
     return po, rz_o, rr_o, it_o, go_o

@@ -23,9 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
-SOURCES = ("fused_dir.cu", "fused_rows.cu", "fused_z_rows.cu", "thomas.cu", "thomas_rows.cu",
-           "thomas_wide_rows.cu", "fused_ho.cu", "fused_ho_rows.cu", "fused_eq.cu",
-           "fused_eq_rows.cu", "blockjac.cu", "blockjac_tiled.cu", "cg_step.cu")
+SOURCES = ("fused_rows.cu", "fused_z_rows.cu", "thomas_rows.cu", "thomas_wide_rows.cu",
+           "fused_ho_rows.cu", "fused_eq_rows.cu", "blockjac_tiled.cu", "cg_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,15 +37,6 @@ _build_error = None  # a failed build, raised again without rebuilding
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    # acc, v, dm, l, zs, n, lines, inner, outer_stride, cell_stride, bx0, bx1, si, stream
-    "neutfem_fused_dir_f32": [_P] * 5 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_double] * 3 + [_P],
-    "neutfem_fused_dir_f64": [_P] * 5 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_double] * 3 + [_P],
-    # acc, v, dm, l, zs, n, lines, groups, inner, outer_stride, cell_stride,
-    # group_stride, bx0, bx1, si, stream
-    "neutfem_fused_dir_batched_f32": ([_P] * 5 + [ctypes.c_int] + [_I64] * 6
-                                      + [ctypes.c_double] * 3 + [_P]),
-    "neutfem_fused_dir_batched_f64": ([_P] * 5 + [ctypes.c_int] + [_I64] * 6
-                                      + [ctypes.c_double] * 3 + [_P]),
     # acc, v, dm, l, n, lines, inner, outer_stride, cell_stride, line_major, tl, ch,
     # bx0, bx1, si, stream
     "neutfem_fused_rows_f32": ([_P] * 4 + [ctypes.c_int] + [_I64] * 4 + [ctypes.c_int] * 3
@@ -64,9 +54,6 @@ _SIGNATURES = {
                                  + [ctypes.c_double] * 3 + [_P]),
     "neutfem_fused_z_rows_f64": ([_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2
                                  + [ctypes.c_double] * 3 + [_P]),
-    # r, d, l, out, n, lines, inner, stream
-    "neutfem_thomas_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
-    "neutfem_thomas_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
     # r, d, l, out, n, outer, inner, tl, ch, stream
     "neutfem_thomas_rows_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2 + [_P],
     "neutfem_thomas_rows_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [ctypes.c_int] * 2 + [_P],
@@ -74,33 +61,18 @@ _SIGNATURES = {
                                      + [ctypes.c_int] * 2 + [_P]),
     "neutfem_thomas_wide_rows_f64": ([_P] * 4 + [ctypes.c_int] + [_I64] * 2
                                      + [ctypes.c_int] * 2 + [_P]),
-    "neutfem_thomas_wide_f32": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
-    "neutfem_thomas_wide_f64": [_P] * 4 + [ctypes.c_int] + [_I64] * 2 + [_P],
-    # acc, v, dm, l, alpha, tab, zs, k1, lpow, n, lines, inner, outer_stride,
-    # cell_stride, plane, stream
-    "neutfem_fused_ho_f32": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],
-    "neutfem_fused_ho_f64": [_P] * 7 + [ctypes.c_int] * 3 + [_I64] * 5 + [_P],
     # acc, v, dm, l, alpha, tab, k1, lpow, n, lines, inner, outer_stride, cell_stride,
     # plane, tl, ch, tg, stream
     "neutfem_fused_ho_rows_f32": ([_P] * 6 + [ctypes.c_int] * 3 + [_I64] * 5
                                   + [ctypes.c_int] * 3 + [_P]),
     "neutfem_fused_ho_rows_f64": ([_P] * 6 + [ctypes.c_int] * 3 + [_I64] * 5
                                   + [ctypes.c_int] * 3 + [_P]),
-    # flags, acc, y, sdi, ce, dm, l, zs, u, n, lines, inner, outer_stride,
-    # cell_stride, bx0, bx1, si, stream
-    "neutfem_fused_eq_f32": ([ctypes.c_int] + [_P] * 8 + [ctypes.c_int] + [_I64] * 4
-                             + [ctypes.c_double] * 3 + [_P]),
-    "neutfem_fused_eq_f64": ([ctypes.c_int] + [_P] * 8 + [ctypes.c_int] + [_I64] * 4
-                             + [ctypes.c_double] * 3 + [_P]),
     # flags, acc, y, sdi, ce, dm, l, u, n, lines, inner, outer_stride, cell_stride,
     # tl, ch, bx0, bx1, si, stream
     "neutfem_fused_eq_rows_f32": ([ctypes.c_int] + [_P] * 7 + [ctypes.c_int] + [_I64] * 4
                                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 3 + [_P]),
     "neutfem_fused_eq_rows_f64": ([ctypes.c_int] + [_P] * 7 + [ctypes.c_int] + [_I64] * 4
                                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 3 + [_P]),
-    # bi, r, z, part, P, cells, stream
-    "neutfem_blockjac_bf16": [_P] * 4 + [ctypes.c_int, _I64, _P],
-    "neutfem_blockjac_f32": [_P] * 4 + [ctypes.c_int, _I64, _P],
     # form, blk, r, z, part, P, cells, wide, warps, stream
     "neutfem_blockjac_tiled": [ctypes.c_int] + [_P] * 4 + [ctypes.c_int, _I64] + [ctypes.c_int] * 2
     + [_P],
@@ -185,8 +157,6 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.neutfem_error_string.argtypes = [ctypes.c_int]
         lib.neutfem_error_string.restype = ctypes.c_char_p
-        lib.neutfem_blockjac_blocks.argtypes = [_I64]
-        lib.neutfem_blockjac_blocks.restype = _I64
         _lib = lib
     return _lib
 

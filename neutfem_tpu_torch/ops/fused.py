@@ -21,7 +21,9 @@ and its group batch those of ``csrc/fused_z_rows.cu``, which stage the tile
 face-major, at the tile ``z_tile`` picks.  On a CPU tensor every wrapper
 runs the plain PyTorch version.  A CUDA tensor the
 kernel does not take, or a launch the card refuses, raises; there is no
-decline path.
+decline path.  A launch counts under ``tracing``'s ``fused.<direction>_rows``
+("fused.z_rows", "fused.y_rows", "fused.x_rows": K1, K2, K3) or
+``fused.<direction>_batched_rows`` (K1's batch, K5).
 
 Like the TPU kernels, which alias the accumulator input to the output, the
 wrappers UPDATE ``acc`` IN PLACE and return it.
@@ -46,22 +48,12 @@ import math
 
 import torch
 
-from . import cuda_lib, launch_counter
+from .. import tracing
+from . import cuda_lib
 
 __all__ = ["fused_schur_z", "fused_schur_y_pre", "fused_schur_x_pre",
            "fused_schur_z_batched", "fused_schur_y_batched", "fused_schur_x_batched",
-           "fused_dir_plain", "rows_tile", "z_tile", "LAUNCHES", "reset_launches"]
-
-#: Kernel launches per direction (incremented where the kernel is launched):
-#: "z_rows", "y_rows", "x_rows" the tiled kernels (K1, K2, K3),
-#: "z_batched_rows", "y_batched_rows", "x_batched_rows" their group-batched
-#: forms (K1's batch, K5).  "z", "y", "x", "z_batched", "y_batched" and
-#: "x_batched" count the thread-per-line kernels of ``csrc/fused_dir.cu``,
-#: which no wrapper launches since the tiled kernels measured faster at every
-#: shape (PERF.md); the paths' checks hold them at 0.
-LAUNCHES = launch_counter({"z": 0, "y": 0, "x": 0, "z_rows": 0, "y_rows": 0, "x_rows": 0,
-                           "z_batched": 0, "y_batched": 0, "x_batched": 0,
-                           "z_batched_rows": 0, "y_batched_rows": 0, "x_batched_rows": 0})
+           "fused_dir_plain", "rows_tile", "z_tile"]
 
 #: Lines per block of the tiled kernel by dtype, and chunks per line: in
 #: float32 the best or within a few per cent of the best tile chip_smoke.py
@@ -76,11 +68,6 @@ ROWS_CHUNKS = 32
 Z_LINES, Z_CHUNKS = 32, 8
 #: The H100's shared memory per block (the opt-in limit, bytes).
 SMEM_PER_BLOCK = 232448
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def fused_dir_plain(acc, v, dm, l, axis: int, bx0: float, bx1: float, si: float):
@@ -141,7 +128,7 @@ def rows_tile(lines: int, n: int, dtype):
     halved while the tile exceeds the card's shared memory (down to one line
     per block; beyond that the launch is refused and raises).  The tiled
     kernel serves every shape: in chip_smoke.py [3] it measured faster than
-    the thread-per-line kernel at each one swept (PERF.md)."""
+    the thread-per-line kernel it replaced at each one swept (PERF.md)."""
     return fit_tile(ROWS_LINES[dtype], ROWS_CHUNKS, n, 4, dtype)
 
 
@@ -215,7 +202,7 @@ def _launch_z(acc, v, dm, l, n, bx0, bx1, si, key, groups=None):
              *tile, float(bx0), float(bx1), float(si),
              torch.cuda.current_stream(v.device).cuda_stream)
     cuda_lib.check(err, f"fused Schur direction {key} (tiled kernel, tile {tile}, n {n})")
-    LAUNCHES[f"{key}_rows"] += 1
+    tracing.count(f"fused.{key}_rows")
     return acc
 
 
@@ -236,7 +223,7 @@ def _launch_rows(acc, v, dm, l, n, inner, outer_stride, cell_stride, bx0, bx1, s
         err = fn(*ptrs, n, lines, groups, inner, outer_stride, cell_stride,
                  math.prod(v.shape[-3:]), *rest)
     cuda_lib.check(err, f"fused Schur direction {key} (tiled kernel, tile {tile}, n {n})")
-    LAUNCHES[f"{key}_rows"] += 1
+    tracing.count(f"fused.{key}_rows")
     return acc
 
 

@@ -18,7 +18,8 @@ On a CUDA tensor each wrapper launches the tiled ``fused_eq_rows_kernel`` of
 lines per block, each line cut into chunks, at the tile ``eq_tile`` picks);
 on a CPU tensor it runs its plain version, composed from
 ``fused.fused_dir_plain`` and elementwise products.  A CUDA tensor the
-kernel does not take, or a tile the card refuses, raises.
+kernel does not take, or a tile the card refuses, raises.  A launch counts
+under ``tracing``'s ``fused_eq.<key>_rows`` ("fused_eq.x_eq_rows", ...).
 
 Operands (every cell grid one group's (..., nz, ny, nx) with unit leading
 dims, float32 or float64): the direction operands in the layouts of
@@ -32,20 +33,13 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib, launch_counter
+from .. import tracing
+from . import cuda_lib
 from .fused import ROWS_CHUNKS, ROWS_LINES, SMEM_PER_BLOCK, fit_tile, rows_smem
 from .fused import fused_dir_plain
 
 __all__ = ["fused_schur_x_eq", "fused_schur_z_eq", "fused_schur_x_eq2", "fused_schur_y_eq2",
-           "fused_schur_z_eq2", "fused_eq_plain", "eq_tile", "LAUNCHES", "reset_launches"]
-
-#: Kernel launches per wrapper (incremented where the kernel is launched):
-#: "<key>_rows" the tiled kernel; "<key>" the thread-per-line
-#: ``fused_eq_kernel`` of ``csrc/fused_eq.cu``, which no wrapper launches
-#: since the tiled kernel measured faster (PERF.md); the paths' checks hold
-#: those keys at 0.
-LAUNCHES = launch_counter({k: 0 for key in ("x_eq", "z_eq", "x_eq2", "y_eq2", "z_eq2")
-                           for k in (key, f"{key}_rows")})
+           "fused_schur_z_eq2", "fused_eq_plain", "eq_tile"]
 
 #: Shared-memory rows per line of the tiled kernel: y (then v, z, F), dm, l,
 #: acc or ce, sdi (then u).
@@ -55,15 +49,10 @@ EQ_ROWS = 5
 #: IAEA-3D 6x6x4 (PERF.md).  The x and y lines take ``rows_tile``'s.
 EQ_Z_LINES, EQ_Z_CHUNKS = 16, 4
 
-# the kernels' flags (csrc/fused_eq_rows.cu, csrc/fused_eq.cu)
+# the kernel's flags (csrc/fused_eq_rows.cu)
 _PRE, _EMIT_U, _CE, _POST = 1, 2, 4, 8
 _FLAGS = {"x_eq": _PRE | _EMIT_U | _CE, "z_eq": _POST, "x_eq2": _PRE | _CE,
           "y_eq2": _PRE, "z_eq2": _PRE | _POST}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def fused_eq_plain(key, acc, y, sdi, ce, dm, l, axis: int, bx0: float, bx1: float, si: float):
@@ -150,7 +139,7 @@ def _run(key, axis, acc, y, sdi, ce, dm, l, bx0, bx1, si):
              u.data_ptr() if u is not None else None, n, lines, *strides, *tile,
              float(bx0), float(bx1), float(si), torch.cuda.current_stream(y.device).cuda_stream)
     cuda_lib.check(err, f"{what} (tiled kernel, tile {tile}, n {n})")
-    LAUNCHES[f"{key}_rows"] += 1
+    tracing.count(f"fused_eq.{key}_rows")
     return acc, u
 
 

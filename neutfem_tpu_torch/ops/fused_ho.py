@@ -20,7 +20,8 @@ On a CUDA tensor each wrapper launches the hand-written tiled kernel of
 per block, each (transverse mode, line) cut into chunks, staged through
 shared memory) at the tile ``ho_tile`` picks; on a CPU tensor it runs
 ``fused_ho_plain``.  A CUDA tensor the kernel does not take, or a launch the
-card refuses, raises; there is no decline path.  Like the
+card refuses, raises; there is no decline path.  A launch counts under
+``tracing``'s ``fused_ho.ho_<direction>_rows``.  Like the
 TPU kernels, which alias the accumulator input to the output, the wrappers
 UPDATE ``acc`` IN PLACE and return it.
 
@@ -43,20 +44,11 @@ import numpy as np
 import torch
 
 from .. import tracing
-from . import cuda_lib, launch_counter
+from . import cuda_lib
 from .fused import SMEM_PER_BLOCK, row_stride
 
 __all__ = ["HoTables", "ho_coeff_tables", "ho_tables", "kernel_mode_index",
-           "fused_ho_z", "fused_ho_y", "fused_ho_x", "fused_ho_plain", "ho_tile", "ho_smem",
-           "LAUNCHES", "reset_launches"]
-
-#: Kernel launches per direction (incremented where the kernel is launched):
-#: "ho_*_rows" the tiled kernel.  "ho_z", "ho_y" and "ho_x" count the
-#: thread-per-(transverse mode, line) kernel of ``csrc/fused_ho.cu``, which no
-#: wrapper launches since the tiled kernel measured faster at every shape
-#: (PERF.md); the paths' checks hold them at 0.
-LAUNCHES = launch_counter({"ho_z": 0, "ho_y": 0, "ho_x": 0,
-                           "ho_z_rows": 0, "ho_y_rows": 0, "ho_x_rows": 0})
+           "fused_ho_z", "fused_ho_y", "fused_ho_x", "fused_ho_plain", "ho_tile", "ho_smem"]
 
 #: Longitudinal orders the CUDA kernels are instantiated for (RT1-P1, RT2-P2).
 KERNEL_K1 = (2, 3)
@@ -68,11 +60,6 @@ KERNEL_K1 = (2, 3)
 HO_LINES = 16
 HO_CHUNKS = 8
 HO_MODES = {2: 2, 3: 1}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def ho_coeff_tables(fes, di):
@@ -160,8 +147,8 @@ def kernel_mode_index(K1: int, axis: int) -> np.ndarray:
     ``axis`` (0 = z, 1 = y, 2 = x): P splits as (K1[pz], K1[py], K1[px]) with x
     fastest, l is the solve axis's own exponent (stride K1^(2-axis)) and
     t = t_lo + K1 t_hi runs over the other two, lower stride first.  Mirrors
-    the index arithmetic of ``csrc/fused_ho_rows.cu`` (and ``csrc/fused_ho.cu``),
-    so the CPU tests can hold it against the FE space's p -> t map."""
+    the index arithmetic of ``csrc/fused_ho_rows.cu``, so the CPU tests can
+    hold it against the FE space's p -> t map."""
     lstride = K1 ** (2 - axis)
     s_lo = K1 if lstride == 1 else 1
     s_hi = K1 if lstride == K1 * K1 else K1 * K1
@@ -302,7 +289,7 @@ def _launch(acc, v, dm, l, alpha, tables, n, lines, inner, outer_stride, cell_st
              *tile, torch.cuda.current_stream(v.device).cuda_stream)
     cuda_lib.check(err, f"fused condensed Schur direction {key} (tiled kernel, tile {tile}, "
                         f"n {n})")
-    LAUNCHES[f"{key}_rows"] += 1
+    tracing.count(f"fused_ho.{key}_rows")
     return acc
 
 

@@ -49,23 +49,23 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..shardctx import seam_faces
-from . import launch_counter
 from .apply import _const, _face_out, _pair, cyc_args
 from .tridiag import affine_pairs, tridiag_solve
 
 __all__ = ["build_partitioned", "tridiag_solve_partitioned", "tridiag_solve_scan",
-           "partitioned_face_solve", "partitioned_schur_dir", "PART_NAMES", "LAUNCHES"]
+           "partitioned_face_solve", "partitioned_schur_dir", "PART_NAMES"]
 
 PART_NAMES = ("dinv", "l", "vrs", "vls", "minv", "seamd", "seamc")
 
-#: Applications of the cut direction's face solve, one per cut direction per
-#: matvec or ``compute_current``: ``"parttri"`` the partitioned solve (or the
-#: elementwise one under "diag" / "lumped"), ``"scan"`` the scan solve
-#: (``tridiag_solve_scan``): the engagement counts the tests read.  They
-#: count applications, not kernels (the partitioned solve launches K4); a
-#: launch counter, so a CG graph's replay adds its capture's applications.
-LAUNCHES = launch_counter({"parttri": 0, "scan": 0})
+#: ``tracing``'s counters of the cut direction's face solve, one a cut
+#: direction a matvec or ``compute_current``: the partitioned solve (or the
+#: elementwise one under "diag" / "lumped") and the scan solve
+#: (``tridiag_solve_scan``), the engagement counts the tests read.  They
+#: count applications, not kernels (the partitioned solve launches K4); a CG
+#: graph's replay counts its capture's applications again.
+PARTTRI, SCAN = "parttri.parttri", "parttri.scan"
 
 
 def _ldlt_np(a: np.ndarray, b: np.ndarray):
@@ -255,7 +255,7 @@ def tridiag_solve_scan(rb, rs, dinv, l, axis: int, tr, cyclic=None):
     system, y_0 from rank 0 and y_{n-1} from the last rank in one more
     all-gather.  ``tr``: the cut axis's transport.  Returns (x_body, x_seam);
     x_seam is None except on the last rank of a direction with a seam."""
-    LAUNCHES["scan"] += 1
+    tracing.count(SCAN)
     axis = axis % rb.ndim
     s = rb.shape[axis]
     (dinv_b, dinv_s), (l_prev, l_b) = dinv, l
@@ -319,13 +319,13 @@ def partitioned_face_solve(di, L, R, ctx: Dict, key: str, tr):
     rs = R.narrow(axis, s - 1, 1) * ms / m_t
     dinv_s = ctx[f"tri_dinv_{key}__seam"].unsqueeze(-4)
     if f"tri_part_dinv_{key}" in ctx:
-        LAUNCHES["parttri"] += 1
+        tracing.count(PARTTRI)
         part = {nm: ctx[f"tri_part_{nm}_{key}"] for nm in PART_NAMES}
         x, x_seam = tridiag_solve_partitioned(rb, rs, part, axis, tr)
     elif lf is not None:
         x, x_seam = tridiag_solve_scan(rb, rs, (dinv, dinv_s), lf, axis, tr)
     else:
-        LAUNCHES["parttri"] += 1
+        tracing.count(PARTTRI)
         x, x_seam = rb * dinv, rs * dinv_s
     return seam_faces(x * mb, None if x_seam is None else x_seam * ms, axis, tr)
 

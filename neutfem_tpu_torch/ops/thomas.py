@@ -2,7 +2,7 @@
 
 Port of ``neutfem_tpu/ops/pallas_tridiag.py`` (``thomas_solve``).  On a CUDA
 tensor the wrapper launches a hand-written kernel (``csrc/thomas_rows.cu``,
-``csrc/thomas.cu``); on a CPU tensor it runs the plain PyTorch version below.
+``csrc/thomas_wide_rows.cu``); on a CPU tensor it runs the plain PyTorch version below.
 There is no other route: a CUDA tensor the kernel does not take raises.
 
 The TPU package dispatches by layout: ``_solve_z`` (axis -3), ``_solve_rows``
@@ -11,16 +11,14 @@ y solves, K4′) and ``_solve_transpose`` (axis -1).  Here the K4 layouts go to
 one tiled kernel (``csrc/thomas_rows.cu``: a tile of lines per block, each
 line cut into chunks, staged through shared memory face-major where the
 lines' neighbours are contiguous, line-major along the minor axis; at the
-tile ``thomas_tile`` picks; launches counted under ``"thomas_rows"``).  The
+tile ``thomas_tile`` picks; launches counted under ``tracing``'s
+``"thomas.thomas_rows"``).  The
 K4′ layout (``wide_rows``) has few, long lines (912 lines of 913 faces per
 group at ZION 48x48); its kernel (``csrc/thomas_wide_rows.cu``) stages a
 tile of 8 neighbouring lines face-major in shared memory, cuts each line into
 32 chunks, one thread each, and composes the chunks' carries in order, at
 the tile ``wide_tile`` picks; launches counted under
-``"thomas_wide_rows"``.  ``"thomas"`` and ``"thomas_y"`` count the
-thread-per-line kernel and the first K4′ kernel of ``csrc/thomas.cu``
-(``thomas_wide_kernel``), which no wrapper launches since the tiled ones
-measured faster (PERF.md); the paths' checks hold them at 0.
+``"thomas.thomas_wide_rows"``.
 
     forward:  z_0 = r_0;              z_i = r_i - l_{i-1} z_{i-1}
     diagonal: x_{n-1} = z_{n-1} d_{n-1}
@@ -33,18 +31,12 @@ import math
 
 import torch
 
-from . import cuda_lib, launch_counter
+from .. import tracing
+from . import cuda_lib
 from .fused import SMEM_PER_BLOCK
 
 __all__ = ["thomas_solve", "thomas_solve_plain", "thomas_tile", "wide_rows", "wide_smem",
-           "wide_tile", "LAUNCHES", "reset_launches"]
-
-#: Kernel launches of this module (incremented where the kernel is launched):
-#: "thomas_rows" K4 (the tiled kernel), "thomas_wide_rows" K4′ (the tiled
-#: kernel), "thomas" the thread-per-line K4 and "thomas_y" the first K4′
-#: kernel (both launched by no wrapper).
-LAUNCHES = launch_counter({"thomas": 0, "thomas_rows": 0, "thomas_y": 0,
-                           "thomas_wide_rows": 0})
+           "wide_tile"]
 
 #: The tiled K4's tile, lines per block and chunks per line (K1's, the
 #: kernel it copies).
@@ -59,11 +51,6 @@ WIDE_CHUNKS, WIDE_THREADS = (16, 32, 64, 128, 256), 256
 WIDE_LEN, WIDE_MIN_LINES = 32, 8
 #: The TPU dispatch's block budget (``pallas_tridiag._VMEM_BUDGET``, 8 MiB).
 _ROWS_BUDGET = 8 * 2**20
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def wide_rows(shape, axis: int) -> bool:
@@ -208,5 +195,5 @@ def thomas_solve(rhs, dinv, l, axis: int, tile=None):
         err = getattr(lib, f"neutfem_thomas_rows_{suffix}")(*ptrs, lines // inner, inner, *tile,
                                                              stream)
     cuda_lib.check(err, what)
-    LAUNCHES[key] += 1
+    tracing.count(f"thomas.{key}")
     return out

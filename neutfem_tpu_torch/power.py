@@ -76,8 +76,8 @@ from . import tracing
 from .accel import anderson_apply, anderson_init, chebyshev_apply_blend, chebyshev_init
 from .cmfd import cmfd_correction
 from .fespace import GRID_AXIS, FESpace
-from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, Tallied, bicgstab, bicgstab_blocks,
-                     pcg, pcg_blocks, pcg_fused, pcg_fused_blocks)
+from .krylov import (CG_PLANS, CGGraph, CGPlans, KrylovResult, bicgstab, bicgstab_blocks, pcg,
+                     pcg_blocks, pcg_fused, pcg_fused_blocks)
 from .ops.apply import (
     J_to_public,
     _const,
@@ -248,8 +248,8 @@ def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
     sharding scope a line orthogonal to every cut is solved on the rank's
     complete local lines; a line along a cut is left out (the JAX
     ``_usable`` rule: with no line left, the CG runs Jacobi — the same fixed
-    point, other iteration counts).  The apply is ``Tallied`` under
-    ``LINE_APPLIES``, weighted by its line solves."""
+    point, other iteration counts).  Each apply counts its line solves under
+    ``LINE_APPLIES``."""
     if "precond_line_dinv" not in ctxg:
         return None
     sh = current_sharding()
@@ -266,8 +266,13 @@ def _line_precond(fes: FESpace, ctxg: Dict, pc_mode: str):
         applies.append(lambda r, dinv=dinv, l=l, ax=ax: tridiag_solve(r, dinv, l, ax % r.ndim))
     if not applies:
         return None
-    apply = applies[0] if len(applies) < 2 else (lambda r: applies[0](r) + applies[1](r))
-    return Tallied(apply, LINE_APPLIES, len(applies))
+    solve = applies[0] if len(applies) < 2 else (lambda r: applies[0](r) + applies[1](r))
+
+    def apply(r):
+        tracing.count(LINE_APPLIES, len(applies))
+        return solve(r)
+
+    return apply
 
 
 @dataclasses.dataclass

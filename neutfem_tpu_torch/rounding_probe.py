@@ -12,15 +12,15 @@ default block apply and with ``NEUTFEM_BLOCKJAC=1`` (K8), once per K6 variant:
 
 * the tiled kernel (``csrc/fused_ho_rows.cu``) at the tile ``ho_tile`` picks,
   and at 16 lines x 4 chunks x 1 mode, which cuts the chunks elsewhere;
-* the thread-per-(mode, line) kernel it replaced (``csrc/fused_ho.cu``), with
-  its contribution to the accumulator scaled by 1, 1 +- 1e-7 and 1 + 1e-6,
-  i.e. moved by about one float32 rounding.
+* the tiled kernel at ``ho_tile`` with its contribution to the accumulator
+  scaled by 1, 1 +- 1e-7 and 1 + 1e-6, i.e. moved by about one float32
+  rounding (x 1 repeats the first variant: the solve repeats bit for bit).
 
 And one with the default fp8 E-form storage, its blocks applied by K8
 (``blockjac_dev_dots``, the default) or by the apply the port ran before K8
 took the E-form (``power._block_precond``: ``torch.bmm`` on a float32 copy,
-the dots as ``torch.sum``), each with the tiled K6 and with the old K6
-scaled by 1 +- 1e-7.
+the dots as ``torch.sum``), each with the tiled K6 unscaled and scaled by
+1 +- 1e-7.
 
 Prints one JSON line per solve: the variant, k, outers and inners, the first
 outer whose flux change is below ``tol_flux``, and the last outers' k changes
@@ -42,29 +42,21 @@ import torch
 
 from . import bench, power
 from .data import BENCHMARKS
-from .ops import cuda_lib, fused_ho
+from .ops import fused_ho
 
 
-def _old_kernel(scale):
-    """A stand-in for ``fused_ho._launch`` that runs the thread-per-(mode,
-    line) kernel and scales its contribution by ``scale``."""
+def _scaled(launch, scale):
+    """A stand-in for ``fused_ho._launch`` that runs ``launch`` (the tiled
+    kernel) and scales its contribution to the accumulator by ``scale``."""
 
-    def launch(acc, v, dm, l, alpha, tables, n, lines, inner, outer_stride, cell_stride, axis,
-               key):
-        K1 = tables.K1
-        tab = torch.as_tensor(tables.packed(), dtype=v.dtype, device=v.device)
-        zs = torch.empty((K1 * K1, n, lines), dtype=v.dtype, device=v.device)
+    def scaled(acc, *args):
         base = acc.clone() if scale != 1.0 else None
-        fn = cuda_lib.library().neutfem_fused_ho_f32
-        cuda_lib.check(fn(acc.data_ptr(), v.data_ptr(), dm.data_ptr(), l.data_ptr(),
-                          alpha.data_ptr(), tab.data_ptr(), zs.data_ptr(), K1, 2 - axis, n,
-                          lines, inner, outer_stride, cell_stride, v.shape[-3:].numel(),
-                          torch.cuda.current_stream(v.device).cuda_stream), "fused_ho")
+        launch(acc, *args)
         if base is not None:
             acc.copy_(base + (acc - base) * scale)
         return acc
 
-    return launch
+    return scaled
 
 
 def _bmm_route():
@@ -106,12 +98,12 @@ def main() -> None:
     tiled, tile = fused_ho._launch, fused_ho.ho_tile
     variants = [("tiled, ho_tile", tiled, tile),
                 ("tiled, 16x4x1", tiled, lambda lines, n, K1, dtype: (16, 4, 1))]
-    variants += [(f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile)
+    variants += [(f"tiled, ho_tile x {s!r}", _scaled(tiled, s), tile)
                  for s in (1.0, 1.0 + 1e-7, 1.0 - 1e-7, 1.0 + 1e-6)]
     cases = [("bf16", v, sw, "K8" if sw else "_block_precond") for v in variants
              for sw in ({}, {"NEUTFEM_BLOCKJAC": "1"})]
     cases += [("fp8", v, {}, apply) for apply in ("K8", "_block_precond")
-              for v in [variants[0]] + [(f"thread-per-(mode, line) x {s!r}", _old_kernel(s), tile)
+              for v in [variants[0]] + [(f"tiled, ho_tile x {s!r}", _scaled(tiled, s), tile)
                                         for s in (1.0 + 1e-7, 1.0 - 1e-7)]]
     k8 = power.blockjac_dev_dots
     try:

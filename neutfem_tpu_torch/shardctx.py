@@ -21,8 +21,9 @@ caller named:
   the CG then runs its eager block loop (``Transport.capturable``).
 
 Nothing picks a backend by itself: a tensor a transport does not take raises.
-``COMM`` counts collectives, their payload bytes and the bytes staged through
-the host (a launch counter: a graph replay adds what its capture ran).
+``tracing``'s ``comm.collectives``, ``comm.comm_bytes`` and
+``comm.staged_bytes`` count the collectives, their payload bytes and the
+bytes staged through the host (a graph replay counts what its capture ran).
 """
 
 from __future__ import annotations
@@ -32,17 +33,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .ops import launch_counter
+from . import tracing
 
 __all__ = ["sharding_scope", "no_sharding", "current_sharding", "cut_transport", "Transport",
-           "allsum", "all_ranks", "halo", "seam_faces", "gather_slabs", "take_slab", "COMM"]
+           "allsum", "all_ranks", "halo", "seam_faces", "gather_slabs", "take_slab"]
 
 _CURRENT: Optional[Tuple[object, Dict[int, str]]] = None
-
-#: Collectives run (``collectives``), their payload bytes (``comm_bytes``) and
-#: the bytes a gloo transport staged between the card and the host
-#: (``staged_bytes``), summed over this process's transports.
-COMM = launch_counter({"collectives": 0, "comm_bytes": 0, "staged_bytes": 0})
 
 
 @contextlib.contextmanager
@@ -196,16 +192,16 @@ class Transport:
             raise RuntimeError(f"nccl transport: a {t.device.type} tensor; the caller asked for "
                                "nccl, which takes device tensors only")
         t = t.contiguous()
-        COMM["collectives"] += 1
-        COMM["comm_bytes"] += t.numel() * t.element_size()
+        tracing.count("comm.collectives")
+        tracing.count("comm.comm_bytes", t.numel() * t.element_size())
         if self.backend == "gloo" and t.device.type == "cuda":
-            COMM["staged_bytes"] += t.numel() * t.element_size()
+            tracing.count("comm.staged_bytes", t.numel() * t.element_size())
             return t.cpu()
         return t
 
     def _back(self, h, like):
         if h.device != like.device:
-            COMM["staged_bytes"] += h.numel() * h.element_size()
+            tracing.count("comm.staged_bytes", h.numel() * h.element_size())
             return h.to(like.device)
         return h
 

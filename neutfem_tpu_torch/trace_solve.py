@@ -21,7 +21,7 @@ seconds, runs one warm-up solve, one untimed-by-the-profiler solve (the
 end-to-end wall) and one solve under ``torch.profiler``.  Prints the device
 time per kernel family, the device busy share of the traced wall, the
 tracing overhead (traced minus untraced wall), the traced solve's CG
-host reads per iteration and graph replays per CG solve (``krylov.STATS``) and
+host reads per iteration and graph replays per CG solve (``bench.cg_counts``) and
 its record of the port's spans and counters (``tracing.collect``: the host's
 waits on the device by synchronisation site, their share of the traced wall,
 and the CG iterations the blocks ran against the live ones); with
@@ -42,31 +42,25 @@ import time
 
 import torch
 
-from . import krylov, tracing
-from .bench import FULL_TOL, HO_TOL, LATERAL, SWEEP_TOL, BenchmarkRun
+from . import tracing
+from .bench import (FULL_TOL, HO_TOL, LATERAL, SWEEP_TOL, BenchmarkRun, cg_counts,
+                    reset_cg_counts)
 from .compat import BCType
 from .data import BENCHMARKS
 from .power import power_iteration
 
 # kernel-name fragment -> family (first match wins)
 FAMILIES = (
-    ("fused_dir_batched_kernel", "thread-per-line batched directions (replaced K1 batch, K5)"),
-    ("fused_dir_kernel", "thread-per-line fused Schur directions (replaced K1-K3)"),
     ("fused_z_rows_batched_kernel", "tiled batched fused Schur direction z (K1 batch)"),
     ("fused_z_rows_kernel", "tiled fused Schur direction z (K1)"),
     ("fused_rows_batched_kernel", "tiled batched fused Schur directions y, x (K5)"),
     ("fused_rows_kernel", "tiled fused Schur directions y, x (K2, K3)"),
     ("fused_ho_rows_kernel", "tiled condensed Schur directions (K6)"),
-    ("fused_ho_kernel", "condensed Schur directions, thread per (mode, line) (old K6)"),
     ("thomas_wide_rows_kernel", "tiled Thomas solve, few long lines (K4′)"),
-    ("thomas_wide_kernel", "Thomas solve, few long lines, thread per chunk (replaced K4′)"),
     ("thomas_rows_kernel", "tiled Thomas solve (K4)"),
-    ("thomas_kernel", "Thomas solve, thread per line (replaced K4)"),
     ("fused_eq_rows_kernel", "tiled equilibration-folded Schur directions (K7)"),
-    ("fused_eq_kernel", "thread-per-line equilibration-folded directions (replaced K7)"),
     ("blockjac_dev_kernel", "tiled block-Jacobi apply + dots, fp8 E-form (K8, default)"),
     ("blockjac_tiled_kernel", "tiled block-Jacobi apply + dots, inverse (K8, BLOCKJAC=1)"),
-    ("blockjac", "block-Jacobi apply + dots, thread per cell (replaced K8)"),
     ("cg_step_", "masked CG step: x, r and p updates, 0-d state (cg_xr, cg_p)"),
     ("gemv", "gemv (block-Jacobi apply; two-grid coarse apply)"),
     ("nvjet", "gemv (block-Jacobi apply; two-grid coarse apply)"),  # cuBLAS's Hopper kernels
@@ -124,10 +118,10 @@ def main(mesh_n: int = 6, mesh_nz: int = 4, out_dir=None, dtype=torch.float32,
     wall, outers, inners = _solver_run(s, mode)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    krylov.reset_stats()
+    reset_cg_counts()
     with torch.profiler.profile(activities=acts) as prof, tracing.collect() as rec:
         wall_traced = _solver_run(s, mode)[0]
-    cg = dict(krylov.STATS)
+    cg = cg_counts()
     syncs = {name[len(tracing.SYNC):]: n for name, (n, _) in rec.record["spans"].items()
              if name.startswith(tracing.SYNC)}
     wait_s = sum(sec for name, (_, sec) in rec.record["spans"].items()

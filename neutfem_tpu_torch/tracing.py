@@ -12,8 +12,11 @@
   pageable host-to-device copy of a Python number, which ATen finishes with a
   stream synchronisation).  A site counts on every device, so the CPU tests
   hold the same counts as the card.
-* ``count(name, n)``: a counter's process total (``total``; the ``cg.*``
-  totals are ``krylov.STATS``).
+* ``count(name, n)``: add to a counter's process total (``total``; ``totals``
+  copies them all).  Every counter of the port is one, ``<prefix>.<key>``; a
+  reader takes a difference of totals or zeroes its names (``reset_totals``).
+  What a captured CUDA graph's step counts is taken back after the capture
+  and counted again at each replay (``krylov.CGGraph``).
 * Records: ``span(SOLVE, record="solve")`` (the facade's ``SolveKeff`` and
   ``SolveAdjoint``) and ``span(BUILD, record="build")`` (the facade's
   context build) open one.  Closed, it is appended to a bounded deque
@@ -31,7 +34,14 @@ The names the program emits (who reads each: PERF.md section 3):
     neutfem.build, neutfem.context.{directions, schur_diag, line, blockjac,
     to_device}, neutfem.twogrid.attach;
     cg.{solves, iterations, iterations_run, host_reads, replays, captures,
-    eager_solves}, context.blockjac_blocks, precond.line_applies
+    eager_solves}, context.blockjac_blocks, precond.line_applies;
+    the kernel launches (counted by the wrapper where it launches; none on
+    a CPU tensor): fused.{z, y, x}_rows, fused.{z, y, x}_batched_rows,
+    thomas.{thomas_rows, thomas_wide_rows}, fused_ho.ho_{z, y, x}_rows,
+    fused_eq.{x_eq, z_eq, x_eq2, y_eq2, z_eq2}_rows,
+    blockjac.{blockjac_tiled, blockjac_dev}, cgstep.{cg_xr, cg_p};
+    parttri.{parttri, scan} (the cut direction's face solves);
+    comm.{collectives, comm_bytes, staged_bytes}
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["span", "sync", "count", "total", "reset_totals", "set_outers", "collect", "recent",
+__all__ = ["span", "sync", "count", "total", "totals", "reset_totals", "set_outers", "collect", "recent",
            "recent_builds", "SOLVE", "BUILD", "SYNC", "MAX_RECORDS"]
 
 SOLVE = "neutfem.solve"
@@ -131,6 +141,11 @@ def count(name: str, n: int = 1) -> None:
 def total(name: str) -> int:
     """The process total of counter ``name`` since its last reset."""
     return _TOTALS.get(name, 0)
+
+
+def totals() -> Dict[str, int]:
+    """A copy of every counter's process total."""
+    return dict(_TOTALS)
 
 
 def reset_totals(names: Iterable[str]) -> None:

@@ -24,10 +24,8 @@ import time
 import numpy as np
 import torch
 
-from . import krylov
-from .bench import FULL_TOL, BenchmarkRun, card_line
+from .bench import FULL_TOL, BenchmarkRun, card_line, cg_counts, launch_counts
 from .data import BENCHMARKS, IAEA2D_POWER_MAP
-from .ops import launch_counters
 
 __all__ = ["CASES", "DEFAULT_CORES", "DEFAULT_MESHES", "LADDER_TOL", "validate", "run_ladder",
            "main"]
@@ -55,19 +53,17 @@ LADDER_TOL = (1e-6, 1e-5, 1e-5, 300, 2000)
 POWER_MAPS = {"iaea2d": IAEA2D_POWER_MAP}
 
 
-def _counts() -> dict:
-    """Every kernel's launch count and the CG counts, summed so far."""
-    out = {k: v for c in launch_counters() for k, v in c.items()}
-    out.update({f"cg_{k}": v for k, v in krylov.STATS.items()})
-    return out
+def _counts() -> tuple:
+    """(every kernel's launch count, the CG counts), summed so far."""
+    return launch_counts(), cg_counts()
 
 
-def _since(before: dict) -> tuple:
+def _since(before: tuple) -> tuple:
     """(kernel launches, CG counts) since ``before``: the kernels that moved,
     and every CG count."""
-    now = _counts()
-    cg = {k[3:]: now.pop(k) - before[k] for k in list(now) if k.startswith("cg_")}
-    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}, cg
+    (l0, c0), (l1, c1) = before, _counts()
+    return ({k: v - l0.get(k, 0) for k, v in l1.items() if v != l0.get(k, 0)},
+            {k: v - c0[k] for k, v in c1.items()})
 
 
 def _sync(device):

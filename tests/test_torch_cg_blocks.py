@@ -187,15 +187,52 @@ def test_group_solve_bits_through_the_block_loop():
     assert torch.equal(got.x * plan.sdi, ref.x)
 
 
-def test_every_kernel_module_registers_its_launch_counter():
-    """``ops.launch_counters`` (what a graph's capture reads to count its
-    replays' launches) holds each kernel module's ``LAUNCHES``, once."""
-    from neutfem_tpu_torch import ops
-    from neutfem_tpu_torch.ops import blockjac, fused, fused_eq, fused_ho, thomas
+def _launch_counts_in(module):
+    """Per function of ``module`` that checks a kernel launch
+    (``cuda_lib.check``): the line of that check and, for each
+    ``tracing.count`` call, (its line, the literal head of the name it
+    counts: the text before any placeholder)."""
+    import ast
+    import inspect
 
-    counters = ops.launch_counters()
-    for m in (fused, fused_eq, fused_ho, blockjac, thomas):
-        assert sum(c is m.LAUNCHES for c in counters) == 1, m.__name__
+    out = {}
+    for fn in ast.walk(ast.parse(inspect.getsource(module))):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        calls = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+                 and isinstance(c.func, ast.Attribute) and isinstance(c.func.value, ast.Name)]
+        checks = [c.lineno for c in calls if (c.func.value.id, c.func.attr) == ("cuda_lib", "check")]
+        if not checks:
+            continue
+        counts = []
+        for c in calls:
+            if (c.func.value.id, c.func.attr) == ("tracing", "count"):
+                arg = c.args[0]
+                if isinstance(arg, ast.JoinedStr):
+                    arg = arg.values[0]
+                counts.append((c.lineno, arg.value if isinstance(arg, ast.Constant) else None))
+        out[fn.name] = (max(checks), counts)
+    return out
+
+
+def test_every_kernel_wrapper_counts_under_its_module_prefix():
+    """Every function of a kernel module that launches a kernel counts the
+    launch once, after the launch is checked, with ``tracing.count`` under
+    its module's prefix ("fused.", "thomas.", ...), which ``bench``'s rows
+    report (``bench.LAUNCH_PREFIXES``): the one counter registry a graph's
+    capture takes back and its replays count again."""
+    from neutfem_tpu_torch.bench import LAUNCH_PREFIXES
+    from neutfem_tpu_torch.ops import blockjac, cgstep, fused, fused_eq, fused_ho, thomas
+
+    for m in (fused, fused_eq, fused_ho, blockjac, thomas, cgstep):
+        prefix = m.__name__.rsplit(".", 1)[1]
+        assert prefix in LAUNCH_PREFIXES
+        launches = _launch_counts_in(m)
+        assert launches, m.__name__
+        for name, (check, counts) in launches.items():
+            assert len(counts) == 1, (m.__name__, name, counts)
+            line, head = counts[0]
+            assert line > check and head.startswith(prefix + "."), (m.__name__, name, head)
 
 
 @pytest.mark.parametrize("groups", [1, 2])

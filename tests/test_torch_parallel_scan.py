@@ -18,7 +18,7 @@ the JAX package runs its GSPMD-partitioned associative scan
   <= 1e-10; CMFD's three outers 1e-9, as ``test_torch_parallel_variants.py``
   holds CMFD on a periodic direction, its flux to 1e-7 of the largest
   entry), k, the counts and the history the
-  same bits on every rank, and the scan engaged (``parttri.LAUNCHES["scan"]``
+  same bits on every rank, and the scan engaged (``tracing``'s ``parttri.scan``
   at least once a CG iteration, the partitioned solve not at all);
 * the diag / lumped A-solves with a PERIODIC direction: both packages
   refuse the context.

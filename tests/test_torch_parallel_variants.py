@@ -25,7 +25,7 @@ the tolerances of that variant's unsharded test:
 Each is also held to the port's unsharded run (|dk| <= 1e-10; CMFD at three
 outers; 1e-9 where a start-flux perturbation of 1e-15 moves that run by more,
 as noted at the case), and k, the counts and the history must be the same bits on every
-rank.  Engagement: the cut direction's face solve ran (``parttri.LAUNCHES``:
+rank.  Engagement: the cut direction's face solve ran (``tracing``'s ``parttri.*``:
 at least once a CG iteration where the exact A runs), and collectives ran.
 
 One world of 2 ranks (a y cut, or a z cut on the 3D Jacobi case) runs every

@@ -8,8 +8,9 @@ own counts on IAEA-3D 1x1x1 at RT0-P0 and RT1-P1: the record's CG iterations
 are ``GetLastInnerIterations``, its outers ``GetLastOuterIterations``, the
 stop test runs once an outer from the second on plus the stop, every CG host
 read is a ``cg_read`` site, and the CG ran as many iterations as it read
-(one a block here).  ``krylov.STATS`` keeps its keys and meaning after
-``reset_stats``, and ``build_seconds`` its keys.
+(one a block here).  The ``cg.*`` totals keep their meaning after
+``tracing.reset_totals`` (``bench.cg_counts`` reads them under their bare
+keys), and ``build_seconds`` keeps its keys.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from neutfem_tpu_torch import krylov, tracing
-from neutfem_tpu_torch.bench import BenchmarkRun
+from neutfem_tpu_torch.bench import BenchmarkRun, cg_counts, reset_cg_counts
 from neutfem_tpu_torch.data import BENCHMARKS
 
 F64 = torch.float64
@@ -85,30 +86,29 @@ def test_record_function_only_under_a_profiler(monkeypatch):
 
 
 def test_stats_keep_their_keys_and_meaning_after_reset():
-    krylov.reset_stats()
-    assert dict(krylov.STATS) == {"solves": 0, "iterations": 0, "host_reads": 0, "replays": 0,
-                                  "captures": 0, "eager_solves": 0}
+    reset_cg_counts()
+    assert cg_counts() == {"solves": 0, "iterations": 0, "host_reads": 0, "replays": 0,
+                           "captures": 0, "eager_solves": 0}
+    assert tracing.total("cg.iterations_run") == 0
     rng = np.random.default_rng(3)
     a = rng.standard_normal((24, 24))
     A = torch.tensor(a @ a.T / 24 + np.eye(24), dtype=F64)
     b = torch.tensor(rng.standard_normal(24), dtype=F64)
     res = krylov.pcg(lambda v: A @ v, b, torch.zeros_like(b), tol=1e-10)
     blk = krylov.pcg_blocks(lambda v: A @ v, b, torch.zeros_like(b), tol=1e-10, block=4)
-    st = krylov.STATS
+    st = cg_counts()
     assert st["solves"] == 2 and st["iterations"] == 2 * res.iterations == 2 * blk.iterations
     reads4 = -(-blk.iterations // 4)
     assert st["host_reads"] == res.iterations + reads4  # one a block: 1 and 4 iterations
     assert st["replays"] == st["captures"] == st["eager_solves"] == 0
     assert tracing.total("cg.iterations_run") == res.iterations + 4 * reads4
-    assert dict(krylov.STATS) == {k: krylov.STATS[k] for k in krylov.STATS}
-    with pytest.raises(TypeError):
-        krylov.STATS["solves"] = 0
+    assert st == {k: tracing.total("cg." + k) for k in st}
     with tracing.collect() as c:  # a record open across a reset keeps all it gained
         tracing.count("cg.solves", 2)
-        krylov.reset_stats()
-        assert sum(krylov.STATS.values()) == 0 and tracing.total("cg.iterations_run") == 0
+        tracing.reset_totals(["cg.solves", "cg.iterations_run"])
+        assert tracing.total("cg.solves") == tracing.total("cg.iterations_run") == 0
         tracing.count("cg.solves")
-    assert c.record["counters"]["cg.solves"] == 3 and krylov.STATS["solves"] == 1
+    assert c.record["counters"]["cg.solves"] == 3 and tracing.total("cg.solves") == 1
 
 
 @pytest.fixture(scope="module", params=[0, 1], ids=["rt0p0", "rt1p1"])
@@ -117,10 +117,10 @@ def solved(request):
                        rt_order=request.param)
     s = run.solver
     build = tracing.recent_builds(1)[0]
-    krylov.reset_stats()
+    reset_cg_counts()
     s.reset_flux()
     s.SolveKeff()
-    return s, build, tracing.recent(1)[0], dict(krylov.STATS)
+    return s, build, tracing.recent(1)[0], cg_counts()
 
 
 def test_solve_record_holds_the_facade_counts(solved):

@@ -173,7 +173,7 @@ def solve_cases(rank, world, init, cases):
     one with "indivisible" ``_indivisible``'s refusals."""
     import torch
 
-    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch import parallel, tracing
     from neutfem_tpu_torch.ops import parttri
     from neutfem_tpu_torch.ops.context import build_host_context, context_to_device
     from neutfem_tpu_torch.power import SolveOptions
@@ -204,7 +204,7 @@ def solve_cases(rank, world, init, cases):
         phi0 = torch.ones((ng, *fes.mesh.shape, fes.P), dtype=torch.float64)
         run, _ = parallel.sharded_power_iteration(fes, ng, SolveOptions(**case["opts"]), mesh,
                                                   ga)
-        before = (parttri.LAUNCHES["parttri"], parttri.LAUNCHES["scan"])
+        before = (tracing.total(parttri.PARTTRI), tracing.total(parttri.SCAN))
         res = run(ctx, parallel.shard_state(phi0, mesh, ga), 1.0,
                   adjoint=case.get("adjoint", False))
         # collectives: every rank gathers, rank 0 reports
@@ -217,8 +217,8 @@ def solve_cases(rank, world, init, cases):
             "finite": bool(res["finite"]), "local_phi_shape": tuple(res["phi"].shape),
             "phi": phi.numpy() if rank == 0 else None,
             "J": {k: v.numpy() for k, v in J.items()} if rank == 0 else None,
-            "parttri": parttri.LAUNCHES["parttri"] - before[0],
-            "scan": parttri.LAUNCHES["scan"] - before[1], "cg": res["sharding"]["cg"]}
+            "parttri": tracing.total(parttri.PARTTRI) - before[0],
+            "scan": tracing.total(parttri.SCAN) - before[1], "cg": res["sharding"]["cg"]}
     return out
 
 
@@ -359,7 +359,7 @@ def variant_cases(rank, world, init, cases):
     collectives of the run."""
     import torch
 
-    from neutfem_tpu_torch import parallel, shardctx
+    from neutfem_tpu_torch import parallel, shardctx, tracing
     from neutfem_tpu_torch.ops import parttri
 
     out, meshes = {}, {}
@@ -377,12 +377,13 @@ def variant_cases(rank, world, init, cases):
             os.environ.pop("NEUTFEM_PARTTRI", None)
         phi0 = parallel.shard_state(torch.ones((ng, *fes.mesh.shape, fes.P),
                                                dtype=torch.float64), mesh, ga)
-        before = (parttri.LAUNCHES["parttri"], parttri.LAUNCHES["scan"],
-                  shardctx.COMM["collectives"])
+        before = (tracing.total(parttri.PARTTRI), tracing.total(parttri.SCAN),
+                  tracing.total("comm.collectives"))
         with shardctx.sharding_scope(mesh, parallel._axis_map(mesh, ga)):
             res = run_variant(case, fes, ng, xs, bcs, ctx, phi0, "cpu")
-        counts = (parttri.LAUNCHES["parttri"] - before[0], parttri.LAUNCHES["scan"] - before[1],
-                  shardctx.COMM["collectives"] - before[2])
+        counts = (tracing.total(parttri.PARTTRI) - before[0],
+                  tracing.total(parttri.SCAN) - before[1],
+                  tracing.total("comm.collectives") - before[2])
         got = _summary(res, parallel.gather_state(res["phi"], mesh, ga), rank)
         if "phi_coarse" in res:
             whole = parallel.gather_state(res["phi_coarse"], mesh, ga)
@@ -427,7 +428,7 @@ def parttri_cases(rank, world, init, cases):
     "a_mode" the context's A-solve ("diag": the elementwise cut solve)."""
     import torch
 
-    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch import parallel, tracing
     from neutfem_tpu_torch.ops import parttri
     from neutfem_tpu_torch.ops.context import build_host_context
     from neutfem_tpu_torch.power import ctx_group
@@ -462,10 +463,10 @@ def parttri_cases(rank, world, init, cases):
         v = torch.as_tensor(case["v"])
         s = v.shape[-3] // tr.size
         v_loc = v[..., tr.rank * s:(tr.rank + 1) * s, :, :].contiguous()
-        before = parttri.LAUNCHES["parttri"]
+        before = tracing.total(parttri.PARTTRI)
         got = parttri.partitioned_schur_dir(fes, di, v_loc, ctxg, "d2", tr,
                                             di.BXc if fes.et.nbub else di.BX[:2])
-        count = parttri.LAUNCHES["parttri"] - before
+        count = tracing.total(parttri.PARTTRI) - before
         whole = parallel.gather_state(got, mesh, 0, base=got.ndim - 3)
         out[case["name"]] = (whole.numpy(), count)
     return out
@@ -480,7 +481,7 @@ def scan_solve_cases(rank, world, init, cases):
     last rank of a system with a seam) and the scan applications."""
     import torch
 
-    from neutfem_tpu_torch import parallel
+    from neutfem_tpu_torch import parallel, tracing
     from neutfem_tpu_torch.ops import parttri
 
     tr = _mesh(rank, world, init, None).axes[parallel.SPATIAL_AXIS]
@@ -499,10 +500,10 @@ def scan_solve_cases(rank, world, init, cases):
         seam_d = None if cyc is not None else t(dinv[:, n:])
         bundle = None if cyc is None else (t(cyc[0][:, body]), t(cyc[1]), t(cyc[2]))
         r = torch.as_tensor(rhs)
-        before = parttri.LAUNCHES["scan"]
+        before = tracing.total(parttri.SCAN)
         x, x_seam = parttri.tridiag_solve_scan(
             r[:, :, body].contiguous(), None if cyc is not None else r[:, :, n:].contiguous(),
             (t(dinv[:, body]), seam_d), (t(prev), t(l[:, body])), 2, tr, bundle)
         out[case["name"]] = {"x": x.numpy(), "seam": None if x_seam is None else x_seam.numpy(),
-                             "scan": parttri.LAUNCHES["scan"] - before}
+                             "scan": tracing.total(parttri.SCAN) - before}
     return out
